@@ -1,0 +1,5 @@
+"""Models of the port."""
+
+from .api import ModelSpec  # noqa: F401
+from .gpt2 import (GPT2Config, GPT2Model, GPT2_125M, GPT2_350M,  # noqa: F401
+                   GPT2_760M, GPT2_1_3B)

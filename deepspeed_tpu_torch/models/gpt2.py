@@ -1,0 +1,358 @@
+"""GPT-2 family, inference path.
+
+The JAX package's ``models/gpt2.py`` as an ``nn.Module``: one
+``GPT2Block`` per layer in an ``nn.ModuleList``, each holding the JAX
+parameter leaves of its layer under the same names and in the same
+``[in, out]`` layout (``x @ w``), so ``load_jax_params`` copies a JAX tree
+across leaf by leaf. The attention of ``forward``-style calls takes the
+packed Hopper kernel (K1) whenever ``_packed_attn_ok`` holds, exactly where
+the JAX package takes its packed Pallas kernel; the KV-cache path
+(``apply_with_cache``) computes its attention with the plain
+``reference_attention``, as the JAX package does.
+
+Training (dropout, progressive layer drop, random-LTD, the loss) comes with
+the training slice, ROADMAP.md row A2.
+"""
+
+import dataclasses
+import functools
+import math
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .api import ModelSpec
+from ..ops import memory_efficient as me
+from ..ops.flash_attention import flash_attention, reference_attention
+from ..ops.kernels import flash_attention_packed as k1
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    dropout: float = 0.0
+    layer_norm_epsilon: float = 1e-5
+    initializer_range: float = 0.02
+    activation: str = "gelu"       # gelu | relu (OPT family)
+    mlp_ratio: int = 4
+    pos_offset: int = 0            # learned-position offset (OPT uses 2)
+    # training knobs, kept so one config serves both packages
+    remat: bool = False
+    remat_policy: Optional[str] = None
+    scan_unroll: int = 1
+    loss_chunking: str = "auto"    # auto | always | never
+    loss_chunk_target: int = 8192
+    # auto | pallas | xla. "pallas" is the hand-written kernel here, and
+    # raises where it does not apply
+    attn_backend: str = "auto"
+    sp_attention: str = "ulysses"  # ulysses | ring (when the 'seq' axis is live)
+    dtype: str = "float32"         # compute dtype when params are not floating
+    pad_vocab_to_multiple: int = 128
+
+    @property
+    def padded_vocab(self):
+        m = self.pad_vocab_to_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def head_dim(self):
+        return self.n_embd // self.n_head
+
+
+GPT2_125M = GPT2Config(n_embd=768, n_layer=12, n_head=12)
+GPT2_350M = GPT2Config(n_embd=1024, n_layer=24, n_head=16)
+GPT2_760M = GPT2Config(n_embd=1536, n_layer=24, n_head=16)
+GPT2_1_3B = GPT2Config(n_embd=2048, n_layer=24, n_head=32)
+
+_ACTIVATIONS = {"gelu": me.gelu, "gelu_exact": me.gelu_exact,
+                "relu": me.relu, "silu": me.silu}
+
+# JAX leaf names of one layer (the [L, ...] leaves of params["blocks"])
+BLOCK_LEAVES = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "attn_proj_w",
+                "attn_proj_b", "ln2_scale", "ln2_bias", "mlp_fc_w",
+                "mlp_fc_b", "mlp_proj_w", "mlp_proj_b")
+TOP_LEAVES = ("wte", "wpe", "ln_f_scale", "ln_f_bias")
+
+
+def _activation(x, name):
+    fn = _ACTIVATIONS.get(name)
+    if fn is None:
+        raise ValueError(f"unknown activation {name!r}")
+    return fn(x)
+
+
+def _param(*shape, device=None):
+    return nn.Parameter(torch.empty(*shape, device=device))
+
+
+class GPT2Block(nn.Module):
+    """One decoder layer's parameters, named as the JAX leaves."""
+
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        d, f = cfg.n_embd, cfg.mlp_ratio * cfg.n_embd
+        shapes = {"ln1_scale": (d,), "ln1_bias": (d,),
+                  "qkv_w": (d, 3 * d), "qkv_b": (3 * d,),
+                  "attn_proj_w": (d, d), "attn_proj_b": (d,),
+                  "ln2_scale": (d,), "ln2_bias": (d,),
+                  "mlp_fc_w": (d, f), "mlp_fc_b": (f,),
+                  "mlp_proj_w": (f, d), "mlp_proj_b": (d,)}
+        for name in BLOCK_LEAVES:
+            setattr(self, name, _param(*shapes[name], device=device))
+
+
+class GPT2Model(ModelSpec):
+    """GPT-2 with the JAX package's parameter layout. The weights are drawn
+    from ``generator`` (default: seed 0) on the CPU, so one seed gives the
+    same weights whatever the device."""
+
+    causal_attention = True
+
+    def __init__(self, config: GPT2Config = GPT2_125M,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.config = config
+        d = config.n_embd
+        self.wte = _param(config.padded_vocab, d, device=device)
+        self.wpe = _param(config.n_positions + config.pos_offset, d,
+                          device=device)
+        self.blocks = nn.ModuleList(GPT2Block(config, device)
+                                    for _ in range(config.n_layer))
+        self.ln_f_scale = _param(d, device=device)
+        self.ln_f_bias = _param(d, device=device)
+        self.init_weights(generator if generator is not None
+                          else torch.Generator().manual_seed(0))
+
+    # ------------------------------------------------------------------ init
+    @torch.no_grad()
+    def init_weights(self, generator):
+        """The JAX init's shapes and stds: N(0, 0.02) for wte, wpe, qkv and
+        fc; N(0, 0.02 / sqrt(2 L)) for the two output projections; LN scales
+        1 and every bias 0. Drawn on the CPU from ``generator``."""
+        cfg = self.config
+        std = cfg.initializer_range
+        proj_std = std / math.sqrt(2 * cfg.n_layer)
+
+        def normal(p, s):
+            p.copy_(torch.randn(p.shape, generator=generator) * s)
+
+        normal(self.wte, std)
+        normal(self.wpe, std)
+        for blk in self.blocks:
+            normal(blk.qkv_w, std)
+            normal(blk.attn_proj_w, proj_std)
+            normal(blk.mlp_fc_w, std)
+            normal(blk.mlp_proj_w, proj_std)
+            for name in ("ln1_scale", "ln2_scale"):
+                getattr(blk, name).fill_(1.0)
+            for name in ("qkv_b", "attn_proj_b", "ln1_bias", "ln2_bias",
+                         "mlp_fc_b", "mlp_proj_b"):
+                getattr(blk, name).zero_()
+        self.ln_f_scale.fill_(1.0)
+        self.ln_f_bias.zero_()
+
+    @torch.no_grad()
+    def load_jax_params(self, tree):
+        """Copy a JAX GPT-2 parameter tree (numpy arrays in the JAX layout:
+        ``wte [Vp, D]``, ``wpe [P, D]``, stacked ``blocks/<leaf> [L, ...]``,
+        ``ln_f_*``) into this module, casting to each parameter's dtype."""
+        def put(p, value, name):
+            value = np.asarray(value)
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: JAX leaf has shape {value.shape}, "
+                                 f"the module wants {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+
+        missing = [n for n in TOP_LEAVES if n not in tree] + \
+            [f"blocks/{n}" for n in BLOCK_LEAVES
+             if n not in tree.get("blocks", {})]
+        if missing:
+            raise KeyError(f"JAX parameter tree lacks {missing}")
+        for name in TOP_LEAVES:
+            put(getattr(self, name), tree[name], name)
+        for name in BLOCK_LEAVES:
+            stacked = np.asarray(tree["blocks"][name])
+            if stacked.shape[0] != len(self.blocks):
+                raise ValueError(f"blocks/{name}: {stacked.shape[0]} layers, "
+                                 f"the module has {len(self.blocks)}")
+            for i, blk in enumerate(self.blocks):
+                put(getattr(blk, name), stacked[i], f"blocks/{name}[{i}]")
+        return self
+
+    def jax_params(self):
+        """This module's weights as a JAX GPT-2 parameter tree of float32
+        numpy arrays (the inverse of :meth:`load_jax_params`)."""
+        def arr(p):
+            return p.detach().to("cpu", torch.float32).numpy()
+        tree = {name: arr(getattr(self, name)) for name in TOP_LEAVES}
+        tree["blocks"] = {
+            name: np.stack([arr(getattr(blk, name)) for blk in self.blocks])
+            for name in BLOCK_LEAVES}
+        return tree
+
+    # ------------------------------------------------------------- pieces
+    def _compute_dtype(self):
+        dt = self.wte.dtype
+        return dt if dt.is_floating_point else getattr(torch, self.config.dtype)
+
+    def _embed(self, input_ids, start_pos=0, positions=None):
+        """Token + learned-position embeddings in the compute dtype.
+        ``positions`` [B, T] overrides ``start_pos`` for per-row offsets
+        (left-padded batches)."""
+        cfg = self.config
+        dt = self._compute_dtype()
+        t = input_ids.shape[-1]
+        if positions is not None:
+            wpe = self.wpe.to(dt)[positions + cfg.pos_offset]
+        else:
+            first = start_pos + cfg.pos_offset
+            if first < 0 or first + t > self.wpe.shape[0]:
+                raise ValueError(
+                    f"positions [{start_pos}, {start_pos + t}) exceed the "
+                    f"model's n_positions={cfg.n_positions}")
+            wpe = self.wpe[first:first + t].to(dt)
+        return self.wte.to(dt)[input_ids] + wpe
+
+    def _final_norm(self, x):
+        return me.layer_norm(x, self.ln_f_scale, self.ln_f_bias,
+                             self.config.layer_norm_epsilon)
+
+    def _unembed_weight(self, dtype):
+        """[V, D] weight of the LM head (tied to wte)."""
+        return self.wte.to(dtype)
+
+    def _attn_sublayer(self, x, p, attn_fn=None):
+        """ln1 -> qkv -> attention -> proj -> residual. ``attn_fn(q, k, v)``
+        over ``[B, H, T, D]`` replaces the attention (the KV-cache path)."""
+        cfg = self.config
+        b, t, d = x.shape
+        h, hd = cfg.n_head, cfg.head_dim
+        ln1 = me.layer_norm(x, p.ln1_scale, p.ln1_bias, cfg.layer_norm_epsilon)
+        qkv = ln1 @ p.qkv_w.to(ln1.dtype) + p.qkv_b.to(ln1.dtype)
+        q, k, v = qkv.split(d, dim=-1)
+        if (attn_fn is None and self.causal_attention and
+                self._packed_attn_ok(x, t, hd, h)):
+            # q/k/v stay views of the qkv projection: the kernel reads them
+            # through their strides, with no head transpose and no copy
+            attn = k1.packed_flash_attention(q, k, v, h)
+            attn = attn @ p.attn_proj_w.to(attn.dtype) + \
+                p.attn_proj_b.to(attn.dtype)
+            return x + attn
+        q = q.reshape(b, t, h, hd).transpose(1, 2)
+        k = k.reshape(b, t, h, hd).transpose(1, 2)
+        v = v.reshape(b, t, h, hd).transpose(1, 2)
+        if attn_fn is not None:
+            attn = attn_fn(q, k, v)
+        else:
+            attn = flash_attention(q, k, v, causal=self.causal_attention,
+                                   backend=cfg.attn_backend)
+        attn = attn.transpose(1, 2).reshape(b, t, d)
+        attn = attn @ p.attn_proj_w.to(attn.dtype) + p.attn_proj_b.to(attn.dtype)
+        return x + attn
+
+    def _packed_attn_ok(self, x, t: int, hd: int, h: int) -> bool:
+        """Packed-kernel eligibility, decided as in the JAX package: backend
+        ``pallas`` always tries it (and the kernel raises if the shape is
+        unsupported), ``auto`` takes it on the card, ``xla`` never; the
+        shape must be one the kernel supports. The sequence-parallel axis
+        has size 1 here. ``DSTPU_PACKED_ATTN=0`` disables it."""
+        if os.environ.get("DSTPU_PACKED_ATTN", "1") == "0":
+            return False
+        if self.config.attn_backend == "pallas":
+            pass
+        elif self.config.attn_backend != "auto" or x.device.type != "cuda":
+            return False
+        return k1.supported(t, hd, h, True, None)
+
+    def _mlp_sublayer(self, x, p):
+        """ln2 -> fc -> activation -> proj -> residual."""
+        cfg = self.config
+        ln2 = me.layer_norm(x, p.ln2_scale, p.ln2_bias, cfg.layer_norm_epsilon)
+        hmid = ln2 @ p.mlp_fc_w.to(ln2.dtype) + p.mlp_fc_b.to(ln2.dtype)
+        hmid = _activation(hmid, cfg.activation)
+        out = hmid @ p.mlp_proj_w.to(hmid.dtype) + p.mlp_proj_b.to(hmid.dtype)
+        return x + out
+
+    def _block(self, x, p, attn_fn=None):
+        return self._mlp_sublayer(self._attn_sublayer(x, p, attn_fn), p)
+
+    # ------------------------------------------------------------- forward
+    def hidden_states(self, input_ids):
+        """The decoder stack up to and including the final LayerNorm:
+        ``[B, T, D]`` in the compute dtype (inference: no dropout)."""
+        x = self._embed(input_ids)
+        for p in self.blocks:
+            x = self._block(x, p)
+        return self._final_norm(x)
+
+    def logits(self, input_ids):
+        """``[B, T, padded_vocab]`` logits in the compute dtype."""
+        x = self.hidden_states(input_ids)
+        return x @ self._unembed_weight(x.dtype).T
+
+    forward = logits
+
+    # ------------------------------------------------------- decode protocol
+    @property
+    def kv_heads(self) -> int:
+        return self.config.n_head
+
+    def init_kv_cache(self, batch_size: int, max_len: int,
+                      dtype=torch.bfloat16, device=None):
+        cfg = self.config
+        device = self.wte.device if device is None else device
+        shape = (cfg.n_layer, batch_size, self.kv_heads, max_len, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    @staticmethod
+    def _cache_attn(q, k, v, k_cache, v_cache, start_pos, mask):
+        """Write this call's K/V into cache columns ``[start_pos,
+        start_pos + T)`` (in place: the cache is the engine's buffer) and
+        attend over the whole cache under ``mask``."""
+        t = k.shape[-2]
+        k_cache[:, :, start_pos:start_pos + t] = k.to(k_cache.dtype)
+        v_cache[:, :, start_pos:start_pos + t] = v.to(v_cache.dtype)
+        return reference_attention(q, k_cache.to(q.dtype),
+                                   v_cache.to(q.dtype), causal=False,
+                                   mask=mask)
+
+    def apply_with_cache(self, input_ids, cache, start_pos: int,
+                         pad_counts=None):
+        """Forward with a KV cache. ``input_ids`` [B, T] (the prompt for
+        prefill, [B, 1] for decode) fill cache columns ``[start_pos,
+        start_pos + T)``. ``pad_counts`` [B]: LEFT-padding tokens per row;
+        cache columns below it are never keys and logical positions shift
+        down by it. Updates ``cache`` in place and returns
+        ``(logits [B, T, V], cache)``."""
+        b, t = input_ids.shape
+        max_len = cache["k"].shape[-2]
+        if start_pos < 0 or start_pos + t > max_len:
+            raise ValueError(f"cache columns [{start_pos}, {start_pos + t}) "
+                             f"exceed the cache length {max_len}")
+        dev = input_ids.device
+        steps = start_pos + torch.arange(t, device=dev)
+        positions = None
+        if pad_counts is not None:
+            positions = torch.clamp_min(steps[None, :] - pad_counts[:, None], 0)
+        x = self._embed(input_ids, start_pos=start_pos, positions=positions)
+
+        k_pos = torch.arange(max_len, device=dev)
+        mask = (k_pos[None, :] <= steps[:, None])[None, None]
+        if pad_counts is not None:     # left-pad columns are never keys
+            pad_valid = k_pos[None, :] >= pad_counts[:, None]
+            mask = mask & pad_valid[:, None, None, :]
+        for layer, p in enumerate(self.blocks):
+            attn_fn = functools.partial(
+                self._cache_attn, k_cache=cache["k"][layer],
+                v_cache=cache["v"][layer], start_pos=start_pos, mask=mask)
+            x = self._block(x, p, attn_fn)
+        x = self._final_norm(x)
+        return x @ self._unembed_weight(x.dtype).T, cache

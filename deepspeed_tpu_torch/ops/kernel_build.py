@@ -1,0 +1,105 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+its own shared library with a plain C interface, under ``build/kernels/``
+at the repository root. The library's file name carries a hash of its
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is. ``build()`` starts one
+``nvcc`` per source, all at once. A failed build raises
+:class:`KernelBuildError`; there is no fallback.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded = {}
+_lock = threading.Lock()
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def sources():
+    """Names of every kernel source (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found is None and CUDA_HOME is not None:
+        candidate = os.path.join(CUDA_HOME, "bin", "nvcc")
+        found = candidate if os.path.exists(candidate) else None
+    if found is None:
+        raise KernelBuildError(
+            "nvcc not found (no CUDA toolkit on PATH or under CUDA_HOME); "
+            "the port's kernels build only where the CUDA toolkit is "
+            "installed")
+    return found
+
+
+def library_path(name):
+    src = CSRC / f"{name}.cu"
+    if not src.exists():
+        raise KernelBuildError(f"no kernel source {src}")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None):
+    """Compile every named source (default: all) whose library for the
+    current hash is missing, one ``nvcc`` each, all started together.
+    Returns ``{name: seconds}`` for the sources it compiled."""
+    names = sources() if names is None else list(names)
+    todo = [(n, library_path(n)) for n in names]
+    todo = [(n, out) for n, out in todo if not out.exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    took, failed = {}, []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)   # atomic: a concurrent build never sees half
+    if failed:
+        raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+def load(name):
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = _loaded[name] = ctypes.CDLL(str(path))
+        return lib

@@ -1,0 +1,115 @@
+"""K1, the port's packed flash attention forward, held against the JAX
+package's packed Pallas kernel (run in interpret mode on the CPU, as
+tests/unit/test_pallas_flash_packed.py runs it).
+
+On the CPU the port's wrapper takes the kernel's plain PyTorch version;
+tests/test_torch_cuda_kernels.py holds the CUDA kernel itself against that
+plain version on a GPU."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from deepspeed_tpu.ops.pallas import flash_attention_packed as jfa
+from deepspeed_tpu_torch.ops import kernel_build
+from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as tfa
+
+B, T, H, D = 2, 256, 4, 64
+CASES = [(True, None), (True, 96), (False, None)]
+
+
+def _inputs(seed=0, b=B, t=T, h=H, d=D):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((b, t, h * d)) * 0.3).astype(np.float32)
+            for _ in range(3)]
+
+
+def _unpack_lse(lse, b=B, t=T, h=H, d=D):
+    """The TPU kernel's lane-packed lse [B, T, ng*128] as [B, H, T]."""
+    gh = 128 // d
+    lse = np.asarray(lse).reshape(b, t, h // gh, 128)[..., :gh]
+    return lse.reshape(b, t, h).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("causal,window", CASES)
+def test_plain_matches_jax_kernel_f32(causal, window):
+    q, k, v = _inputs()
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = jfa.packed_flash_attention(jq, jk, jv, H, causal=causal,
+                                      window=window, interpret=True)
+    _, res = jfa._pf_fwd(jq, jk, jv, H, causal, None, window, True,
+                         (512, 512))
+    before = tfa.packed_flash_attention_fwd.launches
+    out, lse = tfa.packed_flash_attention_fwd(
+        *map(torch.from_numpy, (q, k, v)), H, causal=causal, window=window)
+    assert tfa.packed_flash_attention_fwd.launches == before  # CPU: plain
+    assert out.shape == (B, T, H * D) and lse.shape == (B, H, T)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), _unpack_lse(res[4]),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_plain_matches_jax_kernel_bf16():
+    """The rounding points in the working type: P rounded to bf16 before
+    P.V and a bf16 output, within the card check's bf16 tolerance."""
+    q, k, v = _inputs(seed=3)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = jfa.packed_flash_attention(jq, jk, jv, H, causal=True,
+                                      interpret=True)
+    got = tfa.packed_flash_attention(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)), H)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2)
+
+
+def test_strided_qkv_views_match_contiguous():
+    """The model hands the kernel the column thirds of one [B, T, 3HD]
+    projection; the result must not depend on the strides."""
+    q, k, v = _inputs(seed=1)
+    qkv = torch.from_numpy(np.concatenate([q, k, v], axis=-1))
+    views = qkv.split(H * D, dim=-1)
+    assert views[0].stride() == (T * 3 * H * D, 3 * H * D, 1)
+    got = tfa.packed_flash_attention_fwd(*views, H, window=96)
+    want = tfa.packed_flash_attention_fwd(
+        *map(torch.from_numpy, (q, k, v)), H, window=96)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_supported_agrees_with_jax():
+    for t in (64, 128, 200, 256, 4096, 4224):
+        for d in (1, 8, 16, 48, 64, 128, 256):
+            for h in (1, 2, 3, 4, 12, 16):
+                for causal in (True, False):
+                    for window in (None, 0, 96):
+                        assert tfa.supported(t, d, h, causal, window) == \
+                            jfa.supported(t, d, h, causal, window), \
+                            (t, d, h, causal, window)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v = map(torch.from_numpy, _inputs(t=96))
+    with pytest.raises(ValueError, match="does not support"):
+        tfa.packed_flash_attention_fwd(q, k, v, H)
+    q, k, v = map(torch.from_numpy, _inputs())
+    with pytest.raises(ValueError, match="does not support"):
+        tfa.packed_flash_attention_fwd(q, k, v, H, causal=False, window=8)
+    with pytest.raises(TypeError):
+        tfa.packed_flash_attention_fwd(q.double(), k.double(), v.double(), H)
+    with pytest.raises(ValueError, match="one shape"):
+        tfa.packed_flash_attention_fwd(q, k[:, :128], v, H)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    import torch.utils.cpp_extension as cpp_ext
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernel_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    assert "flash_attention_packed" in kernel_build.sources()
+    path = kernel_build.library_path("flash_attention_packed")
+    assert path.parent == tmp_path and path.suffix == ".so"
+    with pytest.raises(kernel_build.KernelBuildError, match="nvcc"):
+        kernel_build.build()
