@@ -7,10 +7,14 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
 Phases, one line each: environment; build of every kernel source from the
 checkout; each kernel against its plain PyTorch version on the card, with
-times; the port's main path, ``init_inference`` on GPT-2-125M at full width
-(random weights from a seed) answering ``engine(input_ids)`` scoring calls
-and ``generate`` requests. Every check raises on failure, so the script
-exits non-zero without printing a result. The last lines are one JSON
+times; the port's two main paths on GPT-2-125M at full width (random
+weights from a seed): ``init_inference`` answering ``engine(input_ids)``
+scoring calls and ``generate`` requests, then ``initialize`` taking
+``train_batch`` steps (bf16 on fp32 masters, AdamW, gradient accumulation);
+the gradients of the kernel path against the plain attention path; a
+repeated batch whose loss must fall; a profile of each path. Every check
+raises on failure, so the script exits non-zero without printing a
+result. The last lines are one JSON
 object describing every kernel, the card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}``. Without a GPU it
 exits non-zero and prints no result. It imports neither JAX nor the JAX
@@ -41,6 +45,21 @@ LOGITS_TOL = {"mean_abs": 1e-2, "max_abs": 0.25}
 # a greedy token must equal the full-forward argmax wherever the top-2 gap
 # of the full-forward logits exceeds this
 ARGMAX_MARGIN = 0.1
+# K2-vs-plain tolerances (max abs error of dq, dk, dv; gradients of std
+# ~0.1-1 at this shape), by dtype: f32 differs only by summation order;
+# bf16/f16 round p and ds before the products and the outputs, and one
+# rounding step of p or ds the other way moves a sum by ~1e-2 of its terms
+K2_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "float16": 1e-2}
+# K1/K2 path vs plain attention path, gradients of one bf16 micro batch of
+# GPT-2-125M: both paths round to bf16 at other points (the plain path
+# rounds its logits before the softmax), ~1e-2 relative per leaf at a small
+# size; a wrong kernel gives errors of order 1
+TRAIN_GRAD_TOL = {"rel_l2_per_leaf": 5e-2, "loss_abs": 2e-2}
+# a repeated batch (ids from the first 256 tokens) for 10 steps at lr 1e-3:
+# the last loss must be below this fraction of the first (ln 50257 = 10.8
+# at the start, ln 256 = 5.5 for the batch's unigram distribution alone)
+CONVERGE_STEPS, CONVERGE_FRACTION = 10, 0.8
+TRAIN_GAS, TRAIN_MICRO, TRAIN_WARMUP, TRAIN_TIMED = 4, 8, 2, 3
 
 
 def phase(name, **fields):
@@ -141,6 +160,81 @@ def check_k1(torch, b, t, h, d, dtype, causal, window):
     return res
 
 
+def check_k2(torch, b, t, h, d, dtype, causal, window):
+    """K2 against its plain version on the card: one [B, T, 3*H*D] qkv,
+    K1's output and lse, a random output gradient."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as k1
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda",
+                      dtype=torch.float32).to(dtype)
+    dout = torch.randn((b, t, h * d), generator=gen, device="cuda",
+                       dtype=torch.float32).to(dtype)
+    q, k, v = qkv.split(h * d, dim=-1)
+    out, lse = k1.packed_flash_attention_fwd(q, k, v, h, causal=causal,
+                                             window=window)
+    delta = k1.attention_delta(out, dout, h)
+
+    def kernel():
+        return k1.packed_flash_attention_bwd(qkv, out, lse, dout, h,
+                                             causal=causal, window=window)
+
+    def plain():
+        return k1.packed_flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                                   h, causal, None, window)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got.split(h * d, dim=-1), want)]
+    tol = K2_TOL[dname]
+    check(torch.isfinite(got.float()).all().item(), "K2 output not finite")
+    check(max(errs) <= tol,
+          f"K2 {dname} causal={causal} window={window}: dq/dk/dv errors "
+          f"{errs} (tol {tol})")
+
+    kernel_ms = median_ms(torch, kernel)
+    plain_ms = median_ms(torch, plain, reps=5, warmup=1)
+    # the library's backward: SDPA forward+backward minus its forward
+    q4, k4, v4 = (x.reshape(b, t, h, d).transpose(1, 2).contiguous()
+                  .requires_grad_() for x in (q, k, v))
+    g4 = dout.reshape(b, t, h, d).transpose(1, 2).contiguous()
+    mask = None
+    if window is not None:
+        pos = torch.arange(t, device="cuda")
+        diff = pos[:, None] - pos[None, :]
+        mask = (diff >= 0) & (diff < window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (q4, k4, v4), g4)
+
+    with torch.no_grad():
+        fwd_ms = median_ms(torch, sdpa)
+    library_ms = median_ms(torch, sdpa_fwd_bwd) - fwd_ms
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    # q, k, v, dO read and dq, dk, dv written once; lse and delta (f32) read
+    n_bytes = 7 * b * t * h * d * itemsize + 2 * 4 * b * h * t
+    # 10 D FLOP per kept (q, k) pair: the TPU kernel's own cost estimate
+    # (five products of 2 D each)
+    flops = 10 * b * h * d * kept_pairs(t, causal, window)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dname] * 1e3
+    res = {"dtype": dname, "causal": causal, "window": window,
+           "shape": [b, t, h, d], "err_dq": errs[0], "err_dk": errs[1],
+           "err_dv": errs[2], "tol": tol, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "SDPA fwd+bwd minus fwd",
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    phase("kernel-check K2", **res)
+    return res
+
+
 def profile_forward(torch, engine, ids, top=8):
     """Device time by kernel over one scoring call (torch.profiler): the
     busiest kernels, their sum, and the share of the call's wall time in
@@ -153,31 +247,183 @@ def profile_forward(torch, engine, ids, top=8):
         engine(ids)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - s0) * 1e3
+    report_profile("profile forward", prof, wall_ms, top)
+
+
+def kernel_group(key):
+    """The group a device kernel's time is reported under."""
+    name = key.lower()
+    return ("K1 flash_attention_packed" if "fwd_kernel" in name else
+            "K2 flash_attention_packed_bwd" if "dkdv_kernel" in name or
+            "dq_kernel" in name else
+            "optimizer (foreach)" if "foreach" in name or
+            "multi_tensor" in name else
+            "matmul" if any(s in name for s in (
+                "gemm", "nvjet", "xmma", "cutlass", "sm90_")) else
+            "elementwise/copy/reduce" if any(s in name for s in (
+                "elementwise", "copy", "reduce", "softmax", "scatter",
+                "gather", "index")) else
+            "other")
+
+
+def report_profile(name, prof, wall_ms, top=8):
+    """One phase line: device time by kernel group, the busiest kernels,
+    and the share of the wall time in which no kernel ran (profiler
+    overhead included)."""
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
     busy_ms = sum(r[0] for r in rows)
     if not rows:
-        phase("profile forward", device_time="not measured (no device "
-              "events in the trace)", wall_ms=wall_ms)
+        phase(name, device_time="not measured (no device events in the "
+              "trace)", wall_ms=wall_ms)
         return
     rows.sort(reverse=True)
     groups = {}
     for ms, _, key in rows:
-        name = key.lower()
-        group = ("K1 flash_attention_packed" if "fwd_kernel" in name else
-                 "matmul" if any(s in name for s in (
-                     "gemm", "nvjet", "xmma", "cutlass", "sm90_")) else
-                 "elementwise/copy/reduce" if any(s in name for s in (
-                     "elementwise", "copy", "reduce", "softmax")) else
-                 "other")
+        group = kernel_group(key)
         groups[group] = groups.get(group, 0.0) + ms
-    phase("profile forward", wall_ms=round(wall_ms, 3),
+    phase(name, wall_ms=round(wall_ms, 3),
           device_busy_ms=round(busy_ms, 3),
           idle_share=round(1 - busy_ms / wall_ms, 4),
           groups_ms=json.dumps({g: round(v, 3) for g, v in groups.items()}),
           top=json.dumps([[round(ms, 3), n, key[:70]]
                           for ms, n, key in rows[:top]]))
+
+
+def train_config(lr, gas):
+    """bench.py's training config (GPT-2-125M, bf16 on fp32 masters, AdamW,
+    ZeRO-0), with its own gas."""
+    return {"train_batch_size": TRAIN_MICRO * gas,
+            "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+            "gradient_accumulation_steps": gas,
+            "optimizer": {"type": "adamw", "params": {"lr": lr}},
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 0},
+            "steps_per_print": 0}
+
+
+def main_train(torch, cfg, t):
+    """The training main path: ``initialize`` -> ``train_batch``, with
+    TRAIN_WARMUP + TRAIN_TIMED steps; K1 and K2 launch counts from 0."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+    from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as k1
+    model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, config=train_config(1e-4, TRAIN_GAS))[0]
+    rng = np.random.default_rng(SEED + 5)
+    batches = [{"input_ids": rng.integers(
+        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_MICRO, t), dtype=np.int64)}
+        for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    fwd, bwd = k1.packed_flash_attention_fwd, k1.packed_flash_attention_bwd
+    fwd.launches = bwd.launches = 0
+    step_s, per_step, losses, norms = [], [], [], []
+    for batch in batches:
+        before = (fwd.launches, bwd.launches)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+        per_step.append([fwd.launches - before[0], bwd.launches - before[1]])
+        losses.append(loss.item())
+        norms.append(float(engine.get_global_grad_norm()))
+    launches = {"K1": fwd.launches, "K2": bwd.launches}
+    want = cfg.n_layer * TRAIN_GAS
+    check(all(n == [want, want] for n in per_step),
+          f"K1/K2 launched {per_step} times per train_batch, want "
+          f"{want} each (n_layer x gas)")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"train losses {losses} or grad norms {norms} not finite")
+    tokens = TRAIN_GAS * TRAIN_MICRO * t
+    timed = step_s[TRAIN_WARMUP:]
+    best = min(timed)
+    flops_per_token = model.flops_per_token(t)
+    phase("main train", model="GPT2_125M", micro=TRAIN_MICRO, gas=TRAIN_GAS,
+          seq=t, dtype="bf16 on fp32 masters", optimizer="adamw lr 1e-4",
+          steps=len(step_s), warmup=TRAIN_WARMUP,
+          seconds=json.dumps([round(x, 4) for x in step_s]),
+          step_s_best=round(best, 4),
+          step_s_median=round(statistics.median(timed), 4),
+          tokens_per_s=round(tokens / best, 1),
+          flops_per_token=flops_per_token,
+          tflop_per_s=round(tokens * flops_per_token / best / 1e12, 2),
+          share_of_bf16_peak=round(
+              tokens * flops_per_token / best / PEAK_FLOPS["bfloat16"], 4),
+          losses=json.dumps([round(x, 4) for x in losses]),
+          grad_norms=json.dumps([round(x, 4) for x in norms]),
+          launches_per_step=json.dumps(per_step), launches=json.dumps(launches),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    return engine, batches[-1], launches
+
+
+def train_vs_plain(torch, cfg, batch):
+    """Gradients of one bf16 micro batch through K1/K2 against the same
+    weights on the plain attention path (autograd through
+    ``reference_attention``)."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+    mb = {"input_ids": torch.as_tensor(batch["input_ids"][0]).cuda()}
+    out = {}
+    for backend in ("auto", "xla"):
+        model = GPT2Model(dataclasses.replace(cfg, attn_backend=backend),
+                          generator=torch.Generator().manual_seed(SEED))
+        model = model.to("cuda", torch.bfloat16)
+        loss = model.apply(mb)
+        loss.backward()
+        out[backend] = (loss.item(), {n: p.grad.float() for n, p in
+                                      model.named_parameters()})
+        del model
+    (loss_k, grads_k), (loss_x, grads_x) = out["auto"], out["xla"]
+    rel = {n: ((grads_k[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in grads_x.items()}
+    worst = max(rel, key=rel.get)
+    loss_diff = abs(loss_k - loss_x)
+    check(rel[worst] <= TRAIN_GRAD_TOL["rel_l2_per_leaf"] and
+          loss_diff <= TRAIN_GRAD_TOL["loss_abs"],
+          f"K1/K2 path vs plain path: worst leaf {worst} rel L2 "
+          f"{rel[worst]}, loss diff {loss_diff} (tol {TRAIN_GRAD_TOL})")
+    phase("train vs plain path", leaves=len(rel), loss_kernels=loss_k,
+          loss_plain=loss_x, loss_abs_diff=loss_diff,
+          max_rel_l2=rel[worst], worst_leaf=worst,
+          median_rel_l2=statistics.median(rel.values()),
+          tol=json.dumps(TRAIN_GRAD_TOL))
+
+
+def train_converges(torch, cfg, t):
+    """A repeated batch for CONVERGE_STEPS steps at lr 1e-3: the loss must
+    fall below CONVERGE_FRACTION of the first step's."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+    model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, config=train_config(1e-3, 1))[0]
+    rng = np.random.default_rng(SEED + 6)
+    batch = {"input_ids": rng.integers(0, 256, (1, TRAIN_MICRO, t))}
+    losses = [engine.train_batch(batch=batch).item()
+              for _ in range(CONVERGE_STEPS)]
+    check(losses[-1] < CONVERGE_FRACTION * losses[0],
+          f"loss on a repeated batch went {losses[0]} -> {losses[-1]}, "
+          f"want below {CONVERGE_FRACTION} x the first")
+    phase("train converges", steps=CONVERGE_STEPS, lr=1e-3,
+          losses=json.dumps([round(x, 4) for x in losses]),
+          threshold=f"last < {CONVERGE_FRACTION} x first")
+
+
+def profile_train(torch, engine, batch):
+    """Device time by kernel group over one ``train_batch``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - s0) * 1e3
+    report_profile("profile train", prof, wall_ms, top=10)
 
 
 def main():
@@ -214,6 +460,11 @@ def main():
     check_k1(torch, b, t, h, d, torch.bfloat16, False, None)
     check_k1(torch, b, t, h, d, torch.float16, True, None)
     check_k1(torch, b, t, h, d, torch.float32, True, None)
+    main_k2 = check_k2(torch, b, t, h, d, torch.bfloat16, True, None)
+    check_k2(torch, b, t, h, d, torch.bfloat16, True, 256)
+    check_k2(torch, b, t, h, d, torch.bfloat16, False, None)
+    check_k2(torch, b, t, h, d, torch.float16, True, None)
+    check_k2(torch, b, t, h, d, torch.float32, True, None)
 
     # ---- main path: init_inference -> engine(ids) and generate
     model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
@@ -309,16 +560,37 @@ def main():
           sampled_differs_from_greedy=not torch.equal(sampled, greedy))
     # after the launch counts were read: this call's launches are not counted
     profile_forward(torch, engine, ids)
+    del engine, engine_x, model, model_x
+    torch.cuda.empty_cache()
+
+    # ---- main path of training: initialize -> train_batch
+    train_engine, last_batch, train_launches = main_train(torch, cfg, t)
+    # after the launch counts were read: these launches are not counted
+    train_vs_plain(torch, cfg, last_batch)
+    profile_train(torch, train_engine, last_batch)
+    del train_engine
+    torch.cuda.empty_cache()
+    train_converges(torch, cfg, t)
 
     kernels = [{
         "name": "flash_attention_packed_fwd", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/flash_attention_packed.cu",
         "replaces": "deepspeed_tpu/ops/pallas/flash_attention_packed.py:65",
-        "launches": launches, "max_abs_err": main_case["err_out"],
+        "launches": launches + train_launches["K1"],
+        "max_abs_err": main_case["err_out"],
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]
+        "library_ms": main_case["library_ms"]}, {
+        "name": "flash_attention_packed_bwd", "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/flash_attention_packed_bwd.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/flash_attention_packed.py:148",
+        "launches": train_launches["K2"],
+        "max_abs_err": max(main_k2[k] for k in ("err_dq", "err_dk",
+                                                 "err_dv")),
+        "ms": main_k2["kernel_ms"], "plain_ms": main_k2["plain_ms"],
+        "bound_ms": main_k2["bound_ms"], "bound_by": main_k2["bound_by"],
+        "library_ms": main_k2["library_ms"]}]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ The JAX package ``deepspeed_tpu`` is the reference this port is held
 against; the port imports neither JAX nor that package. Its kernels are
 hand-written for ``sm_90a`` (``csrc/``) and built by ``nvcc`` at first use
 (``ops/kernel_build.py``); each has a plain PyTorch version that tensors on
-the CPU take. This slice serves GPT-2 through ``init_inference``.
+the CPU take. It serves GPT-2 through ``init_inference`` and trains it
+through ``initialize`` -> ``DeepSpeedEngine.train_batch``.
 """
 
 __version__ = "0.1.0"
@@ -31,3 +32,51 @@ def init_inference(model, config=None, device=None, **kwargs):
             "serving a Megatron checkpoint directory is not ported yet: "
             "ROADMAP.md row A7")
     return InferenceEngine(model, config, device=device)
+
+
+def _config_dict(config):
+    if isinstance(config, str):
+        import json
+        with open(config) as f:
+            return json.load(f)
+    return config if isinstance(config, dict) else {}
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None,
+               dist_init_required=None, collate_fn=None, config=None,
+               config_params=None, mesh_manager=None, device=None):
+    """Initialize the training engine, as ``deepspeed_tpu.initialize``, in
+    its argument order. ``model`` is a deepspeed_tpu_torch model (e.g.
+    ``GPT2Model``) holding the initial weights; ``model_parameters`` is
+    accepted and unused, as in the JAX package. The engine runs on
+    ``cuda`` unless ``device`` says otherwise, and raises when no GPU is
+    present. Returns ``(engine, optimizer, dataloader, lr_scheduler)``.
+
+    The hybrid engine, the pipeline engine and LoRA raise naming their
+    ROADMAP.md rows, as does a client optimizer object."""
+    from .runtime.engine import DeepSpeedEngine
+    if config is None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    if config is None:
+        raise ValueError("DeepSpeed requires --deepspeed_config or the config "
+                         "kwarg")
+    cfg = _config_dict(config)
+    for key, what, row in (("hybrid_engine", "the hybrid engine", "A12"),
+                           ("lora", "LoRA", "A12")):
+        if (cfg.get(key) or {}).get("enabled"):
+            raise NotImplementedError(f"{what} is not ported yet: "
+                                      f"ROADMAP.md row {row}")
+    if int(cfg.get("pipeline_parallel_size", 1)) > 1:
+        raise NotImplementedError("the pipeline engine is not ported yet: "
+                                  "ROADMAP.md row A11")
+    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
+                             model_parameters=model_parameters,
+                             training_data=training_data,
+                             lr_scheduler=lr_scheduler, mpu=mpu,
+                             collate_fn=collate_fn, config=config,
+                             mesh_manager=mesh_manager, device=device)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)

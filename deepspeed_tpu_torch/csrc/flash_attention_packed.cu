@@ -27,36 +27,11 @@
 // (causal) and starts at the window's first tile. wgmma, TMA and warp
 // specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 128;
-// thread (tr, tc) owns rows tr + 16 * i (i < 4) and columns tc + 8 * j
-constexpr int kRowGroups = kThreads / 8;
-constexpr int kRowsPerThread = kBlockQ / kRowGroups;
-constexpr int kColsPerThread = kBlockK / 8;
-constexpr float kNegInf = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
+using namespace dstorch_attn;
 
 // sum / max over the 8 threads (consecutive lanes) that share a row
 __device__ __forceinline__ float row_max(float x) {
@@ -161,9 +136,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
         float x = s[i][jj] * scale;
         if (causal) {
           const int k_pos = k_off + tc + 8 * jj;
-          bool keep = q_pos >= k_pos;
-          if (window > 0) keep = keep && (q_pos - k_pos < window);
-          if (!keep) x = kNegInf;
+          if (!keep_pair(q_pos, k_pos, window)) x = kNegInf;
         }
         s[i][jj] = x;
         tile_max = fmaxf(tile_max, x);
@@ -178,7 +151,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       for (int jj = 0; jj < kColsPerThread; ++jj) {
         const float p = expf(s[i][jj] - m_new);
         p_sum += p;
-        ps[row * kPld + tc + 8 * jj] = to_f32<T>(from_f32<T>(p));
+        ps[row * kPld + tc + 8 * jj] = round_to<T>(p);
       }
       l[i] = l[i] * alpha + row_sum(p_sum);
       m[i] = m_new;

@@ -1,17 +1,22 @@
-"""GPT-2 family, inference path.
+"""GPT-2 family: serving and training.
 
 The JAX package's ``models/gpt2.py`` as an ``nn.Module``: one
 ``GPT2Block`` per layer in an ``nn.ModuleList``, each holding the JAX
 parameter leaves of its layer under the same names and in the same
 ``[in, out]`` layout (``x @ w``), so ``load_jax_params`` copies a JAX tree
-across leaf by leaf. The attention of ``forward``-style calls takes the
-packed Hopper kernel (K1) whenever ``_packed_attn_ok`` holds, exactly where
-the JAX package takes its packed Pallas kernel; the KV-cache path
+across leaf by leaf. The attention of ``forward``-style calls (scoring and
+training) takes the packed Hopper kernels whenever ``_packed_attn_ok``
+holds, exactly where the JAX package takes its packed Pallas kernel: K1
+forward, K2 backward, through the autograd ``Function`` of
+``ops/kernels/flash_attention_packed.py``. The KV-cache path
 (``apply_with_cache``) computes its attention with the plain
 ``reference_attention``, as the JAX package does.
 
-Training (dropout, progressive layer drop, random-LTD, the loss) comes with
-the training slice, ROADMAP.md row A2.
+Training: ``apply(batch)`` is the next-token loss, dense (``_lm_loss``) or
+vocab-chunked (``_chunked_lm_loss``, an autograd ``Function`` that never
+holds ``[B, T, V]`` logits), dispatched as in the JAX package. Dropout,
+activation checkpointing (``remat``), progressive layer drop, random-LTD
+and ``act_bits`` are not ported yet and raise naming ROADMAP.md row A2b.
 """
 
 import dataclasses
@@ -72,7 +77,8 @@ GPT2_760M = GPT2Config(n_embd=1536, n_layer=24, n_head=16)
 GPT2_1_3B = GPT2Config(n_embd=2048, n_layer=24, n_head=32)
 
 _ACTIVATIONS = {"gelu": me.gelu, "gelu_exact": me.gelu_exact,
-                "relu": me.relu, "silu": me.silu}
+                "relu": me.relu, "silu": me.silu,
+                "quick_gelu": me.quick_gelu}
 
 # JAX leaf names of one layer (the [L, ...] leaves of params["blocks"])
 BLOCK_LEAVES = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "attn_proj_w",
@@ -236,15 +242,16 @@ class GPT2Model(ModelSpec):
         h, hd = cfg.n_head, cfg.head_dim
         ln1 = me.layer_norm(x, p.ln1_scale, p.ln1_bias, cfg.layer_norm_epsilon)
         qkv = ln1 @ p.qkv_w.to(ln1.dtype) + p.qkv_b.to(ln1.dtype)
-        q, k, v = qkv.split(d, dim=-1)
         if (attn_fn is None and self.causal_attention and
                 self._packed_attn_ok(x, t, hd, h)):
-            # q/k/v stay views of the qkv projection: the kernel reads them
-            # through their strides, with no head transpose and no copy
-            attn = k1.packed_flash_attention(q, k, v, h)
+            # the kernels read q/k/v as the column thirds of the qkv
+            # projection through its strides (no head transpose, no copy);
+            # the backward writes dq/dk/dv into one [B, T, 3D] gradient
+            attn = k1.packed_flash_attention_qkv(qkv, h)
             attn = attn @ p.attn_proj_w.to(attn.dtype) + \
                 p.attn_proj_b.to(attn.dtype)
             return x + attn
+        q, k, v = qkv.split(d, dim=-1)
         q = q.reshape(b, t, h, hd).transpose(1, 2)
         k = k.reshape(b, t, h, hd).transpose(1, 2)
         v = v.reshape(b, t, h, hd).transpose(1, 2)
@@ -298,6 +305,113 @@ class GPT2Model(ModelSpec):
         return x @ self._unembed_weight(x.dtype).T
 
     forward = logits
+
+    # ------------------------------------------------------------ training
+    has_position_table = True
+
+    def _head_bias(self, dtype):
+        """``[V]`` LM-head bias or None (GPT-2 has none)."""
+        return None
+
+    def apply(self, batch, rng=None, train=True, pld_theta=None,
+              ltd_keep=None, act_bits=None):
+        """Next-token LM loss (float32 scalar), as the JAX ``apply``.
+        ``batch``: ``{"input_ids": [B, T]}`` (+ optional ``"labels"``
+        ``[B, T]``, -100 = ignore) or the ids tensor itself.
+
+        This overrides ``nn.Module.apply(fn)``: on a model of this port,
+        ``apply`` is the loss, as in the JAX package's model protocol."""
+        cfg = self.config
+        unported = [name for name, value in (
+            ("pld_theta", pld_theta), ("ltd_keep", ltd_keep),
+            ("act_bits", act_bits)) if value is not None]
+        if train and cfg.dropout > 0:
+            unported.append(f"dropout={cfg.dropout}")
+        if cfg.remat:
+            unported.append("remat")
+        if unported:
+            raise NotImplementedError(
+                f"GPT-2 training with {', '.join(unported)} is not ported "
+                f"yet: ROADMAP.md row A2b")
+        input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
+        x = self.hidden_states(input_ids)
+        return self._head_loss_from_hidden(
+            x, self._unembed_weight(x.dtype), batch,
+            head_b=self._head_bias(x.dtype))
+
+    @staticmethod
+    def _shifted_labels(batch, vocab_size):
+        """Next-token labels ``[B, T-1]``, clamped to 0 where invalid, and
+        the valid mask (``0 <= label < vocab_size``; -100 = ignore)."""
+        input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
+        src = batch["labels"] if isinstance(batch, dict) and \
+            "labels" in batch else input_ids
+        labels = src[:, 1:]
+        valid = (labels >= 0) & (labels < vocab_size)
+        return torch.where(valid, labels, 0).long(), valid
+
+    def _lm_loss(self, logits, batch):
+        """Shifted next-token NLL over dense logits, divided by the valid
+        count."""
+        labels, valid = self._shifted_labels(batch, self.config.vocab_size)
+        total = me.dense_xent_sum(logits[:, :-1], labels, valid)
+        return total / torch.clamp_min(valid.sum(), 1)
+
+    @staticmethod
+    def _loss_chunk(v: int, target: int = 8192) -> int:
+        """Vocab-chunk width of the online-softmax loss: the largest
+        divisor of v that is <= target, UNLESS that divisor is tiny (prime
+        or near-prime vocabs would degrade to thousands of near-empty
+        matmuls); then plain ``target`` with a ragged tail."""
+        for c in range(min(target, v), 0, -1):
+            if v % c == 0:
+                if c >= min(target, v) // 8:
+                    return c
+                break  # largest divisor is tiny: use a ragged tail instead
+        return min(target, v)
+
+    def _chunked_lm_loss(self, h, wte, batch, head_b=None):
+        """Shifted next-token NLL without ``[B, T, V]`` logits: an online
+        logsumexp over vocab chunks (:class:`_ChunkedNLL`), divided by the
+        valid count."""
+        labels, valid = self._shifted_labels(batch, self.config.vocab_size)
+        h = h[:, :-1]
+        n = h.shape[0] * h.shape[1]
+        chunk = self._loss_chunk(wte.shape[0], self.config.loss_chunk_target)
+        total = _ChunkedNLL.apply(h.reshape(n, h.shape[-1]), wte, head_b,
+                                  labels.reshape(n), valid.reshape(n), chunk)
+        return total / torch.clamp_min(valid.sum(), 1)
+
+    # dense-logits path above this many logit elements would cost multiple
+    # GB of f32 activations: switch to the chunked loss there
+    _DENSE_LOSS_MAX_ELEMS = 600_000_000
+
+    def _head_loss_from_hidden(self, x, wte, batch, head_b=None):
+        """Dense-vs-chunked loss dispatch, as in the JAX package."""
+        cfg = self.config
+        n_logits = x.shape[0] * max(1, x.shape[1] - 1) * wte.shape[0]
+        use_chunked = (cfg.loss_chunking == "always" or
+                       (cfg.loss_chunking == "auto" and
+                        n_logits > self._DENSE_LOSS_MAX_ELEMS))
+        if use_chunked:
+            return self._chunked_lm_loss(x, wte, batch, head_b=head_b)
+        logits = x @ wte.T
+        if head_b is not None:
+            logits = logits + head_b
+        return self._lm_loss(logits, batch)
+
+    def flops_per_token(self, seq_len: Optional[int] = None):
+        """Training FLOPs/token: 6N + attention term (12·L·D·T)."""
+        cfg = self.config
+        d, l = cfg.n_embd, cfg.n_layer
+        block_params = (4 + 2 * cfg.mlp_ratio) * l * d * d
+        n_params = block_params + cfg.padded_vocab * d
+        if self.has_position_table:
+            n_params += (cfg.n_positions + cfg.pos_offset) * d
+        flops = 6 * n_params
+        if seq_len:
+            flops += 12 * l * d * seq_len  # attention matmuls (fwd+bwd)
+        return flops
 
     # ------------------------------------------------------- decode protocol
     @property
@@ -356,3 +470,71 @@ class GPT2Model(ModelSpec):
             x = self._block(x, p, attn_fn)
         x = self._final_norm(x)
         return x @ self._unembed_weight(x.dtype).T, cache
+
+
+def _chunk_logits(hf, wte, head_b, lo, hi):
+    """float32 logits of vocab rows ``[lo, hi)``, computed in hf's dtype
+    and then widened, as the JAX scan body does."""
+    logits = hf @ wte[lo:hi].T
+    if head_b is not None:
+        logits = logits + head_b[lo:hi]
+    return logits.to(torch.float32)
+
+
+class _ChunkedNLL(torch.autograd.Function):
+    """Sum over valid rows of ``lse - target_logit`` with the vocab taken
+    ``chunk`` rows of ``wte`` at a time: the JAX package's online-logsumexp
+    scan (``models/gpt2.py`` ``_chunked_lm_loss``). The forward keeps only
+    ``(m, s, tgt)`` per row; the backward recomputes each chunk's logits
+    and turns ``softmax - onehot`` into the chunk's share of ``dh``,
+    ``dwte`` and ``dhead_b``. ``dh`` accumulates in h's dtype across chunks,
+    as the scan's cotangent of a loop constant does. The ragged last chunk
+    is just narrower: the columns the JAX scan pads and masks to -inf add
+    nothing to ``m``, ``s`` or the gradients, so they are not computed."""
+
+    @staticmethod
+    def forward(ctx, hf, wte, head_b, labels, valid, chunk):
+        n, v = hf.shape[0], wte.shape[0]
+        f32 = torch.float32
+        m = torch.full((n,), -torch.inf, dtype=f32, device=hf.device)
+        s = torch.zeros((n,), dtype=f32, device=hf.device)
+        tgt = torch.zeros((n,), dtype=f32, device=hf.device)
+        for lo in range(0, v, chunk):
+            hi = min(lo + chunk, v)
+            logits = _chunk_logits(hf, wte, head_b, lo, hi)
+            nm = torch.maximum(m, logits.amax(1))
+            s = s * torch.exp(m - nm) + torch.exp(logits - nm[:, None]).sum(1)
+            inb = (labels >= lo) & (labels < hi)
+            idx = torch.clamp(labels - lo, 0, hi - lo - 1)
+            tl = torch.gather(logits, 1, idx[:, None])[:, 0]
+            tgt = torch.where(inb, tl, tgt)
+            m = nm
+        nll = torch.where(valid, (m + torch.log(s)) - tgt, 0.0)
+        ctx.chunk = chunk
+        ctx.has_bias = head_b is not None
+        ctx.save_for_backward(hf, wte, head_b, labels, valid, m, s, tgt)
+        return nll.sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        hf, wte, head_b, labels, valid, m, s, _ = ctx.saved_tensors
+        chunk = ctx.chunk
+        lse = m + torch.log(s)
+        coef = torch.where(valid, g.to(torch.float32), 0.0)
+        dh = torch.zeros_like(hf)
+        dwte = torch.empty_like(wte)
+        dhead_b = torch.empty_like(head_b) if ctx.has_bias else None
+        for lo in range(0, wte.shape[0], chunk):
+            hi = min(lo + chunk, wte.shape[0])
+            dl = _chunk_logits(hf, wte, head_b, lo, hi)
+            dl.sub_(lse[:, None]).exp_().mul_(coef[:, None])
+            inb = (labels >= lo) & (labels < hi)
+            idx = torch.clamp(labels - lo, 0, hi - lo - 1)
+            dl.scatter_add_(1, idx[:, None],
+                            torch.where(inb, -coef, 0.0)[:, None])
+            dl = dl.to(hf.dtype)
+            dh += dl @ wte[lo:hi]
+            dwte[lo:hi] = dl.T @ hf
+            if dhead_b is not None:
+                dhead_b[lo:hi] = dl.sum(0)
+        return dh, dwte, dhead_b, None, None, None

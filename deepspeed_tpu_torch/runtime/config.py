@@ -1,0 +1,251 @@
+"""DeepSpeedConfig: the training config of the JAX package's
+``runtime/config.py``, for the blocks this port runs.
+
+Parsed as in the JAX package, with the same ``ConfigError`` texts: the
+batch triangle (``train_batch_size = micro × gradient_accumulation_steps ×
+dp``), ``fp16`` / ``bf16``, ``optimizer``, ``scheduler``,
+``gradient_clipping``, ``gradient_accumulation_dtype``, ``steps_per_print``,
+``seed`` and ``zero_optimization``.
+
+Every other block the JAX config parses is accepted while it is disabled
+(or at its default) and raises ``NotImplementedError`` naming its
+ROADMAP.md row when it asks for something: see ``UNPORTED``.
+"""
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Optional
+
+from . import constants as C
+from .config_utils import ConfigError, DeepSpeedConfigModel
+from .zero.config import DeepSpeedZeroConfig
+from ..utils.logging import logger
+
+
+@dataclasses.dataclass
+class FP16Config(DeepSpeedConfigModel):
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    consecutive_hysteresis: bool = False
+    min_loss_scale: float = 1.0
+    fp16_master_weights_and_grads: bool = False
+
+    @property
+    def dynamic_loss_scale(self):
+        return self.loss_scale == 0
+
+
+@dataclasses.dataclass
+class BF16Config(DeepSpeedConfigModel):
+    enabled: bool = False
+    immediate_grad_update: bool = False
+
+
+@dataclasses.dataclass
+class OptimizerConfig(DeepSpeedConfigModel):
+    type: str = "adamw"
+    params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    legacy_fusion: bool = False
+
+    def validate(self):
+        self.type = self.type.lower()
+
+
+@dataclasses.dataclass
+class SchedulerConfig(DeepSpeedConfigModel):
+    type: Optional[str] = None
+    params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def _enabled(block):
+    return isinstance(block, dict) and bool(block.get("enabled"))
+
+
+def _above_one(value):
+    return int(value) > 1
+
+
+def _truthy(value):
+    return bool(value)
+
+
+def _present(value):
+    return value is not None
+
+
+def _data_efficiency(block):
+    """data_efficiency asks for something when it is enabled and one of
+    its sampling (curriculum) or routing (random-LTD) parts is."""
+    if not _enabled(block):
+        return False
+    return any(_enabled(block.get(part)) for part in
+               ("data_sampling", "data_routing"))
+
+
+# key -> (ROADMAP.md row, what the port cannot run yet, "asks for it")
+UNPORTED = {
+    C.TENSOR_PARALLEL_SIZE: ("A8", "tensor parallelism", _above_one),
+    C.PIPELINE_PARALLEL_SIZE: ("A11", "pipeline parallelism", _above_one),
+    C.SEQUENCE_PARALLEL_SIZE: ("A11", "sequence parallelism", _above_one),
+    C.EXPERT_PARALLEL_SIZE: ("A11", "expert parallelism", _above_one),
+    C.PIPELINE: ("A11", "the pipeline engine", _enabled),
+    # the JAX engine turns remat on whenever this block is present
+    C.ACTIVATION_CHECKPOINTING: ("A2b", "activation checkpointing (remat)",
+                                 _present),
+    C.PROGRESSIVE_LAYER_DROP: ("A2b", "progressive layer drop", _enabled),
+    C.DATA_EFFICIENCY: ("A2b", "data efficiency (curriculum sampling, "
+                        "random-LTD)", _data_efficiency),
+    C.CURRICULUM_LEARNING_LEGACY: ("A12", "curriculum learning", _enabled),
+    C.COMPRESSION_TRAINING: ("A12", "compression training", _truthy),
+    C.QUANTIZE_TRAINING: ("A12", "MoQ quantize_training", _enabled),
+    C.ELASTICITY: ("A12", "elasticity", _enabled),
+    C.TELEMETRY: ("A12", "telemetry", _enabled),
+    C.STATUSZ: ("A12", "the statusz server", _enabled),
+    C.FLIGHT_RECORDER: ("A12", "the flight recorder", _enabled),
+    C.HOSTAGG: ("A12", "host aggregation", _enabled),
+    C.FLOPS_PROFILER: ("A12", "the flops profiler", _enabled),
+    C.TENSORBOARD: ("A12", "the tensorboard monitor", _enabled),
+    C.WANDB: ("A12", "the wandb monitor", _enabled),
+    C.CSV_MONITOR: ("A12", "the csv monitor", _enabled),
+    C.PROMETHEUS: ("A12", "the prometheus monitor", _enabled),
+    C.COMMS_LOGGER: ("A8", "the comms logger", _enabled),
+    C.COMM_COMPRESSION: ("A8", "compressed collectives", _truthy),
+    C.OVERLAP_SCHEDULE: ("A8", "the ZeRO overlap schedule", _enabled),
+    C.COMPILE_PLANE: ("A13", "the compile plane", _enabled),
+    C.PERF_PLANE: ("A13", "the perf plane", _enabled),
+    C.RESILIENCE: ("A12", "resilience (sentinel, autosave, preemption)",
+                   _truthy),
+    C.WALL_CLOCK_BREAKDOWN: ("A12", "wall_clock_breakdown timers", _truthy),
+    C.MEMORY_BREAKDOWN: ("A12", "memory_breakdown", _truthy),
+    "hybrid_engine": ("A12", "the hybrid engine", _enabled),
+    "lora": ("A12", "LoRA", _enabled),
+}
+
+
+class DeepSpeedConfig:
+    """Parse and validate the training config, as the JAX package's
+    ``DeepSpeedConfig`` does for the blocks this port runs."""
+
+    def __init__(self, config: Any):
+        if isinstance(config, str):
+            if not os.path.exists(config):
+                raise ConfigError(f"Config file not found: {config}")
+            with open(config) as f:
+                self._param_dict = json.load(f)
+        elif isinstance(config, dict):
+            self._param_dict = dict(config)
+        elif config is None:
+            self._param_dict = {}
+        else:
+            raise ConfigError(
+                f"Expected a dict or json path for config, got {type(config)}")
+
+        pd = self._param_dict
+        for key, (row, what, asks) in UNPORTED.items():
+            if key in pd and asks(pd[key]):
+                raise NotImplementedError(
+                    f"config '{key}' asks for {what}, which is not ported "
+                    f"yet: ROADMAP.md row {row}")
+
+        # ---- parallel sizes: one device, no model parallelism yet ----
+        self.tensor_parallel_size = int(pd.get(C.TENSOR_PARALLEL_SIZE, 1))
+        self.pipeline_parallel_size = int(pd.get(C.PIPELINE_PARALLEL_SIZE, 1))
+        self.sequence_parallel_size = int(pd.get(C.SEQUENCE_PARALLEL_SIZE, 1))
+        self.expert_parallel_size = int(pd.get(C.EXPERT_PARALLEL_SIZE, 1))
+        # one device until ZeRO and data parallelism land (row A8)
+        self.world_size = self.data_parallel_size = 1
+
+        # ---- batch triangle ----
+        self.train_batch_size = pd.get(C.TRAIN_BATCH_SIZE)
+        self.train_micro_batch_size_per_gpu = pd.get(C.TRAIN_MICRO_BATCH_SIZE_PER_GPU)
+        self.gradient_accumulation_steps = pd.get(C.GRADIENT_ACCUMULATION_STEPS)
+        self._configure_train_batch_size()
+
+        # ---- subsystem models ----
+        self.optimizer = (OptimizerConfig.from_dict(pd[C.OPTIMIZER])
+                          if C.OPTIMIZER in pd else None)
+        self.scheduler = (SchedulerConfig.from_dict(pd[C.SCHEDULER])
+                          if C.SCHEDULER in pd else None)
+        self.fp16 = FP16Config.from_dict(pd.get(C.FP16, {}))
+        bf16_dict = pd.get(C.BFLOAT16, pd.get(C.BFLOAT16_OLD, {}))
+        self.bf16 = BF16Config.from_dict(bf16_dict)
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ConfigError("fp16 and bf16 cannot both be enabled")
+        self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get(C.ZERO_OPTIMIZATION, {}))
+
+        # ---- scalars ----
+        self.steps_per_print = pd.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)
+        self.gradient_clipping = float(pd.get(C.GRADIENT_CLIPPING,
+                                              C.GRADIENT_CLIPPING_DEFAULT))
+        self.sparse_gradients_enabled = pd.get(C.SPARSE_GRADIENTS,
+                                               C.SPARSE_GRADIENTS_DEFAULT)
+        self.gradient_accumulation_dtype = pd.get(C.GRADIENT_ACCUMULATION_DTYPE, None)
+        if self.gradient_accumulation_dtype is not None and \
+                str(self.gradient_accumulation_dtype) not in (
+                    "fp32", "float32", "bf16", "bfloat16"):
+            raise ConfigError(
+                f"gradient_accumulation_dtype must be fp32|bf16, got "
+                f"{self.gradient_accumulation_dtype}")
+        self.dataloader_drop_last = pd.get(C.DATALOADER_DROP_LAST,
+                                           C.DATALOADER_DROP_LAST_DEFAULT)
+        self.seed = pd.get("seed", 42)
+
+    # -- batch triangle solver, as the JAX package's (config.py:501-542)
+    def _configure_train_batch_size(self):
+        train = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        gas = self.gradient_accumulation_steps
+        dp = self.data_parallel_size
+
+        if all(v is not None for v in (train, micro, gas)):
+            if train != micro * gas * dp:
+                raise ConfigError(
+                    f"Check batch related parameters. train_batch_size is not equal to "
+                    f"micro_batch_per_gpu * gradient_acc_step * world_size "
+                    f"{train} != {micro} * {gas} * {dp}")
+        elif train is not None and micro is not None:
+            gas = train // (micro * dp)
+            if train % (micro * dp) != 0:
+                raise ConfigError(
+                    f"train_batch_size {train} not divisible by micro_batch*dp {micro * dp}")
+        elif train is not None and gas is not None:
+            micro = train // (gas * dp)
+            if train % (gas * dp) != 0:
+                raise ConfigError(
+                    f"train_batch_size {train} not divisible by gas*dp {gas * dp}")
+        elif micro is not None and gas is not None:
+            train = micro * gas * dp
+        elif train is not None:
+            gas = 1
+            micro = train // dp
+            if train % dp != 0:
+                raise ConfigError(f"train_batch_size {train} not divisible by dp {dp}")
+        elif micro is not None:
+            gas = 1
+            train = micro * dp
+        else:
+            raise ConfigError(
+                "Either train_batch_size or train_micro_batch_size_per_gpu needs to be provided")
+
+        if train <= 0 or micro <= 0 or gas <= 0:
+            raise ConfigError(
+                f"batch sizes must be positive: train={train} micro={micro} gas={gas}")
+        self.train_batch_size = int(train)
+        self.train_micro_batch_size_per_gpu = int(micro)
+        self.gradient_accumulation_steps = int(gas)
+
+    @property
+    def zero_enabled(self):
+        return self.zero_config.stage > 0
+
+    @property
+    def zero_optimization_stage(self):
+        return self.zero_config.stage
+
+    def print_config(self):
+        logger.info(f"DeepSpeedConfig: {json.dumps(self._param_dict, indent=2, default=str)}")
