@@ -7,14 +7,18 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
 Phases, one line each: environment; build of every kernel source from the
 checkout; each kernel against its plain PyTorch version on the card, with
-times; the port's two main paths on GPT-2-125M at full width (random
-weights from a seed): ``init_inference`` answering ``engine(input_ids)``
-scoring calls and ``generate`` requests, then ``initialize`` taking
-``train_batch`` steps (bf16 on fp32 masters, AdamW, gradient accumulation);
-the gradients of the kernel path against the plain attention path; a
-repeated batch whose loss must fall; a profile of each path. Every check
-raises on failure, so the script exits non-zero without printing a
-result. The last lines are one JSON
+times (K1/K2 at GPT-2-125M's packed attention shape, K3 and its K3b/K5
+backward at LLaMA-7B's ``[4, 32, 2048, 128]`` and at head dims 80 and
+256); the port's main paths at full width (random weights from a seed):
+GPT-2-125M through ``init_inference`` (``engine(input_ids)`` scoring calls
+and ``generate`` requests) and ``initialize`` -> ``train_batch`` (bf16 on
+fp32 masters, AdamW, gradient accumulation); LLaMA-7B through
+``init_inference`` at full depth and through ``initialize`` ->
+``train_batch`` at 4 layers of its width; each against the plain attention
+path, a repeated batch whose loss must fall, and a profile of each path;
+then LLaMA-2-70B's width at 2 layers with grouped-query attention and a
+sliding window. Every check raises on failure, so the script exits
+non-zero without printing a result. The last lines are one JSON
 object describing every kernel, the card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}``. Without a GPU it
 exits non-zero and prints no result. It imports neither JAX nor the JAX
@@ -60,6 +64,26 @@ TRAIN_GRAD_TOL = {"rel_l2_per_leaf": 5e-2, "loss_abs": 2e-2}
 # at the start, ln 256 = 5.5 for the batch's unigram distribution alone)
 CONVERGE_STEPS, CONVERGE_FRACTION = 10, 0.8
 TRAIN_GAS, TRAIN_MICRO, TRAIN_WARMUP, TRAIN_TIMED = 4, 8, 2, 3
+# K3 / K3b-K5 checks: LLaMA-7B's attention shape, and two head dims off the
+# 64/128 ceilings at a small shape
+K3_SHAPE, K3_SMALL = (4, 32, 2048, 128), (4, 8, 512)
+# LLaMA kernel path vs plain path, bf16 logits. Both round to bf16 at
+# different points, and at LLaMA-7B's width this drifts through 32 layers
+# to a mean abs difference of 0.077 (max 0.77, on an H100; PERF.md),
+# larger than GPT-2's. So each bf16 path is also held against the same
+# weights in f32 on the plain path: the kernel path's mean abs error against
+# that reference may exceed the plain path's by at most a quarter, and the
+# two bf16 paths may differ by at most 0.15 mean and 2.0 max; a wrong kernel
+# or head order moves the error by the logits' own scale (~1)
+LLAMA_LOGITS_TOL = {"vs_f32_ratio": 1.25, "mean_abs": 0.15, "max_abs": 2.0}
+LLAMA_ARGMAX_MARGIN = 0.25
+# LLaMA gradients, kernel path vs plain path, one bf16 micro batch of 4
+# layers at LLaMA-7B's width: as GPT-2's, doubled for T 2048
+LLAMA_GRAD_TOL = {"rel_l2_per_leaf": 1e-1, "loss_abs": 2e-2}
+LLAMA_TRAIN_LAYERS, LLAMA_MICRO, LLAMA_GAS, LLAMA_T = 4, 4, 2, 2048
+# 2e-4 moves LLaMA-7B's 4096-wide layers about as far per step as 1e-3
+# moves GPT-2-125M's 768-wide ones
+LLAMA_CONVERGE_LR = 2e-4
 
 
 def phase(name, **fields):
@@ -235,7 +259,133 @@ def check_k2(torch, b, t, h, d, dtype, causal, window):
     return res
 
 
-def profile_forward(torch, engine, ids, top=8):
+def sdpa_mask(torch, t, causal, window):
+    """SDPA's arguments for the kernels' mask: ``is_causal`` or, with a
+    window, an explicit boolean keep-mask."""
+    if window is None:
+        return None, causal
+    pos = torch.arange(t, device="cuda")
+    diff = pos[:, None] - pos[None, :]
+    return (diff >= 0) & (diff < window), False
+
+
+def k3_inputs(torch, shape, dtype, seed):
+    """q, k, v [B, H, T, D] as views of [B, T, H, D] buffers, the layout
+    the LLaMA block hands the kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, t, d = shape
+    return [torch.randn((b, t, h, d), generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype).transpose(1, 2)
+            for _ in range(3)]
+
+
+def check_k3(torch, shape, dtype, causal, window, scale=None):
+    """K3 against its plain version on the card."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    import torch.nn.functional as F
+    b, h, t, d = shape
+    q, k, v = k3_inputs(torch, shape, dtype, SEED + 7)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale, window)
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal, scale,
+                                                window)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    tol_out, tol_lse = KERNEL_TOL[dname]
+    check(torch.isfinite(out.float()).all().item(), "K3 output not finite")
+    check(err_out <= tol_out and err_lse <= tol_lse,
+          f"K3 {dname} {shape} causal={causal} window={window} "
+          f"scale={scale}: out err {err_out} (tol {tol_out}), lse err "
+          f"{err_lse} (tol {tol_lse})")
+    kernel_ms = median_ms(torch, lambda: fa.flash_attention_fwd(
+        q, k, v, causal, scale, window))
+    plain_ms = median_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal, scale, window), reps=5, warmup=1)
+    mask, is_causal = sdpa_mask(torch, t, causal, window)
+    library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=is_causal, scale=scale))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    # q, k, v read and o written once; lse (f32) written
+    n_bytes = 4 * b * h * t * d * itemsize + 4 * b * h * t
+    flops = 4 * b * h * d * kept_pairs(t, causal, window)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dname] * 1e3
+    res = {"dtype": dname, "causal": causal, "window": window,
+           "scale": scale, "shape": list(shape), "err_out": err_out,
+           "err_lse": err_lse, "tol_out": tol_out, "tol_lse": tol_lse,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    phase("kernel-check K3", **res)
+    return res
+
+
+def check_k3_bwd(torch, shape, dtype, causal, window, scale=None):
+    """The K3b/K5 backward against its plain version on the card: K3's
+    output and lse, a random output gradient."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    import torch.nn.functional as F
+    b, h, t, d = shape
+    q, k, v = k3_inputs(torch, shape, dtype, SEED + 8)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale, window)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    delta = fa.attention_delta(out, dout)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout, causal, scale,
+                                      window)
+
+    def plain():
+        return fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                            causal, scale, window)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    tol = K2_TOL[dname]
+    check(all(torch.isfinite(g.float()).all().item() for g in got),
+          "K3 backward output not finite")
+    check(max(errs) <= tol,
+          f"K3 backward {dname} {shape} causal={causal} window={window} "
+          f"scale={scale}: dq/dk/dv errors {errs} (tol {tol})")
+    kernel_ms = median_ms(torch, kernel)
+    plain_ms = median_ms(torch, plain, reps=5, warmup=1)
+    q4, k4, v4 = (x.detach().requires_grad_() for x in (q, k, v))
+    mask, is_causal = sdpa_mask(torch, t, causal, window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, is_causal=is_causal, scale=scale)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (q4, k4, v4), dout)
+
+    with torch.no_grad():
+        fwd_ms = median_ms(torch, sdpa)
+    library_ms = median_ms(torch, sdpa_fwd_bwd) - fwd_ms
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    # q, k, v, dO read and dq, dk, dv written once; lse and delta (f32) read
+    n_bytes = 7 * b * h * t * d * itemsize + 2 * 4 * b * h * t
+    # 10 D FLOP per kept (q, k) pair: five products of 2 D each
+    flops = 10 * b * h * d * kept_pairs(t, causal, window)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dname] * 1e3
+    res = {"dtype": dname, "causal": causal, "window": window,
+           "scale": scale, "shape": list(shape), "err_dq": errs[0],
+           "err_dk": errs[1], "err_dv": errs[2], "tol": tol,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": "SDPA fwd+bwd minus fwd",
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    phase("kernel-check K3-bwd", **res)
+    return res
+
+
+def profile_forward(torch, engine, ids, top=8, name="profile forward"):
     """Device time by kernel over one scoring call (torch.profiler): the
     busiest kernels, their sum, and the share of the call's wall time in
     which no kernel ran (profiler overhead included)."""
@@ -247,14 +397,14 @@ def profile_forward(torch, engine, ids, top=8):
         engine(ids)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - s0) * 1e3
-    report_profile("profile forward", prof, wall_ms, top)
+    report_profile(name, prof, wall_ms, top)
 
 
 def kernel_group(key):
     """The group a device kernel's time is reported under."""
     name = key.lower()
-    return ("K1 flash_attention_packed" if "fwd_kernel" in name else
-            "K2 flash_attention_packed_bwd" if "dkdv_kernel" in name or
+    return ("flash attention fwd (K1/K3)" if "fwd_kernel" in name else
+            "flash attention bwd (K2/K3b-K5)" if "dkdv_kernel" in name or
             "dq_kernel" in name else
             "optimizer (foreach)" if "foreach" in name or
             "multi_tensor" in name else
@@ -413,7 +563,7 @@ def train_converges(torch, cfg, t):
           threshold=f"last < {CONVERGE_FRACTION} x first")
 
 
-def profile_train(torch, engine, batch):
+def profile_train(torch, engine, batch, name="profile train"):
     """Device time by kernel group over one ``train_batch``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -423,7 +573,353 @@ def profile_train(torch, engine, batch):
         engine.train_batch(batch=batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - s0) * 1e3
-    report_profile("profile train", prof, wall_ms, top=10)
+    report_profile(name, prof, wall_ms, top=10)
+
+
+def check_streams(torch, name, engine_x, prompts, outs, vocab, margin):
+    """Generate checks: each stream keeps its prompt and stays in the vocab;
+    greedy streams repeat, and a seed repeats its sampled stream; greedy
+    tokens equal the full-forward argmax of the plain path wherever its
+    top-2 gap exceeds ``margin``. ``outs``: greedy, greedy again, sampled,
+    sampled again. Returns the number of positions checked."""
+    greedy, greedy2, sampled, sampled2 = outs
+    b, t = prompts.shape
+    new = greedy.shape[1] - t
+    for kind, out in (("greedy", greedy), ("sampled", sampled)):
+        check(tuple(out.shape) == (b, t + new),
+              f"{name} {kind} shape {tuple(out.shape)}")
+        check(torch.equal(out[:, :t].cpu(), prompts.cpu()),
+              f"{name} {kind} lost its prompt")
+        check(0 <= int(out.min()) and int(out.max()) < vocab,
+              f"{name} {kind} token out of the vocab")
+    check(torch.equal(greedy, greedy2), f"{name}: greedy streams differ "
+          f"across runs")
+    check(torch.equal(sampled, sampled2),
+          f"{name}: sampled streams differ for one seed")
+    full = engine_x(greedy[:, :-1])[:, t - 1:, :vocab].float()
+    top2 = full.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > margin
+    match = full.argmax(-1) == greedy[:, t:]
+    checked = int(clear.sum())
+    check(checked > 0 and bool(match[clear].all()),
+          f"{name}: greedy tokens disagree with the full forward at "
+          f"{int((~match & clear).sum())} of {checked} clear positions")
+    return checked
+
+
+def run_generate(torch, engine, prompts, new):
+    """Greedy twice and seeded sampling twice; returns the four streams and
+    the first greedy call's seconds."""
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    greedy = engine.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - s0
+    greedy2 = engine.generate(prompts, max_new_tokens=new)
+    sample_kw = dict(max_new_tokens=new, temperature=0.8, top_k=50,
+                     top_p=0.95, seed=SEED)
+    sampled = engine.generate(prompts, **sample_kw)
+    sampled2 = engine.generate(prompts, **sample_kw)
+    torch.cuda.synchronize()
+    return (greedy, greedy2, sampled, sampled2), greedy_s
+
+
+def compare_logits(torch, name, logits, logits_x, tol, logits_f32=None):
+    """Kernel-path logits against the plain path's on the same weights;
+    with ``logits_f32`` (the plain path in f32), each bf16 path's mean abs
+    error against it too."""
+    diff = (logits.float() - logits_x.float()).abs()
+    mean_abs, max_abs = diff.mean().item(), diff.max().item()
+    agree = (logits.argmax(-1) == logits_x.argmax(-1)).float().mean().item()
+    fields = {}
+    if logits_f32 is not None:
+        err_k = (logits.float() - logits_f32).abs().mean().item()
+        err_x = (logits_x.float() - logits_f32).abs().mean().item()
+        fields = {"kernel_vs_f32_mean_abs": err_k,
+                  "plain_vs_f32_mean_abs": err_x, "ratio": err_k / err_x}
+        check(err_k <= tol["vs_f32_ratio"] * err_x,
+              f"{name}: kernel-path error vs f32 {err_k}, plain-path "
+              f"{err_x} (tol ratio {tol['vs_f32_ratio']})")
+    check(mean_abs <= tol["mean_abs"] and max_abs <= tol["max_abs"],
+          f"{name}: kernel-path logits vs plain path: mean {mean_abs} max "
+          f"{max_abs} (tol {tol})")
+    phase(name, mean_abs=mean_abs, max_abs=max_abs, argmax_agree=agree,
+          logits_std=logits_x.float().std().item(), **fields,
+          tol=json.dumps(tol))
+
+
+def llama_f32_logits(torch, model, ids):
+    """Logits of ``model``'s weights in f32 on the plain attention path: a
+    copy built on the card, used once and freed."""
+    from deepspeed_tpu_torch.models.llama import LlamaModel
+    ref = LlamaModel(dataclasses.replace(model.config, attn_backend="xla"),
+                     generator=torch.Generator("cuda").manual_seed(0),
+                     device="cuda", dtype=torch.float32)
+    ref.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        logits = ref.logits(ids.cuda())
+    del ref
+    torch.cuda.empty_cache()
+    return logits
+
+
+def llama_model(torch, cfg, seed, dtype, backend="auto"):
+    """A LLaMA model built on the card in ``dtype``, its weights drawn there
+    from ``seed`` (the same weights for every backend)."""
+    from deepspeed_tpu_torch.models.llama import LlamaModel
+    return LlamaModel(dataclasses.replace(cfg, attn_backend=backend),
+                      generator=torch.Generator("cuda").manual_seed(seed),
+                      device="cuda", dtype=dtype)
+
+
+def llama_serve(torch):
+    """LLaMA-7B through ``init_inference`` at full depth and width: three
+    scoring calls on ``[4, 2048]`` (K3 launched 32 times each, K1 never),
+    the same weights on the plain path, generate, a profile. Returns K3's
+    launches in the scoring calls."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as k1
+    cfg = LLAMA_7B
+    b, t, h, d = 4, 2048, cfg.n_head, cfg.head_dim
+    s0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(
+        llama_model(torch, cfg, SEED + 10, torch.bfloat16), {"dtype": "bf16"})
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - s0
+    ids = torch.randint(0, cfg.vocab_size, (b, t),
+                        generator=torch.Generator().manual_seed(SEED + 11))
+    n_fwd = 3
+    fa.flash_attention_fwd.launches = k1.packed_flash_attention_fwd.launches = 0
+    fwd_s, per_call = [], []
+    for _ in range(n_fwd):
+        before = fa.flash_attention_fwd.launches
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        logits = engine(ids)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - s0)
+        per_call.append(fa.flash_attention_fwd.launches - before)
+    launches = fa.flash_attention_fwd.launches
+    check(per_call == [cfg.n_layer] * n_fwd and
+          k1.packed_flash_attention_fwd.launches == 0,
+          f"K3 launched {per_call} times per LLaMA forward call, want "
+          f"{cfg.n_layer}; K1 launched "
+          f"{k1.packed_flash_attention_fwd.launches} times, want 0")
+    check(tuple(logits.shape) == (b, t, cfg.padded_vocab),
+          f"logits shape {tuple(logits.shape)}")
+    check(torch.isfinite(logits.float()).all().item(), "logits not finite")
+    # matmul FLOPs (qkv, proj, gate/up/down per layer; the LM head) plus
+    # the causal attention's two products
+    hk = cfg.kv_head_count
+    per_token = cfg.n_layer * (cfg.n_embd * (h + 2 * hk) * d +
+                               cfg.n_embd ** 2 + 3 * cfg.n_embd *
+                               cfg.intermediate) + \
+        cfg.padded_vocab * cfg.n_embd
+    flops = 2 * b * t * per_token + \
+        cfg.n_layer * 4 * b * h * d * kept_pairs(t, True, None)
+    best = min(fwd_s[1:])
+    phase("llama forward", model="LLAMA_7B", params=engine.module.num_params(),
+          init_seconds=round(init_s, 2), shape=list(logits.shape),
+          dtype=str(logits.dtype).replace("torch.", ""),
+          k3_launches=launches, k3_launches_per_call=per_call,
+          k1_launches=k1.packed_flash_attention_fwd.launches, calls=n_fwd,
+          seconds=json.dumps([round(x, 4) for x in fwd_s]),
+          tokens_per_s=round(b * t / best, 1), model_tflop=flops / 1e12,
+          tflop_per_s=round(flops / best / 1e12, 2),
+          share_of_bf16_peak=round(flops / best / PEAK_FLOPS["bfloat16"], 4),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+
+    engine_x = deepspeed_tpu_torch.init_inference(
+        llama_model(torch, cfg, SEED + 10, torch.bfloat16, "xla"),
+        {"dtype": "bf16"})
+    compare_logits(torch, "llama vs plain path", logits, engine_x(ids),
+                   LLAMA_LOGITS_TOL,
+                   llama_f32_logits(torch, engine_x.module, ids))
+    del logits
+    torch.cuda.empty_cache()
+
+    prompts = torch.randint(0, cfg.vocab_size, (4, 128),
+                            generator=torch.Generator().manual_seed(SEED + 12))
+    new = 32
+    outs, greedy_s = run_generate(torch, engine, prompts, new)
+    checked = check_streams(torch, "llama generate", engine_x, prompts, outs,
+                            cfg.vocab_size, LLAMA_ARGMAX_MARGIN)
+    phase("llama generate", requests=4, prompt=128, new_tokens=new,
+          greedy_seconds=round(greedy_s, 4),
+          tokens_per_s=round(4 * new / greedy_s, 1),
+          greedy_repeat_equal=True, sampled_same_seed_equal=True,
+          greedy_vs_forward_checked=checked, margin=LLAMA_ARGMAX_MARGIN,
+          sampled_differs_from_greedy=not torch.equal(outs[2], outs[0]))
+    # after the launch counts were read: this call's launches are not counted
+    profile_forward(torch, engine, ids, name="profile llama forward")
+    del engine, engine_x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def llama_train_config(lr, gas):
+    return {"train_batch_size": LLAMA_MICRO * gas,
+            "train_micro_batch_size_per_gpu": LLAMA_MICRO,
+            "gradient_accumulation_steps": gas,
+            "optimizer": {"type": "adamw", "params": {"lr": lr}},
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 0},
+            "steps_per_print": 0}
+
+
+def llama_train(torch):
+    """LLaMA-7B's width at LLAMA_TRAIN_LAYERS layers through ``initialize``
+    -> ``train_batch`` (micro 4, T 2048, gas 2, bf16 on fp32 masters,
+    AdamW): K3 forward and backward launched n_layer x gas times a step;
+    then the kernel path's gradients against the plain path's, a repeated
+    batch whose loss must fall, a profile. Returns the step's launches."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=LLAMA_TRAIN_LAYERS)
+    t, gas, micro = LLAMA_T, LLAMA_GAS, LLAMA_MICRO
+    model = llama_model(torch, cfg, SEED + 13, torch.float32)
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, config=llama_train_config(1e-4, gas))[0]
+    rng = np.random.default_rng(SEED + 14)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                          (gas, micro, t), dtype=np.int64)}
+               for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+    torch.cuda.reset_peak_memory_stats()
+    fwd.launches = bwd.launches = 0
+    step_s, per_step, losses, norms = [], [], [], []
+    for batch in batches:
+        before = (fwd.launches, bwd.launches)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+        per_step.append([fwd.launches - before[0], bwd.launches - before[1]])
+        losses.append(loss.item())
+        norms.append(float(engine.get_global_grad_norm()))
+    launches = {"K3": fwd.launches, "K3b/K5": bwd.launches}
+    want = cfg.n_layer * gas
+    check(all(n == [want, want] for n in per_step),
+          f"K3 forward/backward launched {per_step} times per train_batch, "
+          f"want {want} each (n_layer x gas)")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"llama train losses {losses} or grad norms {norms} not finite")
+    tokens = gas * micro * t
+    timed = step_s[TRAIN_WARMUP:]
+    best = min(timed)
+    flops_per_token = model.flops_per_token(t)
+    phase("llama train", model=f"LLAMA_7B width, {cfg.n_layer} layers",
+          params=model.num_params(), micro=micro, gas=gas, seq=t,
+          dtype="bf16 on fp32 masters", optimizer="adamw lr 1e-4",
+          steps=len(step_s), warmup=TRAIN_WARMUP,
+          seconds=json.dumps([round(x, 4) for x in step_s]),
+          step_s_best=round(best, 4),
+          step_s_median=round(statistics.median(timed), 4),
+          tokens_per_s=round(tokens / best, 1),
+          flops_per_token=flops_per_token,
+          tflop_per_s=round(tokens * flops_per_token / best / 1e12, 2),
+          mfu=round(tokens * flops_per_token / best /
+                    PEAK_FLOPS["bfloat16"], 4),
+          losses=json.dumps([round(x, 4) for x in losses]),
+          grad_norms=json.dumps([round(x, 4) for x in norms]),
+          launches_per_step=json.dumps(per_step),
+          launches=json.dumps(launches),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    # after the launch counts were read: these launches are not counted
+    profile_train(torch, engine, batches[-1], name="profile llama train")
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # the kernel path's gradients against the plain path's, one micro batch
+    mb = {"input_ids": torch.as_tensor(batches[-1]["input_ids"][0]).cuda()}
+    out = {}
+    for backend in ("auto", "xla"):
+        m = llama_model(torch, cfg, SEED + 13, torch.bfloat16, backend)
+        loss = m.apply(mb)
+        loss.backward()
+        out[backend] = (loss.item(), {n: p.grad.float() for n, p in
+                                      m.named_parameters()})
+        del m, loss
+        torch.cuda.empty_cache()
+    (loss_k, grads_k), (loss_x, grads_x) = out["auto"], out["xla"]
+    rel = {n: ((grads_k[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in grads_x.items()}
+    worst = max(rel, key=rel.get)
+    loss_diff = abs(loss_k - loss_x)
+    check(rel[worst] <= LLAMA_GRAD_TOL["rel_l2_per_leaf"] and
+          loss_diff <= LLAMA_GRAD_TOL["loss_abs"],
+          f"llama K3 path vs plain path: worst leaf {worst} rel L2 "
+          f"{rel[worst]}, loss diff {loss_diff} (tol {LLAMA_GRAD_TOL})")
+    phase("llama train vs plain path", leaves=len(rel), loss_kernels=loss_k,
+          loss_plain=loss_x, loss_abs_diff=loss_diff, max_rel_l2=rel[worst],
+          worst_leaf=worst, median_rel_l2=statistics.median(rel.values()),
+          tol=json.dumps(LLAMA_GRAD_TOL))
+    del out, grads_k, grads_x
+    torch.cuda.empty_cache()
+
+    engine = deepspeed_tpu_torch.initialize(
+        model=llama_model(torch, cfg, SEED + 13, torch.float32),
+        config=llama_train_config(LLAMA_CONVERGE_LR, 1))[0]
+    batch = {"input_ids": rng.integers(0, 256, (1, micro, t))}
+    losses = [engine.train_batch(batch=batch).item()
+              for _ in range(CONVERGE_STEPS)]
+    check(losses[-1] < CONVERGE_FRACTION * losses[0],
+          f"llama loss on a repeated batch went {losses[0]} -> {losses[-1]}, "
+          f"want below {CONVERGE_FRACTION} x the first")
+    phase("llama train converges", steps=CONVERGE_STEPS,
+          lr=LLAMA_CONVERGE_LR, losses=json.dumps([round(x, 4)
+                                                   for x in losses]),
+          threshold=f"last < {CONVERGE_FRACTION} x first")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def llama_gqa(torch):
+    """LLaMA-2-70B's width (d 8192, 64 heads on 8 kv heads, MLP 28672) at 2
+    layers with a 1024-token sliding window: a ``[2, 2048]`` forward on K3
+    against the plain path, and a greedy generate past the window checked
+    against the plain full forward: grouped-query attention, the window
+    and the decode-mask hook at a real width."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LLAMA2_70B
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    cfg = dataclasses.replace(LLAMA2_70B, n_layer=2, sliding_window=1024)
+    engines = {backend: deepspeed_tpu_torch.init_inference(
+        llama_model(torch, cfg, SEED + 15, torch.bfloat16, backend),
+        {"dtype": "bf16", "max_tokens": 2048})
+        for backend in ("auto", "xla")}
+    ids = torch.randint(0, cfg.vocab_size, (2, 2048),
+                        generator=torch.Generator().manual_seed(SEED + 16))
+    before = fa.flash_attention_fwd.launches
+    logits = engines["auto"](ids)
+    torch.cuda.synchronize()
+    k3 = fa.flash_attention_fwd.launches - before
+    check(k3 == cfg.n_layer, f"K3 launched {k3} times in the GQA forward, "
+          f"want {cfg.n_layer}")
+    compare_logits(torch, "llama gqa vs plain path", logits,
+                   engines["xla"](ids), LLAMA_LOGITS_TOL,
+                   llama_f32_logits(torch, engines["xla"].module, ids))
+    del logits
+    prompt_len, new = 1536, 16
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len),
+                            generator=torch.Generator().manual_seed(SEED + 17))
+    outs, greedy_s = run_generate(torch, engines["auto"], prompts, new)
+    checked = check_streams(torch, "llama gqa generate", engines["xla"],
+                            prompts, outs, cfg.vocab_size,
+                            LLAMA_ARGMAX_MARGIN)
+    phase("llama gqa", model="LLAMA2_70B width, 2 layers, window 1024",
+          params=engines["auto"].module.num_params(),
+          kv_heads=cfg.kv_head_count, k3_launches=k3, prompt=prompt_len,
+          new_tokens=new, greedy_seconds=round(greedy_s, 4),
+          greedy_vs_forward_checked=checked, margin=LLAMA_ARGMAX_MARGIN)
+    del engines
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -465,6 +961,17 @@ def main():
     check_k2(torch, b, t, h, d, torch.bfloat16, False, None)
     check_k2(torch, b, t, h, d, torch.float16, True, None)
     check_k2(torch, b, t, h, d, torch.float32, True, None)
+    bf16 = torch.bfloat16
+    k3_cases = [(K3_SHAPE, bf16, True, None, None),
+                (K3_SHAPE, bf16, True, 512, None),
+                (K3_SHAPE, bf16, False, None, None),
+                (K3_SHAPE, torch.float16, True, None, None),
+                (K3_SHAPE, torch.float32, True, None, None),
+                (K3_SHAPE, bf16, True, None, 0.05),
+                (K3_SMALL + (80,), bf16, True, None, None),
+                (K3_SMALL + (256,), bf16, True, None, None)]
+    main_k3 = [check_k3(torch, *case) for case in k3_cases][0]
+    main_k3b = [check_k3_bwd(torch, *case) for case in k3_cases][0]
 
     # ---- main path: init_inference -> engine(ids) and generate
     model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
@@ -484,17 +991,7 @@ def main():
         torch.cuda.synchronize()
         fwd_s.append(time.perf_counter() - s0)
         per_call.append(k1.packed_flash_attention_fwd.launches - before)
-    torch.cuda.synchronize()
-    s0 = time.perf_counter()
-    greedy = engine.generate(prompts, max_new_tokens=new)
-    torch.cuda.synchronize()
-    greedy_s = time.perf_counter() - s0
-    greedy2 = engine.generate(prompts, max_new_tokens=new)
-    sample_kw = dict(max_new_tokens=new, temperature=0.8, top_k=50,
-                     top_p=0.95, seed=SEED)
-    sampled = engine.generate(prompts, **sample_kw)
-    sampled2 = engine.generate(prompts, **sample_kw)
-    torch.cuda.synchronize()
+    outs, greedy_s = run_generate(torch, engine, prompts, new)
     launches = k1.packed_flash_attention_fwd.launches
 
     check(per_call == [cfg.n_layer] * n_fwd and launches == sum(per_call),
@@ -521,43 +1018,18 @@ def main():
     model_x = GPT2Model(dataclasses.replace(cfg, attn_backend="xla"),
                         generator=torch.Generator().manual_seed(SEED))
     engine_x = deepspeed_tpu_torch.init_inference(model_x, {"dtype": "bf16"})
-    logits_x = engine_x(ids)
-    diff = (logits.float() - logits_x.float()).abs()
-    mean_abs, max_abs = diff.mean().item(), diff.max().item()
-    agree = (logits.argmax(-1) == logits_x.argmax(-1)).float().mean().item()
-    check(mean_abs <= LOGITS_TOL["mean_abs"] and
-          max_abs <= LOGITS_TOL["max_abs"],
-          f"K1 logits vs plain path: mean {mean_abs} max {max_abs} "
-          f"(tol {LOGITS_TOL})")
-    phase("main vs plain path", mean_abs=mean_abs, max_abs=max_abs,
-          argmax_agree=agree, tol=json.dumps(LOGITS_TOL))
-    del logits, logits_x, diff
+    compare_logits(torch, "main vs plain path", logits, engine_x(ids),
+                   LOGITS_TOL)
+    del logits
 
-    shape = (prompts.shape[0], prompts.shape[1] + new)
-    for name, out in (("greedy", greedy), ("sampled", sampled)):
-        check(tuple(out.shape) == shape, f"{name} shape {tuple(out.shape)}")
-        check(torch.equal(out[:, :128].cpu(), prompts),
-              f"{name} lost its prompt")
-        check(0 <= int(out.min()) and int(out.max()) < cfg.vocab_size,
-              f"{name} token out of the vocab")
-    check(torch.equal(greedy, greedy2), "greedy streams differ across runs")
-    check(torch.equal(sampled, sampled2),
-          "sampled streams differ for one seed")
-    # greedy tokens against the full-forward argmax where it is clear
-    full = engine_x(greedy[:, :-1])[:, 127:, :cfg.vocab_size].float()
-    top2 = full.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > ARGMAX_MARGIN
-    match = full.argmax(-1) == greedy[:, 128:]
-    checked = int(clear.sum())
-    check(checked > 0 and bool(match[clear].all()),
-          f"greedy tokens disagree with the full forward at "
-          f"{int((~match & clear).sum())} of {checked} clear positions")
-    phase("main generate", requests=shape[0], prompt=128, new_tokens=new,
-          greedy_seconds=round(greedy_s, 4),
-          tokens_per_s=round(shape[0] * new / greedy_s, 1),
+    checked = check_streams(torch, "main generate", engine_x, prompts, outs,
+                            cfg.vocab_size, ARGMAX_MARGIN)
+    phase("main generate", requests=prompts.shape[0], prompt=128,
+          new_tokens=new, greedy_seconds=round(greedy_s, 4),
+          tokens_per_s=round(prompts.shape[0] * new / greedy_s, 1),
           greedy_repeat_equal=True, sampled_same_seed_equal=True,
           greedy_vs_forward_checked=checked,
-          sampled_differs_from_greedy=not torch.equal(sampled, greedy))
+          sampled_differs_from_greedy=not torch.equal(outs[2], outs[0]))
     # after the launch counts were read: this call's launches are not counted
     profile_forward(torch, engine, ids)
     del engine, engine_x, model, model_x
@@ -572,25 +1044,40 @@ def main():
     torch.cuda.empty_cache()
     train_converges(torch, cfg, t)
 
-    kernels = [{
-        "name": "flash_attention_packed_fwd", "route": "cuda",
-        "source": "deepspeed_tpu_torch/csrc/flash_attention_packed.cu",
-        "replaces": "deepspeed_tpu/ops/pallas/flash_attention_packed.py:65",
-        "launches": launches + train_launches["K1"],
-        "max_abs_err": main_case["err_out"],
-        "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}, {
-        "name": "flash_attention_packed_bwd", "route": "cuda",
-        "source": "deepspeed_tpu_torch/csrc/flash_attention_packed_bwd.cu",
-        "replaces": "deepspeed_tpu/ops/pallas/flash_attention_packed.py:148",
-        "launches": train_launches["K2"],
-        "max_abs_err": max(main_k2[k] for k in ("err_dq", "err_dk",
-                                                 "err_dv")),
-        "ms": main_k2["kernel_ms"], "plain_ms": main_k2["plain_ms"],
-        "bound_ms": main_k2["bound_ms"], "bound_by": main_k2["bound_by"],
-        "library_ms": main_k2["library_ms"]}]
+    # ---- LLaMA: serving at full depth, training at 4 layers, GQA
+    llama_fwd_launches = llama_serve(torch)
+    llama_train_launches = llama_train(torch)
+    llama_gqa(torch)
+
+    def entry(name, source, replaces, launches, res, err):
+        return {"name": name, "route": "cuda",
+                "source": f"deepspeed_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": res["kernel_ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"],
+                "library_ms": res["library_ms"]}
+
+    def bwd_err(res):
+        return max(res[k] for k in ("err_dq", "err_dk", "err_dv"))
+
+    pallas = "deepspeed_tpu/ops/pallas"
+    kernels = [
+        entry("flash_attention_packed_fwd", "flash_attention_fwd.cu",
+              f"{pallas}/flash_attention_packed.py:65",
+              launches + train_launches["K1"], main_case,
+              main_case["err_out"]),
+        entry("flash_attention_packed_bwd", "flash_attention_bwd.cu",
+              f"{pallas}/flash_attention_packed.py:148",
+              train_launches["K2"], main_k2, bwd_err(main_k2)),
+        entry("flash_attention_fwd", "flash_attention_fwd.cu",
+              f"{pallas}/flash_attention.py:141",
+              llama_fwd_launches + llama_train_launches["K3"], main_k3,
+              main_k3["err_out"]),
+        entry("flash_attention_bwd", "flash_attention_bwd.cu",
+              f"{pallas}/flash_attention.py:222 (K3b); "
+              f"{pallas}/flash_attention.py:329,358 (K5)",
+              llama_train_launches["K3b/K5"], main_k3b, bwd_err(main_k3b))]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

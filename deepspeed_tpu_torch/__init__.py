@@ -5,8 +5,8 @@ The JAX package ``deepspeed_tpu`` is the reference this port is held
 against; the port imports neither JAX nor that package. Its kernels are
 hand-written for ``sm_90a`` (``csrc/``) and built by ``nvcc`` at first use
 (``ops/kernel_build.py``); each has a plain PyTorch version that tensors on
-the CPU take. It serves GPT-2 through ``init_inference`` and trains it
-through ``initialize`` -> ``DeepSpeedEngine.train_batch``.
+the CPU take. It serves GPT-2 and LLaMA through ``init_inference`` and
+trains them through ``initialize`` -> ``DeepSpeedEngine.train_batch``.
 """
 
 __version__ = "0.1.0"
@@ -17,7 +17,8 @@ from .utils.logging import logger, log_dist  # noqa: E402
 def init_inference(model, config=None, device=None, **kwargs):
     """Initialise the inference engine, as ``deepspeed_tpu.init_inference``.
 
-    ``model`` is a deepspeed_tpu_torch model (e.g. ``GPT2Model``);
+    ``model`` is a deepspeed_tpu_torch model (``GPT2Model``,
+    ``LlamaModel``);
     ``config`` a dict (merged with ``kwargs``) or a
     ``DeepSpeedInferenceConfig``. The engine runs on ``cuda`` unless
     ``device`` says otherwise, and raises when no GPU is present."""

@@ -1,24 +1,33 @@
-// Shared pieces of the packed flash attention kernels (K1 forward in
-// flash_attention_packed.cu, K2 backward in flash_attention_packed_bwd.cu):
-// the tile shape, the masked-logit fill and the conversions between the
-// input types and float32 (round to nearest even), written with the
-// intrinsics only.
+// Shared pieces of the flash attention kernels (the forward in
+// flash_attention_fwd.cu, the backward in flash_attention_bwd.cu): the
+// thread layout, the per-tensor strides, the masked-logit fill, the tile
+// loader and the conversions between the input types and float32 (round to
+// nearest even), written with the intrinsics only.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace dstorch_attn {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
-// thread (tr, tc) owns tile rows tr + 16 * i (i < 4) and columns tc + 8 * j
+// thread (tr, tc) of a block owns tile rows tr + 16 * i and columns tc + 8 * j
 constexpr int kRowGroups = kThreads / 8;
-constexpr int kRowsPerThread = kBlockQ / kRowGroups;
-constexpr int kColsPerThread = kBlockK / 8;
 constexpr float kNegInf = -1e30f;
+
+// (batch, head, token) strides of one [B, H, T, D]-indexed tensor, in
+// elements; the head dim has unit stride. The packed [B, T, H*D] layout is
+// (T*H*D, D, H*D), a contiguous [B, H, T, D] is (H*T*D, T*D, D).
+struct HeadStrides {
+  long long b, h, t;
+};
+
+__device__ __forceinline__ long long head_offset(const HeadStrides& s, int b, int h) {
+  return (long long)b * s.b + (long long)h * s.h;
+}
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -44,6 +53,75 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 // causal mask with the optional sliding window: keep 0 <= q - k < window
 __device__ __forceinline__ bool keep_pair(int q_pos, int k_pos, int window) {
   return q_pos >= k_pos && (window <= 0 || q_pos - k_pos < window);
+}
+
+// Row length, in elements, of a shared-memory tile of T holding d8
+// columns: d8 plus a pad that makes the row an odd number of 4-byte words,
+// so that the rows a warp reads at one column fall on distinct banks.
+template <typename T> __host__ __device__ constexpr int tile_ld(int d8) {
+  return d8 + (sizeof(T) == 4 ? 1 : 2);
+}
+
+// rows [off, off + rows) of one head (x already offset to it) into a tile
+// [rows][ld] of the input type: columns [0, d) from x, [d, d8) zero, so that
+// a dot product may run over d8 = d rounded up to 8 columns. Each thread
+// takes 8 adjacent columns at a time and issues their 8 loads before any
+// store: with one element per iteration each load waited on the last
+// (PERF.md).
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ x, long long stride_t,
+                                          int off, int rows, int d, int d8, int ld) {
+  const int chunks = d8 / 8;
+  for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
+    const int r = idx / chunks, c0 = (idx - r * chunks) * 8;
+    const T* src = x + (long long)(off + r) * stride_t + c0;
+    T vals[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) vals[u] = c0 + u < d ? src[u] : from_f32<T>(0.f);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) dst[r * ld + c0 + u] = vals[u];
+  }
+}
+
+// acc[i][j] = sum_c a[row_i][c] * b[col_j][c] in f32 over c < d8 (a
+// multiple of 8) for this thread's rows tr + 16 i of a and rows tc + 8 j of b
+template <typename T, int R, int C>
+__device__ __forceinline__ void tile_dot(float (&acc)[R][C], const T* a, const T* b, int ld,
+                                         int d8, int tr, int tc) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[i][j] = 0.f;
+  for (int c0 = 0; c0 < d8; c0 += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float av[R], bv[C];
+#pragma unroll
+      for (int i = 0; i < R; ++i) av[i] = to_f32<T>(a[(tr + kRowGroups * i) * ld + c0 + u]);
+#pragma unroll
+      for (int j = 0; j < C; ++j) bv[j] = to_f32<T>(b[(tc + 8 * j) * ld + c0 + u]);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// The head-dim ceilings the kernels are built for: f(ceiling, exact) with
+// ceiling the smallest of 64, 128, 256 that holds d, and exact true when d
+// is the ceiling itself, so that the common head dims run with d known at
+// compile time and any other d is masked inside its ceiling.
+template <typename F>
+__host__ int dispatch_head_dim(int d, F&& f) {
+  using std::integral_constant;
+  if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
+  if (d == 64) return f(integral_constant<int, 64>(), std::true_type());
+  if (d == 128) return f(integral_constant<int, 128>(), std::true_type());
+  if (d == 256) return f(integral_constant<int, 256>(), std::true_type());
+  if (d < 64) return f(integral_constant<int, 64>(), std::false_type());
+  if (d < 128) return f(integral_constant<int, 128>(), std::false_type());
+  return f(integral_constant<int, 256>(), std::false_type());
 }
 
 }  // namespace dstorch_attn

@@ -54,7 +54,8 @@ class InferenceEngine:
 
     ``model`` is cast in place to the config dtype (floating parameters
     only) and moved to ``device`` (default ``cuda``). ``params``, a JAX
-    GPT-2 parameter tree of numpy arrays, replaces the module's weights."""
+    parameter tree of the model's family (numpy arrays), replaces the
+    module's weights through the model's own ``load_jax_params``."""
 
     def __init__(self, model, config: DeepSpeedInferenceConfig = None,
                  params=None, device=None):

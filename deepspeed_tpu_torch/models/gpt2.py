@@ -1,16 +1,21 @@
 """GPT-2 family: serving and training.
 
 The JAX package's ``models/gpt2.py`` as an ``nn.Module``: one
-``GPT2Block`` per layer in an ``nn.ModuleList``, each holding the JAX
+``BlockParams`` per layer in an ``nn.ModuleList``, each holding the JAX
 parameter leaves of its layer under the same names and in the same
 ``[in, out]`` layout (``x @ w``), so ``load_jax_params`` copies a JAX tree
-across leaf by leaf. The attention of ``forward``-style calls (scoring and
+across leaf by leaf. The leaf names are the class's ``top_leaves`` and
+``block_leaves``, so a family that subclasses ``GPT2Model`` (LLaMA) loads
+and exports its own tree through the same methods, and the family hooks
+(``_embed``, ``_attn_sublayer``, ``_decode_attn_mask``, ...) are the JAX
+base class's. The attention of ``forward``-style calls (scoring and
 training) takes the packed Hopper kernels whenever ``_packed_attn_ok``
 holds, exactly where the JAX package takes its packed Pallas kernel: K1
 forward, K2 backward, through the autograd ``Function`` of
 ``ops/kernels/flash_attention_packed.py``. The KV-cache path
 (``apply_with_cache``) computes its attention with the plain
-``reference_attention``, as the JAX package does.
+``reference_attention`` under the family's ``_decode_attn_mask``, kv heads
+repeated for grouped-query attention, as the JAX package does.
 
 Training: ``apply(batch)`` is the next-token loss, dense (``_lm_loss``) or
 vocab-chunked (``_chunked_lm_loss``, an autograd ``Function`` that never
@@ -80,13 +85,6 @@ _ACTIVATIONS = {"gelu": me.gelu, "gelu_exact": me.gelu_exact,
                 "relu": me.relu, "silu": me.silu,
                 "quick_gelu": me.quick_gelu}
 
-# JAX leaf names of one layer (the [L, ...] leaves of params["blocks"])
-BLOCK_LEAVES = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "attn_proj_w",
-                "attn_proj_b", "ln2_scale", "ln2_bias", "mlp_fc_w",
-                "mlp_fc_b", "mlp_proj_w", "mlp_proj_b")
-TOP_LEAVES = ("wte", "wpe", "ln_f_scale", "ln_f_bias")
-
-
 def _activation(x, name):
     fn = _ACTIVATIONS.get(name)
     if fn is None:
@@ -94,60 +92,81 @@ def _activation(x, name):
     return fn(x)
 
 
-def _param(*shape, device=None):
-    return nn.Parameter(torch.empty(*shape, device=device))
+def _param(shape, device=None, dtype=None):
+    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype))
 
 
-class GPT2Block(nn.Module):
+class BlockParams(nn.Module):
     """One decoder layer's parameters, named as the JAX leaves."""
 
-    def __init__(self, cfg: GPT2Config, device=None):
+    def __init__(self, shapes, device=None, dtype=None):
         super().__init__()
-        d, f = cfg.n_embd, cfg.mlp_ratio * cfg.n_embd
-        shapes = {"ln1_scale": (d,), "ln1_bias": (d,),
-                  "qkv_w": (d, 3 * d), "qkv_b": (3 * d,),
-                  "attn_proj_w": (d, d), "attn_proj_b": (d,),
-                  "ln2_scale": (d,), "ln2_bias": (d,),
-                  "mlp_fc_w": (d, f), "mlp_fc_b": (f,),
-                  "mlp_proj_w": (f, d), "mlp_proj_b": (d,)}
-        for name in BLOCK_LEAVES:
-            setattr(self, name, _param(*shapes[name], device=device))
+        for name, shape in shapes.items():
+            setattr(self, name, _param(shape, device, dtype))
+
+
+def normal_(p, std, generator):
+    """Fill ``p`` with N(0, std) drawn in float32 by ``generator`` on the
+    generator's own device, then cast to p's dtype and device."""
+    p.copy_(torch.randn(p.shape, generator=generator,
+                        device=generator.device) * std)
 
 
 class GPT2Model(ModelSpec):
-    """GPT-2 with the JAX package's parameter layout. The weights are drawn
-    from ``generator`` (default: seed 0) on the CPU, so one seed gives the
-    same weights whatever the device."""
+    """GPT-2 with the JAX package's parameter layout. The weights are made
+    on ``device`` in ``dtype`` (default: the CPU, float32) and drawn from
+    ``generator`` (default: seed 0 on the CPU) on the generator's device, so
+    one CPU seed gives the same weights whatever the device."""
 
     causal_attention = True
+    # JAX leaf names: top-level leaves, and those of one layer (the
+    # [L, ...] leaves of params["blocks"])
+    top_leaves = ("wte", "wpe", "ln_f_scale", "ln_f_bias")
+    block_leaves = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "attn_proj_w",
+                    "attn_proj_b", "ln2_scale", "ln2_bias", "mlp_fc_w",
+                    "mlp_fc_b", "mlp_proj_w", "mlp_proj_b")
 
     def __init__(self, config: GPT2Config = GPT2_125M,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=None):
         super().__init__()
         self.config = config
-        d = config.n_embd
-        self.wte = _param(config.padded_vocab, d, device=device)
-        self.wpe = _param(config.n_positions + config.pos_offset, d,
-                          device=device)
-        self.blocks = nn.ModuleList(GPT2Block(config, device)
-                                    for _ in range(config.n_layer))
-        self.ln_f_scale = _param(d, device=device)
-        self.ln_f_bias = _param(d, device=device)
+        top, block = self._leaf_shapes()
+        for name in self.top_leaves:
+            setattr(self, name, _param(top[name], device, dtype))
+        self.blocks = nn.ModuleList(
+            BlockParams({n: block[n] for n in self.block_leaves}, device,
+                        dtype) for _ in range(config.n_layer))
         self.init_weights(generator if generator is not None
                           else torch.Generator().manual_seed(0))
+
+    def _leaf_shapes(self):
+        """``(top, block)``: the shape of every JAX leaf by name."""
+        cfg = self.config
+        d, f = cfg.n_embd, cfg.mlp_ratio * cfg.n_embd
+        top = {"wte": (cfg.padded_vocab, d),
+               "wpe": (cfg.n_positions + cfg.pos_offset, d),
+               "ln_f_scale": (d,), "ln_f_bias": (d,)}
+        block = {"ln1_scale": (d,), "ln1_bias": (d,),
+                 "qkv_w": (d, 3 * d), "qkv_b": (3 * d,),
+                 "attn_proj_w": (d, d), "attn_proj_b": (d,),
+                 "ln2_scale": (d,), "ln2_bias": (d,),
+                 "mlp_fc_w": (d, f), "mlp_fc_b": (f,),
+                 "mlp_proj_w": (f, d), "mlp_proj_b": (d,)}
+        return top, block
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()
     def init_weights(self, generator):
         """The JAX init's shapes and stds: N(0, 0.02) for wte, wpe, qkv and
         fc; N(0, 0.02 / sqrt(2 L)) for the two output projections; LN scales
-        1 and every bias 0. Drawn on the CPU from ``generator``."""
+        1 and every bias 0. Drawn from ``generator`` on its device."""
         cfg = self.config
         std = cfg.initializer_range
         proj_std = std / math.sqrt(2 * cfg.n_layer)
 
         def normal(p, s):
-            p.copy_(torch.randn(p.shape, generator=generator) * s)
+            normal_(p, s, generator)
 
         normal(self.wte, std)
         normal(self.wpe, std)
@@ -166,9 +185,11 @@ class GPT2Model(ModelSpec):
 
     @torch.no_grad()
     def load_jax_params(self, tree):
-        """Copy a JAX GPT-2 parameter tree (numpy arrays in the JAX layout:
-        ``wte [Vp, D]``, ``wpe [P, D]``, stacked ``blocks/<leaf> [L, ...]``,
-        ``ln_f_*``) into this module, casting to each parameter's dtype."""
+        """Copy a JAX parameter tree of this family (numpy arrays in the JAX
+        layout: the ``top_leaves``, e.g. GPT-2's ``wte [Vp, D]``,
+        ``wpe [P, D]``, ``ln_f_*``, and the stacked
+        ``blocks/<leaf> [L, ...]`` of ``block_leaves``) into this module,
+        casting to each parameter's dtype."""
         def put(p, value, name):
             value = np.asarray(value)
             if tuple(value.shape) != tuple(p.shape):
@@ -176,14 +197,14 @@ class GPT2Model(ModelSpec):
                                  f"the module wants {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.ascontiguousarray(value)))
 
-        missing = [n for n in TOP_LEAVES if n not in tree] + \
-            [f"blocks/{n}" for n in BLOCK_LEAVES
+        missing = [n for n in self.top_leaves if n not in tree] + \
+            [f"blocks/{n}" for n in self.block_leaves
              if n not in tree.get("blocks", {})]
         if missing:
             raise KeyError(f"JAX parameter tree lacks {missing}")
-        for name in TOP_LEAVES:
+        for name in self.top_leaves:
             put(getattr(self, name), tree[name], name)
-        for name in BLOCK_LEAVES:
+        for name in self.block_leaves:
             stacked = np.asarray(tree["blocks"][name])
             if stacked.shape[0] != len(self.blocks):
                 raise ValueError(f"blocks/{name}: {stacked.shape[0]} layers, "
@@ -193,14 +214,14 @@ class GPT2Model(ModelSpec):
         return self
 
     def jax_params(self):
-        """This module's weights as a JAX GPT-2 parameter tree of float32
-        numpy arrays (the inverse of :meth:`load_jax_params`)."""
+        """This module's weights as a JAX parameter tree of float32 numpy
+        arrays (the inverse of :meth:`load_jax_params`)."""
         def arr(p):
             return p.detach().to("cpu", torch.float32).numpy()
-        tree = {name: arr(getattr(self, name)) for name in TOP_LEAVES}
+        tree = {name: arr(getattr(self, name)) for name in self.top_leaves}
         tree["blocks"] = {
             name: np.stack([arr(getattr(blk, name)) for blk in self.blocks])
-            for name in BLOCK_LEAVES}
+            for name in self.block_leaves}
         return tree
 
     # ------------------------------------------------------------- pieces
@@ -234,9 +255,12 @@ class GPT2Model(ModelSpec):
         """[V, D] weight of the LM head (tied to wte)."""
         return self.wte.to(dtype)
 
-    def _attn_sublayer(self, x, p, attn_fn=None):
+    def _attn_sublayer(self, x, p, attn_fn=None, start_pos=0,
+                       positions=None):
         """ln1 -> qkv -> attention -> proj -> residual. ``attn_fn(q, k, v)``
-        over ``[B, H, T, D]`` replaces the attention (the KV-cache path)."""
+        over ``[B, H, T, D]`` replaces the attention (the KV-cache path).
+        ``start_pos`` and ``positions`` [B, T] are the tokens' positions,
+        which GPT-2 reads in ``_embed`` and rotary families here."""
         cfg = self.config
         b, t, d = x.shape
         h, hd = cfg.n_head, cfg.head_dim
@@ -287,8 +311,9 @@ class GPT2Model(ModelSpec):
         out = hmid @ p.mlp_proj_w.to(hmid.dtype) + p.mlp_proj_b.to(hmid.dtype)
         return x + out
 
-    def _block(self, x, p, attn_fn=None):
-        return self._mlp_sublayer(self._attn_sublayer(x, p, attn_fn), p)
+    def _block(self, x, p, attn_fn=None, start_pos=0, positions=None):
+        return self._mlp_sublayer(
+            self._attn_sublayer(x, p, attn_fn, start_pos, positions), p)
 
     # ------------------------------------------------------------- forward
     def hidden_states(self, input_ids):
@@ -331,8 +356,8 @@ class GPT2Model(ModelSpec):
             unported.append("remat")
         if unported:
             raise NotImplementedError(
-                f"GPT-2 training with {', '.join(unported)} is not ported "
-                f"yet: ROADMAP.md row A2b")
+                f"{type(self).__name__} training with {', '.join(unported)} "
+                f"is not ported yet: ROADMAP.md row A2b")
         input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
         x = self.hidden_states(input_ids)
         return self._head_loss_from_hidden(
@@ -426,17 +451,28 @@ class GPT2Model(ModelSpec):
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
+    def _decode_attn_mask(self, q_pos, k_pos):
+        """Boolean keep-mask over the KV cache for query positions ``q_pos``
+        and cache columns ``k_pos`` (broadcast against each other).
+        Sliding-window families tighten it."""
+        return k_pos <= q_pos
+
     @staticmethod
     def _cache_attn(q, k, v, k_cache, v_cache, start_pos, mask):
         """Write this call's K/V into cache columns ``[start_pos,
         start_pos + T)`` (in place: the cache is the engine's buffer) and
-        attend over the whole cache under ``mask``."""
+        attend over the whole cache under ``mask``. Grouped-query attention:
+        each cached kv head serves ``H / kv_heads`` consecutive query heads
+        (``jnp.repeat`` order 0,0,1,1, not ``Tensor.repeat``'s 0,1,0,1)."""
         t = k.shape[-2]
         k_cache[:, :, start_pos:start_pos + t] = k.to(k_cache.dtype)
         v_cache[:, :, start_pos:start_pos + t] = v.to(v_cache.dtype)
-        return reference_attention(q, k_cache.to(q.dtype),
-                                   v_cache.to(q.dtype), causal=False,
-                                   mask=mask)
+        kq, vq = k_cache.to(q.dtype), v_cache.to(q.dtype)
+        if q.shape[1] != kq.shape[1]:
+            rep = q.shape[1] // kq.shape[1]
+            kq = torch.repeat_interleave(kq, rep, dim=1)
+            vq = torch.repeat_interleave(vq, rep, dim=1)
+        return reference_attention(q, kq, vq, causal=False, mask=mask)
 
     def apply_with_cache(self, input_ids, cache, start_pos: int,
                          pad_counts=None):
@@ -458,16 +494,16 @@ class GPT2Model(ModelSpec):
             positions = torch.clamp_min(steps[None, :] - pad_counts[:, None], 0)
         x = self._embed(input_ids, start_pos=start_pos, positions=positions)
 
-        k_pos = torch.arange(max_len, device=dev)
-        mask = (k_pos[None, :] <= steps[:, None])[None, None]
+        k_pos = torch.arange(max_len, device=dev)[None, :]
+        mask = self._decode_attn_mask(steps[:, None], k_pos)[None, None]
         if pad_counts is not None:     # left-pad columns are never keys
-            pad_valid = k_pos[None, :] >= pad_counts[:, None]
+            pad_valid = k_pos >= pad_counts[:, None]
             mask = mask & pad_valid[:, None, None, :]
         for layer, p in enumerate(self.blocks):
             attn_fn = functools.partial(
                 self._cache_attn, k_cache=cache["k"][layer],
                 v_cache=cache["v"][layer], start_pos=start_pos, mask=mask)
-            x = self._block(x, p, attn_fn)
+            x = self._block(x, p, attn_fn, start_pos, positions)
         x = self._final_norm(x)
         return x @ self._unembed_weight(x.dtype).T, cache
 

@@ -6,15 +6,20 @@ package's: logits filled with -1e30 (not -inf), the causal mask offset by
 ``window``, a boolean ``mask`` and an additive ``bias``, and the default
 scale ``d ** -0.5``.
 
-``flash_attention`` follows the JAX package's dispatch. Where it would take
-the ``[B, H, T, D]`` Pallas kernels (K3/K4 in ROADMAP.md queue B) on a
-device, this port raises ``NotImplementedError``: those kernels are not
-ported yet, and the plain path never stands in for a kernel on the card.
+``flash_attention`` follows the JAX package's dispatch: where the JAX
+package takes its ``[B, H, T, D]`` Pallas kernels, this port takes its
+Hopper kernels (``kernels/flash_attention.py``: K3 forward, the K3b/K5
+backward) on the card, and their plain versions on the CPU, as the JAX
+package runs its kernels in interpret mode there. The streamed regime
+(``T * D * itemsize > 1 MiB``, the TPU's K4/K4b) is not ported and raises
+``NotImplementedError`` on the card; the plain path never stands in for a
+kernel there.
 """
 
 import torch
 
-from .kernels.flash_attention_packed import NEG_INF
+from .kernels import flash_attention as fa
+from .kernels.flash_attention import NEG_INF
 
 
 def reference_attention(q, k, v, causal=True, mask=None, softmax_scale=None,
@@ -60,22 +65,31 @@ def supported(q, k, causal=True, mask=None, window=None) -> bool:
     return t >= 128 and t % 128 == 0 and d % 8 == 0 and d <= 256
 
 
-def _not_ported(q):
-    row = "A4" if q.shape[-2] * q.shape[-1] * q.element_size() > 1 << 20 \
-        else "A3"
-    return NotImplementedError(
-        f"the [B, H, T, D] flash attention kernels (K3/K4) are not ported to "
-        f"CUDA yet: ROADMAP.md row {row}; this shape "
-        f"{tuple(q.shape)} has no kernel on the card")
+# above this K/V footprint per head the JAX package streams K/V through its
+# grid (K4/K4b) instead of keeping it resident (K3/K3b/K5)
+_RESIDENT_MAX_KV_BYTES = 1 << 20
+
+
+def _kernel_path(q, k, v, causal, softmax_scale, window):
+    """The kernels, or on the CPU their plain versions. The streamed regime
+    raises on any other device."""
+    if q.device.type != "cpu" and \
+            q.shape[-2] * q.shape[-1] * q.element_size() > \
+            _RESIDENT_MAX_KV_BYTES:
+        raise NotImplementedError(
+            f"the streamed flash attention kernels (K4/K4b, "
+            f"T*D*itemsize > 1 MiB) are not ported to CUDA yet: ROADMAP.md "
+            f"row A4; this shape {tuple(q.shape)} has no kernel on the card")
+    return fa.flash_attention(q, k, v, causal, softmax_scale, window)
 
 
 def flash_attention(q, k, v, causal=True, mask=None, softmax_scale=None,
                     backend="auto", bias=None, window=None):
-    """Dispatch as the JAX package does. ``backend="pallas"`` raises on an
-    unsupported call; ``"xla"`` forces the plain path; ``"auto"`` takes the
-    kernel path for supported shapes on the card and the plain path
-    elsewhere (with a one-time warning on the card)."""
-    on_card = q.device.type == "cuda"
+    """Dispatch as the JAX package does. ``backend="pallas"`` takes the
+    kernel path and raises on an unsupported call; ``"xla"`` forces the
+    plain path; ``"auto"`` takes the kernel path for supported shapes on the
+    card and the plain path elsewhere (with a one-time warning on the
+    card)."""
     if backend == "pallas":
         if bias is not None or not supported(q, k, causal, mask, window):
             raise ValueError(
@@ -84,13 +98,12 @@ def flash_attention(q, k, v, causal=True, mask=None, softmax_scale=None,
                 f"mask={'yes' if mask is not None else 'no'} "
                 f"bias={'yes' if bias is not None else 'no'} "
                 f"window={window}); pass backend='xla' explicitly")
-        if on_card:
-            raise _not_ported(q)
-    elif backend == "auto" and on_card:
+        return _kernel_path(q, k, v, causal, softmax_scale, window)
+    if backend == "auto" and q.device.type == "cuda":
         if bias is None and supported(q, k, causal, mask, window):
-            raise _not_ported(q)
+            return _kernel_path(q, k, v, causal, softmax_scale, window)
         _warn_plain_fallback(q, bias)
-    if backend not in ("auto", "xla", "pallas"):
+    if backend not in ("auto", "xla"):
         raise ValueError(f"unknown attention backend {backend!r}")
     return reference_attention(q, k, v, causal=causal, mask=mask,
                                softmax_scale=softmax_scale, bias=bias,

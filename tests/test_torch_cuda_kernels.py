@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from deepspeed_tpu_torch.ops import flash_attention as dispatch
+from deepspeed_tpu_torch.ops.kernels import flash_attention as tfk
 from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as tfa
 
 B, T, H, D = 2, 256, 4, 64
@@ -102,8 +105,10 @@ def test_flash_attention_packed_refuses_on_the_card(cuda_device):
     q, k, v = _qkv(cuda_device, torch.bfloat16)
     with pytest.raises(ValueError, match="does not support"):
         tfa.packed_flash_attention_fwd(q[:, :96], k[:, :96], v[:, :96], H)
-    with pytest.raises(ValueError, match="strides"):
-        tfa.packed_flash_attention_fwd(q, k.contiguous(), v, H)
+    # a head dim that is not the innermost (unit stride) one
+    k_cols = k.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="unit last stride"):
+        tfa.packed_flash_attention_fwd(q, k_cols, v, H)
 
 
 @pytest.mark.cuda
@@ -182,3 +187,126 @@ def test_train_batch_launches_k1_and_k2_per_layer_and_micro(cuda_device):
     assert tfa.packed_flash_attention_bwd.launches - before[1] == 2 * gas
     assert np.isfinite(loss.item())
     assert np.isfinite(float(engine.get_global_grad_norm()))
+
+
+# ------------------------------------------------- K3 and the K3b/K5 backward
+
+def _bhtd(device, dtype, shape, seed, layout="bhtd"):
+    """q, k, v [B, H, T, D]: contiguous, or views of [B, T, H, D] buffers
+    (the layout the LLaMA block hands the kernels)."""
+    rng = np.random.default_rng(seed)
+    b, h, t, d = shape
+    out = []
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal((b, t, h, d)) * 0.5)
+        x = x.to(device, dtype).transpose(1, 2)
+        out.append(x.contiguous() if layout == "bhtd" else x)
+    return out
+
+
+# K3 vs plain (max abs error of out, of lse): as K1's
+K3_TOL = {torch.float32: (5e-5, 1e-4), torch.bfloat16: (2e-2, 1e-2),
+          torch.float16: (2e-2, 1e-2)}
+K3_CASES = [(True, None, None), (True, 96, None), (False, None, None),
+            (True, None, 0.05)]
+
+
+def _k3_case(device, dtype, shape, causal, window, scale, layout="bhtd",
+             seed=7):
+    q, k, v = _bhtd(device, dtype, shape, seed, layout)
+    before = tfk.flash_attention_fwd.launches
+    out, lse = tfk.flash_attention_fwd(q, k, v, causal, scale, window)
+    want_out, want_lse = tfk.flash_attention_plain(q, k, v, causal, scale,
+                                                   window)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dout = torch.randn(out.shape, generator=gen, device=device).to(dtype)
+    got = tfk.flash_attention_bwd(q, k, v, out, lse, dout, causal, scale,
+                                  window)
+    delta = tfk.attention_delta(out, dout)
+    want = tfk.flash_attention_bwd_plain(q, k, v, dout, lse, delta, causal,
+                                         scale, window)
+    torch.cuda.synchronize()
+    assert tfk.flash_attention_fwd.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    fwd_err = ((out.float() - want_out.float()).abs().max().item(),
+               (lse - want_lse).abs().max().item())
+    bwd_err = [(g.float() - w.float()).abs().max().item()
+               for g, w in zip(got, want)]
+    return fwd_err, bwd_err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal,window,scale", K3_CASES)
+def test_flash_attention_matches_plain(cuda_device, dtype, causal, window,
+                                       scale):
+    (e_out, e_lse), bwd = _k3_case(cuda_device, dtype, (2, 4, 256, 64),
+                                   causal, window, scale)
+    tol_out, tol_lse = K3_TOL[dtype]
+    assert e_out <= tol_out and e_lse <= tol_lse, (e_out, e_lse)
+    assert max(bwd) <= K2_TOL[dtype], bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 16, 80, 128, 200, 256])
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+def test_flash_attention_head_dims_and_layouts(cuda_device, dtype, d,
+                                               layout):
+    """Every head-dim ceiling (64, 128, 256), exact and with a masked
+    runtime d, on contiguous and on [B, T, H, D]-strided inputs; window
+    100."""
+    (e_out, e_lse), bwd = _k3_case(cuda_device, dtype, (2, 2, 256, d), True,
+                                   100, None, layout)
+    tol_out, tol_lse = K3_TOL[dtype]
+    assert e_out <= tol_out and e_lse <= tol_lse, (e_out, e_lse)
+    assert max(bwd) <= K2_TOL[dtype], bwd
+
+
+@pytest.mark.cuda
+def test_dispatch_streamed_regime_raises_on_the_card(cuda_device):
+    q = torch.zeros((1, 1, 8192, 128), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="A4"):
+        dispatch.flash_attention(q, q, q, backend="pallas")
+
+
+TINY_LLAMA = LlamaConfig(vocab_size=256, n_positions=256, n_embd=128,
+                         n_layer=2, n_head=4, n_kv_head=2, mlp_hidden=192,
+                         pad_vocab_to_multiple=8, sliding_window=100)
+
+
+@pytest.mark.cuda
+def test_llama_forward_launches_k3_per_layer_and_never_k1(cuda_device):
+    model = LlamaModel(TINY_LLAMA, device=cuda_device).to(torch.bfloat16)
+    ids = torch.randint(0, 256, (2, 128), device=cuda_device)
+    before = (tfk.flash_attention_fwd.launches,
+              tfa.packed_flash_attention_fwd.launches)
+    with torch.inference_mode():
+        logits = model.logits(ids)
+    torch.cuda.synchronize()
+    assert tfk.flash_attention_fwd.launches - before[0] == TINY_LLAMA.n_layer
+    assert tfa.packed_flash_attention_fwd.launches == before[1]
+    assert torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.cuda
+def test_llama_train_batch_launches_k3_forward_and_backward(cuda_device):
+    import deepspeed_tpu_torch
+    gas, micro = 2, 2
+    engine = deepspeed_tpu_torch.initialize(
+        model=LlamaModel(TINY_LLAMA), config={
+            "train_batch_size": gas * micro,
+            "train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "bf16": {"enabled": True}, "steps_per_print": 0})[0]
+    ids = np.random.default_rng(0).integers(0, 256, (gas, micro, 128))
+    before = (tfk.flash_attention_fwd.launches,
+              tfk.flash_attention_bwd.launches)
+    loss = engine.train_batch(batch={"input_ids": ids})
+    torch.cuda.synchronize()
+    want = TINY_LLAMA.n_layer * gas
+    assert tfk.flash_attention_fwd.launches - before[0] == want
+    assert tfk.flash_attention_bwd.launches - before[1] == want
+    assert np.isfinite(loss.item())

@@ -74,10 +74,10 @@ def _port_tree(engine):
 
 
 def _assert_trees_close(got, want, atol, rtol=0):
-    for name in tgpt2.TOP_LEAVES:
+    for name in tgpt2.GPT2Model.top_leaves:
         np.testing.assert_allclose(got[name], np.asarray(want[name]),
                                    atol=atol, rtol=rtol, err_msg=name)
-    for name in tgpt2.BLOCK_LEAVES:
+    for name in tgpt2.GPT2Model.block_leaves:
         np.testing.assert_allclose(got["blocks"][name],
                                    np.asarray(want["blocks"][name]),
                                    atol=atol, rtol=rtol, err_msg=name)

@@ -108,8 +108,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(kernel_build.shutil, "which", lambda _: None)
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
-    assert "flash_attention_packed" in kernel_build.sources()
-    path = kernel_build.library_path("flash_attention_packed")
+    assert {"flash_attention_fwd", "flash_attention_bwd"} <= \
+        set(kernel_build.sources())
+    path = kernel_build.library_path("flash_attention_fwd")
     assert path.parent == tmp_path and path.suffix == ".so"
     with pytest.raises(kernel_build.KernelBuildError, match="nvcc"):
         kernel_build.build()

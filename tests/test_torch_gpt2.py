@@ -62,9 +62,9 @@ def test_params_round_trip_and_init_shapes():
     tree = _tree()
     back = tmodel.load_jax_params(tree).jax_params()
     assert back.keys() == tree.keys()
-    for name in tgpt2.TOP_LEAVES:
+    for name in tgpt2.GPT2Model.top_leaves:
         np.testing.assert_array_equal(back[name], tree[name])
-    for name in tgpt2.BLOCK_LEAVES:
+    for name in tgpt2.GPT2Model.block_leaves:
         np.testing.assert_array_equal(back["blocks"][name],
                                       tree["blocks"][name])
     # a fresh module has the JAX init's shapes and stds

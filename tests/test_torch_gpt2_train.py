@@ -80,11 +80,11 @@ def _port_loss_and_grads(kw, tree, batch):
     loss.backward()
     assert tfa.packed_flash_attention_fwd.launches == before  # CPU: plain
     grads = {name: getattr(model, name).grad.numpy()
-             for name in tgpt2.TOP_LEAVES}
+             for name in tgpt2.GPT2Model.top_leaves}
     grads["blocks"] = {
         name: np.stack([getattr(blk, name).grad.numpy()
                         for blk in model.blocks])
-        for name in tgpt2.BLOCK_LEAVES}
+        for name in tgpt2.GPT2Model.block_leaves}
     return loss, grads
 
 
@@ -96,10 +96,10 @@ def test_apply_loss_and_every_gradient_match_jax(kw):
     loss, got = _port_loss_and_grads(kw, tree, batch)
     assert loss.dtype == torch.float32 and loss.dim() == 0
     np.testing.assert_allclose(loss.item(), want_loss, rtol=LOSS_TOL)
-    for name in tgpt2.TOP_LEAVES:
+    for name in tgpt2.GPT2Model.top_leaves:
         np.testing.assert_allclose(got[name], want[name], atol=GRAD_TOL,
                                    rtol=1e-4, err_msg=name)
-    for name in tgpt2.BLOCK_LEAVES:
+    for name in tgpt2.GPT2Model.block_leaves:
         np.testing.assert_allclose(got["blocks"][name],
                                    want["blocks"][name], atol=GRAD_TOL,
                                    rtol=1e-4, err_msg=f"blocks/{name}")
