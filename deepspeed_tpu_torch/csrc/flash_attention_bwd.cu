@@ -73,6 +73,7 @@ struct BwdArgs {
   int seq, n_head, d;
   float scale;
   int causal, window;
+  bool vec;  // q, k, v, dout chunks_aligned
 };
 
 // rows of a block's own tile (k rows in dkdv, q rows in dq) and of the
@@ -151,9 +152,9 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(BwdArgs a) {
   const float* delta = a.delta + (long long)bh * a.seq;
 
   load_tile<T>(ks, static_cast<const T*>(a.k) + head_offset(a.sk, b, h), a.sk.t, k_off, kK, d,
-               d8, ld);
+               d8, ld, a.vec);
   load_tile<T>(vs, static_cast<const T*>(a.v) + head_offset(a.sv, b, h), a.sv.t, k_off, kK, d,
-               d8, ld);
+               d8, ld, a.vec);
 
   float dk[kR][kCols], dv[kR][kCols];
 #pragma unroll
@@ -174,8 +175,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(BwdArgs a) {
   for (int i = i0; i < i1; ++i) {
     const int q_off = i * kQ;
     __syncthreads();  // the previous q tile's readers are done
-    load_tile<T>(qs, q, a.sq.t, q_off, kQ, d, d8, ld);
-    load_tile<T>(dos, dout, a.sdo.t, q_off, kQ, d, d8, ld);
+    load_tile<T>(qs, q, a.sq.t, q_off, kQ, d, d8, ld, a.vec);
+    load_tile<T>(dos, dout, a.sdo.t, q_off, kQ, d, d8, ld, a.vec);
     if (tid < kQ) {
       lse_s[tid] = lse[q_off + tid];
       delta_s[tid] = delta[q_off + tid];
@@ -273,9 +274,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   const T* v = static_cast<const T*>(a.v) + head_offset(a.sv, b, h);
 
   load_tile<T>(qs, static_cast<const T*>(a.q) + head_offset(a.sq, b, h), a.sq.t, q_off, kQ, d,
-               d8, ld);
+               d8, ld, a.vec);
   load_tile<T>(dos, static_cast<const T*>(a.dout) + head_offset(a.sdo, b, h), a.sdo.t, q_off,
-               kQ, d, d8, ld);
+               kQ, d, d8, ld, a.vec);
   float lse_r[kR], delta_r[kR];
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
@@ -301,8 +302,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   for (int j = j0; j < nk; ++j) {
     const int k_off = j * kK;
     __syncthreads();  // the previous k tile's readers are done
-    load_tile<T>(ks, k, a.sk.t, k_off, kK, d, d8, ld);
-    load_tile<T>(vs, v, a.sv.t, k_off, kK, d, d8, ld);
+    load_tile<T>(ks, k, a.sk.t, k_off, kK, d, d8, ld, a.vec);
+    load_tile<T>(vs, v, a.sv.t, k_off, kK, d, d8, ld, a.vec);
     __syncthreads();
 
     // this thread's (q row, k column) pairs
@@ -413,6 +414,9 @@ extern "C" int dstorch_flash_attention_bwd(const void* q, const void* k, const v
   a.scale = scale;
   a.causal = causal;
   a.window = window;
+  const void* inputs[4] = {q, k, v, dout};
+  const HeadStrides input_strides[4] = {a.sq, a.sk, a.sv, a.sdo};
+  a.vec = chunks_aligned(inputs, input_strides, 4, dtype == 0 ? 4 : 2, head_dim);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

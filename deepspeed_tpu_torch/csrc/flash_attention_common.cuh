@@ -9,6 +9,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace dstorch_attn {
@@ -27,6 +29,21 @@ struct HeadStrides {
 
 __device__ __forceinline__ long long head_offset(const HeadStrides& s, int b, int h) {
   return (long long)b * s.b + (long long)h * s.h;
+}
+
+// True when load_tile may read each 8-column chunk of these n tensors with
+// 16-byte loads: d is a multiple of 8, and every base pointer and every
+// (batch, head, token) stride, in bytes, is a multiple of 16.
+inline bool chunks_aligned(const void* const* ptrs, const HeadStrides* strides, int n,
+                           long long itemsize, int d) {
+  if (d % 8 != 0) return false;
+  for (int i = 0; i < n; ++i) {
+    const HeadStrides& s = strides[i];
+    if (reinterpret_cast<std::uintptr_t>(ptrs[i]) % 16 != 0 || s.b * itemsize % 16 != 0 ||
+        s.h * itemsize % 16 != 0 || s.t * itemsize % 16 != 0)
+      return false;
+  }
+  return true;
 }
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
@@ -63,23 +80,40 @@ template <typename T> __host__ __device__ constexpr int tile_ld(int d8) {
 }
 
 // rows [off, off + rows) of one head (x already offset to it) into a tile
-// [rows][ld] of the input type: columns [0, d) from x, [d, d8) zero, so that
-// a dot product may run over d8 = d rounded up to 8 columns. Each thread
-// takes 8 adjacent columns at a time and issues their 8 loads before any
-// store: with one element per iteration each load waited on the last
-// (PERF.md).
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ x, long long stride_t,
-                                          int off, int rows, int d, int d8, int ld) {
+// [rows][ld] of S (the input type T, or f32): columns [0, d) from x, [d, d8)
+// zero, so that a dot product may run over d8 = d rounded up to 8 columns.
+// Each thread takes 8 adjacent columns at a time and issues their loads
+// before any store: with one element per iteration each load waited on the
+// last (PERF.md). With vec (chunks_aligned) the 8 columns come in one
+// 16-byte load (two for f32), so a warp's load covers 512 contiguous bytes
+// instead of one 2-byte column in every 16 bytes of them.
+template <typename T, typename S>
+__device__ __forceinline__ void load_tile(S* dst, const T* __restrict__ x, long long stride_t,
+                                          int off, int rows, int d, int d8, int ld, bool vec) {
+  static_assert(std::is_same_v<S, T> || std::is_same_v<S, float>, "tiles: input type or f32");
   const int chunks = d8 / 8;
   for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
     const int r = idx / chunks, c0 = (idx - r * chunks) * 8;
     const T* src = x + (long long)(off + r) * stride_t + c0;
     T vals[8];
+    if (vec) {
+      constexpr int kLoads = sizeof(T) / 2;
+      uint4 raw[kLoads];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) vals[u] = c0 + u < d ? src[u] : from_f32<T>(0.f);
+      for (int w = 0; w < kLoads; ++w) raw[w] = reinterpret_cast<const uint4*>(src)[w];
+      memcpy(vals, raw, sizeof(vals));
+    } else {
 #pragma unroll
-    for (int u = 0; u < 8; ++u) dst[r * ld + c0 + u] = vals[u];
+      for (int u = 0; u < 8; ++u) vals[u] = c0 + u < d ? src[u] : from_f32<T>(0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if constexpr (std::is_same_v<S, T>) {
+        dst[r * ld + c0 + u] = vals[u];
+      } else {
+        dst[r * ld + c0 + u] = to_f32<T>(vals[u]);
+      }
+    }
   }
 }
 

@@ -29,12 +29,13 @@
 // its Q tile and running m/l/acc on chip and streams 64-row K/V tiles
 // through shared memory, so no [T, T] score matrix leaves the SM; the K
 // loop stops at the diagonal (causal) and starts at the window's first
-// tile. The Q, K and V tiles stay in the input type and are widened as they
-// are read: in bf16 at D = 128 that fits two blocks on an SM where f32 tiles
-// (116 KB) fit one, and it measured faster than f32 tiles at both D = 64
-// and D = 128 (PERF.md). The TPU kernel's bq 512/256 and bk 256/128 were
-// VMEM choices and are not copied. wgmma, TMA and warp specialisation are
-// later work.
+// tile. The tile type is chosen per head-dim ceiling (FwdTile): at 64 the
+// tiles are f32, widened once as they are loaded (66.5 KB, three blocks an
+// SM), so the inner products read them with no conversion; at 128 and 256
+// they stay in the input type and are widened as they are read, which in
+// bf16 at D = 128 fits two blocks on an SM where f32 tiles (116 KB) fit one
+// (PERF.md). The TPU kernel's bq 512/256 and bk 256/128 were VMEM choices
+// and are not copied. wgmma, TMA and warp specialisation are later work.
 
 #include "flash_attention_common.cuh"
 
@@ -57,6 +58,7 @@ struct FwdArgs {
   int seq, n_head, d;
   float scale;
   int causal, window;
+  bool vec;  // q, k, v chunks_aligned
 };
 
 // sum / max over the 8 threads (consecutive lanes) that share a row
@@ -71,25 +73,31 @@ __device__ __forceinline__ float row_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-// Q, K, V tiles [64][ld] and the P tile [64][64 + 1], all f32 (the odd row
-// lengths keep rows on distinct banks)
-template <typename T>
+// The shared-memory type of the Q, K and V tiles: f32 at the 64 ceiling,
+// the input type above it (see the head of this file)
+template <typename T, int DMAX>
+using FwdTile = std::conditional_t<DMAX <= 64, float, T>;
+
+// Q, K, V tiles [64][ld] in the tile type S and the P tile [64][64 + 1] in
+// f32 (the odd row lengths, in 4-byte words, keep rows on distinct banks)
+template <typename S>
 size_t smem_bytes(int d8) {
-  return sizeof(T) * 3 * kBlockQ * tile_ld<T>(d8) + sizeof(float) * kBlockQ * (kBlockK + 1);
+  return sizeof(S) * 3 * kBlockQ * tile_ld<S>(d8) + sizeof(float) * kBlockQ * (kBlockK + 1);
 }
 
 // EXACT: d == DMAX, known at compile time; otherwise d < DMAX is masked
 template <typename T, int DMAX, bool EXACT>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
+  using S = FwdTile<T, DMAX>;
   constexpr int kPld = kBlockK + 1;
   constexpr int kOutCols = DMAX / 8;
   const int d = EXACT ? DMAX : a.d;
   const int d8 = EXACT ? DMAX : (d + 7) & ~7;
-  const int ld = tile_ld<T>(d8);
+  const int ld = tile_ld<S>(d8);
   extern __shared__ float smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + kBlockQ * ld;
-  T* vs = ks + kBlockK * ld;
+  S* qs = reinterpret_cast<S*>(smem);
+  S* ks = qs + kBlockQ * ld;
+  S* vs = ks + kBlockK * ld;
   float* ps = reinterpret_cast<float*>(vs + kBlockK * ld);
 
   const int tid = threadIdx.x;
@@ -104,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
   const T* k = static_cast<const T*>(a.k) + head_offset(a.sk, b, h);
   const T* v = static_cast<const T*>(a.v) + head_offset(a.sv, b, h);
 
-  load_tile<T>(qs, q, a.sq.t, q_off, kBlockQ, d, d8, ld);
+  load_tile<T>(qs, q, a.sq.t, q_off, kBlockQ, d, d8, ld, a.vec);
 
   float m[kRowsPerThread], l[kRowsPerThread], acc[kRowsPerThread][kOutCols];
 #pragma unroll
@@ -125,8 +133,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
   for (int j = j0; j < nk; ++j) {
     const int k_off = j * kBlockK;
     __syncthreads();  // the previous tile's readers are done with ks/vs/ps
-    load_tile<T>(ks, k, a.sk.t, k_off, kBlockK, d, d8, ld);
-    load_tile<T>(vs, v, a.sv.t, k_off, kBlockK, d, d8, ld);
+    load_tile<T>(ks, k, a.sk.t, k_off, kBlockK, d, d8, ld, a.vec);
+    load_tile<T>(vs, v, a.sv.t, k_off, kBlockK, d, d8, ld, a.vec);
     __syncthreads();
 
     float s[kRowsPerThread][kColsPerThread];
@@ -172,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
       for (int c = 0; c < kOutCols; ++c) {
         const int col = tc + 8 * c;
         if (col < d) {
-          const float vv = to_f32<T>(vs[kk * ld + col]);
+          const float vv = to_f32<S>(vs[kk * ld + col]);
 #pragma unroll
           for (int i = 0; i < kRowsPerThread; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
         }
@@ -197,14 +205,15 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
 
 template <typename T, int DMAX, bool EXACT>
 int launch(const FwdArgs& a, int batch, cudaStream_t stream) {
+  using S = FwdTile<T, DMAX>;
   // the ceiling's shared memory is the most any d under it asks for
   cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, DMAX, EXACT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes<T>(DMAX));
+                                         (int)smem_bytes<S>(DMAX));
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(batch * a.n_head, a.seq / kBlockQ);
   fwd_kernel<T, DMAX, EXACT>
-      <<<grid, kThreads, smem_bytes<T>((a.d + 7) & ~7), stream>>>(a);
+      <<<grid, kThreads, smem_bytes<S>((a.d + 7) & ~7), stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -239,6 +248,9 @@ extern "C" int dstorch_flash_attention_fwd(const void* q, const void* k, const v
   a.scale = scale;
   a.causal = causal;
   a.window = window;
+  const void* inputs[3] = {q, k, v};
+  const HeadStrides input_strides[3] = {a.sq, a.sk, a.sv};
+  a.vec = chunks_aligned(inputs, input_strides, 3, dtype == 0 ? 4 : 2, head_dim);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -6,12 +6,14 @@ at the repository root. The library's file name carries a hash of its
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. ``build()`` starts one
 ``nvcc`` per source, all at once. A failed build raises
-:class:`KernelBuildError`; there is no fallback.
+:class:`KernelBuildError`; there is no fallback. ``resource_usage()`` gives
+each kernel's registers and spills as ``ptxas`` reported them.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,9 +23,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded = {}
+_logs = {}
 _lock = threading.Lock()
 
 
@@ -87,10 +90,47 @@ def build(names=None):
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        _logs[name] = log
         os.replace(tmp, out)   # atomic: a concurrent build never sees half
     if failed:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
     return took
+
+
+_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+
+def _kernel_name(mangled):
+    """``dkdv_kernel<bf16,128,exact>`` for a kernel template instance
+    ``dkdv_kernel<T, DMAX, EXACT>``; other names as they are."""
+    m = re.search(
+        r"([a-z]+_kernel)I(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E",
+        mangled)
+    if m is None:
+        return mangled
+    kind = "exact" if m.group(4) == "1" else "masked"
+    return f"{m.group(1)}<{_TYPES[m.group(2)]},{m.group(3)},{kind}>"
+
+
+def resource_usage(name):
+    """``{kernel: (registers, spill store bytes, spill load bytes)}`` from
+    ``ptxas -v`` of the build of ``csrc/<name>.cu`` made by this process
+    (empty if this process did not build it)."""
+    usage, kernel = {}, None
+    for line in _logs.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            usage[kernel] = [0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and kernel is not None:
+            usage[kernel][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel is not None:
+            usage[kernel][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}
 
 
 def load(name):

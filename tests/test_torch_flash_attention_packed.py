@@ -114,3 +114,24 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert path.parent == tmp_path and path.suffix == ".so"
     with pytest.raises(kernel_build.KernelBuildError, match="nvcc"):
         kernel_build.build()
+
+
+def test_resource_usage_reads_the_ptxas_report(monkeypatch):
+    """Registers and spills per kernel instance, from nvcc's -Xptxas -v
+    report (its log as the build keeps it)."""
+    entry = "_ZN55_GLOBAL__N__7deaa8f6_22_flash_attention_fwd_cu_6cce14ff10"
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{entry}fwd_kernelI13"
+        "__nv_bfloat16Li64ELb1EEEvNS_7FwdArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{entry}dkdv_kernelIfLi256"
+        "ELb0EEEvNS_7BwdArgsE' for 'sm_90a'",
+        "    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers"])
+    monkeypatch.setitem(kernel_build._logs, "flash_attention_fwd", log)
+    assert kernel_build.resource_usage("flash_attention_fwd") == {
+        "fwd_kernel<bf16,64,exact>": (96, 0, 0),
+        "dkdv_kernel<f32,256,masked>": (255, 8, 12)}
+    assert kernel_build.resource_usage("flash_attention_bwd") == {}
