@@ -17,7 +17,18 @@ fp32 masters, AdamW, gradient accumulation); LLaMA-7B through
 ``train_batch`` at 4 layers of its width; each against the plain attention
 path, a repeated batch whose loss must fall, and a profile of each path;
 then LLaMA-2-70B's width at 2 layers with grouped-query attention and a
-sliding window. Every check raises on failure, so the script exits
+sliding window. The streamed regime (K4, K4b: Code Llama 7B's attention at
+T 16384, a 4096 window at T 32768, non-causal, f32) and the block-sparse
+kernels (K6, K7: BERT-large's attention at T 4096 under the Fixed,
+BSLongformer and BigBird layouts, each with its live-tile and live-pair
+densities, and a planted one-tile fault the checks must catch) are
+checked the same way; then Code Llama 7B is served at full depth on
+``[1, 16384]`` and trained at 4 layers of its width, each held against
+the path on the kernels' plain versions, and BERT-large with
+``SparseAttentionUtils``' Fixed sparse surgery is scored at ``[4, 4096]``
+and trained (15% masked positions), held against the dense-masked plain
+path, with a repeated batch at 4 layers and profiles. Every check raises
+on failure, so the script exits
 non-zero without printing a result. The last lines are one JSON
 object describing every kernel, the card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}``. Without a GPU it
@@ -85,6 +96,36 @@ LLAMA_TRAIN_LAYERS, LLAMA_MICRO, LLAMA_GAS, LLAMA_T = 4, 4, 2, 2048
 # 2e-4 moves LLaMA-7B's 4096-wide layers about as far per step as 1e-3
 # moves GPT-2-125M's 768-wide ones
 LLAMA_CONVERGE_LR = 2e-4
+# K4 / K4b checks (the streamed regime, T * D * itemsize > 1 MiB): Code
+# Llama 7B's attention at T 16384, a 4096 window at T 32768, non-causal,
+# f32; timed over (reps, inner, warmup) calls
+K4_CASES = [((1, 32, 16384, 128), "bfloat16", True, None),
+            ((1, 8, 32768, 128), "bfloat16", True, 4096),
+            ((1, 8, 8192, 128), "bfloat16", False, None),
+            ((1, 8, 8192, 64), "float32", True, None)]
+K4_TIMING = (5, 2, 1)
+# Code Llama 7B: served at full depth on [1, 16384]; trained at 4 layers of
+# its width (micro 1, T 16384, gas 2). Its checks hold the kernel path to
+# the path on the kernels' tiled plain versions with LLaMA's limits (bf16
+# drift through 32 layers; the same arithmetic, so the drift is smaller)
+CODELLAMA_T, CODELLAMA_TRAIN_LAYERS = 16384, 4
+# K6 / K7 checks: BERT-large's attention at T 4096 with fine block 16
+K6_SHAPE = (4, 16, 4096, 64)
+K6_CASES = [("fixed", "bfloat16"), ("bslongformer", "bfloat16"),
+            ("bigbird", "bfloat16"), ("fixed", "float32")]
+# BERT-large with the Fixed sparse surgery: scored at [4, 4096] bf16,
+# trained at micro 4, T 4096, gas 2 with 15% masked positions; the gradient
+# and convergence checks at 4 layers of its width
+BERT_T, BERT_MICRO, BERT_GAS, BERT_SMALL_LAYERS = 4096, 4, 2, 4
+BERT_MASK_RATE = 0.15
+# kernel path vs the dense-masked plain path, bf16 logits through 24
+# post-LN layers, with the f32 reference as for LLaMA; gradients of one bf16
+# micro batch at 4 layers as LLaMA's
+BERT_LOGITS_TOL = LLAMA_LOGITS_TOL
+BERT_GRAD_TOL = LLAMA_GRAD_TOL
+# a repeated batch (256 distinct ids) for 10 steps: 1e-3 moves BERT-large's
+# 1024-wide layers about as GPT-2-125M's
+BERT_CONVERGE_LR = 1e-3
 
 
 def phase(name, **fields):
@@ -278,12 +319,12 @@ def check_k2(torch, b, t, h, d, dtype, causal, window):
 
 def sdpa_mask(torch, t, causal, window):
     """SDPA's arguments for the kernels' mask: ``is_causal`` or, with a
-    window, an explicit boolean keep-mask."""
+    window, an explicit boolean keep-mask (0 <= q - k < window), built
+    without a [T, T] index matrix."""
     if window is None:
         return None, causal
-    pos = torch.arange(t, device="cuda")
-    diff = pos[:, None] - pos[None, :]
-    return (diff >= 0) & (diff < window), False
+    keep = torch.ones((t, t), dtype=torch.bool, device="cuda")
+    return keep.tril_().triu_(1 - window), False
 
 
 def k3_inputs(torch, shape, dtype, seed):
@@ -296,12 +337,18 @@ def k3_inputs(torch, shape, dtype, seed):
             for _ in range(3)]
 
 
-def check_k3(torch, shape, dtype, causal, window, scale=None):
-    """K3 against its plain version on the card."""
+def check_k3(torch, shape, dtype, causal, window, scale=None, name="K3",
+             timing=(10, 5, 3)):
+    """K3 (or, past the resident regime, K4: ``name``) against its plain
+    version on the card; ``timing`` is median_ms's (reps, inner, warmup)
+    for the kernel and the library call."""
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     import torch.nn.functional as F
     b, h, t, d = shape
     q, k, v = k3_inputs(torch, shape, dtype, SEED + 7)
+    check(fa.streamed(q) == (name == "K4"),
+          f"{name} check at {shape} {dtype}: streamed regime "
+          f"{fa.streamed(q)}")
     out, lse = fa.flash_attention_fwd(q, k, v, causal, scale, window)
     ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal, scale,
                                                 window)
@@ -309,18 +356,23 @@ def check_k3(torch, shape, dtype, causal, window, scale=None):
     dname = str(dtype).replace("torch.", "")
     err_out, ratio_out = errors(out, ref_out)
     err_lse = (lse - ref_lse).abs().max().item()
-    check(torch.isfinite(out.float()).all().item(), "K3 output not finite")
+    check(torch.isfinite(out.float()).all().item(),
+          f"{name} output not finite")
     check(ratio_out <= 1 and err_lse <= LSE_TOL,
-          f"K3 {dname} {shape} causal={causal} window={window} "
+          f"{name} {dname} {shape} causal={causal} window={window} "
           f"scale={scale}: out err {err_out} (ratio {ratio_out} to TOL "
           f"{TOL[dname]}), lse err {err_lse} (tol {LSE_TOL})")
+    reps, inner, warmup = timing
     kernel_ms = median_ms(torch, lambda: fa.flash_attention_fwd(
-        q, k, v, causal, scale, window))
+        q, k, v, causal, scale, window), reps, inner, warmup)
     plain_ms = median_ms(torch, lambda: fa.flash_attention_plain(
-        q, k, v, causal, scale, window), reps=5, inner=1, warmup=1)
+        q, k, v, causal, scale, window), reps=min(reps, 5), inner=1,
+        warmup=1)
     mask, is_causal = sdpa_mask(torch, t, causal, window)
     library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=is_causal, scale=scale))
+        q, k, v, attn_mask=mask, is_causal=is_causal, scale=scale), reps,
+        inner, warmup)
+    del mask
     itemsize = torch.empty((), dtype=dtype).element_size()
     # q, k, v read and o written once; lse (f32) written
     n_bytes = 4 * b * h * t * d * itemsize + 4 * b * h * t
@@ -333,13 +385,15 @@ def check_k3(torch, shape, dtype, causal, window, scale=None):
            "tol_lse": LSE_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    phase("kernel-check K3", **res)
+    phase(f"kernel-check {name}", **res)
     return res
 
 
-def check_k3_bwd(torch, shape, dtype, causal, window, scale=None):
-    """The K3b/K5 backward against its plain version on the card: K3's
-    output and lse, a random output gradient."""
+def check_k3_bwd(torch, shape, dtype, causal, window, scale=None,
+                 name="K3-bwd", timing=(10, 5, 3)):
+    """The K3b/K5 backward (or K4b past the resident regime: ``name``)
+    against its plain version on the card: the forward's output and lse, a
+    random output gradient."""
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     import torch.nn.functional as F
     b, h, t, d = shape
@@ -362,13 +416,14 @@ def check_k3_bwd(torch, shape, dtype, causal, window, scale=None):
     dname = str(dtype).replace("torch.", "")
     errs, ratios = zip(*(errors(g, w) for g, w in zip(got, want)))
     check(all(torch.isfinite(g.float()).all().item() for g in got),
-          "K3 backward output not finite")
+          f"{name} output not finite")
     check(max(ratios) <= 1,
-          f"K3 backward {dname} {shape} causal={causal} window={window} "
+          f"{name} {dname} {shape} causal={causal} window={window} "
           f"scale={scale}: dq/dk/dv errors {errs}, ratios {ratios} to TOL "
           f"{TOL[dname]}")
-    kernel_ms = median_ms(torch, kernel)
-    plain_ms = median_ms(torch, plain, reps=5, inner=1, warmup=1)
+    reps, inner, warmup = timing
+    kernel_ms = median_ms(torch, kernel, reps, inner, warmup)
+    plain_ms = median_ms(torch, plain, reps=min(reps, 5), inner=1, warmup=1)
     q4, k4, v4 = (x.detach().requires_grad_() for x in (q, k, v))
     mask, is_causal = sdpa_mask(torch, t, causal, window)
 
@@ -380,8 +435,9 @@ def check_k3_bwd(torch, shape, dtype, causal, window, scale=None):
         torch.autograd.grad(sdpa(), (q4, k4, v4), dout)
 
     with torch.no_grad():
-        fwd_ms = median_ms(torch, sdpa)
-    library_ms = median_ms(torch, sdpa_fwd_bwd) - fwd_ms
+        fwd_ms = median_ms(torch, sdpa, reps, inner, warmup)
+    library_ms = median_ms(torch, sdpa_fwd_bwd, reps, inner, warmup) - fwd_ms
+    del mask
     itemsize = torch.empty((), dtype=dtype).element_size()
     # q, k, v, dO read and dq, dk, dv written once; lse and delta (f32) read
     n_bytes = 7 * b * h * t * d * itemsize + 2 * 4 * b * h * t
@@ -397,7 +453,7 @@ def check_k3_bwd(torch, shape, dtype, causal, window, scale=None):
            "library_ms": library_ms, "library": "SDPA fwd+bwd minus fwd",
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    phase("kernel-check K3-bwd", **res)
+    phase(f"kernel-check {name}", **res)
     return res
 
 
@@ -472,8 +528,11 @@ def profile_forward(torch, engine, ids, top=8, name="profile forward"):
 def kernel_group(key):
     """The group a device kernel's time is reported under."""
     name = key.lower()
-    return ("flash attention fwd (K1/K3)" if "fwd_kernel" in name else
-            "flash attention bwd (K2/K3b-K5)" if "dkdv_kernel" in name or
+    return ("block-sparse fwd (K6)" if "sparse_fwd_kernel" in name else
+            "block-sparse bwd (K7)" if "sparse_dkdv_kernel" in name or
+            "sparse_dq_kernel" in name else
+            "flash attention fwd (K1/K3/K4)" if "fwd_kernel" in name else
+            "flash attention bwd (K2/K3b-K5/K4b)" if "dkdv_kernel" in name or
             "dq_kernel" in name else
             "optimizer (foreach)" if "foreach" in name or
             "multi_tensor" in name else
@@ -693,10 +752,11 @@ def run_generate(torch, engine, prompts, new):
     return (greedy, greedy2, sampled, sampled2), greedy_s
 
 
-def compare_logits(torch, name, logits, logits_x, tol, logits_f32=None):
+def compare_logits(torch, name, logits, logits_x, tol, logits_f32=None,
+                   **extra):
     """Kernel-path logits against the plain path's on the same weights;
     with ``logits_f32`` (the plain path in f32), each bf16 path's mean abs
-    error against it too."""
+    error against it too. ``extra`` fields go on the phase line."""
     diff = (logits.float() - logits_x.float()).abs()
     mean_abs, max_abs = diff.mean().item(), diff.max().item()
     agree = (logits.argmax(-1) == logits_x.argmax(-1)).float().mean().item()
@@ -713,7 +773,7 @@ def compare_logits(torch, name, logits, logits_x, tol, logits_f32=None):
           f"{name}: kernel-path logits vs plain path: mean {mean_abs} max "
           f"{max_abs} (tol {tol})")
     phase(name, mean_abs=mean_abs, max_abs=max_abs, argmax_agree=agree,
-          logits_std=logits_x.float().std().item(), **fields,
+          logits_std=logits_x.float().std().item(), **fields, **extra,
           tol=json.dumps(tol))
 
 
@@ -991,6 +1051,668 @@ def llama_gqa(torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------- K6 / K7 block-sparse
+
+def sparsity_config(ops, kind, heads=16):
+    """The layouts of the K6/K7 checks at fine block 16: DeepSpeed's
+    documented ``sparse_attention`` example (Fixed, the BERT-large main
+    path's), BSLongformer and BigBird, where coarse tiles really are
+    skipped."""
+    if kind == "fixed":
+        return ops.FixedSparsityConfig(
+            num_heads=heads, block=16, num_local_blocks=4,
+            num_global_blocks=1, different_layout_per_head=True,
+            num_different_global_patterns=4)
+    if kind == "bslongformer":
+        return ops.BSLongformerSparsityConfig(
+            num_heads=heads, block=16, num_sliding_window_blocks=3,
+            global_block_indices=(0,))
+    return ops.BigBirdSparsityConfig(
+        num_heads=heads, block=16, num_random_blocks=1,
+        num_sliding_window_blocks=3, num_global_blocks=1, seed=0)
+
+
+def sparse_case(torch, kind, shape, dtype, seed):
+    """Inputs of one K6/K7 check: q, k, v as views of [B, T, H, D] buffers
+    (the BERT block's layout), the layout, its device plan and densities."""
+    from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    b, h, t, d = shape
+    layout = sparsity_config(ops, kind, h).make_layout(t)
+    tile = bsa.default_tile(t, 16)
+    plan = bsa.get_plan(layout, 16, tile, "cuda")
+    coarse = bsa.build_plan(layout, 16, tile).coarse
+    q, k, v = k3_inputs(torch, shape, dtype, seed)
+    live = b * int(layout.sum()) * 16 * 16           # live (q, k) pairs
+    visited = b * int(coarse.sum()) * tile * tile    # pairs K6/K7 compute
+    dens = {"layout": kind, "tile": tile,
+            "live_tile_density": float(coarse.mean()),
+            "live_fine_density": float(layout.mean()),
+            "live_pairs": live, "visited_pairs": visited}
+    return q, k, v, layout, plan, dens
+
+
+def check_k6(torch, kind, shape, dtype):
+    """K6 against its plain version on the card; its bound counts the live
+    fine pairs (the function's work), the visited pairs beside it; the
+    library call is SDPA with the layout expanded to a boolean mask."""
+    from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    import torch.nn.functional as F
+    b, h, t, d = shape
+    q, k, v, layout, plan, dens = sparse_case(torch, kind, shape, dtype,
+                                              SEED + 20)
+    scale = d ** -0.5
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, plan, scale)
+    ref_out, ref_lse = bsa.block_sparse_attention_plain(q, k, v, plan, scale)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    err_out, ratio_out = errors(out, ref_out)
+    err_lse = (lse - ref_lse).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(), "K6 output not finite")
+    check(ratio_out <= 1 and err_lse <= LSE_TOL,
+          f"K6 {kind} {dname}: out err {err_out} (ratio {ratio_out} to TOL "
+          f"{TOL[dname]}), lse err {err_lse} (tol {LSE_TOL})")
+    kernel_ms = median_ms(torch, lambda: bsa.block_sparse_attention_fwd(
+        q, k, v, plan, scale))
+    plain_ms = median_ms(torch, lambda: bsa.block_sparse_attention_plain(
+        q, k, v, plan, scale), reps=3, inner=1, warmup=1)
+    mask = torch.from_numpy(ops.layout_to_mask(layout, 16)).cuda()[None]
+    library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
+    del mask
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n_bytes = 4 * b * h * t * d * itemsize + 4 * b * h * t
+    flops = 4 * d * dens["live_pairs"]
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dname] * 1e3
+    res = {"dtype": dname, "shape": list(shape), **dens, "err_out": err_out,
+           "err_lse": err_lse, "ratio_out": ratio_out, "tol": TOL[dname],
+           "tol_lse": LSE_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": "SDPA with the layout mask",
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "visited_bound_ms": 4 * d * dens["visited_pairs"] /
+           PEAK_FLOPS[dname] * 1e3}
+    phase("kernel-check K6", **res)
+    return res
+
+
+def check_k7(torch, kind, shape, dtype):
+    """K7 against its plain version on the card: K6's output and lse, a
+    random output gradient; the library's backward is SDPA with the layout
+    mask, forward + backward minus forward."""
+    from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    import torch.nn.functional as F
+    b, h, t, d = shape
+    q, k, v, layout, plan, dens = sparse_case(torch, kind, shape, dtype,
+                                              SEED + 21)
+    scale = d ** -0.5
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, plan, scale)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    delta = fa.attention_delta(out, dout)
+
+    def kernel():
+        return bsa.block_sparse_attention_bwd(q, k, v, out, lse, dout, plan,
+                                              scale)
+
+    def plain():
+        return bsa.block_sparse_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                                    plan, scale)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    errs, ratios = zip(*(errors(g, w) for g, w in zip(got, want)))
+    check(all(torch.isfinite(g.float()).all().item() for g in got),
+          "K7 output not finite")
+    check(max(ratios) <= 1,
+          f"K7 {kind} {dname}: dq/dk/dv errors {errs}, ratios {ratios} to "
+          f"TOL {TOL[dname]}")
+    kernel_ms = median_ms(torch, kernel)
+    plain_ms = median_ms(torch, plain, reps=3, inner=1, warmup=1)
+    mask = torch.from_numpy(ops.layout_to_mask(layout, 16)).cuda()[None]
+    q4, k4, v4 = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (q4, k4, v4), dout)
+
+    with torch.no_grad():
+        fwd_ms = median_ms(torch, sdpa)
+    library_ms = median_ms(torch, sdpa_fwd_bwd) - fwd_ms
+    del mask
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n_bytes = 7 * b * h * t * d * itemsize + 2 * 4 * b * h * t
+    flops = 10 * d * dens["live_pairs"]
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dname] * 1e3
+    res = {"dtype": dname, "shape": list(shape), **dens, "err_dq": errs[0],
+           "err_dk": errs[1], "err_dv": errs[2], "ratio": max(ratios),
+           "tol": TOL[dname], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library": "SDPA with the layout mask, fwd+bwd minus fwd",
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "visited_bound_ms": 10 * d * dens["visited_pairs"] /
+           PEAK_FLOPS[dname] * 1e3}
+    phase("kernel-check K7", **res)
+    return res
+
+
+def sparse_planted_faults(torch, kind, shape, dtype):
+    """What the K6/K7 checks report for planted faults, each a kernel that
+    leaves one live coarse tile out of one (head, tile) row: the plain
+    versions run on a copy of the plan whose last head's last q tile (K6,
+    K7's dq) or last k tile (K7's dk/dv) has one live tile fewer, and are
+    held against the true plan's results as a kernel's output is; every
+    ratio must exceed 1, so that the checks would catch the fault."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v, _, plan, _ = sparse_case(torch, kind, shape, dtype, SEED + 21)
+    scale = shape[-1] ** -0.5
+
+    def dropped(counts):
+        counts = counts.clone()
+        counts[-1, -1] -= 1
+        return counts
+
+    fwd_fault = plan._replace(nnz=dropped(plan.nnz))
+    dq_fault = fwd_fault
+    dkdv_fault = plan._replace(nnz_t=dropped(plan.nnz_t))
+    out, lse = bsa.block_sparse_attention_plain(q, k, v, plan, scale)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    delta = fa.attention_delta(out, dout)
+    grads = bsa.block_sparse_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                                 plan, scale)
+    bad_out, _ = bsa.block_sparse_attention_plain(q, k, v, fwd_fault, scale)
+    bad_dq = bsa.block_sparse_attention_bwd_plain(
+        q, k, v, dout, lse, delta, dq_fault, scale)[0]
+    _, bad_dk, bad_dv = bsa.block_sparse_attention_bwd_plain(
+        q, k, v, dout, lse, delta, dkdv_fault, scale)
+    found = {}
+    for name, fault, ref in (("out", bad_out, out), ("dq", bad_dq, grads[0]),
+                             ("dk", bad_dk, grads[1]),
+                             ("dv", bad_dv, grads[2])):
+        err, ratio = errors(fault, ref)
+        found[f"err_{name}"], found[f"ratio_{name}"] = err, ratio
+        check(ratio > 1, f"a kernel that leaves one coarse tile out of "
+              f"{name} would pass the K6/K7 check: ratio {ratio}")
+    phase("kernel-check K6/K7 planted faults", layout=kind, shape=list(shape),
+          dtype=str(dtype).replace("torch.", ""), **found)
+
+
+# ------------------------------------------------ Code Llama 7B at T 16384
+
+def codellama_config(layers=None):
+    """Code Llama 7B (``codellama/CodeLlama-7b-hf`` config.json: LLaMA-7B's
+    shape, vocab 32016, rope_theta 1e6, 16384 positions)."""
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    cfg = dataclasses.replace(LLAMA_7B, vocab_size=32016, rope_theta=1e6,
+                              n_positions=CODELLAMA_T)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layer=layers)
+
+
+class PlainKernelAttention:
+    """The kernels' tiled plain versions (``flash_attention_plain``,
+    ``flash_attention_bwd_plain``) in place of the ``[B, H, T, D]`` kernels
+    for the duration of a ``with`` block: the path the Code Llama checks
+    hold the kernel path against (the dense plain path would materialise
+    [B, 32, 16384, 16384] f32 logits a layer). Its calls are no launches."""
+
+    def __init__(self, torch):
+        from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+        class Plain(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, causal, scale, window):
+                out, lse = fa.flash_attention_plain(q, k, v, causal, scale,
+                                                    window)
+                ctx.save_for_backward(q, k, v, out, lse)
+                ctx.args = (causal, scale, window)
+                return out
+
+            @staticmethod
+            def backward(ctx, dout):
+                q, k, v, out, lse = ctx.saved_tensors
+                delta = fa.attention_delta(out, dout.to(q.dtype))
+                dq, dk, dv = fa.flash_attention_bwd_plain(
+                    q, k, v, dout.to(q.dtype), lse, delta, *ctx.args)
+                return dq, dk, dv, None, None, None
+
+        self.fa, self.plain = fa, Plain
+
+    def __enter__(self):
+        self.kernel = self.fa.flash_attention
+        self.fa.flash_attention = lambda q, k, v, causal=True, scale=None, \
+            window=None: self.plain.apply(q, k, v, causal, scale, window)
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention = self.kernel
+
+
+def codellama_serve(torch):
+    """Code Llama 7B through ``init_inference`` at full depth and width:
+    three scoring calls on ``[1, 16384]`` bf16 (K4 launched 32 times each,
+    K3 and K1 never), the same engine on the kernels' plain versions, and a
+    profile. Returns K4's launches in the scoring calls."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as k1
+    cfg = codellama_config()
+    b, t, h, d = 1, CODELLAMA_T, cfg.n_head, cfg.head_dim
+    torch.cuda.reset_peak_memory_stats()
+    s0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(
+        llama_model(torch, cfg, SEED + 30, torch.bfloat16), {"dtype": "bf16"})
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - s0
+    ids = torch.randint(0, cfg.vocab_size, (b, t),
+                        generator=torch.Generator().manual_seed(SEED + 31))
+    fwd = fa.flash_attention_fwd
+    fwd.launches = fwd.streamed_launches = 0
+    k1.packed_flash_attention_fwd.launches = 0
+    fwd_s, per_call = [], []
+    for _ in range(3):
+        before = fwd.streamed_launches
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        logits = engine(ids)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - s0)
+        per_call.append(fwd.streamed_launches - before)
+    launches = fwd.streamed_launches
+    check(per_call == [cfg.n_layer] * 3 and fwd.launches == 0 and
+          k1.packed_flash_attention_fwd.launches == 0,
+          f"K4 launched {per_call} times per Code Llama forward call, want "
+          f"{cfg.n_layer}; K3 {fwd.launches} and K1 "
+          f"{k1.packed_flash_attention_fwd.launches} times, want 0")
+    check(tuple(logits.shape) == (b, t, cfg.padded_vocab),
+          f"logits shape {tuple(logits.shape)}")
+    check(torch.isfinite(logits.float()).all().item(), "logits not finite")
+    per_token = cfg.n_layer * (cfg.n_embd * 3 * h * d + cfg.n_embd ** 2 +
+                               3 * cfg.n_embd * cfg.intermediate) + \
+        cfg.padded_vocab * cfg.n_embd
+    flops = 2 * b * t * per_token + \
+        cfg.n_layer * 4 * b * h * d * kept_pairs(t, True, None)
+    best = min(fwd_s[1:])
+    phase("codellama forward", model="Code Llama 7B (LLAMA_7B, vocab 32016, "
+          "rope_theta 1e6)", params=engine.module.num_params(),
+          init_seconds=round(init_s, 2), shape=list(logits.shape),
+          dtype=str(logits.dtype).replace("torch.", ""),
+          k4_launches=launches, k4_launches_per_call=per_call,
+          k3_launches=fwd.launches, calls=3,
+          seconds=json.dumps([round(x, 4) for x in fwd_s]),
+          tokens_per_s=round(b * t / best, 1), model_tflop=flops / 1e12,
+          tflop_per_s=round(flops / best / 1e12, 2),
+          share_of_bf16_peak=round(flops / best / PEAK_FLOPS["bfloat16"], 4),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    with PlainKernelAttention(torch):
+        s0 = time.perf_counter()
+        logits_p = engine(ids)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - s0
+    check(fwd.streamed_launches == launches, "the plain-kernel path launched "
+          "a kernel")
+    compare_logits(torch, "codellama vs plain-kernel path", logits, logits_p,
+                   LLAMA_LOGITS_TOL, plain_seconds=round(plain_s, 2))
+    del logits, logits_p
+    torch.cuda.empty_cache()
+    profile_forward(torch, engine, ids, name="profile codellama forward")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def codellama_train(torch):
+    """Code Llama 7B's width at CODELLAMA_TRAIN_LAYERS layers through
+    ``initialize`` -> ``train_batch`` (micro 1, T 16384, gas 2, bf16 on fp32
+    masters, AdamW): K4 and K4b launched n_layer x gas times a step, K3
+    never; the gradients against the plain-kernel path; a profile. Returns
+    the steps' launches."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    cfg = codellama_config(CODELLAMA_TRAIN_LAYERS)
+    t, gas, micro = CODELLAMA_T, 2, 1
+    model = llama_model(torch, cfg, SEED + 32, torch.float32)
+    engine = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_batch_size": micro * gas,
+        "train_micro_batch_size_per_gpu": micro,
+        "gradient_accumulation_steps": gas,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
+        "bf16": {"enabled": True}, "zero_optimization": {"stage": 0},
+        "steps_per_print": 0})[0]
+    rng = np.random.default_rng(SEED + 33)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (gas, micro, t),
+                                          dtype=np.int64)} for _ in range(3)]
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+    torch.cuda.reset_peak_memory_stats()
+    fwd.launches = fwd.streamed_launches = 0
+    bwd.launches = bwd.streamed_launches = 0
+    step_s, per_step, losses = [], [], []
+    for batch in batches:
+        before = (fwd.streamed_launches, bwd.streamed_launches)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+        per_step.append([fwd.streamed_launches - before[0],
+                         bwd.streamed_launches - before[1]])
+        losses.append(loss.item())
+    launches = {"K4": fwd.streamed_launches, "K4b": bwd.streamed_launches}
+    want = cfg.n_layer * gas
+    check(all(n == [want, want] for n in per_step) and
+          fwd.launches == bwd.launches == 0,
+          f"K4/K4b launched {per_step} times per train_batch, want {want} "
+          f"each; K3 {fwd.launches}, K3b/K5 {bwd.launches}, want 0")
+    check(all(np.isfinite(losses)), f"codellama losses {losses} not finite")
+    tokens = gas * micro * t
+    best = min(step_s[1:])
+    flops_per_token = model.flops_per_token(t)
+    phase("codellama train", model=f"Code Llama 7B width, {cfg.n_layer} "
+          f"layers", params=model.num_params(), micro=micro, gas=gas, seq=t,
+          dtype="bf16 on fp32 masters", optimizer="adamw lr 1e-4",
+          steps=len(step_s), warmup=1,
+          seconds=json.dumps([round(x, 4) for x in step_s]),
+          step_s_best=round(best, 4), tokens_per_s=round(tokens / best, 1),
+          flops_per_token=flops_per_token,
+          tflop_per_s=round(tokens * flops_per_token / best / 1e12, 2),
+          mfu=round(tokens * flops_per_token / best /
+                    PEAK_FLOPS["bfloat16"], 4),
+          losses=json.dumps([round(x, 4) for x in losses]),
+          launches_per_step=json.dumps(per_step),
+          launches=json.dumps(launches),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    profile_train(torch, engine, batches[-1], name="profile codellama train")
+    del engine, model
+    torch.cuda.empty_cache()
+
+    mb = {"input_ids": torch.as_tensor(batches[-1]["input_ids"][0]).cuda()}
+    out = {}
+    for route in ("kernels", "plain kernels"):
+        m = llama_model(torch, cfg, SEED + 32, torch.bfloat16)
+        if route == "kernels":
+            loss = m.apply(mb)
+            loss.backward()
+        else:
+            with PlainKernelAttention(torch):
+                loss = m.apply(mb)
+                loss.backward()
+        out[route] = (loss.item(), {n: p.grad.float() for n, p in
+                                    m.named_parameters()})
+        del m, loss
+        torch.cuda.empty_cache()
+    grad_phase(torch, "codellama train vs plain-kernel path",
+               out["kernels"], out["plain kernels"], LLAMA_GRAD_TOL)
+    return launches
+
+
+def grad_phase(torch, name, kernel, plain, tol):
+    """Per-leaf rel. L2 of the kernel path's gradients against another
+    path's, and the loss difference, held to ``tol``."""
+    (loss_k, grads_k), (loss_x, grads_x) = kernel, plain
+    rel = {n: ((grads_k[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in grads_x.items()}
+    worst = max(rel, key=rel.get)
+    loss_diff = abs(loss_k - loss_x)
+    check(rel[worst] <= tol["rel_l2_per_leaf"] and
+          loss_diff <= tol["loss_abs"],
+          f"{name}: worst leaf {worst} rel L2 {rel[worst]}, loss diff "
+          f"{loss_diff} (tol {tol})")
+    phase(name, leaves=len(rel), loss_kernels=loss_k, loss_plain=loss_x,
+          loss_abs_diff=loss_diff, max_rel_l2=rel[worst], worst_leaf=worst,
+          median_rel_l2=statistics.median(rel.values()),
+          tol=json.dumps(tol))
+
+
+# --------------------------------- BERT-large with sparse attention, T 4096
+
+def bert_model(torch, dtype, seed, layers=None):
+    """BERT-large (``n_layer`` cut to ``layers`` if given) drawn on the card
+    from ``seed``, then ``SparseAttentionUtils`` surgery: positions
+    extended 512 -> 4096 and DeepSpeed's Fixed sparse_attention example
+    installed. Returns the model and the surgery's layout at T 4096."""
+    from deepspeed_tpu_torch.models.bert import BERT_LARGE, BertModel
+    from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
+    from deepspeed_tpu_torch.ops.sparse_attention_utils import \
+        SparseAttentionUtils
+    cfg = BERT_LARGE if layers is None else \
+        dataclasses.replace(BERT_LARGE, n_layer=layers)
+    model = BertModel(cfg, generator=torch.Generator("cuda").manual_seed(seed),
+                      device="cuda", dtype=dtype)
+    sparsity = sparsity_config(ops, "fixed", cfg.n_head)
+    SparseAttentionUtils.\
+        replace_model_self_attention_with_sparse_self_attention(
+            model, max_position=BERT_T, sparsity_config=sparsity)
+    return model, ops.SparseSelfAttention(sparsity).layout(BERT_T)
+
+
+class DenseAttention:
+    """A surgered BERT's block-sparse attention replaced, for a ``with``
+    block, by the dense-masked plain path over the same layout."""
+
+    def __init__(self, model, layout):
+        from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
+        self.model, self.layout, self.ops = model, layout, ops
+
+    def __enter__(self):
+        self.saved = self.model.attn_override
+        self.model.attn_override = lambda q, k, v, mask: \
+            self.ops.sparse_attention(q, k, v, self.layout, 16, impl="dense")
+        return self
+
+    def __exit__(self, *exc):
+        self.model.attn_override = self.saved
+
+
+def bert_batch(np, rng, gas, micro, t, ids_from, ids_to):
+    """MLM batches ``[gas, micro, ...]``: ids in [ids_from, ids_to) (BERT's
+    vocab has its special and unused tokens below 1000), BERT_MASK_RATE of
+    the positions masked (their ids replaced by [MASK] = 103) with their
+    labels."""
+    ids = rng.integers(ids_from, ids_to, (gas, micro, t), dtype=np.int64)
+    n = int(round(BERT_MASK_RATE * t))
+    pos = np.sort(np.argsort(rng.random((gas, micro, t)), -1)[..., :n], -1)
+    labels = np.take_along_axis(ids, pos, -1)
+    np.put_along_axis(ids, pos, 103, -1)
+    return {"input_ids": ids, "masked_positions": pos,
+            "masked_labels": labels}
+
+
+def bert_serve(torch):
+    """BERT-large with the Fixed sparse surgery through ``init_inference``
+    at ``[4, 4096]`` bf16: three scoring calls (K6 launched 24 times each,
+    K3 never), the dense-masked plain path and an f32 reference, a
+    profile. Returns K6's launches in the scoring calls."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    model, layout = bert_model(torch, torch.bfloat16, SEED + 40)
+    cfg = model.config
+    engine = deepspeed_tpu_torch.init_inference(model, {"dtype": "bf16"})
+    b, t = BERT_MICRO, BERT_T
+    ids = torch.randint(0, cfg.vocab_size, (b, t),
+                        generator=torch.Generator().manual_seed(SEED + 41))
+    k6 = bsa.block_sparse_attention_fwd
+    torch.cuda.reset_peak_memory_stats()
+    k6.launches = fa.flash_attention_fwd.launches = 0
+    fwd_s, per_call = [], []
+    for _ in range(3):
+        before = k6.launches
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        logits = engine(ids)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - s0)
+        per_call.append(k6.launches - before)
+    launches = k6.launches
+    check(per_call == [cfg.n_layer] * 3 and
+          fa.flash_attention_fwd.launches == 0,
+          f"K6 launched {per_call} times per BERT forward call, want "
+          f"{cfg.n_layer}; K3 {fa.flash_attention_fwd.launches}, want 0")
+    check(tuple(logits.shape) == (b, t, cfg.padded_vocab),
+          f"logits shape {tuple(logits.shape)}")
+    check(torch.isfinite(logits.float()).all().item(), "logits not finite")
+    d, h = cfg.n_embd, cfg.n_head
+    live = b * int(layout.sum()) * 16 * 16
+    per_token = cfg.n_layer * 12 * d * d + 2 * d * d + cfg.padded_vocab * d
+    flops = 2 * b * t * per_token + cfg.n_layer * 4 * cfg.head_dim * live
+    best = min(fwd_s[1:])
+    phase("bert forward", model="BERT-large + Fixed sparse attention "
+          "(block 16, 4 local, 1 global, 4 patterns)",
+          params=model.num_params(), shape=list(logits.shape),
+          dtype=str(logits.dtype).replace("torch.", ""),
+          live_fine_density=float(layout.mean()), k6_launches=launches,
+          k6_launches_per_call=per_call,
+          k3_launches=fa.flash_attention_fwd.launches, calls=3,
+          seconds=json.dumps([round(x, 4) for x in fwd_s]),
+          tokens_per_s=round(b * t / best, 1), model_tflop=flops / 1e12,
+          tflop_per_s=round(flops / best / 1e12, 2),
+          share_of_bf16_peak=round(flops / best / PEAK_FLOPS["bfloat16"], 4),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    with DenseAttention(model, layout):
+        logits_x = engine(ids)
+        ref, _ = bert_model(torch, torch.float32, SEED + 40)
+        ref.load_state_dict(model.state_dict())
+        with DenseAttention(ref, layout), torch.inference_mode():
+            logits_f32 = ref.logits(ids.cuda())
+        del ref
+    compare_logits(torch, "bert vs plain path", logits, logits_x,
+                   BERT_LOGITS_TOL, logits_f32)
+    del logits, logits_x, logits_f32
+    torch.cuda.empty_cache()
+    profile_forward(torch, engine, ids, name="profile bert forward")
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bert_train_config(lr, gas, micro):
+    return {"train_batch_size": micro * gas,
+            "train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas,
+            "optimizer": {"type": "adamw", "params": {"lr": lr}},
+            "bf16": {"enabled": True}, "zero_optimization": {"stage": 0},
+            "steps_per_print": 0}
+
+
+def bert_train(torch):
+    """BERT-large with the Fixed surgery through ``initialize`` ->
+    ``train_batch`` (micro 4, T 4096, gas 2, bf16 on fp32 masters, AdamW,
+    15% masked positions): K6 and K7 launched 24 x 2 times a step, K3
+    never; then, at 4 layers, the gradients against the dense-masked plain
+    path and a repeated batch whose loss must fall; a profile. Returns the
+    steps' launches."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    model, layout = bert_model(torch, torch.float32, SEED + 42)
+    cfg = model.config
+    t, gas, micro = BERT_T, BERT_GAS, BERT_MICRO
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, config=bert_train_config(1e-4, gas, micro))[0]
+    rng = np.random.default_rng(SEED + 43)
+    batches = [bert_batch(np, rng, gas, micro, t, 1000, cfg.vocab_size)
+               for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    fwd, bwd = bsa.block_sparse_attention_fwd, bsa.block_sparse_attention_bwd
+    torch.cuda.reset_peak_memory_stats()
+    fwd.launches = bwd.launches = fa.flash_attention_fwd.launches = 0
+    step_s, per_step, losses = [], [], []
+    for batch in batches:
+        before = (fwd.launches, bwd.launches)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+        per_step.append([fwd.launches - before[0], bwd.launches - before[1]])
+        losses.append(loss.item())
+    launches = {"K6": fwd.launches, "K7": bwd.launches}
+    want = cfg.n_layer * gas
+    check(all(n == [want, want] for n in per_step) and
+          fa.flash_attention_fwd.launches == 0,
+          f"K6/K7 launched {per_step} times per train_batch, want {want} "
+          f"each; K3 {fa.flash_attention_fwd.launches}, want 0")
+    check(all(np.isfinite(losses)), f"bert losses {losses} not finite")
+    tokens = gas * micro * t
+    timed = step_s[TRAIN_WARMUP:]
+    best = min(timed)
+    # the JAX package's count (dense attention) and one with the attention
+    # term scaled to the live pairs
+    dense_fpt = model.flops_per_token(t)
+    sparse_fpt = model.flops_per_token() + \
+        12 * cfg.n_layer * cfg.n_embd * t * float(layout.mean())
+    phase("bert train", model="BERT-large + Fixed sparse attention",
+          params=model.num_params(), micro=micro, gas=gas, seq=t,
+          masked_per_row=batches[0]["masked_positions"].shape[-1],
+          dtype="bf16 on fp32 masters", optimizer="adamw lr 1e-4",
+          steps=len(step_s), warmup=TRAIN_WARMUP,
+          seconds=json.dumps([round(x, 4) for x in step_s]),
+          step_s_best=round(best, 4),
+          step_s_median=round(statistics.median(timed), 4),
+          tokens_per_s=round(tokens / best, 1),
+          flops_per_token_dense_attention=dense_fpt,
+          flops_per_token_live_pairs=sparse_fpt,
+          mfu=round(tokens * sparse_fpt / best / PEAK_FLOPS["bfloat16"], 4),
+          losses=json.dumps([round(x, 4) for x in losses]),
+          launches_per_step=json.dumps(per_step),
+          launches=json.dumps(launches),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    profile_train(torch, engine, batches[-1], name="profile bert train")
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # 4 layers: the kernel path's gradients against the dense-masked path
+    batch = bert_batch(np, rng, 1, 2, t, 1000, cfg.vocab_size)
+    mb = {k: torch.as_tensor(v[0]).cuda() for k, v in batch.items()}
+    out = {}
+    for route in ("kernels", "dense"):
+        m, lay = bert_model(torch, torch.bfloat16, SEED + 44,
+                            BERT_SMALL_LAYERS)
+        if route == "kernels":
+            loss = m.apply(mb)
+            loss.backward()
+        else:
+            with DenseAttention(m, lay):
+                loss = m.apply(mb)
+                loss.backward()
+        out[route] = (loss.item(), {n: p.grad.float() for n, p in
+                                    m.named_parameters()})
+        del m, loss
+        torch.cuda.empty_cache()
+    grad_phase(torch, "bert train vs plain path", out["kernels"],
+               out["dense"], BERT_GRAD_TOL)
+    del out
+
+    model, _ = bert_model(torch, torch.float32, SEED + 45, BERT_SMALL_LAYERS)
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, config=bert_train_config(BERT_CONVERGE_LR, 1, micro))[0]
+    batch = bert_batch(np, rng, 1, micro, t, 1000, 1256)
+    losses = [engine.train_batch(batch=batch).item()
+              for _ in range(CONVERGE_STEPS)]
+    check(losses[-1] < CONVERGE_FRACTION * losses[0],
+          f"bert loss on a repeated batch went {losses[0]} -> {losses[-1]}, "
+          f"want below {CONVERGE_FRACTION} x the first")
+    phase("bert train converges", layers=BERT_SMALL_LAYERS,
+          steps=CONVERGE_STEPS, lr=BERT_CONVERGE_LR,
+          losses=json.dumps([round(x, 4) for x in losses]),
+          threshold=f"last < {CONVERGE_FRACTION} x first")
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1049,6 +1771,17 @@ def main():
     main_k3 = [check_k3(torch, *case) for case in k3_cases][0]
     main_k3b = [check_k3_bwd(torch, *case) for case in k3_cases][0]
     planted_faults(torch, K3_SHAPE, bf16, True, None)
+    k4_cases = [(shape, getattr(torch, dt), causal, window)
+                for shape, dt, causal, window in K4_CASES]
+    main_k4 = [check_k3(torch, *case, name="K4", timing=K4_TIMING)
+               for case in k4_cases][0]
+    main_k4b = [check_k3_bwd(torch, *case, name="K4-bwd", timing=K4_TIMING)
+                for case in k4_cases][0]
+    main_k6 = [check_k6(torch, kind, K6_SHAPE, getattr(torch, dt))
+               for kind, dt in K6_CASES][0]
+    main_k7 = [check_k7(torch, kind, K6_SHAPE, getattr(torch, dt))
+               for kind, dt in K6_CASES][0]
+    sparse_planted_faults(torch, "fixed", K6_SHAPE, bf16)
 
     # ---- main path: init_inference -> engine(ids) and generate
     model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
@@ -1126,6 +1859,12 @@ def main():
     llama_train_launches = llama_train(torch)
     llama_gqa(torch)
 
+    # ---- Code Llama 7B at T 16384 (K4, K4b); BERT-large sparse (K6, K7)
+    codellama_fwd_launches = codellama_serve(torch)
+    codellama_train_launches = codellama_train(torch)
+    bert_fwd_launches = bert_serve(torch)
+    bert_train_launches = bert_train(torch)
+
     def entry(name, source, replaces, launches, res, err):
         return {"name": name, "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{source}",
@@ -1154,7 +1893,21 @@ def main():
         entry("flash_attention_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention.py:222 (K3b); "
               f"{pallas}/flash_attention.py:329,358 (K5)",
-              llama_train_launches["K3b/K5"], main_k3b, bwd_err(main_k3b))]
+              llama_train_launches["K3b/K5"], main_k3b, bwd_err(main_k3b)),
+        entry("flash_attention_streamed_fwd", "flash_attention_fwd.cu",
+              f"{pallas}/flash_attention.py:483",
+              codellama_fwd_launches + codellama_train_launches["K4"],
+              main_k4, main_k4["err_out"]),
+        entry("flash_attention_streamed_bwd", "flash_attention_bwd.cu",
+              f"{pallas}/flash_attention.py:572,618",
+              codellama_train_launches["K4b"], main_k4b, bwd_err(main_k4b)),
+        entry("block_sparse_attention_fwd", "block_sparse_attention_fwd.cu",
+              f"{pallas}/block_sparse_attention.py:114",
+              bert_fwd_launches + bert_train_launches["K6"], main_k6,
+              main_k6["err_out"]),
+        entry("block_sparse_attention_bwd", "block_sparse_attention_bwd.cu",
+              f"{pallas}/block_sparse_attention.py:205,239",
+              bert_train_launches["K7"], main_k7, bwd_err(main_k7))]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ The JAX package ``deepspeed_tpu`` is the reference this port is held
 against; the port imports neither JAX nor that package. Its kernels are
 hand-written for ``sm_90a`` (``csrc/``) and built by ``nvcc`` at first use
 (``ops/kernel_build.py``); each has a plain PyTorch version that tensors on
-the CPU take. It serves GPT-2 and LLaMA through ``init_inference`` and
-trains them through ``initialize`` -> ``DeepSpeedEngine.train_batch``.
+the CPU take. It serves GPT-2, LLaMA and BERT through ``init_inference``
+and trains them through ``initialize`` -> ``DeepSpeedEngine.train_batch``;
+``ops/sparse_attention_utils.SparseAttentionUtils`` puts block-sparse
+attention into BERT.
 """
 
 __version__ = "0.1.0"
@@ -18,8 +20,8 @@ def init_inference(model, config=None, device=None, **kwargs):
     """Initialise the inference engine, as ``deepspeed_tpu.init_inference``.
 
     ``model`` is a deepspeed_tpu_torch model (``GPT2Model``,
-    ``LlamaModel``);
-    ``config`` a dict (merged with ``kwargs``) or a
+    ``LlamaModel``, ``BertModel``: ``engine(ids)`` scores each, and
+    ``generate`` serves the decoders); ``config`` a dict (merged with ``kwargs``) or a
     ``DeepSpeedInferenceConfig``. The engine runs on ``cuda`` unless
     ``device`` says otherwise, and raises when no GPU is present."""
     from .inference.config import DeepSpeedInferenceConfig
@@ -49,7 +51,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                config_params=None, mesh_manager=None, device=None):
     """Initialize the training engine, as ``deepspeed_tpu.initialize``, in
     its argument order. ``model`` is a deepspeed_tpu_torch model (e.g.
-    ``GPT2Model``) holding the initial weights; ``model_parameters`` is
+    ``GPT2Model``, or ``BertModel``, whose dict batches may carry
+    ``masked_positions`` / ``masked_labels``) holding the initial weights; ``model_parameters`` is
     accepted and unused, as in the JAX package. The engine runs on
     ``cuda`` unless ``device`` says otherwise, and raises when no GPU is
     present. Returns ``(engine, optimizer, dataloader, lr_scheduler)``.

@@ -1,6 +1,6 @@
-// Flash attention backward for Hopper (sm_90a): K2, and K3b/K5.
+// Flash attention backward for Hopper (sm_90a): K2, K3b/K5 and K4b.
 //
-// Replaces three TPU kernels that compute one function, the backward of the
+// Replaces four TPU kernels that compute one function, the backward of the
 // forward in flash_attention_fwd.cu:
 //   K2   deepspeed_tpu/ops/pallas/flash_attention_packed.py:_bwd_kernel (via
 //        _bwd), over the packed layout [B, T, H*D];
@@ -9,7 +9,10 @@
 //        a sequential k-tile grid;
 //   K5   deepspeed_tpu/ops/pallas/flash_attention.py:_bwd_dq_kernel +
 //        _bwd_dkv_kernel (via _bwd with DSTPU_FLASH_BWD != fused), the same
-//        function split into a dq and a dk/dv kernel.
+//        function split into a dq and a dk/dv kernel;
+//   K4b  deepspeed_tpu/ops/pallas/flash_attention.py:_bwd_dq_kernel_streamed
+//        + _bwd_dkv_kernel_streamed (via _bwd_streamed), K5's split over
+//        long T with K/V (and Q/dO) blocks on a third grid axis.
 // From q, k, v and dO, the forward's lse [B, H, T] and delta = rowsum(dO*O)
 // [B, H, T] (both f32), it computes, per (q, k) pair that the mask keeps,
 //   p  = exp(s - lse)                      s = q.k * scale, masked s = -1e30
@@ -76,13 +79,6 @@ struct BwdArgs {
   bool vec;  // q, k, v, dout chunks_aligned
 };
 
-// rows of a block's own tile (k rows in dkdv, q rows in dq) and of the
-// tiles it loops over, by head-dim ceiling
-template <int DMAX> struct Tiles {
-  static constexpr int kOwn = DMAX > 128 ? 32 : 64;
-  static constexpr int kLoop = 64;
-};
-
 // K, V tiles [own][ld] and Q, dO tiles [loop][ld] in the input type; the P
 // and dS tiles [own][loop + 1] and one q tile's lse and delta in f32
 template <typename T, int DMAX>
@@ -98,21 +94,6 @@ template <typename T, int DMAX>
 size_t dq_smem_bytes(int d8) {
   constexpr int own = Tiles<DMAX>::kOwn, loop = Tiles<DMAX>::kLoop;
   return sizeof(T) * 2 * (own + loop) * tile_ld<T>(d8) + sizeof(float) * own * (loop + 1);
-}
-
-// rows tr + 16 i of an [R * 16][d] f32 accumulator, written in the input type
-template <typename T, int R, int C>
-__device__ __forceinline__ void store_rows(T* __restrict__ out, long long stride_t, int off,
-                                           const float (&acc)[R][C], int d, int tr, int tc) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    T* row = out + (long long)(off + tr + kRowGroups * i) * stride_t;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int col = tc + 8 * c;
-      if (col < d) row[col] = from_f32<T>(acc[i][c]);
-    }
-  }
 }
 
 // EXACT: d == DMAX, known at compile time; otherwise d < DMAX is masked

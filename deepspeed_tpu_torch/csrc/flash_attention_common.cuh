@@ -1,8 +1,9 @@
-// Shared pieces of the flash attention kernels (the forward in
-// flash_attention_fwd.cu, the backward in flash_attention_bwd.cu): the
-// thread layout, the per-tensor strides, the masked-logit fill, the tile
-// loader and the conversions between the input types and float32 (round to
-// nearest even), written with the intrinsics only.
+// Shared pieces of the attention kernels (the flash attention forward and
+// backward in flash_attention_{fwd,bwd}.cu, the block-sparse forward and
+// backward in block_sparse_attention_{fwd,bwd}.cu): the thread layout, the
+// per-tensor strides, the masked-logit fill, the tile loader, the row
+// reductions and the conversions between the input types and float32 (round
+// to nearest even), written with the intrinsics only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -138,6 +139,53 @@ __device__ __forceinline__ void tile_dot(float (&acc)[R][C], const T* a, const T
       for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < C; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// ---- pieces of the forward kernels (flash_attention_fwd.cu and the
+// block-sparse block_sparse_attention_fwd.cu)
+
+// sum / max over the 8 threads (consecutive lanes) that share a row
+__device__ __forceinline__ float row_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+__device__ __forceinline__ float row_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+// The shared-memory type of the forward kernels' Q, K and V tiles: f32 at
+// the 64 head-dim ceiling (widened once as they are loaded, so the inner
+// products read them with no conversion), the input type above it (which in
+// bf16 at D = 128 fits two blocks on an SM where f32 tiles fit one)
+template <typename T, int DMAX>
+using FwdTile = std::conditional_t<DMAX <= 64, float, T>;
+
+// ---- pieces of the backward kernels (flash_attention_bwd.cu and
+// block_sparse_attention_bwd.cu)
+
+// rows of a block's own tile (k rows in dkdv, q rows in dq) and of the
+// tiles it loops over, by head-dim ceiling
+template <int DMAX> struct Tiles {
+  static constexpr int kOwn = DMAX > 128 ? 32 : 64;
+  static constexpr int kLoop = 64;
+};
+
+// rows tr + 16 i of an [R * 16][d] f32 accumulator, written in the input type
+template <typename T, int R, int C>
+__device__ __forceinline__ void store_rows(T* __restrict__ out, long long stride_t, int off,
+                                           const float (&acc)[R][C], int d, int tr, int tc) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    T* row = out + (long long)(off + tr + kRowGroups * i) * stride_t;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = tc + 8 * c;
+      if (col < d) row[col] = from_f32<T>(acc[i][c]);
     }
   }
 }

@@ -1,10 +1,15 @@
-// Flash attention forward for Hopper (sm_90a): K1 and K3.
+// Flash attention forward for Hopper (sm_90a): K1, K3 and K4.
 //
-// Replaces two TPU kernels that compute one function:
+// Replaces three TPU kernels that compute one function:
 //   K1  deepspeed_tpu/ops/pallas/flash_attention_packed.py:_fwd_kernel (via
 //       _fwd), over the packed layout q, k, v = [B, T, H*D];
 //   K3  deepspeed_tpu/ops/pallas/flash_attention.py:_fwd_kernel (via _fwd),
-//       over [B, H, T, D] with K/V resident in VMEM.
+//       over [B, H, T, D] with K/V resident in VMEM;
+//   K4  deepspeed_tpu/ops/pallas/flash_attention.py:_fwd_kernel_streamed
+//       (via _fwd_streamed), the same over long T (T*D*itemsize > 1 MiB),
+//       K/V blocks on a third grid axis. This kernel streams 64-row K/V
+//       tiles through shared memory at any T (offsets in 64 bits), so the
+//       TPU's two regimes are one kernel here.
 // Online-softmax attention, causal or not, with an optional sliding window
 // (keep keys where 0 <= q - k < window), masked logits filled with -1e30
 // (not -inf), the row sum clamped l >= 1e-30, P rounded to the input type
@@ -60,23 +65,6 @@ struct FwdArgs {
   int causal, window;
   bool vec;  // q, k, v chunks_aligned
 };
-
-// sum / max over the 8 threads (consecutive lanes) that share a row
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-// The shared-memory type of the Q, K and V tiles: f32 at the 64 ceiling,
-// the input type above it (see the head of this file)
-template <typename T, int DMAX>
-using FwdTile = std::conditional_t<DMAX <= 64, float, T>;
 
 // Q, K, V tiles [64][ld] in the tile type S and the P tile [64][64 + 1] in
 // f32 (the odd row lengths, in 4-byte words, keep rows on distinct banks)

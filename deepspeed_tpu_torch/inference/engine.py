@@ -129,6 +129,11 @@ class InferenceEngine:
         if num_beams > 1:
             raise NotImplementedError(
                 "beam search is not ported yet: ROADMAP.md row A6")
+        if not hasattr(self.module, "apply_with_cache"):
+            raise TypeError(
+                f"generate needs a decoder with a KV-cache path; "
+                f"{type(self.module).__name__} has none (score it with "
+                f"engine(input_ids))")
         ids = self._ids(input_ids)
         if ids.dim() == 1:
             ids = ids[None]

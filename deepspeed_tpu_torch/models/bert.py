@@ -1,0 +1,225 @@
+"""BERT family — bidirectional post-LN encoder with MLM head.
+
+The JAX package's ``models/bert.py`` as an ``nn.Module``: post-LN residuals
+(``x = LN(x + sublayer(x))``), bidirectional attention with an optional
+padding mask, segment (token-type) embeddings, and a masked-LM head
+(dense + gelu + LN transform, decoder tied to ``wte`` plus a vocab bias).
+The parameters carry the JAX leaf names and ``[in, out]`` layouts
+(``top_leaves``, ``block_leaves``), so ``load_jax_params`` / ``jax_params``
+move a JAX tree in and out.
+
+Attention: without a mask, ``ops/flash_attention.flash_attention(causal=
+False)``, which on the card is the ``[B, H, T, D]`` Hopper kernel (K3, or
+K4 past the resident regime) and its backward; with a padding mask, the
+plain path, as in the JAX package. ``attn_override(q, k, v, mask)`` over
+``[B, H, T, D]`` replaces the attention: ``SparseAttentionUtils`` installs
+block-sparse attention there (K6 forward, K7 backward).
+
+Batch: ``{"input_ids" [B,T], optional "token_type_ids" [B,T],
+"attention_mask" [B,T] (1=keep), "labels" [B,T] (-100 = unmasked)}`` or,
+for the MLM head on the masked positions only, ``"masked_positions"``
+[B, P] and ``"masked_labels"`` [B, P]. Dropout and activation checkpointing
+(``remat``) are not ported yet and raise naming ROADMAP.md row A2b.
+"""
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .api import ModelSpec
+from .gpt2 import GPT2Config, BlockParams, _activation, _param, normal_
+from ..ops import memory_efficient as me
+from ..ops.flash_attention import flash_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig(GPT2Config):
+    vocab_size: int = 30522
+    n_positions: int = 512
+    type_vocab_size: int = 2
+    activation: str = "gelu_exact"   # HF hidden_act="gelu" (erf)
+
+
+BERT_BASE = BertConfig(n_embd=768, n_layer=12, n_head=12)
+BERT_LARGE = BertConfig(n_embd=1024, n_layer=24, n_head=16)
+
+
+class BertModel(ModelSpec):
+    """BERT with the JAX package's parameter layout, built on ``device`` in
+    ``dtype`` and drawn from ``generator`` (default: seed 0 on the CPU) on
+    the generator's own device."""
+
+    causal_attention = False
+    top_leaves = ("wte", "wpe", "tte", "emb_ln_scale", "emb_ln_bias",
+                  "mlm_dense_w", "mlm_dense_b", "mlm_ln_scale", "mlm_ln_bias",
+                  "mlm_bias")
+    block_leaves = ("qkv_w", "qkv_b", "attn_out_w", "attn_out_b",
+                    "attn_ln_scale", "attn_ln_bias", "inter_w", "inter_b",
+                    "out_w", "out_b", "out_ln_scale", "out_ln_bias")
+
+    def __init__(self, config: BertConfig = BERT_BASE,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=None):
+        super().__init__()
+        self.config = config
+        # attention override hook: attn_override(q, k, v, mask) -> attn,
+        # q/k/v [B,H,T,D]. Set by SparseAttentionUtils model surgery
+        # (reference sparse_attention_utils.py:81 replaces the torch
+        # BertSelfAttention module; here the function is the module)
+        self.attn_override = None
+        d, v, m = config.n_embd, config.padded_vocab, \
+            config.mlp_ratio * config.n_embd
+        top = {"wte": (v, d), "wpe": (config.n_positions, d),
+               "tte": (config.type_vocab_size, d), "emb_ln_scale": (d,),
+               "emb_ln_bias": (d,), "mlm_dense_w": (d, d),
+               "mlm_dense_b": (d,), "mlm_ln_scale": (d,),
+               "mlm_ln_bias": (d,), "mlm_bias": (v,)}
+        block = {"qkv_w": (d, 3 * d), "qkv_b": (3 * d,),
+                 "attn_out_w": (d, d), "attn_out_b": (d,),
+                 "attn_ln_scale": (d,), "attn_ln_bias": (d,),
+                 "inter_w": (d, m), "inter_b": (m,), "out_w": (m, d),
+                 "out_b": (d,), "out_ln_scale": (d,), "out_ln_bias": (d,)}
+        for name in self.top_leaves:
+            setattr(self, name, _param(top[name], device, dtype))
+        self.blocks = torch.nn.ModuleList(
+            BlockParams(block, device, dtype) for _ in range(config.n_layer))
+        self.init_weights(generator if generator is not None
+                          else torch.Generator().manual_seed(0))
+
+    # ------------------------------------------------------------------ init
+    @torch.no_grad()
+    def init_weights(self, generator):
+        """The JAX init's shapes and stds: N(0, 0.02) for every weight
+        matrix and embedding, LN scales 1, every bias 0. Drawn from
+        ``generator`` on its device."""
+        std = self.config.initializer_range
+        for name in ("wte", "wpe", "tte", "mlm_dense_w"):
+            normal_(getattr(self, name), std, generator)
+        for blk in self.blocks:
+            for name in ("qkv_w", "attn_out_w", "inter_w", "out_w"):
+                normal_(getattr(blk, name), std, generator)
+        for owner, names in ((self, self.top_leaves),
+                             *((blk, self.block_leaves)
+                               for blk in self.blocks)):
+            for name in names:
+                if name.endswith("_scale"):
+                    getattr(owner, name).fill_(1.0)
+                elif name.endswith("_b") or name.endswith("_bias"):
+                    getattr(owner, name).zero_()
+
+    # --------------------------------------------------------------- forward
+    def _compute_dtype(self):
+        dt = self.wte.dtype
+        return dt if dt.is_floating_point else getattr(torch, self.config.dtype)
+
+    def _ln(self, x, scale, bias):
+        return me.layer_norm(x, scale, bias, self.config.layer_norm_epsilon)
+
+    def _block(self, x, p, mask):
+        """Post-LN encoder block (HF BertLayer semantics)."""
+        cfg = self.config
+        b, t, d = x.shape
+        h, hd = cfg.n_head, cfg.head_dim
+        qkv = x @ p.qkv_w.to(x.dtype) + p.qkv_b.to(x.dtype)
+        q, k, v = (y.reshape(b, t, h, hd).transpose(1, 2)
+                   for y in qkv.split(d, dim=-1))
+        if self.attn_override is not None:
+            attn = self.attn_override(q, k, v, mask)
+        else:
+            attn = flash_attention(q, k, v, causal=False, mask=mask,
+                                   backend=cfg.attn_backend)
+        attn = attn.transpose(1, 2).reshape(b, t, d)
+        attn = attn @ p.attn_out_w.to(x.dtype) + p.attn_out_b.to(x.dtype)
+        x = self._ln(x + attn, p.attn_ln_scale, p.attn_ln_bias)
+        mid = _activation(x @ p.inter_w.to(x.dtype) + p.inter_b.to(x.dtype),
+                          cfg.activation)
+        out = mid @ p.out_w.to(x.dtype) + p.out_b.to(x.dtype)
+        return self._ln(x + out, p.out_ln_scale, p.out_ln_bias)
+
+    def encode(self, input_ids, token_type_ids=None, attention_mask=None):
+        """Embeddings + encoder stack. Returns [B, T, D] in the compute
+        dtype."""
+        dt = self._compute_dtype()
+        t = input_ids.shape[-1]
+        if t > self.wpe.shape[0]:
+            raise ValueError(f"{t} tokens exceed the model's n_positions="
+                             f"{self.wpe.shape[0]}")
+        x = self.wte.to(dt)[input_ids] + self.wpe[:t].to(dt)
+        if token_type_ids is not None:
+            x = x + self.tte.to(dt)[token_type_ids]
+        else:
+            x = x + self.tte[0].to(dt)
+        x = self._ln(x, self.emb_ln_scale, self.emb_ln_bias)
+        mask = None
+        if attention_mask is not None:
+            mask = attention_mask[:, None, None, :].to(torch.bool)
+        for p in self.blocks:
+            x = self._block(x, p, mask)
+        return x
+
+    def _mlm_head(self, x):
+        """Transform + tied decoder + vocab bias on hidden states x."""
+        cfg = self.config
+        x = x @ self.mlm_dense_w.to(x.dtype) + self.mlm_dense_b.to(x.dtype)
+        x = self._ln(_activation(x, cfg.activation), self.mlm_ln_scale,
+                     self.mlm_ln_bias)
+        return x @ self.wte.to(x.dtype).T + self.mlm_bias.to(x.dtype)
+
+    def mlm_logits(self, input_ids, token_type_ids=None,
+                   attention_mask=None):
+        """``[B, T, padded_vocab]`` MLM logits in the compute dtype."""
+        return self._mlm_head(self.encode(input_ids, token_type_ids,
+                                          attention_mask))
+
+    def logits(self, input_ids):
+        """MLM logits: the inference engine's scoring contract."""
+        return self.mlm_logits(input_ids)
+
+    forward = logits
+
+    # ------------------------------------------------------------ training
+    def apply(self, batch, rng=None, train=True):
+        """Masked-LM loss over labels != -100 (HF convention, unshifted).
+
+        If the batch carries ``masked_positions`` [B, P] (+ ``masked_labels``
+        [B, P], -100 = slot unused), the vocab head runs ONLY on those P
+        gathered positions. Overrides ``nn.Module.apply(fn)``: on a model of
+        this port, ``apply`` is the loss, as in the JAX package."""
+        cfg = self.config
+        unported = []
+        if train and cfg.dropout > 0:
+            unported.append(f"dropout={cfg.dropout}")
+        if cfg.remat:
+            unported.append("remat")
+        if unported:
+            raise NotImplementedError(
+                f"{type(self).__name__} training with {', '.join(unported)} "
+                f"is not ported yet: ROADMAP.md row A2b")
+        fields = batch if isinstance(batch, dict) else {"input_ids": batch}
+        input_ids = fields["input_ids"]
+        x = self.encode(input_ids, fields.get("token_type_ids"),
+                        fields.get("attention_mask"))
+        mpos = fields.get("masked_positions")
+        if mpos is not None:
+            labels = fields["masked_labels"]
+            x = torch.gather(x, 1, mpos[..., None].expand(-1, -1,
+                                                          x.shape[-1]))
+        else:
+            labels = fields.get("labels", input_ids)
+        logits = self._mlm_head(x)
+        valid = (labels >= 0) & (labels < cfg.vocab_size)
+        total = me.dense_xent_sum(logits, torch.where(valid, labels, 0).long(),
+                                  valid)
+        return total / torch.clamp_min(valid.sum(), 1)
+
+    def flops_per_token(self, seq_len: Optional[int] = None):
+        """Training FLOPs/token: 6 x (block weights + head) + the attention
+        term (12·L·D·T), as the JAX package counts."""
+        cfg = self.config
+        d, l = cfg.n_embd, cfg.n_layer
+        block = (4 + 2 * cfg.mlp_ratio) * l * d * d
+        flops = 6 * (block + cfg.padded_vocab * d + d * d)
+        if seq_len:
+            flops += 12 * l * d * seq_len
+        return flops

@@ -8,12 +8,12 @@ scale ``d ** -0.5``.
 
 ``flash_attention`` follows the JAX package's dispatch: where the JAX
 package takes its ``[B, H, T, D]`` Pallas kernels, this port takes its
-Hopper kernels (``kernels/flash_attention.py``: K3 forward, the K3b/K5
-backward) on the card, and their plain versions on the CPU, as the JAX
-package runs its kernels in interpret mode there. The streamed regime
-(``T * D * itemsize > 1 MiB``, the TPU's K4/K4b) is not ported and raises
-``NotImplementedError`` on the card; the plain path never stands in for a
-kernel there.
+Hopper kernels (``kernels/flash_attention.py``) on the card, and their
+plain versions on the CPU, as the JAX package runs its kernels in
+interpret mode there. One Hopper forward and one backward stand for both
+of the JAX package's regimes: the resident kernels (K3 forward, the K3b/K5
+backward) and, above ``T * D * itemsize = 1 MiB``, the streamed long-T
+kernels (K4, K4b); the wrappers count the two regimes' launches apart.
 """
 
 import torch
@@ -65,24 +65,6 @@ def supported(q, k, causal=True, mask=None, window=None) -> bool:
     return t >= 128 and t % 128 == 0 and d % 8 == 0 and d <= 256
 
 
-# above this K/V footprint per head the JAX package streams K/V through its
-# grid (K4/K4b) instead of keeping it resident (K3/K3b/K5)
-_RESIDENT_MAX_KV_BYTES = 1 << 20
-
-
-def _kernel_path(q, k, v, causal, softmax_scale, window):
-    """The kernels, or on the CPU their plain versions. The streamed regime
-    raises on any other device."""
-    if q.device.type != "cpu" and \
-            q.shape[-2] * q.shape[-1] * q.element_size() > \
-            _RESIDENT_MAX_KV_BYTES:
-        raise NotImplementedError(
-            f"the streamed flash attention kernels (K4/K4b, "
-            f"T*D*itemsize > 1 MiB) are not ported to CUDA yet: ROADMAP.md "
-            f"row A4; this shape {tuple(q.shape)} has no kernel on the card")
-    return fa.flash_attention(q, k, v, causal, softmax_scale, window)
-
-
 def flash_attention(q, k, v, causal=True, mask=None, softmax_scale=None,
                     backend="auto", bias=None, window=None):
     """Dispatch as the JAX package does. ``backend="pallas"`` takes the
@@ -98,10 +80,10 @@ def flash_attention(q, k, v, causal=True, mask=None, softmax_scale=None,
                 f"mask={'yes' if mask is not None else 'no'} "
                 f"bias={'yes' if bias is not None else 'no'} "
                 f"window={window}); pass backend='xla' explicitly")
-        return _kernel_path(q, k, v, causal, softmax_scale, window)
+        return fa.flash_attention(q, k, v, causal, softmax_scale, window)
     if backend == "auto" and q.device.type == "cuda":
         if bias is None and supported(q, k, causal, mask, window):
-            return _kernel_path(q, k, v, causal, softmax_scale, window)
+            return fa.flash_attention(q, k, v, causal, softmax_scale, window)
         _warn_plain_fallback(q, bias)
     if backend not in ("auto", "xla"):
         raise ValueError(f"unknown attention backend {backend!r}")

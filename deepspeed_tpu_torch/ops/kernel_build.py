@@ -102,9 +102,10 @@ _TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 def _kernel_name(mangled):
     """``dkdv_kernel<bf16,128,exact>`` for a kernel template instance
-    ``dkdv_kernel<T, DMAX, EXACT>``; other names as they are."""
+    ``dkdv_kernel<T, DMAX, EXACT>`` (``sparse_dq_kernel<...>`` and the
+    like keep their whole name); other names as they are."""
     m = re.search(
-        r"([a-z]+_kernel)I(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E",
+        r"([a-z_]+_kernel)I(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E",
         mangled)
     if m is None:
         return mangled

@@ -1,13 +1,22 @@
-"""K3 and K3b/K5: the ``[B, H, T, D]`` flash attention forward and backward,
-hand-written Hopper kernels.
+"""K3/K4 and K3b/K5/K4b: the ``[B, H, T, D]`` flash attention forward and
+backward, hand-written Hopper kernels.
 
-K3 replaces the TPU kernel ``_fwd_kernel`` of
-``deepspeed_tpu/ops/pallas/flash_attention.py`` (its forward); one Hopper
-backward replaces both of that file's backward kernels, the fused
-``_bwd_fused_kernel`` (K3b, the default) and the split ``_bwd_dq_kernel`` +
-``_bwd_dkv_kernel`` (K5, ``DSTPU_FLASH_BWD`` set to anything but
-``fused``): they compute one function, and K5's split is the Hopper
-design. The kernels are the ones K1/K2 use (``csrc/flash_attention_fwd.cu``,
+The forward replaces the TPU kernels of
+``deepspeed_tpu/ops/pallas/flash_attention.py`` for both of its regimes:
+``_fwd_kernel`` (K3, K/V resident in VMEM) and, where a head's K/V exceed
+``_RESIDENT_MAX_KV_BYTES`` (``T * D * itemsize > 1 MiB``, LLaMA past
+T = 4096 in bf16), ``_fwd_kernel_streamed`` (K4, K/V blocks on a third
+grid axis). All compute one function with the same -1e30 fill, update
+order and ``l >= 1e-30`` clamp, and the Hopper kernel streams 64-row K/V
+tiles through shared memory at any T, so one kernel serves both. The
+backward likewise replaces the resident fused ``_bwd_fused_kernel`` (K3b,
+the default), the split ``_bwd_dq_kernel`` + ``_bwd_dkv_kernel`` (K5,
+``DSTPU_FLASH_BWD`` set to anything but ``fused``) and the streamed
+``_bwd_dq_kernel_streamed`` + ``_bwd_dkv_kernel_streamed`` (K4b): K5's
+split is the Hopper design. Each wrapper counts its launches by regime:
+``launches`` for the resident one (K3, K3b/K5) and ``streamed_launches``
+for the streamed one (K4, K4b), so that a run can show which TPU kernel a
+path stood for. The kernels are the ones K1/K2 use (``csrc/flash_attention_fwd.cu``,
 ``csrc/flash_attention_bwd.cu``), given ``[B, H, T, D]`` strides instead of
 packed ones: q, k, v, o and every gradient are read and written through
 their own (batch, head, token) strides with a unit last stride, so any
@@ -34,6 +43,23 @@ NEG_INF = -1e30
 BLOCK_Q = BLOCK_K = 64     # the CUDA kernels' tiles, repeated by the plain versions
 MAX_HEAD_DIM = 256
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# above this K/V footprint per head the JAX package streams K/V through its
+# grid (K4/K4b) instead of keeping it resident (K3/K3b/K5)
+_RESIDENT_MAX_KV_BYTES = 1 << 20
+
+
+def streamed(q) -> bool:
+    """True where the JAX package takes its streamed kernels (K4/K4b)."""
+    return q.shape[-2] * q.shape[-1] * q.element_size() > \
+        _RESIDENT_MAX_KV_BYTES
+
+
+def _count(fn, q):
+    """One more launch of ``fn`` in q's regime."""
+    if streamed(q):
+        fn.streamed_launches += 1
+    else:
+        fn.launches += 1
 
 
 # ------------------------------------------------------------- launchers
@@ -250,11 +276,11 @@ def flash_attention_fwd(q, k, v, causal=True, softmax_scale=None,
                       device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     launch_fwd(q, k, v, out, lse, causal, scale, window)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q)
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+flash_attention_fwd.launches = flash_attention_fwd.streamed_launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
@@ -287,16 +313,16 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, causal, scale, window)
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, q)
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+flash_attention_bwd.launches = flash_attention_bwd.streamed_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention over [B, H, T, D] q, k, v: K3 forward (saving q, k, v, out
-    and lse), the K3b/K5 backward."""
+    """Attention over [B, H, T, D] q, k, v: the K3/K4 forward (saving q, k,
+    v, out and lse), the K3b/K5/K4b backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, softmax_scale, window):

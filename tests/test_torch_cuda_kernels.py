@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.models.bert import BertConfig, BertModel
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from deepspeed_tpu_torch.ops import flash_attention as dispatch
+from deepspeed_tpu_torch.ops import sparse_attention_ops as sops
+from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops.kernels import flash_attention as tfk
 from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as tfa
 
@@ -219,8 +222,12 @@ K3_CASES = [(True, None, None), (True, 96, None), (False, None, None),
 
 def _k3_case(device, dtype, shape, causal, window, scale, layout="bhtd",
              seed=7):
+    """The forward and backward kernels against their plain versions; one
+    launch each, counted in q's regime (K3, or the streamed K4/K4b)."""
     q, k, v = _bhtd(device, dtype, shape, seed, layout)
-    before = tfk.flash_attention_fwd.launches
+    counter = "streamed_launches" if tfk.streamed(q) else "launches"
+    before = (getattr(tfk.flash_attention_fwd, counter),
+              getattr(tfk.flash_attention_bwd, counter))
     out, lse = tfk.flash_attention_fwd(q, k, v, causal, scale, window)
     want_out, want_lse = tfk.flash_attention_plain(q, k, v, causal, scale,
                                                    window)
@@ -232,7 +239,9 @@ def _k3_case(device, dtype, shape, causal, window, scale, layout="bhtd",
     want = tfk.flash_attention_bwd_plain(q, k, v, dout, lse, delta, causal,
                                          scale, window)
     torch.cuda.synchronize()
-    assert tfk.flash_attention_fwd.launches == before + 1
+    assert (getattr(tfk.flash_attention_fwd, counter),
+            getattr(tfk.flash_attention_bwd, counter)) == \
+        (before[0] + 1, before[1] + 1)
     assert out.shape == q.shape and out.dtype == dtype
     fwd_err = (_ratio(out, want_out), (lse - want_lse).abs().max().item())
     return fwd_err, [_ratio(g, w) for g, w in zip(got, want)]
@@ -266,9 +275,18 @@ def test_flash_attention_head_dims_and_layouts(cuda_device, dtype, d,
 
 @pytest.mark.cuda
 def test_dispatch_streamed_regime_raises_on_the_card(cuda_device):
-    q = torch.zeros((1, 1, 8192, 128), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="A4"):
-        dispatch.flash_attention(q, q, q, backend="pallas")
+    """The streamed regime (T * D * itemsize > 1 MiB, the JAX package's
+    K4/K4b) dispatches to the kernels on the card, counted as streamed
+    launches and not as K3's; it no longer raises."""
+    q, k, v = _bhtd(cuda_device, torch.bfloat16, (1, 1, 8192, 128), 3)
+    before = (tfk.flash_attention_fwd.launches,
+              tfk.flash_attention_fwd.streamed_launches)
+    out = dispatch.flash_attention(q, k, v, backend="pallas")
+    torch.cuda.synchronize()
+    assert (tfk.flash_attention_fwd.launches,
+            tfk.flash_attention_fwd.streamed_launches) == \
+        (before[0], before[1] + 1)
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
 
 
 TINY_LLAMA = LlamaConfig(vocab_size=256, n_positions=256, n_embd=128,
@@ -309,4 +327,202 @@ def test_llama_train_batch_launches_k3_forward_and_backward(cuda_device):
     want = TINY_LLAMA.n_layer * gas
     assert tfk.flash_attention_fwd.launches - before[0] == want
     assert tfk.flash_attention_bwd.launches - before[1] == want
+    assert np.isfinite(loss.item())
+
+
+# ------------------------------------------- streamed regime (K4 and K4b)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (1, 2, 8192, 128)), (torch.float16, (1, 2, 8192, 128)),
+    (torch.float32, (1, 2, 4096, 128))], ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 1000),
+                                           (False, None)])
+def test_streamed_flash_attention_matches_plain(cuda_device, dtype, shape,
+                                                causal, window):
+    """T * D * itemsize = 2 MiB: the JAX package's K4/K4b regime, counted
+    as streamed launches and not as K3's."""
+    q, _, _ = _bhtd(cuda_device, dtype, shape, 11, "bthd")
+    assert tfk.streamed(q)
+    before = tfk.flash_attention_fwd.launches
+    (r_out, e_lse), bwd = _k3_case(cuda_device, dtype, shape, causal, window,
+                                   None, "bthd", 11)
+    assert r_out <= 1 and e_lse <= LSE_TOL, (r_out, e_lse)
+    assert max(bwd) <= 1, bwd
+    assert tfk.flash_attention_fwd.launches == before
+
+
+CODELLAMA_SHAPED = LlamaConfig(vocab_size=256, n_positions=8192, n_embd=256,
+                               n_layer=2, n_head=2, mlp_hidden=384,
+                               pad_vocab_to_multiple=8, rope_theta=1e6)
+
+
+@pytest.mark.cuda
+def test_codellama_shaped_takes_k4_and_k4b_never_k3(cuda_device):
+    """Head dim 128 at T 8192 in bf16 (2 MiB of K/V a head): the forward
+    launches K4 once per layer and K3 never; a train_batch launches K4 and
+    K4b n_layer x gas times."""
+    import deepspeed_tpu_torch
+    model = LlamaModel(CODELLAMA_SHAPED, device=cuda_device).to(
+        torch.bfloat16)
+    ids = torch.randint(0, 256, (1, 8192), device=cuda_device)
+    fwd, bwd = tfk.flash_attention_fwd, tfk.flash_attention_bwd
+    before = (fwd.launches, fwd.streamed_launches)
+    with torch.inference_mode():
+        logits = model.logits(ids)
+    torch.cuda.synchronize()
+    assert (fwd.launches, fwd.streamed_launches) == \
+        (before[0], before[1] + CODELLAMA_SHAPED.n_layer)
+    assert torch.isfinite(logits.float()).all()
+    gas = 2
+    engine = deepspeed_tpu_torch.initialize(
+        model=LlamaModel(CODELLAMA_SHAPED), config={
+            "train_batch_size": gas, "train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": gas,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "bf16": {"enabled": True}, "steps_per_print": 0})[0]
+    batch = np.random.default_rng(1).integers(0, 256, (gas, 1, 8192))
+    before = (fwd.launches, fwd.streamed_launches, bwd.launches,
+              bwd.streamed_launches)
+    loss = engine.train_batch(batch={"input_ids": batch})
+    torch.cuda.synchronize()
+    want = CODELLAMA_SHAPED.n_layer * gas
+    assert (fwd.launches, fwd.streamed_launches, bwd.launches,
+            bwd.streamed_launches) == \
+        (before[0], before[1] + want, before[2], before[3] + want)
+    assert np.isfinite(loss.item())
+
+
+# ------------------------------------------------- block-sparse (K6, K7)
+
+def _sparse_layout(kind, h, t, fb):
+    if kind == "edge":     # an empty fine row, a coarse row with nnz = 0
+        nb = t // fb
+        layout = np.zeros((h, nb, nb), bool)
+        for i in range(nb):
+            layout[:, i, i] = True
+        layout[0, 5, :] = False
+        layout[-1, 8:16, :] = False
+        return layout
+    cls, kw = {
+        "fixed": (sops.FixedSparsityConfig,
+                  dict(num_local_blocks=4, num_global_blocks=1,
+                       different_layout_per_head=True,
+                       num_different_global_patterns=4)),
+        "bslongformer": (sops.BSLongformerSparsityConfig,
+                         dict(num_sliding_window_blocks=3,
+                              global_block_indices=(0,))),
+        "bigbird": (sops.BigBirdSparsityConfig,
+                    dict(num_random_blocks=1, num_sliding_window_blocks=3,
+                         num_global_blocks=1, seed=0)),
+    }[kind]
+    return cls(num_heads=h, block=fb, **kw).make_layout(t)
+
+
+def _sparse_case(device, dtype, shape, kind, fb=16, layout_kind="bthd"):
+    """K6 and K7 against their plain versions on the same inputs: the
+    forward's out and lse ratios, and dq, dk, dv ratios."""
+    b, h, t, d = shape
+    layout = _sparse_layout(kind, h, t, fb)
+    tile = bsa.default_tile(t, fb)
+    plan = bsa.get_plan(layout, fb, tile, device)
+    q, k, v = _bhtd(device, dtype, shape, 13, layout_kind)
+    scale = d ** -0.5
+    before = (bsa.block_sparse_attention_fwd.launches,
+              bsa.block_sparse_attention_bwd.launches)
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, plan, scale)
+    want_out, want_lse = bsa.block_sparse_attention_plain(q, k, v, plan,
+                                                          scale)
+    gen = torch.Generator(device=device).manual_seed(13)
+    dout = torch.randn(out.shape, generator=gen, device=device).to(dtype)
+    got = bsa.block_sparse_attention_bwd(q, k, v, out, lse, dout, plan,
+                                         scale)
+    want = bsa.block_sparse_attention_bwd_plain(
+        q, k, v, dout, lse, tfk.attention_delta(out, dout), plan, scale)
+    torch.cuda.synchronize()
+    assert (bsa.block_sparse_attention_fwd.launches,
+            bsa.block_sparse_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and out.shape == q.shape
+    finite = torch.isfinite(want_lse)
+    return ((_ratio(out, want_out),
+             (lse - want_lse)[finite].abs().max().item()),
+            [_ratio(g, w) for g, w in zip(got, want)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["fixed", "bslongformer", "bigbird",
+                                  "edge"])
+def test_block_sparse_matches_plain(cuda_device, dtype, kind):
+    (r_out, e_lse), bwd = _sparse_case(cuda_device, dtype, (2, 4, 1024, 64),
+                                       kind)
+    assert r_out <= 1 and e_lse <= LSE_TOL, (r_out, e_lse)
+    assert max(bwd) <= 1, bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,fb,layout_kind", [
+    (32, 16, "bhtd"), (64, 64, "bthd"), (80, 32, "unaligned"),
+    (128, 16, "bthd"), (256, 16, "bhtd"), (128, 128, "bhtd")])
+def test_block_sparse_head_dims_blocks_and_layouts(cuda_device, d, fb,
+                                                   layout_kind):
+    """Every head-dim ceiling (64, 128, 256; the 32-row own tiles of the
+    backward at 256), fine blocks 16 to 128 (tiles 128 and 256), contiguous,
+    [B, T, H, D]-strided and unaligned inputs; bf16, BigBird."""
+    (r_out, e_lse), bwd = _sparse_case(cuda_device, torch.bfloat16,
+                                       (1, 2, 1024, d), "bigbird", fb,
+                                       layout_kind)
+    assert r_out <= 1 and e_lse <= LSE_TOL, (r_out, e_lse)
+    assert max(bwd) <= 1, bwd
+
+
+TINY_BERT = BertConfig(vocab_size=256, n_positions=128, n_embd=128,
+                       n_layer=2, n_head=2, pad_vocab_to_multiple=8)
+
+
+@pytest.mark.cuda
+def test_bert_with_surgery_takes_k6_and_k7_never_k3(cuda_device):
+    """TINY BERT after the Fixed-layout surgery (positions 128 -> 1024):
+    the forward launches K6 once per layer and K3 never; a train_batch
+    with masked positions launches K6 and K7 n_layer x gas times."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.sparse_attention_utils import \
+        SparseAttentionUtils
+
+    def surgered():
+        return SparseAttentionUtils.\
+            replace_model_self_attention_with_sparse_self_attention(
+                BertModel(TINY_BERT), max_position=1024,
+                sparsity_config=sops.FixedSparsityConfig(num_heads=2,
+                                                         block=16))
+
+    model = surgered().to(cuda_device, torch.bfloat16)
+    ids = torch.randint(0, 256, (2, 1024), device=cuda_device)
+    fwd, bwd = bsa.block_sparse_attention_fwd, bsa.block_sparse_attention_bwd
+    before = (fwd.launches, tfk.flash_attention_fwd.launches)
+    with torch.inference_mode():
+        logits = model.logits(ids)
+    torch.cuda.synchronize()
+    assert (fwd.launches, tfk.flash_attention_fwd.launches) == \
+        (before[0] + TINY_BERT.n_layer, before[1])
+    assert torch.isfinite(logits.float()).all()
+    gas, micro = 2, 2
+    engine = deepspeed_tpu_torch.initialize(model=surgered(), config={
+        "train_batch_size": gas * micro,
+        "train_micro_batch_size_per_gpu": micro,
+        "gradient_accumulation_steps": gas,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+        "bf16": {"enabled": True}, "steps_per_print": 0})[0]
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, 256, (gas, micro, 1024))
+    pos = np.sort(rng.choice(1024, (gas, micro, 150)), axis=-1)
+    batch = {"input_ids": ids, "masked_positions": pos,
+             "masked_labels": np.take_along_axis(ids, pos, -1)}
+    before = (fwd.launches, bwd.launches, tfk.flash_attention_fwd.launches)
+    loss = engine.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    want = TINY_BERT.n_layer * gas
+    assert (fwd.launches, bwd.launches, tfk.flash_attention_fwd.launches) \
+        == (before[0] + want, before[1] + want, before[2])
     assert np.isfinite(loss.item())

@@ -125,10 +125,12 @@ def test_dispatch_refusals():
                                   bias=torch.zeros((2, 128, 128)))
     with pytest.raises(ValueError, match="unknown attention backend"):
         tdispatch.flash_attention(q, q, q, backend="triton")
-    # the streamed regime (T * D * itemsize > 1 MiB) off the CPU: the JAX
-    # package's K4/K4b, not ported (meta tensors stand for the card here)
+    # the streamed regime (T * D * itemsize > 1 MiB): the JAX package's
+    # K4/K4b, which the kernels now take; on a device that is neither CUDA
+    # nor the CPU (meta) the wrapper refuses it as any other shape
     big = torch.empty((1, 1, 8192, 64), device="meta")
-    with pytest.raises(NotImplementedError, match="row A4"):
+    assert tfk.streamed(big)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
         tdispatch.flash_attention(big, big, big, backend="pallas")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tdispatch.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"),
@@ -160,3 +162,67 @@ def test_sp_attention_without_a_seq_axis():
         tsp.sp_attention(q, k, v, causal=False, window=8)
     with pytest.raises(NotImplementedError, match="A2b"):
         tsp.sp_attention(q, k, v, dropout_rate=0.1)
+
+
+# ------------------------------------------------ streamed regime (K4/K4b)
+
+@pytest.fixture
+def streamed_threshold(monkeypatch):
+    """Both packages' residency threshold shrunk to 1 KiB, as
+    ``tests/unit/test_pallas_flash.py`` does, so that small CPU shapes take
+    the streamed regime; the JAX package's ``_fwd_streamed`` and
+    ``_bwd_streamed`` are spied on to show that its streamed kernels ran."""
+    monkeypatch.setattr(jfa, "_RESIDENT_MAX_KV_BYTES", 1024)
+    monkeypatch.setattr(tfk, "_RESIDENT_MAX_KV_BYTES", 1024)
+    ran = []
+    for name in ("_fwd_streamed", "_bwd_streamed"):
+        real = getattr(jfa, name)
+        monkeypatch.setattr(jfa, name, lambda *a, _r=real, _n=name, **kw:
+                            ran.append(_n) or _r(*a, **kw))
+    return ran
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 100)],
+                         ids=["causal", "noncausal", "window"])
+def test_streamed_forward_matches_jax_streamed_kernel(streamed_threshold,
+                                                      causal, window):
+    shape = (1, 2, 512, 32)
+    q, k, v = _inputs(shape, seed=10)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    assert tfk.streamed(tq)
+    want = _jax_fwd(q, k, v, causal, None, window)
+    assert streamed_threshold == ["_fwd_streamed"]
+    out = tdispatch.flash_attention(tq, tk, tv, causal=causal,
+                                    backend="pallas", window=window)
+    np.testing.assert_allclose(out.numpy(), want, atol=FWD_TOL)
+
+
+@pytest.mark.parametrize("causal,window,tol", [(True, None, 5e-5),
+                                               (True, 100, 5e-4)],
+                         ids=["causal", "window"])
+def test_streamed_gradients_match_jax_streamed_kernels(streamed_threshold,
+                                                       causal, window, tol):
+    """``jax.grad`` through the JAX streamed backward (K4b) against the
+    port's autograd Function on the same inputs."""
+    q, k, v, g = _inputs((1, 2, 384, 32), seed=11, n=4)
+
+    def jloss(q_, k_, v_):
+        out = jfa.flash_attention(q_, k_, v_, causal, None, None, None, True,
+                                  window)
+        return jnp.sum(out * jnp.asarray(g))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    assert streamed_threshold == ["_fwd_streamed", "_bwd_streamed"]
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    before = (tfk.flash_attention_bwd.launches,
+              tfk.flash_attention_bwd.streamed_launches)
+    out = tdispatch.flash_attention(tq, tk, tv, causal=causal,
+                                    backend="pallas", window=window)
+    out.backward(torch.from_numpy(g))
+    # the CPU takes the plain versions: no launch in either regime
+    assert (tfk.flash_attention_bwd.launches,
+            tfk.flash_attention_bwd.streamed_launches) == before
+    for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=tol,
+                                   err_msg=f"d{name}")

@@ -223,8 +223,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deepspeed_tpu'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 10 else 0)\n")
+        "want = {'models.bert', 'ops.sparse_attention_ops', "
+        "'ops.sparse_attention_utils', 'ops.kernels.block_sparse_attention'}\n"
+        "missing = sorted(w for w in want if pkg.__name__ + '.' + w "
+        "not in mods)\n"
+        "print(len(mods), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 10 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
