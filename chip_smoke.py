@@ -6,10 +6,18 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 Phases, one line each: environment; build of every kernel source from the
-checkout; each kernel against its plain PyTorch version on the card, with
-times (K1/K2 at GPT-2-125M's packed attention shape, K3 and its K3b/K5
-backward at LLaMA-7B's ``[4, 32, 2048, 128]`` and at head dims 80 and
-256); the port's main paths at full width (random weights from a seed):
+checkout (registers and spills; the tensor-core instances must not
+spill); the plain versions' model of the tensor cores' sums against the
+card's ``mma.sync.m16n8k16`` on samples drawn in this run; a one-tile
+fragment check of the bf16 tensor-core flash attention kernels at head
+dims 64 and 128; each kernel against its plain PyTorch version on the
+card, with times (K1/K2 at GPT-2-125M's packed attention shape, K3 and its
+K3b/K5 backward at LLaMA-7B's ``[4, 32, 2048, 128]``, at head dim 64 and
+at head dims 80 and 256; the bf16/f16 tensor-core kernels are held to the
+plain versions that repeat the tensor cores' sums, and their distance to
+the plain versions that sum with ``torch.matmul`` is reported beside, as
+``indep_*``); the port's main paths at full width (random weights from a
+seed):
 GPT-2-125M through ``init_inference`` (``engine(input_ids)`` scoring calls
 and ``generate`` requests) and ``initialize`` -> ``train_batch`` (bf16 on
 fp32 masters, AdamW, gradient accumulation); LLaMA-7B through
@@ -18,16 +26,18 @@ fp32 masters, AdamW, gradient accumulation); LLaMA-7B through
 path, a repeated batch whose loss must fall, and a profile of each path;
 then LLaMA-2-70B's width at 2 layers with grouped-query attention and a
 sliding window. The streamed regime (K4, K4b: Code Llama 7B's attention at
-T 16384, a 4096 window at T 32768, non-causal, f32) and the block-sparse
-kernels (K6, K7: BERT-large's attention at T 4096 under the Fixed,
-BSLongformer and BigBird layouts, each with its live-tile and live-pair
+T 16384, a 4096 window at T 32768, non-causal, head dim 64, f32) and the
+block-sparse kernels (K6, K7: BERT-large's attention at T 4096 under the
+Fixed, BSLongformer and BigBird layouts, each with its live-tile and live-pair
 densities, and a planted one-tile fault the checks must catch) are
 checked the same way; then Code Llama 7B is served at full depth on
 ``[1, 16384]`` and trained at 4 layers of its width, each held against
 the path on the kernels' plain versions, and BERT-large with
 ``SparseAttentionUtils``' Fixed sparse surgery is scored at ``[4, 4096]``
 and trained (15% masked positions), held against the dense-masked plain
-path, with a repeated batch at 4 layers and profiles. Every check raises
+path, with a repeated batch at 4 layers and profiles. Each profile names
+the flash attention kernel instances that ran; on these bf16 paths they
+must be the tensor-core ones (``mma_*``). Every check raises
 on failure, so the script exits
 non-zero without printing a result. The last lines are one JSON
 object describing every kernel, the card's name and power limit from
@@ -38,6 +48,7 @@ package.
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -102,7 +113,8 @@ LLAMA_CONVERGE_LR = 2e-4
 K4_CASES = [((1, 32, 16384, 128), "bfloat16", True, None),
             ((1, 8, 32768, 128), "bfloat16", True, 4096),
             ((1, 8, 8192, 128), "bfloat16", False, None),
-            ((1, 8, 8192, 64), "float32", True, None)]
+            ((1, 8, 8192, 64), "float32", True, None),
+            ((1, 8, 16384, 64), "bfloat16", True, None)]
 K4_TIMING = (5, 2, 1)
 # Code Llama 7B: served at full depth on [1, 16384]; trained at 4 layers of
 # its width (micro 1, T 16384, gas 2). Its checks hold the kernel path to
@@ -163,6 +175,19 @@ def median_ms(torch, fn, reps=10, inner=5, warmup=3):
     return statistics.median(times)
 
 
+def timed_call(torch, fn):
+    """``(fn(), ms)``: one call between two CUDA events. The plain versions
+    are timed so: on the tensor-core path they repeat the tensor cores'
+    sums elementwise and take seconds a call at the largest shapes."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -179,6 +204,85 @@ def errors(got, want):
     diff = (got.float() - want.float()).abs()
     return (diff.max().item(),
             (diff / (atol + rtol * want.float().abs())).max().item())
+
+
+def independent(got, want, lse=None, want_lse=None):
+    """``indep_*`` fields of a kernel-check phase: the kernel's outputs
+    (and lse) against the plain version that sums with ``torch.matmul``
+    (``tensor_core=False``), which knows nothing of the tensor cores' sums
+    that the bf16/f16 checks hold the kernels to. Reported, not checked:
+    where the sums differ in their last bits, P or dS now and then round to
+    the other neighbour, and in a row with a small sum that moves an output
+    by a few rounding steps (PERF.md)."""
+    found = [errors(g, w) for g, w in zip(got, want)]
+    res = {"indep_errs": [e for e, _ in found],
+           "indep_ratio": max(r for _, r in found)}
+    if lse is not None:
+        res["indep_err_lse"] = (lse - want_lse).abs().max().item()
+    return res
+
+
+def mma_samples(torch, dtype, n, seed):
+    """``n`` tiles for :func:`check_mma_sums`, a [n, 16, 16] and b [n, 8, 16]
+    of ``dtype`` and c [n, 16, 8] float32, on the CPU, in five families of
+    n / 5 tiles: normal a, b and c; exponents spread over 2^-4..2^4 (c over
+    2^-10..2^10); the same with c = 0; near-cancelling products (a[:, 8:]
+    = -a[:, :8] (1 + 2^-u), u in 1..12, b = 1) under a c of 2^-20..1; and
+    one 16-column step of an attention dot product at head dim 128 (q and k
+    normal, c the float32 sum of the columns before the step)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    m = n // 5
+    normal = rng.standard_normal
+
+    def spread(shape, e):
+        return normal(shape) * 2.0 ** rng.uniform(-e, e, shape)
+
+    a = [normal((m, 16, 16)), spread((m, 16, 16), 4), spread((m, 16, 16), 4)]
+    b = [normal((m, 8, 16)), spread((m, 8, 16), 4), spread((m, 8, 16), 4)]
+    c = [normal((m, 16, 8)), spread((m, 16, 8), 10), np.zeros((m, 16, 8))]
+    half = normal((m, 16, 8))
+    a.append(np.concatenate(
+        [half, -half * (1 + 2.0 ** -rng.integers(1, 13, (m, 16, 8)))], -1))
+    b.append(np.ones((m, 8, 16)))
+    c.append(normal((m, 16, 8)) * 2.0 ** -rng.uniform(0, 20, (m, 16, 8)))
+    rest = n - 4 * m
+    q = torch.from_numpy(normal((rest, 16, 128))).to(dtype).float()
+    k = torch.from_numpy(normal((rest, 8, 128))).to(dtype).float()
+    for i, step in enumerate(rng.integers(0, 8, rest)):
+        lo, hi = 16 * step, 16 * step + 16
+        a.append(q[i:i + 1, :, lo:hi])
+        b.append(k[i:i + 1, :, lo:hi])
+        c.append(torch.matmul(q[i:i + 1, :, :lo],
+                              k[i:i + 1, :, :lo].transpose(-1, -2)))
+
+    def cat(xs, to):
+        return torch.cat([torch.as_tensor(x).float() for x in xs]).to(to)
+
+    return cat(a, dtype), cat(b, dtype), cat(c, torch.float32)
+
+
+def check_mma_sums(torch, n=5000):
+    """The plain versions' model of the tensor cores' sums
+    (``flash_attention.mma_step``) against the card's own
+    ``mma.sync.m16n8k16`` (``mma_on_card``, the instruction of the
+    tensor-core kernels' products) on :func:`mma_samples` drawn in this run
+    from seed SEED + 11: samples the model was not fitted on. Every output
+    must agree bit for bit. Phase "kernel-check mma sums"."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    res = {"tiles": n, "outputs": n * 128}
+    for name, dtype in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        a, b, c = (x.cuda() for x in mma_samples(torch, dtype, n, SEED + 11))
+        card = fa.mma_on_card(a, b, c)
+        model = fa.mma_step(c, a, b)
+        f32_sum = c + torch.matmul(a.float(), b.float().transpose(-1, -2))
+        res[f"{name}_mismatches"] = int((model != card).sum().item())
+        res[f"{name}_f32_sum_mismatches"] = int((f32_sum != card).sum()
+                                                .item())
+        res[f"{name}_max_abs_diff"] = (model - card).abs().max().item()
+    phase("kernel-check mma sums", **res)
+    check(res["bf16_mismatches"] == 0 and res["f16_mismatches"] == 0,
+          f"the model of the tensor cores' sums misses the card: {res}")
 
 
 def kept_pairs(t, causal, window):
@@ -199,10 +303,15 @@ def check_k1(torch, b, t, h, d, dtype, causal, window):
     qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda",
                       dtype=torch.float32).to(dtype)
     q, k, v = qkv.split(h * d, dim=-1)
+    tc = k1.fa.tensor_core_path(dtype, d)
+
+    def plain(tensor_core):
+        return k1.packed_flash_attention_plain(q, k, v, h, causal, None,
+                                               window, tensor_core)
+
     out, lse = k1.packed_flash_attention_fwd(q, k, v, h, causal=causal,
                                              window=window)
-    ref_out, ref_lse = k1.packed_flash_attention_plain(q, k, v, h, causal,
-                                                       None, window)
+    (ref_out, ref_lse), plain_ms = timed_call(torch, lambda: plain(tc))
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
     err_out, ratio_out = errors(out, ref_out)
@@ -212,11 +321,12 @@ def check_k1(torch, b, t, h, d, dtype, causal, window):
           f"K1 {dname} causal={causal} window={window}: out err {err_out} "
           f"(ratio {ratio_out} to TOL {TOL[dname]}), lse err {err_lse} "
           f"(tol {LSE_TOL})")
+    indep_out, indep_lse = plain(False) if tc else (ref_out, ref_lse)
+    indep = independent([out], [indep_out], lse, indep_lse)
+    del indep_out, indep_lse
 
     kernel_ms = median_ms(torch, lambda: k1.packed_flash_attention_fwd(
         q, k, v, h, causal=causal, window=window))
-    plain_ms = median_ms(torch, lambda: k1.packed_flash_attention_plain(
-        q, k, v, h, causal, None, window), reps=5, inner=1, warmup=1)
     q4, k4, v4 = (x.reshape(b, t, h, d).transpose(1, 2).contiguous()
                   for x in (q, k, v))
     mask = None
@@ -232,9 +342,9 @@ def check_k1(torch, b, t, h, d, dtype, causal, window):
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dname] * 1e3
     res = {"dtype": dname, "causal": causal, "window": window,
-           "shape": [b, t, h, d], "err_out": err_out, "err_lse": err_lse,
-           "ratio_out": ratio_out, "tol": TOL[dname], "tol_lse": LSE_TOL,
-           "kernel_ms": kernel_ms,
+           "shape": [b, t, h, d], "tensor_cores": tc, "err_out": err_out,
+           "err_lse": err_lse, "ratio_out": ratio_out, "tol": TOL[dname],
+           "tol_lse": LSE_TOL, **indep, "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -261,11 +371,15 @@ def check_k2(torch, b, t, h, d, dtype, causal, window):
         return k1.packed_flash_attention_bwd(qkv, out, lse, dout, h,
                                              causal=causal, window=window)
 
-    def plain():
-        return k1.packed_flash_attention_bwd_plain(q, k, v, dout, lse, delta,
-                                                   h, causal, None, window)
+    tc = k1.fa.tensor_core_path(dtype, d)
 
-    got, want = kernel(), plain()
+    def plain(tensor_core):
+        return k1.packed_flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                                   h, causal, None, window,
+                                                   tensor_core)
+
+    got = kernel()
+    want, plain_ms = timed_call(torch, lambda: plain(tc))
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
     errs, ratios = zip(*(errors(g, w)
@@ -274,9 +388,10 @@ def check_k2(torch, b, t, h, d, dtype, causal, window):
     check(max(ratios) <= 1,
           f"K2 {dname} causal={causal} window={window}: dq/dk/dv errors "
           f"{errs}, ratios {ratios} to TOL {TOL[dname]}")
+    indep = independent(got.split(h * d, dim=-1),
+                        plain(False) if tc else want)
 
     kernel_ms = median_ms(torch, kernel)
-    plain_ms = median_ms(torch, plain, reps=5, inner=1, warmup=1)
     # the library's backward: SDPA forward+backward minus its forward
     q4, k4, v4 = (x.reshape(b, t, h, d).transpose(1, 2).contiguous()
                   .requires_grad_() for x in (q, k, v))
@@ -306,9 +421,9 @@ def check_k2(torch, b, t, h, d, dtype, causal, window):
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dname] * 1e3
     res = {"dtype": dname, "causal": causal, "window": window,
-           "shape": [b, t, h, d], "err_dq": errs[0], "err_dk": errs[1],
-           "err_dv": errs[2], "ratio": max(ratios), "tol": TOL[dname],
-           "kernel_ms": kernel_ms,
+           "shape": [b, t, h, d], "tensor_cores": tc, "err_dq": errs[0],
+           "err_dk": errs[1], "err_dv": errs[2], "ratio": max(ratios),
+           "tol": TOL[dname], **indep, "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library": "SDPA fwd+bwd minus fwd",
            "bound_ms": max(bytes_ms, ops_ms),
@@ -349,9 +464,14 @@ def check_k3(torch, shape, dtype, causal, window, scale=None, name="K3",
     check(fa.streamed(q) == (name == "K4"),
           f"{name} check at {shape} {dtype}: streamed regime "
           f"{fa.streamed(q)}")
+    tc = fa.tensor_core_path(dtype, d)
+
+    def plain(tensor_core):
+        return fa.flash_attention_plain(q, k, v, causal, scale, window,
+                                        tensor_core)
+
     out, lse = fa.flash_attention_fwd(q, k, v, causal, scale, window)
-    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal, scale,
-                                                window)
+    (ref_out, ref_lse), plain_ms = timed_call(torch, lambda: plain(tc))
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
     err_out, ratio_out = errors(out, ref_out)
@@ -362,12 +482,12 @@ def check_k3(torch, shape, dtype, causal, window, scale=None, name="K3",
           f"{name} {dname} {shape} causal={causal} window={window} "
           f"scale={scale}: out err {err_out} (ratio {ratio_out} to TOL "
           f"{TOL[dname]}), lse err {err_lse} (tol {LSE_TOL})")
+    indep_out, indep_lse = plain(False) if tc else (ref_out, ref_lse)
+    indep = independent([out], [indep_out], lse, indep_lse)
+    del ref_out, ref_lse, indep_out, indep_lse
     reps, inner, warmup = timing
     kernel_ms = median_ms(torch, lambda: fa.flash_attention_fwd(
         q, k, v, causal, scale, window), reps, inner, warmup)
-    plain_ms = median_ms(torch, lambda: fa.flash_attention_plain(
-        q, k, v, causal, scale, window), reps=min(reps, 5), inner=1,
-        warmup=1)
     mask, is_causal = sdpa_mask(torch, t, causal, window)
     library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, is_causal=is_causal, scale=scale), reps,
@@ -380,9 +500,10 @@ def check_k3(torch, shape, dtype, causal, window, scale=None, name="K3",
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dname] * 1e3
     res = {"dtype": dname, "causal": causal, "window": window,
-           "scale": scale, "shape": list(shape), "err_out": err_out,
-           "err_lse": err_lse, "ratio_out": ratio_out, "tol": TOL[dname],
-           "tol_lse": LSE_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "scale": scale, "shape": list(shape), "tensor_cores": tc,
+           "err_out": err_out, "err_lse": err_lse, "ratio_out": ratio_out,
+           "tol": TOL[dname], "tol_lse": LSE_TOL, **indep,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     phase(f"kernel-check {name}", **res)
@@ -407,11 +528,15 @@ def check_k3_bwd(torch, shape, dtype, causal, window, scale=None,
         return fa.flash_attention_bwd(q, k, v, out, lse, dout, causal, scale,
                                       window)
 
-    def plain():
-        return fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
-                                            causal, scale, window)
+    tc = fa.tensor_core_path(dtype, d)
 
-    got, want = kernel(), plain()
+    def plain(tensor_core):
+        return fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                            causal, scale, window,
+                                            tensor_core)
+
+    got = kernel()
+    want, plain_ms = timed_call(torch, lambda: plain(tc))
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
     errs, ratios = zip(*(errors(g, w) for g, w in zip(got, want)))
@@ -421,9 +546,10 @@ def check_k3_bwd(torch, shape, dtype, causal, window, scale=None,
           f"{name} {dname} {shape} causal={causal} window={window} "
           f"scale={scale}: dq/dk/dv errors {errs}, ratios {ratios} to TOL "
           f"{TOL[dname]}")
+    indep = independent(got, plain(False) if tc else want)
+    del want
     reps, inner, warmup = timing
     kernel_ms = median_ms(torch, kernel, reps, inner, warmup)
-    plain_ms = median_ms(torch, plain, reps=min(reps, 5), inner=1, warmup=1)
     q4, k4, v4 = (x.detach().requires_grad_() for x in (q, k, v))
     mask, is_causal = sdpa_mask(torch, t, causal, window)
 
@@ -446,9 +572,9 @@ def check_k3_bwd(torch, shape, dtype, causal, window, scale=None,
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dname] * 1e3
     res = {"dtype": dname, "causal": causal, "window": window,
-           "scale": scale, "shape": list(shape), "err_dq": errs[0],
-           "err_dk": errs[1], "err_dv": errs[2], "ratio": max(ratios),
-           "tol": TOL[dname],
+           "scale": scale, "shape": list(shape), "tensor_cores": tc,
+           "err_dq": errs[0], "err_dk": errs[1], "err_dv": errs[2],
+           "ratio": max(ratios), "tol": TOL[dname], **indep,
            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "library": "SDPA fwd+bwd minus fwd",
            "bound_ms": max(bytes_ms, ops_ms),
@@ -457,23 +583,67 @@ def check_k3_bwd(torch, shape, dtype, causal, window, scale=None,
     return res
 
 
+def check_fragments(torch, d):
+    """One 64 x 64 tile (B 1, H 1, T 64) of the bf16 tensor-core kernels at
+    head dim d, causal, forward and backward against their plain versions:
+    identity-like inputs (q = k = 4 e_(t mod d), so S is 16 on the diagonal
+    and 0 elsewhere; v and dO small integers, exact in bf16), where a wrong
+    accumulator-to-A fragment mapping or ldmatrix(.trans) address moves
+    whole rows or columns; then random inputs. Phase "kernel-check
+    fragments"."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    t, bf16 = 64, torch.bfloat16
+    pos = torch.arange(t, device="cuda")
+    eye = torch.zeros((1, 1, t, d), device="cuda")
+    eye[0, 0, pos, pos % d] = 4.0
+    ints = ((pos[:, None] * 7 + torch.arange(d, device="cuda")) % 9 - 4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cases = {"identity": (eye, eye, ints[None, None].float(),
+                          ints.flip(0)[None, None].float()),
+             "random": tuple(torch.randn((1, 1, t, d), generator=gen,
+                                         device="cuda") for _ in range(4))}
+    tc = fa.tensor_core_path(bf16, d)
+    check(tc, f"bf16 at head dim {d} does not take the tensor cores")
+    res = {"d": d}
+    for name, xs in cases.items():
+        q, k, v, dout = (x.to(bf16) for x in xs)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+        ref_out, ref_lse = fa.flash_attention_plain(q, k, v, tensor_core=tc)
+        ref = fa.flash_attention_bwd_plain(q, k, v, dout, lse,
+                                           fa.attention_delta(out, dout),
+                                           tensor_core=tc)
+        torch.cuda.synchronize()
+        found = [errors(out, ref_out)] + [errors(g, w)
+                                         for g, w in zip(grads, ref)]
+        err_lse = (lse - ref_lse).abs().max().item()
+        res[f"{name}_err"] = [e for e, _ in found] + [err_lse]
+        res[f"{name}_ratio"] = max(r for _, r in found)
+        check(res[f"{name}_ratio"] <= 1 and err_lse <= LSE_TOL,
+              f"tensor-core fragments at d {d}, {name} inputs: out/dq/dk/dv "
+              f"errors {found}, lse {err_lse}")
+    phase("kernel-check fragments", **res)
+
+
 def planted_faults(torch, shape, dtype, causal, window):
     """What the K3 checks report for planted faults, each a kernel that
     leaves one 64-key tile out: out and dq of the last 64 query rows
     without keys [T-128, T-64); dk and dv of the last 64 keys without the
     last 64 query rows' terms. Each is computed from the plain versions'
     results and held against them as a kernel's output is; every ratio must
-    exceed 1, so that the checks would catch the fault."""
+    exceed 1, so that the checks would catch the fault. The plain versions
+    sum as the K3 check's do."""
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     b, h, t, d = shape
     scale = d ** -0.5
+    tc = fa.tensor_core_path(dtype, d)
     q, k, v = k3_inputs(torch, shape, dtype, SEED + 8)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-    out, lse = fa.flash_attention_plain(q, k, v, causal, scale, window)
+    out, lse = fa.flash_attention_plain(q, k, v, causal, scale, window, tc)
     delta = fa.attention_delta(out, dout)
     dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
-                                              causal, scale, window)
+                                              causal, scale, window, tc)
     last, drop = slice(t - 64, t), slice(t - 128, t - 64)
     qf, kf, vf, dof = (x[:, :, last].float() for x in (q, k, v, dout))
     kd, vd = k[:, :, drop].float(), v[:, :, drop].float()
@@ -525,15 +695,39 @@ def profile_forward(torch, engine, ids, top=8, name="profile forward"):
     report_profile(name, prof, wall_ms, top)
 
 
+# a flash attention kernel instance in a demangled name: mma_fwd_kernel<
+# __nv_bfloat16, 128, true>, dq_kernel<float, 64, false>, ... (not the
+# block-sparse sparse_*_kernel)
+FLASH_INSTANCE = re.compile(
+    r"\b((?:mma_)?(?:fwd|dkdv|dq)_kernel)<(__nv_bfloat16|__half|float),"
+    r" *(\d+), *(true|false)>")
+SHORT_TYPE = {"__nv_bfloat16": "bf16", "__half": "f16", "float": "f32"}
+
+
+def flash_instance(key):
+    """``mma_fwd_kernel<bf16,128,exact>`` for a flash attention kernel's
+    demangled name, None for any other kernel."""
+    m = FLASH_INSTANCE.search(key)
+    if m is None:
+        return None
+    kind = "exact" if m.group(4) == "true" else "masked"
+    return f"{m.group(1)}<{SHORT_TYPE[m.group(2)]},{m.group(3)},{kind}>"
+
+
 def kernel_group(key):
-    """The group a device kernel's time is reported under."""
+    """The group a device kernel's time is reported under; the flash
+    attention kernels by route: tensor cores (mma_*) or the scalar f32-FMA
+    kernels that f32 and the 256 head-dim ceiling keep."""
     name = key.lower()
+    flash = flash_instance(key)
+    route = "" if flash is None else \
+        ", tensor cores" if flash.startswith("mma_") else ", scalar"
     return ("block-sparse fwd (K6)" if "sparse_fwd_kernel" in name else
             "block-sparse bwd (K7)" if "sparse_dkdv_kernel" in name or
             "sparse_dq_kernel" in name else
-            "flash attention fwd (K1/K3/K4)" if "fwd_kernel" in name else
-            "flash attention bwd (K2/K3b-K5/K4b)" if "dkdv_kernel" in name or
-            "dq_kernel" in name else
+            "flash attention fwd (K1/K3/K4)" + route if "fwd_kernel" in name
+            else "flash attention bwd (K2/K3b-K5/K4b)" + route
+            if "dkdv_kernel" in name or "dq_kernel" in name else
             "optimizer (foreach)" if "foreach" in name or
             "multi_tensor" in name else
             "matmul" if any(s in name for s in (
@@ -557,13 +751,22 @@ def report_profile(name, prof, wall_ms, top=8):
               "trace)", wall_ms=wall_ms)
         return
     rows.sort(reverse=True)
-    groups = {}
-    for ms, _, key in rows:
+    groups, flash = {}, {}
+    for ms, count, key in rows:
         group = kernel_group(key)
         groups[group] = groups.get(group, 0.0) + ms
+        instance = flash_instance(key)
+        if instance is not None:
+            flash[instance] = flash.get(instance, 0) + count
+    # every path profiled here runs in bf16: its flash attention launches
+    # must all be tensor-core instances
+    scalar = [k for k in flash if not k.startswith("mma_")]
+    check(not scalar, f"{name}: scalar flash attention kernels ran on a "
+          f"bf16 path: {scalar}")
     phase(name, wall_ms=round(wall_ms, 3),
           device_busy_ms=round(busy_ms, 3),
           idle_share=round(1 - busy_ms / wall_ms, 4),
+          flash_kernels=json.dumps(flash),
           groups_ms=json.dumps({g: round(v, 3) for g, v in groups.items()}),
           top=json.dumps([[round(ms, 3), n, key[:70]]
                           for ms, n, key in rows[:top]]))
@@ -1746,7 +1949,15 @@ def main():
                                      if "<bf16," in k}),
           spills=json.dumps({k: v[1:] for k, v in usage.items()
                              if v[1] or v[2]}))
+    check(any(k.startswith("mma_") for k in usage),
+          "no tensor-core kernel instance in the build report")
+    mma_spills = {k: v[1:] for k, v in usage.items()
+                  if k.startswith("mma_") and (v[1] or v[2])}
+    check(not mma_spills, f"tensor-core kernels spill: {mma_spills}")
 
+    check_mma_sums(torch)
+    check_fragments(torch, 64)
+    check_fragments(torch, 128)
     cfg = GPT2_125M
     b, t, h, d = 8, 1024, cfg.n_head, cfg.head_dim
     main_case = check_k1(torch, b, t, h, d, torch.bfloat16, True, None)
@@ -1767,7 +1978,8 @@ def main():
                 (K3_SHAPE, torch.float32, True, None, None),
                 (K3_SHAPE, bf16, True, None, 0.05),
                 (K3_SMALL + (80,), bf16, True, None, None),
-                (K3_SMALL + (256,), bf16, True, None, None)]
+                (K3_SMALL + (256,), bf16, True, None, None),
+                (K3_SHAPE[:3] + (64,), bf16, True, None, None)]
     main_k3 = [check_k3(torch, *case) for case in k3_cases][0]
     main_k3b = [check_k3_bwd(torch, *case) for case in k3_cases][0]
     planted_faults(torch, K3_SHAPE, bf16, True, None)

@@ -29,34 +29,32 @@
 //
 // Hopper has no sequential grid to carry dq across, so the work is K5's
 // split, two kernels with no atomics and a deterministic result:
-//   dkdv_kernel: one block per (batch, head, k tile); it loops over the q
-//     tiles that reach its k tile and keeps dk, dv in registers.
-//   dq_kernel: one block per (batch, head, q tile); it loops over the
-//     forward's k-tile range for that q tile and keeps dq in registers.
-// The head dim is any d <= 256: built for d = 64, 128 and 256 exactly and
-// for each of those ceilings with a runtime d masked inside. The q, k, v
-// and dO tiles are kept in shared memory in the input type: at D = 128 in
-// bf16 two blocks then share an SM, where f32 tiles left room for one,
-// which more than halved the time at LLaMA-7B's shape (PERF.md).
-// Up to 128 both kernels use 64 x 64 tiles. At 256, four f32 [64][257]
-// tiles (263 KB) would exceed the 227 KB a block may hold, and 64 rows of
-// dk and dv would take 256 registers a thread, so the block's own tile is
-// cut to 32 rows (dkdv: 32 k rows against 64-row q tiles; dq: 32 q rows
-// against 64-row k tiles): 128 accumulator registers a thread and at most
-// ~210 KB (f32 inputs).
+//   dkdv: one block per (batch, head, k tile); it loops over the q tiles
+//     that reach its k tile and keeps dk, dv in registers.
+//   dq: one block per (batch, head, q tile); it loops over the forward's
+//     k-tile range for that q tile and keeps dq in registers.
+// bf16 and f16 at the 64 and 128 head-dim ceilings take mma_dkdv_kernel
+// and mma_dq_kernel: every product on the tensor cores (mma.sync.m16n8k16,
+// f32 accumulators; P^T and dS^T, P and dS handed from one product's
+// accumulators to the next in registers), ldmatrix(.trans) fragment loads
+// from XOR-swizzled 64-row tiles and a two-stage cp.async ring for the
+// visited tiles (flash_attention_mma.cuh). f32 and the 256 ceiling keep
+// dkdv_kernel and dq_kernel, f32 FMAs on the CUDA cores: the q, k, v and
+// dO tiles in shared memory in the input type (two blocks an SM at D = 128
+// in bf16), and at 256 the block's own tile cut to 32 rows (dkdv: 32 k
+// rows against 64-row q tiles; dq: 32 q rows against 64-row k tiles) so
+// that ~210 KB of tiles and 128 accumulator registers a thread fit.
 //
 // What bounds it on the H100: at LLaMA-7B's attention shape (B=4, H=32,
 // T=2048, D=128, bf16, causal) the 268.6 M kept pairs cost 10*D FLOP each,
 // 343.8 GFLOP, ~0.348 ms at the 989 TFLOP/s bf16 tensor-core peak; the
 // 472 MB read and written take ~0.141 ms at 3.35 TB/s, so it is bound by
-// operations. This version does not approach that: every product runs as
-// f32 FMAs on the CUDA cores, and the split recomputes s and dp in both
-// kernels (14*D FLOP per pair instead of 10*D). What it keeps from the TPU
-// design is that no [T, T] matrix leaves the SM: s, p, dp and ds live in
-// registers and shared tiles. wgmma, TMA and warp specialisation are later
-// work.
+// operations. The split recomputes s and dp in both kernels (14*D FLOP a
+// pair instead of 10*D). No [T, T] matrix leaves the SM: s, p, dp and ds
+// live in registers (and in the scalar kernels' shared tiles). wgmma, TMA
+// and warp specialisation are later work (ROADMAP.md queue D).
 
-#include "flash_attention_common.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace {
 
@@ -76,7 +74,8 @@ struct BwdArgs {
   int seq, n_head, d;
   float scale;
   int causal, window;
-  bool vec;  // q, k, v, dout chunks_aligned
+  bool vec;      // q, k, v, dout chunks_aligned
+  bool out_vec;  // dq, dk, dv chunks_aligned
 };
 
 // K, V tiles [own][ld] and Q, dO tiles [loop][ld] in the input type; the P
@@ -357,10 +356,399 @@ int launch(const BwdArgs& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- the tensor-core kernels: bf16 and f16 at the 64 and 128 ceilings
+
+constexpr int kMmaBlock = 64;  // rows of the own tile and of each visited tile
+
+// dkdv: K and V tiles, a ring of two (Q, dO) stages, and two stages of a q
+// tile's lse and delta (f32); dq: Q and dO tiles and a ring of two (K, V)
+// stages. Tiles [64][DMAX] in the input type, swizzled.
+template <int DMAX>
+constexpr size_t mma_tiles_bytes() {
+  return 2 * (size_t)kMmaBlock * DMAX * (2 + 2 * 2);
+}
+constexpr size_t kMmaStatsBytes = 2 * 2 * kMmaBlock * sizeof(float);
+
+// Unroll of the 16-column step loops of S and dP: one step at a time at
+// the 128 ceiling and at exact d = 64 (at 128 dk and dv take 128 of the
+// 255 registers, and the unrolled steps' fragments spilled; at exact 64
+// the registers then fit three blocks an SM), all steps for a d masked
+// under 64 (which spilled one step at a time). Chosen from ptxas's
+// reports: with these no instance spills (PERF.md).
+template <int DMAX, bool EXACT>
+__host__ __device__ constexpr int step_unroll() {
+  return DMAX > 64 || EXACT ? 1 : DMAX / 16;
+}
+
+// One block of 128 threads per (batch, head, 64-row k tile); warp w owns k
+// rows 16 w .. 16 w + 15 and keeps their f32 dk and dv in registers. Per
+// visited 64-row q tile (the next one's Q, dO, lse and delta in flight by
+// cp.async): S^T = K Q^T, P^T = exp(S^T - lse) (log2 domain), dV +=
+// round(P^T) dO with P^T passed from the accumulators as the A fragment and
+// dO through ldmatrix.trans; dP^T = V dO^T, dS^T = P^T (dP^T - delta)
+// scale, dK += round(dS^T) Q likewise. K and V are read as A fragments from
+// the warp's own rows of their tiles, which then stage its dk and dv for
+// 16-byte stores.
+template <typename T, int DMAX, bool EXACT>
+__global__ void __launch_bounds__(kThreads) mma_dkdv_kernel(BwdArgs a) {
+  constexpr int KS = DMAX / 16;
+  constexpr int NT = DMAX / 8;
+  constexpr int QN = kMmaBlock / 8;  // 8-column q tiles of S^T
+  constexpr int kStepUnroll = step_unroll<DMAX, EXACT>();
+  constexpr uint32_t kTileBytes = 2 * kMmaBlock * DMAX;
+  const int d = EXACT ? DMAX : a.d;
+  const int nch = EXACT ? DMAX / 8 : ((d + 15) >> 4) * 2;
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  const uint32_t k_sm = smem_addr(mma_smem);
+  const uint32_t v_sm = k_sm + kTileBytes;
+  const uint32_t qd_sm = v_sm + kTileBytes;  // stage s: Q at + 2 s tiles, dO after it
+  float* stats = reinterpret_cast<float*>(mma_smem + 6 * kTileBytes);  // stage s: lse, delta
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const Ldsm<DMAX> ld(lane);
+  const int bh = blockIdx.x;
+  const int b = bh / a.n_head;
+  const int h = bh - b * a.n_head;
+  // small k tiles first: under the causal mask they have the longest loops
+  const int k_off = blockIdx.y * kMmaBlock;
+  const int kw = k_off + 16 * warp;  // this warp's first k row
+  const T* q = static_cast<const T*>(a.q) + head_offset(a.sq, b, h);
+  const T* dout = static_cast<const T*>(a.dout) + head_offset(a.sdo, b, h);
+  const float* lse = a.lse + (long long)bh * a.seq;
+  const float* delta = a.delta + (long long)bh * a.seq;
+
+  // the q tiles that reach this k tile (the TPU kernels' range)
+  int i0 = 0, i1 = a.seq / kMmaBlock;
+  if (a.causal) {
+    i0 = k_off / kMmaBlock;
+    if (a.window > 0) {
+      const int lim = (k_off + kMmaBlock + a.window - 1 + kMmaBlock - 1) / kMmaBlock;
+      i1 = lim < i1 ? lim : i1;
+    }
+  }
+  auto fetch = [&](int i) {
+    const int st = (i - i0) & 1, q_off = i * kMmaBlock;
+    const uint32_t at = qd_sm + 2 * kTileBytes * st;
+    load_tile_async<T, DMAX, kMmaBlock, kThreads>(at, q, a.sq.t, q_off, d, nch, a.vec);
+    load_tile_async<T, DMAX, kMmaBlock, kThreads>(at + kTileBytes, dout, a.sdo.t, q_off, d, nch,
+                                                  a.vec);
+    const int r = threadIdx.x & (kMmaBlock - 1);
+    const float* src = threadIdx.x < kMmaBlock ? lse : delta;
+    cp_async4(smem_addr(stats + 2 * kMmaBlock * st + threadIdx.x), src + q_off + r);
+  };
+  load_tile_async<T, DMAX, kMmaBlock, kThreads>(
+      k_sm, static_cast<const T*>(a.k) + head_offset(a.sk, b, h), a.sk.t, k_off, d, nch, a.vec);
+  load_tile_async<T, DMAX, kMmaBlock, kThreads>(
+      v_sm, static_cast<const T*>(a.v) + head_offset(a.sv, b, h), a.sv.t, k_off, d, nch, a.vec);
+  if (i0 < i1) fetch(i0);
+  cp_async_commit();
+
+  // p = exp2(s * (scale * log2(e)) - lse * log2(e)) and ds = p (dp - delta)
+  // scale, each step rounded as written (no contraction into an FMA), as
+  // the plain version computes them
+  const float sl2 = __fmul_rn(a.scale, kLog2e);
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int i = i0; i < i1; ++i) {
+    const int q_off = i * kMmaBlock;
+    cp_async_wait<0>();
+    __syncthreads();  // q tile i has landed; every warp is done with q tile i - 1
+    if (i + 1 < i1) fetch(i + 1);
+    cp_async_commit();
+    const int st = (i - i0) & 1;
+    const uint32_t qs_sm = qd_sm + 2 * kTileBytes * st;
+    const uint32_t dos_sm = qs_sm + kTileBytes;
+    const float* lse_s = stats + 2 * kMmaBlock * st;
+    const float* delta_s = lse_s + kMmaBlock;
+
+    // S^T = K Q^T: element e of tile n is (k row kw + g + 8 (e >> 1), q
+    // column q_off + 8 n + 2 t + (e & 1))
+    float s[QN][4];
+#pragma unroll
+    for (int n = 0; n < QN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll kStepUnroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (2 * kk >= nch) continue;
+      uint32_t ka[4];
+      ldsm_x4(ka, ld.A(k_sm, 16 * warp, kk));
+#pragma unroll
+      for (int np = 0; np < QN / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4(bf, ld.B(qs_sm, 16 * np, kk));
+        mma16816<T>(s[2 * np], ka, bf[0], bf[1]);
+        mma16816<T>(s[2 * np + 1], ka, bf[2], bf[3]);
+      }
+    }
+    const bool kept = tile_kept(a.causal, a.window, q_off, kMmaBlock, kw, 16);
+#pragma unroll
+    for (int n = 0; n < QN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * n + 2 * t + (e & 1);
+        const bool live = kept || keep_pair(q_off + col, kw + g + 8 * (e >> 1), a.window);
+        s[n][e] = live ? exp2f(__fsub_rn(__fmul_rn(s[n][e], sl2), __fmul_rn(lse_s[col], kLog2e)))
+                       : 0.f;
+      }
+
+    // dV += round(P^T) dO over the 64 q rows, 16 at a time
+#pragma unroll
+    for (int kq = 0; kq < QN / 2; ++kq) {
+      uint32_t pa[4];
+      frag_a<T>(pa, s[2 * kq], s[2 * kq + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (2 * np >= nch) continue;
+        uint32_t bf[4];
+        ldsm_x4_t(bf, ld.Bt(dos_sm, 16 * kq, np));
+        mma16816<T>(dv[2 * np], pa, bf[0], bf[1]);
+        mma16816<T>(dv[2 * np + 1], pa, bf[2], bf[3]);
+      }
+    }
+
+    // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) scale in place
+    float dp[QN][4];
+#pragma unroll
+    for (int n = 0; n < QN; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll kStepUnroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (2 * kk >= nch) continue;
+      uint32_t va[4];
+      ldsm_x4(va, ld.A(v_sm, 16 * warp, kk));
+#pragma unroll
+      for (int np = 0; np < QN / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4(bf, ld.B(dos_sm, 16 * np, kk));
+        mma16816<T>(dp[2 * np], va, bf[0], bf[1]);
+        mma16816<T>(dp[2 * np + 1], va, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < QN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = __fmul_rn(
+            __fmul_rn(s[n][e], __fsub_rn(dp[n][e], delta_s[8 * n + 2 * t + (e & 1)])), a.scale);
+
+    // dK += round(dS^T) Q
+#pragma unroll
+    for (int kq = 0; kq < QN / 2; ++kq) {
+      uint32_t da[4];
+      frag_a<T>(da, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (2 * np >= nch) continue;
+        uint32_t bf[4];
+        ldsm_x4_t(bf, ld.Bt(qs_sm, 16 * kq, np));
+        mma16816<T>(dk[2 * np], da, bf[0], bf[1]);
+        mma16816<T>(dk[2 * np + 1], da, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dk and dv through this warp's rows of the K and V tiles, then 16-byte
+  // stores
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (2 * (n >> 1) >= nch) continue;
+    stage_acc<T, DMAX>(k_sm, 16 * warp, n, dk[n], lane);
+    stage_acc<T, DMAX>(v_sm, 16 * warp, n, dv[n], lane);
+  }
+  __syncwarp();
+  store_rows16<T, DMAX>(static_cast<T*>(a.dk) + head_offset(a.sdk, b, h), a.sdk.t, k_off, k_sm,
+                        16 * warp, d, a.out_vec);
+  store_rows16<T, DMAX>(static_cast<T*>(a.dv) + head_offset(a.sdv, b, h), a.sdv.t, k_off, v_sm,
+                        16 * warp, d, a.out_vec);
+}
+
+// One block of 128 threads per (batch, head, 64-row q tile); warp w owns q
+// rows 16 w .. 16 w + 15, their lse and delta in registers and their f32
+// dq. Per visited 64-row k tile (the next one's K and V in flight by
+// cp.async): S = Q K^T, P = exp(S - lse), dP = dO V^T, dS = P (dP - delta)
+// scale, dQ += round(dS) K with dS passed as the A fragment and K through
+// ldmatrix.trans. The warp's own rows of the Q tile then stage its dq.
+template <typename T, int DMAX, bool EXACT>
+__global__ void __launch_bounds__(kThreads) mma_dq_kernel(BwdArgs a) {
+  constexpr int KS = DMAX / 16;
+  constexpr int NT = DMAX / 8;
+  constexpr int KN = kMmaBlock / 8;
+  constexpr int kStepUnroll = step_unroll<DMAX, EXACT>();
+  constexpr uint32_t kTileBytes = 2 * kMmaBlock * DMAX;
+  const int d = EXACT ? DMAX : a.d;
+  const int nch = EXACT ? DMAX / 8 : ((d + 15) >> 4) * 2;
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  const uint32_t q_sm = smem_addr(mma_smem);
+  const uint32_t do_sm = q_sm + kTileBytes;
+  const uint32_t kv_sm = do_sm + kTileBytes;  // stage s: K at + 2 s tiles, V after it
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const Ldsm<DMAX> ld(lane);
+  const int bh = blockIdx.x;
+  const int b = bh / a.n_head;
+  const int h = bh - b * a.n_head;
+  // the longest causal rows first, so the last wave is made of short ones
+  const int q_off = (gridDim.y - 1 - blockIdx.y) * kMmaBlock;
+  const int qw = q_off + 16 * warp;
+  const T* k = static_cast<const T*>(a.k) + head_offset(a.sk, b, h);
+  const T* v = static_cast<const T*>(a.v) + head_offset(a.sv, b, h);
+
+  // the forward's k-tile range for this q tile
+  const int nk = a.causal ? (q_off + 2 * kMmaBlock - 1) / kMmaBlock : a.seq / kMmaBlock;
+  int j0 = 0;
+  if (a.causal && a.window > 0) {
+    const int first = q_off - a.window + 1;
+    j0 = (first > 0 ? first : 0) / kMmaBlock;
+  }
+  auto fetch = [&](int j) {
+    const uint32_t at = kv_sm + 2 * kTileBytes * ((j - j0) & 1);
+    load_tile_async<T, DMAX, kMmaBlock, kThreads>(at, k, a.sk.t, j * kMmaBlock, d, nch, a.vec);
+    load_tile_async<T, DMAX, kMmaBlock, kThreads>(at + kTileBytes, v, a.sv.t, j * kMmaBlock, d,
+                                                  nch, a.vec);
+  };
+  load_tile_async<T, DMAX, kMmaBlock, kThreads>(
+      q_sm, static_cast<const T*>(a.q) + head_offset(a.sq, b, h), a.sq.t, q_off, d, nch, a.vec);
+  load_tile_async<T, DMAX, kMmaBlock, kThreads>(
+      do_sm, static_cast<const T*>(a.dout) + head_offset(a.sdo, b, h), a.sdo.t, q_off, d, nch,
+      a.vec);
+  fetch(j0);
+  cp_async_commit();
+
+  float lse2[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long at = (long long)bh * a.seq + qw + g + 8 * i;
+    lse2[i] = __fmul_rn(a.lse[at], kLog2e);
+    delta_r[i] = a.delta[at];
+  }
+  const float sl2 = __fmul_rn(a.scale, kLog2e);  // rounded as in mma_dkdv_kernel
+  float dq[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  for (int j = j0; j < nk; ++j) {
+    const int k_off = j * kMmaBlock;
+    cp_async_wait<0>();
+    __syncthreads();  // k tile j has landed; every warp is done with k tile j - 1
+    if (j + 1 < nk) fetch(j + 1);
+    cp_async_commit();
+    const uint32_t ks_sm = kv_sm + 2 * kTileBytes * ((j - j0) & 1);
+    const uint32_t vs_sm = ks_sm + kTileBytes;
+
+    // S = Q K^T, then P = exp(S - lse): element e of tile n is (q row qw +
+    // g + 8 (e >> 1), k column k_off + 8 n + 2 t + (e & 1))
+    float s[KN][4];
+#pragma unroll
+    for (int n = 0; n < KN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll kStepUnroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (2 * kk >= nch) continue;
+      uint32_t qa[4];
+      ldsm_x4(qa, ld.A(q_sm, 16 * warp, kk));
+#pragma unroll
+      for (int np = 0; np < KN / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4(bf, ld.B(ks_sm, 16 * np, kk));
+        mma16816<T>(s[2 * np], qa, bf[0], bf[1]);
+        mma16816<T>(s[2 * np + 1], qa, bf[2], bf[3]);
+      }
+    }
+    const bool kept = tile_kept(a.causal, a.window, qw, 16, k_off, kMmaBlock);
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool live =
+            kept || keep_pair(qw + g + 8 * (e >> 1), k_off + 8 * n + 2 * t + (e & 1), a.window);
+        s[n][e] = live ? exp2f(__fsub_rn(__fmul_rn(s[n][e], sl2), lse2[e >> 1])) : 0.f;
+      }
+
+    // dP = dO V^T, then dS = P (dP - delta) scale in place
+    float dp[KN][4];
+#pragma unroll
+    for (int n = 0; n < KN; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll kStepUnroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (2 * kk >= nch) continue;
+      uint32_t da[4];
+      ldsm_x4(da, ld.A(do_sm, 16 * warp, kk));
+#pragma unroll
+      for (int np = 0; np < KN / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4(bf, ld.B(vs_sm, 16 * np, kk));
+        mma16816<T>(dp[2 * np], da, bf[0], bf[1]);
+        mma16816<T>(dp[2 * np + 1], da, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = __fmul_rn(__fmul_rn(s[n][e], __fsub_rn(dp[n][e], delta_r[e >> 1])), a.scale);
+
+    // dQ += round(dS) K over the tile's 64 keys, 16 at a time
+#pragma unroll
+    for (int kk = 0; kk < kMmaBlock / 16; ++kk) {
+      uint32_t da[4];
+      frag_a<T>(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (2 * np >= nch) continue;
+        uint32_t bf[4];
+        ldsm_x4_t(bf, ld.Bt(ks_sm, 16 * kk, np));
+        mma16816<T>(dq[2 * np], da, bf[0], bf[1]);
+        mma16816<T>(dq[2 * np + 1], da, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    if (2 * (n >> 1) < nch) stage_acc<T, DMAX>(q_sm, 16 * warp, n, dq[n], lane);
+  __syncwarp();
+  store_rows16<T, DMAX>(static_cast<T*>(a.dq) + head_offset(a.sdq, b, h), a.sdq.t, q_off, q_sm,
+                        16 * warp, d, a.out_vec);
+}
+
+template <typename T, int DMAX, bool EXACT>
+int launch_mma(const BwdArgs& a, int batch, cudaStream_t stream) {
+  constexpr size_t dkdv_bytes = mma_tiles_bytes<DMAX>() + kMmaStatsBytes;
+  constexpr size_t dq_bytes = mma_tiles_bytes<DMAX>();
+  cudaError_t err = cudaFuncSetAttribute(mma_dkdv_kernel<T, DMAX, EXACT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)dkdv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(batch * a.n_head, a.seq / kMmaBlock);
+  mma_dkdv_kernel<T, DMAX, EXACT><<<grid, kThreads, dkdv_bytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(mma_dq_kernel<T, DMAX, EXACT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
+  if (err != cudaSuccess) return (int)err;
+  mma_dq_kernel<T, DMAX, EXACT><<<grid, kThreads, dq_bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The kernels for a type and head dim, by tensor_core_route: the scalar
+// pair keeps the 256 ceiling, whose dk and dv would not fit the registers
+// of 64-row tiles (later work, ROADMAP.md queue D).
 template <typename T>
 int launch_d(const BwdArgs& a, int batch, cudaStream_t stream) {
   return dispatch_head_dim(a.d, [&](auto dmax, auto exact) {
-    return launch<T, decltype(dmax)::value, decltype(exact)::value>(a, batch, stream);
+    constexpr int kD = decltype(dmax)::value;
+    constexpr bool kExact = decltype(exact)::value;
+    if constexpr (tensor_core_route(sizeof(T), kD))
+      return launch_mma<T, kD, kExact>(a, batch, stream);
+    else
+      return launch<T, kD, kExact>(a, batch, stream);
   });
 }
 
@@ -398,6 +786,9 @@ extern "C" int dstorch_flash_attention_bwd(const void* q, const void* k, const v
   const void* inputs[4] = {q, k, v, dout};
   const HeadStrides input_strides[4] = {a.sq, a.sk, a.sv, a.sdo};
   a.vec = chunks_aligned(inputs, input_strides, 4, dtype == 0 ? 4 : 2, head_dim);
+  const void* outputs[3] = {dq, dk, dv};
+  const HeadStrides output_strides[3] = {a.sdq, a.sdk, a.sdv};
+  a.out_vec = chunks_aligned(outputs, output_strides, 3, dtype == 0 ? 4 : 2, head_dim);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

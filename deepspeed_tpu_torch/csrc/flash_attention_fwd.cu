@@ -27,22 +27,27 @@
 // T=2048, D=128, bf16, causal) the 268.6 M kept pairs cost 4*D FLOP each,
 // 137.5 GFLOP, ~0.139 ms at the 989 TFLOP/s bf16 tensor-core peak, above the
 // 0.080 ms the 269 MB of q/k/v/o take at 3.35 TB/s; at GPT-2-125M's (B=8,
-// T=1024, H=12, D=64) the bytes bound it (~15 us). This version does not
-// reach either bound: both products run as f32 FMAs on the CUDA cores, so it
-// is bound by the FMA rate and shared-memory traffic. Its design keeps what
-// matters for device memory: each (batch, head, 64-row q tile) block keeps
-// its Q tile and running m/l/acc on chip and streams 64-row K/V tiles
-// through shared memory, so no [T, T] score matrix leaves the SM; the K
-// loop stops at the diagonal (causal) and starts at the window's first
-// tile. The tile type is chosen per head-dim ceiling (FwdTile): at 64 the
-// tiles are f32, widened once as they are loaded (66.5 KB, three blocks an
-// SM), so the inner products read them with no conversion; at 128 and 256
-// they stay in the input type and are widened as they are read, which in
-// bf16 at D = 128 fits two blocks on an SM where f32 tiles (116 KB) fit one
-// (PERF.md). The TPU kernel's bq 512/256 and bk 256/128 were VMEM choices
-// and are not copied. wgmma, TMA and warp specialisation are later work.
+// T=1024, H=12, D=64) the bytes bound it (~15 us). Each (batch, head,
+// 64-row q tile) block keeps its running m/l/acc on chip and streams
+// 64-row K/V tiles through shared memory, so no [T, T] score matrix leaves
+// the SM; the K loop stops at the diagonal (causal) and starts at the
+// window's first tile. Two kernels compute this:
+//   mma_fwd_kernel, bf16 and f16 at the 64 and 128 head-dim ceilings: both
+//     products on the tensor cores (mma.sync.m16n8k16, f32 accumulators,
+//     P handed from the S accumulators to the P.V product in registers),
+//     ldmatrix fragment loads from XOR-swizzled tiles, and a two-stage
+//     cp.async ring that copies K/V tile j + 1 while tile j is computed
+//     (flash_attention_mma.cuh). mma.sync rather than wgmma: 4 warps of 16
+//     q rows keep the TPU kernel's 64-row tiles, and wgmma, TMA and warp
+//     specialisation are later work (ROADMAP.md queue D).
+//   fwd_kernel, f32 (TF32 would keep ~10 mantissa bits, outside the f32
+//     checks) and the 256 ceiling (64 x 256 f32 accumulators a block):
+//     both products as f32 FMAs on the CUDA cores, bound by the FMA rate
+//     and shared-memory traffic; its tiles hold the input type.
+// The TPU kernel's bq 512/256 and bk 256/128 were VMEM choices and are not
+// copied.
 
-#include "flash_attention_common.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace {
 
@@ -63,7 +68,8 @@ struct FwdArgs {
   int seq, n_head, d;
   float scale;
   int causal, window;
-  bool vec;  // q, k, v chunks_aligned
+  bool vec;      // q, k, v chunks_aligned
+  bool out_vec;  // o chunks_aligned
 };
 
 // Q, K, V tiles [64][ld] in the tile type S and the P tile [64][64 + 1] in
@@ -76,7 +82,7 @@ size_t smem_bytes(int d8) {
 // EXACT: d == DMAX, known at compile time; otherwise d < DMAX is masked
 template <typename T, int DMAX, bool EXACT>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
-  using S = FwdTile<T, DMAX>;
+  using S = T;
   constexpr int kPld = kBlockK + 1;
   constexpr int kOutCols = DMAX / 8;
   const int d = EXACT ? DMAX : a.d;
@@ -193,7 +199,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
 
 template <typename T, int DMAX, bool EXACT>
 int launch(const FwdArgs& a, int batch, cudaStream_t stream) {
-  using S = FwdTile<T, DMAX>;
+  using S = T;
   // the ceiling's shared memory is the most any d under it asks for
   cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, DMAX, EXACT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -205,14 +211,272 @@ int launch(const FwdArgs& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- the tensor-core kernel: bf16 and f16 at the 64 and 128 ceilings
+
+// Q tile [64][DMAX] and a ring of two K/V stages [2][64][DMAX], swizzled
+template <int DMAX>
+constexpr size_t mma_smem_bytes() {
+  return 2 * (size_t)kBlockQ * DMAX * (1 + 2 * 2);
+}
+
+// One block of 128 threads per (batch, head, 64-row q tile); warp w owns q
+// rows 16 w .. 16 w + 15 and keeps their Q fragments, running max, sum and
+// f32 output in registers. Per 64-key tile: S = Q K^T on the tensor cores
+// (K through ldmatrix), the masked online softmax in the log2 domain
+// (exp2 with log2(e) folded into the scale; masked logits -1e30, so a row
+// masked over a whole tile still sums exp2(0) = 1 a column there and is
+// wiped at its first live tile, as on the TPU), then O += round(P) V with P
+// passed from the S accumulators as the A fragment in registers and V
+// through ldmatrix.trans. The mask is only evaluated on tiles that straddle
+// the diagonal or the window's edge. K/V tile j + 1 is copied (cp.async)
+// while tile j is computed; unaligned inputs take the register-staged copy.
+// EXACT: d == DMAX; otherwise d < DMAX is masked: the tiles hold columns
+// [0, d rounded up to 16), zero from d on.
+template <typename T, int DMAX, bool EXACT>
+__global__ void __launch_bounds__(kThreads) mma_fwd_kernel(FwdArgs a) {
+  constexpr int KS = DMAX / 16;     // 16-column steps over the head dim
+  constexpr int NT = DMAX / 8;      // 8-column tiles of the output
+  constexpr int KN = kBlockK / 8;   // 8-key tiles of S
+  constexpr uint32_t kTileBytes = 2 * kBlockQ * DMAX;
+  const int d = EXACT ? DMAX : a.d;
+  const int nch = EXACT ? DMAX / 8 : ((d + 15) >> 4) * 2;  // chunks held a row
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  const uint32_t q_sm = smem_addr(mma_smem);
+  const uint32_t kv_sm = q_sm + kTileBytes;  // stage s: K at + 2 s tiles, V after it
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const Ldsm<DMAX> ld(lane);
+  const int bh = blockIdx.x;
+  const int b = bh / a.n_head;
+  const int h = bh - b * a.n_head;
+  // the longest causal rows first, so the last wave is made of short ones
+  const int q_off = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
+  const int qw = q_off + 16 * warp;  // this warp's first q row
+  const T* q = static_cast<const T*>(a.q) + head_offset(a.sq, b, h);
+  const T* k = static_cast<const T*>(a.k) + head_offset(a.sk, b, h);
+  const T* v = static_cast<const T*>(a.v) + head_offset(a.sv, b, h);
+
+  const int nk = a.causal ? (q_off + kBlockQ + kBlockK - 1) / kBlockK : a.seq / kBlockK;
+  int j0 = 0;
+  if (a.causal && a.window > 0) {
+    const int first = q_off - a.window + 1;
+    j0 = (first > 0 ? first : 0) / kBlockK;
+  }
+
+  load_tile_async<T, DMAX, kBlockQ, kThreads>(q_sm, q, a.sq.t, q_off, d, nch, a.vec);
+  load_tile_async<T, DMAX, kBlockK, kThreads>(kv_sm, k, a.sk.t, j0 * kBlockK, d, nch, a.vec);
+  load_tile_async<T, DMAX, kBlockK, kThreads>(kv_sm + kTileBytes, v, a.sv.t, j0 * kBlockK, d,
+                                              nch, a.vec);
+  cp_async_commit();
+
+  // logits in log2 units, x = s * (scale * log2(e)), and p = exp2(x - m),
+  // each rounded as written (no contraction into an FMA): the plain version
+  // repeats these float32 steps, so both round P to the input type alike
+  const float sl2 = __fmul_rn(a.scale, kLog2e);
+  uint32_t qf[KS][4];
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // rows g and g + 8 of this warp: running max (log2 units) and sum
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int j = j0; j < nk; ++j) {
+    const int k_off = j * kBlockK;
+    cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; every warp is done with tile j - 1
+    if (j == j0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        if (2 * kk < nch) ldsm_x4(qf[kk], ld.A(q_sm, 16 * warp, kk));
+    }
+    if (j + 1 < nk) {
+      const uint32_t next = kv_sm + 2 * kTileBytes * ((j + 1 - j0) & 1);
+      load_tile_async<T, DMAX, kBlockK, kThreads>(next, k, a.sk.t, k_off + kBlockK, d, nch,
+                                                  a.vec);
+      load_tile_async<T, DMAX, kBlockK, kThreads>(next + kTileBytes, v, a.sv.t,
+                                                  k_off + kBlockK, d, nch, a.vec);
+    }
+    cp_async_commit();
+    const uint32_t ks_sm = kv_sm + 2 * kTileBytes * ((j - j0) & 1);
+    const uint32_t vs_sm = ks_sm + kTileBytes;
+
+    float s[KN][4];
+#pragma unroll
+    for (int n = 0; n < KN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (2 * kk >= nch) continue;
+#pragma unroll
+      for (int np = 0; np < KN / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4(bf, ld.B(ks_sm, 16 * np, kk));
+        mma16816<T>(s[2 * np], qf[kk], bf[0], bf[1]);
+        mma16816<T>(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    const bool kept = tile_kept(a.causal, a.window, qw, 16, k_off, kBlockK);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = __fmul_rn(s[n][e], sl2);
+        if (!kept && !keep_pair(qw + g + 8 * (e >> 1), k_off + 8 * n + 2 * t + (e & 1), a.window))
+          x = kNegInf;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], m_new[2], p_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_new[i] = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = exp2f(m[i] - m_new[i]);
+    }
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(__fsub_rn(s[n][e], m_new[e >> 1]));
+        p_sum[e >> 1] += p;
+        s[n][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = l[i] * alpha[i] + quad_sum(p_sum[i]);
+      m[i] = m_new[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += round(P) V over the tile's 64 keys, 16 at a time
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      uint32_t pa[4];
+      frag_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (2 * np >= nch) continue;
+        uint32_t bf[4];
+        ldsm_x4_t(bf, ld.Bt(vs_sm, 16 * kk, np));
+        mma16816<T>(o[2 * np], pa, bf[0], bf[1]);
+        mma16816<T>(o[2 * np + 1], pa, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // out = acc / l through this warp's own rows of the Q tile (only this
+  // warp read them), then 16-byte stores; lse = m + log(l) in f32
+  float lc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lc[i] = fmaxf(l[i], 1e-30f);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (2 * (n >> 1) >= nch) continue;
+    o[n][0] /= lc[0];
+    o[n][1] /= lc[0];
+    o[n][2] /= lc[1];
+    o[n][3] /= lc[1];
+    stage_acc<T, DMAX>(q_sm, 16 * warp, n, o[n], lane);
+  }
+  __syncwarp();
+  T* out = static_cast<T*>(a.o) + head_offset(a.so, b, h);
+  store_rows16<T, DMAX>(out, a.so.t, q_off, q_sm, 16 * warp, d, a.out_vec);
+  if (t == 0) {
+    float* lse = a.lse + ((long long)b * a.n_head + h) * a.seq + qw + g;
+    lse[0] = m[0] * kLn2 + logf(lc[0]);
+    lse[8] = m[1] * kLn2 + logf(lc[1]);
+  }
+}
+
+template <typename T, int DMAX, bool EXACT>
+int launch_mma(const FwdArgs& a, int batch, cudaStream_t stream) {
+  constexpr size_t bytes = mma_smem_bytes<DMAX>();
+  cudaError_t err = cudaFuncSetAttribute(mma_fwd_kernel<T, DMAX, EXACT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(batch * a.n_head, a.seq / kBlockQ);
+  mma_fwd_kernel<T, DMAX, EXACT><<<grid, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The kernel for a type and head dim, by tensor_core_route: the scalar
+// kernel keeps the 256 ceiling for its 64 x 256 f32 accumulators a block
+// (later work, ROADMAP.md queue D).
 template <typename T>
 int launch_d(const FwdArgs& a, int batch, cudaStream_t stream) {
   return dispatch_head_dim(a.d, [&](auto dmax, auto exact) {
-    return launch<T, decltype(dmax)::value, decltype(exact)::value>(a, batch, stream);
+    constexpr int kD = decltype(dmax)::value;
+    constexpr bool kExact = decltype(exact)::value;
+    if constexpr (tensor_core_route(sizeof(T), kD))
+      return launch_mma<T, kD, kExact>(a, batch, stream);
+    else
+      return launch<T, kD, kExact>(a, batch, stream);
   });
 }
 
+// One mma.sync.m16n8k16 (mma16816, the instruction of every product of
+// the tensor-core kernels) per 16 x 8 tile: d[i] = a[i] b[i]^T + c[i], with
+// a [n][16][16] and b [n][8][16] of T, c and d [n][16][8] f32, row-major.
+// On no attention path: it gives the card's sums that the plain versions'
+// model of them (ops/kernels/flash_attention.mma_step) is checked against.
+template <typename T>
+__global__ void mma_probe_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
+                                 const float* __restrict__ c, float* __restrict__ d) {
+  const int g = threadIdx.x >> 2, t = threadIdx.x & 3;
+  a += blockIdx.x * 256;
+  b += blockIdx.x * 128;
+  c += blockIdx.x * 128;
+  d += blockIdx.x * 128;
+  auto pair = [](const uint16_t* x) { return (uint32_t)x[0] | ((uint32_t)x[1] << 16); };
+  const uint32_t fa[4] = {pair(a + g * 16 + 2 * t), pair(a + (g + 8) * 16 + 2 * t),
+                          pair(a + g * 16 + 2 * t + 8), pair(a + (g + 8) * 16 + 2 * t + 8)};
+  const int r0 = g * 8 + 2 * t, r1 = (g + 8) * 8 + 2 * t;
+  float acc[4] = {c[r0], c[r0 + 1], c[r1], c[r1 + 1]};
+  mma16816<T>(acc, fa, pair(b + g * 16 + 2 * t), pair(b + g * 16 + 2 * t + 8));
+  d[r0] = acc[0];
+  d[r0 + 1] = acc[1];
+  d[r1] = acc[2];
+  d[r1 + 1] = acc[3];
+}
+
 }  // namespace
+
+// 1 if a launch of dtype (0 = float32, 1 = bfloat16, 2 = float16) at
+// head_dim takes the tensor-core kernels, forward and backward
+// (tensor_core_route), 0 if it takes the scalar ones, -1 for a dtype or
+// head dim the kernels do not take.
+extern "C" int dstorch_flash_attention_tensor_cores(int dtype, int head_dim) {
+  if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim > 256) return -1;
+  return dispatch_head_dim(head_dim, [&](auto dmax, auto) {
+    return (int)tensor_core_route(dtype == 0 ? 4 : 2, decltype(dmax)::value);
+  });
+}
+
+// mma_probe_kernel over n tiles (dtype 1 = bfloat16, 2 = float16; the
+// buffers contiguous on the card) on `stream`; returns the CUDA error of
+// the launch (0 on success).
+extern "C" int dstorch_mma_probe(const void* a, const void* b, const void* c, void* d, int n,
+                                 int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* a16 = static_cast<const uint16_t*>(a);
+  const auto* b16 = static_cast<const uint16_t*>(b);
+  const auto* c32 = static_cast<const float*>(c);
+  auto* d32 = static_cast<float*>(d);
+  if (n < 1 || (dtype != 1 && dtype != 2)) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    mma_probe_kernel<__nv_bfloat16><<<n, 32, 0, s>>>(a16, b16, c32, d32);
+  else
+    mma_probe_kernel<__half><<<n, 32, 0, s>>>(a16, b16, c32, d32);
+  return (int)cudaGetLastError();
+}
 
 // strides: 12 values, the (batch, head, token) strides of q, k, v and o in
 // that order. dtype: 0 = float32, 1 = bfloat16, 2 = float16. seq must be a
@@ -239,6 +503,8 @@ extern "C" int dstorch_flash_attention_fwd(const void* q, const void* k, const v
   const void* inputs[3] = {q, k, v};
   const HeadStrides input_strides[3] = {a.sq, a.sk, a.sv};
   a.vec = chunks_aligned(inputs, input_strides, 3, dtype == 0 ? 4 : 2, head_dim);
+  const void* outputs[1] = {o};
+  a.out_vec = chunks_aligned(outputs, &a.so, 1, dtype == 0 ? 4 : 2, head_dim);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -7,7 +7,8 @@ source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. ``build()`` starts one
 ``nvcc`` per source, all at once. A failed build raises
 :class:`KernelBuildError`; there is no fallback. ``resource_usage()`` gives
-each kernel's registers and spills as ``ptxas`` reported them.
+each kernel's registers and spills as ``ptxas`` reported them (the report
+is kept beside the library, so a library built by an earlier run has one).
 """
 
 import ctypes
@@ -91,6 +92,7 @@ def build(names=None):
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         _logs[name] = log
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)   # atomic: a concurrent build never sees half
     if failed:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
@@ -115,10 +117,14 @@ def _kernel_name(mangled):
 
 def resource_usage(name):
     """``{kernel: (registers, spill store bytes, spill load bytes)}`` from
-    ``ptxas -v`` of the build of ``csrc/<name>.cu`` made by this process
-    (empty if this process did not build it)."""
+    ``ptxas -v`` of the build of ``csrc/<name>.cu`` (this process's, or the
+    report kept beside the library; empty if there is neither)."""
+    log = _logs.get(name)
+    if log is None:
+        kept = library_path(name).with_suffix(".log")
+        log = kept.read_text() if kept.exists() else ""
     usage, kernel = {}, None
-    for line in _logs.get(name, "").splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             kernel = _kernel_name(m.group(1))

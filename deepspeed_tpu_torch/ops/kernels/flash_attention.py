@@ -33,10 +33,27 @@ The launchers and plain versions here serve K1/K2 too
 (``flash_attention_packed.py`` views its packed tensors as ``[B, H, T, D]``).
 What bounds each kernel on the H100 and what its design does about it is
 noted in its CUDA source.
+
+bf16 and f16 up to head dim 128 run on the tensor-core kernels
+(:func:`tensor_core_path` asks the kernels' own dispatch). Asked with
+``tensor_core=True``, the plain versions repeat two things of that
+arithmetic that decide the input-type rounding of P and dS: S = Q K^T and
+dP = dO V^T are summed as the tensor cores sum them (``mma_scores``), and
+the softmax runs in the log2 domain (``exp2`` of the logits times
+``scale * log2(e)``, both in float32), as the kernels compute it. A sum in
+another order would move P or dS across a rounding boundary now and then,
+and in a row with a small sum one such flip moves the output by several
+rounding steps of its type; so the kernel checks on the card ask for it
+where the kernels take the tensor cores. By default the plain versions sum
+with ``torch.matmul`` and the natural-log softmax, on every device: the
+scalar kernels' arithmetic (f32 and the 256 head-dim ceiling), whose
+sequential f32 FMA chains ``torch.matmul`` repeats, and some 60x cheaper
+than the repeated tensor-core sums.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -46,6 +63,15 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # above this K/V footprint per head the JAX package streams K/V through its
 # grid (K4/K4b) instead of keeping it resident (K3/K3b/K5)
 _RESIDENT_MAX_KV_BYTES = 1 << 20
+# float32 log2(e) and ln(2), the tensor-core kernels' kLog2e and kLn2
+LOG2E = float(np.float32(1.4426950408889634))
+LN2 = float(np.float32(0.6931471805599453))
+# the tensor cores' sum: addends aligned to the largest exponent, cut
+# toward zero 2^-25 below it (mma_scores)
+_MMA_ALIGN_BITS = 25
+_MMA_STEP = 16             # products a mma.m16n8k16 adds per output
+_NO_EXP = -(1 << 14)       # a zero's exponent: never the largest
+_MMA_CHUNK = 1 << 27       # elements of [..., M, N, 16] held at once
 
 
 def streamed(q) -> bool:
@@ -136,6 +162,126 @@ def check_on_card(*xs):
                              f"strides {x.stride()}")
 
 
+# ------------------------------------------------ the tensor cores' sums
+
+def tensor_core_path(dtype, d) -> bool:
+    """Whether the CUDA kernels take their tensor-core instances (forward
+    and backward) for this dtype and head dim, as their own dispatch
+    decides it: ``tensor_core_route`` in ``csrc/flash_attention_mma.cuh``,
+    asked through the forward library's
+    ``dstorch_flash_attention_tensor_cores``. Loads that library, so it
+    answers on a machine that builds the kernels."""
+    from ..kernel_build import load
+    fn = load("flash_attention_fwd").dstorch_flash_attention_tensor_cores
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
+    route = fn(DTYPE_CODES[dtype], int(d))
+    if route not in (0, 1):
+        raise ValueError(f"the flash attention kernels take no {dtype} at "
+                         f"head dim {d}")
+    return bool(route)
+
+
+def mma_on_card(a, b, c):
+    """``c + a @ b^T`` for CUDA tiles ``a`` [n, 16, 16] and ``b`` [n, 8, 16]
+    (bf16 or f16) and ``c`` [n, 16, 8] float32, one
+    ``mma.sync.m16n8k16`` a tile (the instruction of the tensor-core
+    kernels' products, ``dstorch_mma_probe``): the card's sums, which
+    :func:`mma_step` models. On no attention path; not counted."""
+    n = a.shape[0]
+    if a.shape != (n, 16, 16) or b.shape != (n, 8, 16) or \
+            c.shape != (n, 16, 8) or b.dtype != a.dtype or \
+            a.dtype not in (torch.bfloat16, torch.float16) or \
+            c.dtype != torch.float32:
+        raise ValueError(f"mma_on_card wants a [n, 16, 16] and b [n, 8, 16] "
+                         f"bf16/f16, c [n, 16, 8] f32; got {a.shape} "
+                         f"{a.dtype}, {b.shape} {b.dtype}, {c.shape} "
+                         f"{c.dtype}")
+    check_on_card(a, b, c)
+    from ..kernel_build import load
+    fn = load("flash_attention_fwd").dstorch_mma_probe
+    if fn.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 4 + [i, i, ptr]
+        fn.restype = ctypes.c_int
+    a, b, c = (x.contiguous() for x in (a, b, c))
+    d = torch.empty_like(c)
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), n,
+                 DTYPE_CODES[a.dtype], _stream(a))
+    if err != 0:
+        raise RuntimeError(f"mma probe launch failed with CUDA error {err}")
+    return d
+
+
+def _exponent(x):
+    """floor(log2 |x|) of each float32 element, ``_NO_EXP`` for zeros."""
+    e = torch.frexp(x).exponent - 1
+    return torch.where(x == 0, _NO_EXP, e)
+
+
+def _pow2(n, dtype):
+    """2**n, exact, for integers n in dtype's normal range."""
+    if dtype == torch.float32:
+        return ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return ((n.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def _to_f32_toward_zero(x):
+    """float64 -> float32, rounded toward zero."""
+    y = x.to(torch.float32)
+    over = y.to(torch.float64).abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def mma_step(acc, a, b):
+    """``acc + a @ b^T`` for one 16-column step: ``acc`` [..., M, N] f32,
+    ``a`` [..., M, k], ``b`` [..., N, k] with k <= 16 values of the input
+    type, summed as one ``mma.sync.aligned.m16n8k16`` (f32 accumulators)
+    sums them on the H100: the k products are exact; each of them and
+    ``acc`` is cut toward zero at 2^-25 of the largest exponent among them
+    (a product's exponent is the sum of its factors' exponents, floor(log2
+    |x|)); the cut values are added exactly and the sum is rounded toward
+    zero to float32. Bit for bit the card's result on every recorded
+    sample (``tests/data/mma_m16n8k16_h100.npz``)."""
+    f32 = torch.float32
+    a, b = a.to(f32), b.to(f32)
+    prod = a.unsqueeze(-2) * b.unsqueeze(-3)              # [..., M, N, k]
+    e = (_exponent(a).unsqueeze(-2) + _exponent(b).unsqueeze(-3)).amax(-1)
+    emax = torch.maximum(e, _exponent(acc)).clamp_min(-100)
+    shift = _MMA_ALIGN_BITS - emax       # the cut falls on integers
+    up = _pow2(shift, f32)
+    cut = (prod * up.unsqueeze(-1)).trunc_().sum(-1, dtype=torch.float64)
+    cut += (acc * up).trunc_().to(torch.float64)
+    return _to_f32_toward_zero(cut * _pow2(-shift, torch.float64))
+
+
+def mma_scores(a, b):
+    """``a @ b^T`` ([..., M, D] and [..., N, D] of the input type ->
+    [..., M, N] float32) as the tensor-core kernels sum S = Q K^T and
+    dP = dO V^T: 16-column steps of D in order (:func:`mma_step`), from a
+    zero accumulator; rows in chunks to bound the [..., M, N, 16]
+    products held at once."""
+    n = b.shape[-2] * _MMA_STEP * max(1, a[..., :1, :1].numel())
+    rows = max(1, _MMA_CHUNK // n)
+    out = []
+    for r in range(0, a.shape[-2], rows):
+        ar = a[..., r:r + rows, :]
+        acc = torch.zeros(ar.shape[:-1] + (b.shape[-2],), dtype=torch.float32,
+                          device=a.device)
+        for c in range(0, a.shape[-1], _MMA_STEP):
+            acc = mma_step(acc, ar[..., c:c + _MMA_STEP],
+                           b[..., c:c + _MMA_STEP])
+        out.append(acc)
+    return torch.cat(out, dim=-2)
+
+
+def _f32(x):
+    """A Python float rounded to float32 (the kernels' float arguments)."""
+    return float(np.float32(x))
+
+
 # ------------------------------------------------------------ plain tiles
 
 def _q_tiles_visiting(j, nq, causal, window):
@@ -170,32 +316,49 @@ def _tiles(t, causal, window, device):
         yield rows, cols, keep
 
 
-def flash_attention_plain(q, k, v, causal=True, scale=None, window=None):
+def _logits(q, k, scale, tensor_core):
+    """The kernels' scaled logits of q rows against k rows, float32: on the
+    tensor-core path S summed as the tensor cores sum it, times
+    ``scale * log2(e)`` (log2 units); else ``torch.matmul``, times
+    ``scale``."""
+    f32 = torch.float32
+    if tensor_core:
+        return mma_scores(q, k) * _f32(_f32(scale) * LOG2E)
+    return torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2)) * scale
+
+
+def flash_attention_plain(q, k, v, causal=True, scale=None, window=None,
+                          tensor_core=False):
     """The forward kernel's arithmetic in plain PyTorch over [B, H, T, D]:
     for each 64-row k tile, the q tiles that reach it update their f32
     running max, sum and accumulator; P is rounded to the input dtype before
-    P.V. Returns ``(out [B, H, T, D] in q's dtype, lse [B, H, T] f32)``."""
+    P.V. With ``tensor_core`` the logits are the tensor cores' sums in log2
+    units and P = exp2(s - m), as the tensor-core kernel computes them
+    (some 60x the time); without, S sums with ``torch.matmul`` (the scalar
+    kernels' arithmetic). Returns ``(out [B, H, T, D] in q's dtype, lse
+    [B, H, T] f32)``."""
     b, h, t, d = q.shape
     scale = scale if scale is not None else d ** -0.5
+    exp = torch.exp2 if tensor_core else torch.exp
     f32 = torch.float32
     m = torch.full((b, h, t, 1), NEG_INF, dtype=f32, device=q.device)
     l = torch.zeros((b, h, t, 1), dtype=f32, device=q.device)
     acc = torch.zeros((b, h, t, d), dtype=f32, device=q.device)
     for rows, cols, keep in _tiles(t, causal, window, q.device):
-        s = torch.matmul(q[:, :, rows].to(f32),
-                         k[:, :, cols].to(f32).transpose(-1, -2)) * scale
+        s = _logits(q[:, :, rows], k[:, :, cols], scale, tensor_core)
         if keep is not None:
             s = torch.where(keep, s, NEG_INF)
         m_old = m[:, :, rows]
         m_new = torch.maximum(m_old, s.amax(-1, keepdim=True))
-        alpha = torch.exp(m_old - m_new)
-        p = torch.exp(s - m_new)
+        alpha = exp(m_old - m_new)
+        p = exp(s - m_new)
         l[:, :, rows] = l[:, :, rows] * alpha + p.sum(-1, keepdim=True)
         acc[:, :, rows] = acc[:, :, rows] * alpha + torch.matmul(
             p.to(q.dtype).to(f32), v[:, :, cols].to(f32))
         m[:, :, rows] = m_new
     lc = torch.clamp_min(l, 1e-30)
-    return (acc / lc).to(q.dtype), (m + torch.log(lc)).squeeze(-1)
+    lse = m * LN2 + torch.log(lc) if tensor_core else m + torch.log(lc)
+    return (acc / lc).to(q.dtype), lse.squeeze(-1)
 
 
 def attention_delta(out, dout):
@@ -207,28 +370,35 @@ def attention_delta(out, dout):
 
 
 def flash_attention_bwd_plain(q, k, v, dout, lse, delta, causal=True,
-                              scale=None, window=None):
+                              scale=None, window=None, tensor_core=False):
     """The backward kernels' arithmetic in plain PyTorch over [B, H, T, D].
     For each 64-row k tile, the q tiles that reach it compute
     ``p = exp(s - lse)``, ``dv += round(p)^T dO``,
     ``ds = p (dO V^T - delta) scale``, ``dk += round(ds)^T Q`` and
     ``dq += round(ds) K`` (dq summed over the k tiles in ascending order, as
     the dq kernel does), with ``round`` to the input dtype and f32 sums.
-    Returns ``(dq, dk, dv)``, each [B, H, T, D] in q's dtype."""
+    With ``tensor_core`` (as in :func:`flash_attention_plain`) s and dp are
+    the tensor cores' sums and ``p = exp2(s log2(e) - lse log2(e))``, as
+    the tensor-core kernels compute them. Returns ``(dq, dk, dv)``, each
+    [B, H, T, D] in q's dtype."""
     b, h, t, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     f32, dt = torch.float32, q.dtype
     qf, kf, vf, dof = (x.to(f32) for x in (q, k, v, dout))
     dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    exp = torch.exp2 if tensor_core else torch.exp
+    if tensor_core:
+        scale = _f32(scale)
+        lse = lse * LOG2E
     for rows, cols, keep in _tiles(t, causal, window, q.device):
-        s = torch.matmul(qf[:, :, rows], kf[:, :, cols].transpose(-1, -2)) \
-            * scale
+        s = _logits(q[:, :, rows], k[:, :, cols], scale, tensor_core)
         if keep is not None:
             s = torch.where(keep, s, NEG_INF)
-        p = torch.exp(s - lse[:, :, rows, None])
+        p = exp(s - lse[:, :, rows, None])
         dv[:, :, cols] = torch.matmul(p.to(dt).to(f32).transpose(-1, -2),
                                       dof[:, :, rows])
-        dp = torch.matmul(dof[:, :, rows], vf[:, :, cols].transpose(-1, -2))
+        dp = (mma_scores(dout[:, :, rows], v[:, :, cols]) if tensor_core else
+              torch.matmul(dof[:, :, rows], vf[:, :, cols].transpose(-1, -2)))
         ds = (p * (dp - delta[:, :, rows, None]) * scale).to(dt).to(f32)
         dk[:, :, cols] = torch.matmul(ds.transpose(-1, -2), qf[:, :, rows])
         dq[:, :, rows] += torch.matmul(ds, kf[:, :, cols])

@@ -111,14 +111,14 @@ def packed_flash_attention(q, k, v, n_head, causal=True, softmax_scale=None,
 
 
 def packed_flash_attention_plain(q, k, v, n_head, causal=True, scale=None,
-                                 window=None):
+                                 window=None, tensor_core=False):
     """The kernel's arithmetic in plain PyTorch
     (:func:`flash_attention.flash_attention_plain` on the ``[B, H, T, D]``
-    views). Returns ``(out, lse)`` as :func:`packed_flash_attention_fwd`
-    does."""
+    views, ``tensor_core`` as there). Returns ``(out, lse)`` as
+    :func:`packed_flash_attention_fwd` does."""
     out, lse = fa.flash_attention_plain(
         _heads(q, n_head), _heads(k, n_head), _heads(v, n_head), causal,
-        scale, window)
+        scale, window, tensor_core)
     return _packed(out), lse
 
 
@@ -177,14 +177,15 @@ packed_flash_attention_bwd.launches = 0
 
 
 def packed_flash_attention_bwd_plain(q, k, v, dout, lse, delta, n_head,
-                                     causal=True, scale=None, window=None):
+                                     causal=True, scale=None, window=None,
+                                     tensor_core=False):
     """The kernel's arithmetic in plain PyTorch
     (:func:`flash_attention.flash_attention_bwd_plain` on the
-    ``[B, H, T, D]`` views). Returns ``(dq, dk, dv)``, each ``[B, T, H*D]``
-    in q's dtype."""
+    ``[B, H, T, D]`` views, ``tensor_core`` as there). Returns
+    ``(dq, dk, dv)``, each ``[B, T, H*D]`` in q's dtype."""
     grads = fa.flash_attention_bwd_plain(
         *(_heads(x, n_head) for x in (q, k, v, dout)), lse, delta, causal,
-        scale, window)
+        scale, window, tensor_core)
     return tuple(_packed(g) for g in grads)
 
 

@@ -7,6 +7,8 @@ JAX nor the JAX package, so it runs on a GPU machine without JAX:
         tests/test_torch_cuda_kernels.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -72,7 +74,8 @@ def _k2_case(device, dtype, h, d, causal, window, seed=5):
                                          causal=causal, window=window)
     delta = tfa.attention_delta(out, dout, h)
     want = tfa.packed_flash_attention_bwd_plain(
-        *qkv.split(h * d, -1), dout, lse, delta, h, causal, None, window)
+        *qkv.split(h * d, -1), dout, lse, delta, h, causal, None, window,
+        tfk.tensor_core_path(dtype, d))
     torch.cuda.synchronize()
     assert tfa.packed_flash_attention_bwd.launches == before + 1
     assert got.dtype == dtype and got.shape == qkv.shape
@@ -89,7 +92,7 @@ def test_flash_attention_packed_matches_plain(cuda_device, dtype, causal,
     out, lse = tfa.packed_flash_attention_fwd(q, k, v, H, causal=causal,
                                               window=window)
     want_out, want_lse = tfa.packed_flash_attention_plain(
-        q, k, v, H, causal, None, window)
+        q, k, v, H, causal, None, window, tfk.tensor_core_path(dtype, D))
     torch.cuda.synchronize()
     assert tfa.packed_flash_attention_fwd.launches == before + 1
     assert out.dtype == dtype and lse.dtype == torch.float32
@@ -103,7 +106,8 @@ def test_flash_attention_packed_head_dims(cuda_device, h, d):
     """The other head-dim instantiations of the kernel, bf16 causal."""
     q, k, v = _qkv(cuda_device, torch.bfloat16, h=h, d=d)
     out, lse = tfa.packed_flash_attention_fwd(q, k, v, h)
-    want_out, want_lse = tfa.packed_flash_attention_plain(q, k, v, h)
+    want_out, want_lse = tfa.packed_flash_attention_plain(
+        q, k, v, h, tensor_core=tfk.tensor_core_path(torch.bfloat16, d))
     torch.cuda.synchronize()
     assert _ratio(out, want_out) <= 1
     assert (lse - want_lse).abs().max().item() <= LSE_TOL
@@ -229,15 +233,16 @@ def _k3_case(device, dtype, shape, causal, window, scale, layout="bhtd",
     before = (getattr(tfk.flash_attention_fwd, counter),
               getattr(tfk.flash_attention_bwd, counter))
     out, lse = tfk.flash_attention_fwd(q, k, v, causal, scale, window)
+    tc = tfk.tensor_core_path(dtype, shape[-1])
     want_out, want_lse = tfk.flash_attention_plain(q, k, v, causal, scale,
-                                                   window)
+                                                   window, tc)
     gen = torch.Generator(device=device).manual_seed(seed)
     dout = torch.randn(out.shape, generator=gen, device=device).to(dtype)
     got = tfk.flash_attention_bwd(q, k, v, out, lse, dout, causal, scale,
                                   window)
     delta = tfk.attention_delta(out, dout)
     want = tfk.flash_attention_bwd_plain(q, k, v, dout, lse, delta, causal,
-                                         scale, window)
+                                         scale, window, tc)
     torch.cuda.synchronize()
     assert (getattr(tfk.flash_attention_fwd, counter),
             getattr(tfk.flash_attention_bwd, counter)) == \
@@ -274,10 +279,10 @@ def test_flash_attention_head_dims_and_layouts(cuda_device, dtype, d,
 
 
 @pytest.mark.cuda
-def test_dispatch_streamed_regime_raises_on_the_card(cuda_device):
+def test_dispatch_streamed_regime_takes_the_kernel_on_the_card(cuda_device):
     """The streamed regime (T * D * itemsize > 1 MiB, the JAX package's
     K4/K4b) dispatches to the kernels on the card, counted as streamed
-    launches and not as K3's; it no longer raises."""
+    launches and not as K3's."""
     q, k, v = _bhtd(cuda_device, torch.bfloat16, (1, 1, 8192, 128), 3)
     before = (tfk.flash_attention_fwd.launches,
               tfk.flash_attention_fwd.streamed_launches)
@@ -287,6 +292,77 @@ def test_dispatch_streamed_regime_raises_on_the_card(cuda_device):
             tfk.flash_attention_fwd.streamed_launches) == \
         (before[0], before[1] + 1)
     assert out.shape == q.shape and torch.isfinite(out.float()).all()
+
+
+# ---------------------------------- the tensor-core (bf16/f16) instances
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("t,d,window", [
+    (64, 64, None), (64, 128, None), (192, 64, None), (192, 128, None),
+    (512, 64, 100), (512, 128, 100)])
+def test_tensor_core_tiles_match_plain(cuda_device, dtype, t, d, window):
+    """The tensor-core kernels at one 64-row tile, at an odd count of
+    tiles, and with a window of 100 at T 512, whose first visited k tile is
+    fully masked for the late rows of a q tile (their sum of exp2(0) is
+    wiped at the first live tile), at both head-dim ceilings."""
+    (r_out, e_lse), bwd = _k3_case(cuda_device, dtype, (1, 2, t, d), True,
+                                   window, None, "bthd")
+    assert r_out <= 1 and e_lse <= LSE_TOL, (r_out, e_lse)
+    assert max(bwd) <= 1, bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 80])
+@pytest.mark.parametrize("layout", ["bthd", "unaligned"])
+def test_tensor_core_masked_head_dims_f16(cuda_device, d, layout):
+    """Head dims under a tensor-core ceiling in f16 (bf16 is in
+    test_flash_attention_head_dims_and_layouts): Q and K zero-padded to the
+    16-deep step, V and dO to the output width; unaligned views take the
+    register-staged copy instead of cp.async."""
+    (r_out, e_lse), bwd = _k3_case(cuda_device, torch.float16,
+                                   (2, 2, 256, d), True, 100, None, layout)
+    assert r_out <= 1 and e_lse <= LSE_TOL, (r_out, e_lse)
+    assert max(bwd) <= 1, bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_packed_h8_d16(cuda_device, dtype):
+    """K1 and K2 on the packed layout at h 8, d 16: one 16-deep step."""
+    q, k, v = _qkv(cuda_device, dtype, h=8, d=16)
+    out, lse = tfa.packed_flash_attention_fwd(q, k, v, 8)
+    want_out, want_lse = tfa.packed_flash_attention_plain(
+        q, k, v, 8, tensor_core=tfk.tensor_core_path(dtype, 16))
+    torch.cuda.synchronize()
+    assert _ratio(out, want_out) <= 1
+    assert (lse - want_lse).abs().max().item() <= LSE_TOL
+    ratios = _k2_case(cuda_device, dtype, 8, 16, True, None)
+    assert max(ratios) <= 1, ratios
+
+
+FLASH_INSTANCE = re.compile(r"\b(mma_)?(fwd|dkdv|dq)_kernel<")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 200, 256])
+def test_tensor_core_path_is_the_instance_that_runs(cuda_device, dtype, d):
+    """tensor_core_path, which the checks pass to the plain versions, names
+    the route of the kernels that really run: one forward and one backward
+    under the profiler launch mma_fwd_kernel, mma_dkdv_kernel and
+    mma_dq_kernel where it says so, fwd_kernel, dkdv_kernel and dq_kernel
+    elsewhere."""
+    q, k, v = _bhtd(cuda_device, dtype, (1, 2, 128, d), 3)
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        out, lse = tfk.flash_attention_fwd(q, k, v)
+        tfk.flash_attention_bwd(q, k, v, out, lse, out)
+        torch.cuda.synchronize()
+    found = [FLASH_INSTANCE.search(e.key) for e in prof.key_averages()]
+    found = sorted((m.group(2), m.group(1) is not None) for m in found if m)
+    want = tfk.tensor_core_path(dtype, d)
+    assert found == [("dkdv", want), ("dq", want), ("fwd", want)], found
 
 
 TINY_LLAMA = LlamaConfig(vocab_size=256, n_positions=256, n_embd=128,

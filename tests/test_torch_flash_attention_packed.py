@@ -135,3 +135,22 @@ def test_resource_usage_reads_the_ptxas_report(monkeypatch):
         "fwd_kernel<bf16,64,exact>": (96, 0, 0),
         "dkdv_kernel<f32,256,masked>": (255, 8, 12)}
     assert kernel_build.resource_usage("flash_attention_bwd") == {}
+
+
+def test_resource_usage_reads_the_report_kept_beside_the_library(
+        monkeypatch, tmp_path):
+    """A library built by an earlier run: its ptxas report is read from the
+    ``.log`` that the build keeps beside it."""
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path)
+    monkeypatch.delitem(kernel_build._logs, "flash_attention_bwd",
+                        raising=False)
+    assert kernel_build.resource_usage("flash_attention_bwd") == {}
+    entry = "_ZN55_GLOBAL__N__7deaa8f6_22_flash_attention_bwd_cu_6cce14ff10"
+    kept = kernel_build.library_path("flash_attention_bwd").with_suffix(".log")
+    kept.write_text("\n".join([
+        f"ptxas info    : Compiling entry function '{entry}mma_dq_kernelI6"
+        "__halfLi128ELb1EEEvNS_7BwdArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 166 registers, used 1 barriers"]))
+    assert kernel_build.resource_usage("flash_attention_bwd") == {
+        "mma_dq_kernel<f16,128,exact>": (166, 0, 0)}
