@@ -29,15 +29,16 @@ sliding window. The streamed regime (K4, K4b: Code Llama 7B's attention at
 T 16384, a 4096 window at T 32768, non-causal, head dim 64, f32) and the
 block-sparse kernels (K6, K7: BERT-large's attention at T 4096 under the
 Fixed, BSLongformer and BigBird layouts, each with its live-tile and live-pair
-densities, and a planted one-tile fault the checks must catch) are
-checked the same way; then Code Llama 7B is served at full depth on
-``[1, 16384]`` and trained at 4 layers of its width, each held against
-the path on the kernels' plain versions, and BERT-large with
+densities and the pairs the tensor-core kernels compute after their skips,
+an f32 case on the scalar kernels, and a planted one-tile fault the checks
+must catch) are checked the same way; then Code Llama 7B is served at full
+depth on ``[1, 16384]`` and trained at 4 layers of its width, each held
+against the path on the kernels' plain versions, and BERT-large with
 ``SparseAttentionUtils``' Fixed sparse surgery is scored at ``[4, 4096]``
 and trained (15% masked positions), held against the dense-masked plain
 path, with a repeated batch at 4 layers and profiles. Each profile names
-the flash attention kernel instances that ran; on these bf16 paths they
-must be the tensor-core ones (``mma_*``). Every check raises
+the flash and block-sparse attention kernel instances that ran; on these
+bf16 paths they must be the tensor-core ones (``mma_*``). Every check raises
 on failure, so the script exits
 non-zero without printing a result. The last lines are one JSON
 object describing every kernel, the card's name and power limit from
@@ -695,19 +696,19 @@ def profile_forward(torch, engine, ids, top=8, name="profile forward"):
     report_profile(name, prof, wall_ms, top)
 
 
-# a flash attention kernel instance in a demangled name: mma_fwd_kernel<
-# __nv_bfloat16, 128, true>, dq_kernel<float, 64, false>, ... (not the
-# block-sparse sparse_*_kernel)
-FLASH_INSTANCE = re.compile(
-    r"\b((?:mma_)?(?:fwd|dkdv|dq)_kernel)<(__nv_bfloat16|__half|float),"
-    r" *(\d+), *(true|false)>")
+# an attention kernel instance in a demangled name: mma_fwd_kernel<
+# __nv_bfloat16, 128, true>, dq_kernel<float, 64, false>,
+# mma_sparse_dkdv_kernel<__half, 64, true>, sparse_fwd_kernel<...>, ...
+ATTENTION_INSTANCE = re.compile(
+    r"\b((?:mma_)?(?:sparse_)?(?:fwd|dkdv|dq)_kernel)<"
+    r"(__nv_bfloat16|__half|float), *(\d+), *(true|false)>")
 SHORT_TYPE = {"__nv_bfloat16": "bf16", "__half": "f16", "float": "f32"}
 
 
-def flash_instance(key):
-    """``mma_fwd_kernel<bf16,128,exact>`` for a flash attention kernel's
-    demangled name, None for any other kernel."""
-    m = FLASH_INSTANCE.search(key)
+def attention_instance(key):
+    """``mma_fwd_kernel<bf16,128,exact>`` for a flash or block-sparse
+    attention kernel's demangled name, None for any other kernel."""
+    m = ATTENTION_INSTANCE.search(key)
     if m is None:
         return None
     kind = "exact" if m.group(4) == "true" else "masked"
@@ -715,16 +716,16 @@ def flash_instance(key):
 
 
 def kernel_group(key):
-    """The group a device kernel's time is reported under; the flash
-    attention kernels by route: tensor cores (mma_*) or the scalar f32-FMA
-    kernels that f32 and the 256 head-dim ceiling keep."""
+    """The group a device kernel's time is reported under; the attention
+    kernels by route: tensor cores (mma_*) or the scalar f32-FMA kernels
+    that f32 and the 256 head-dim ceiling keep."""
     name = key.lower()
-    flash = flash_instance(key)
-    route = "" if flash is None else \
-        ", tensor cores" if flash.startswith("mma_") else ", scalar"
-    return ("block-sparse fwd (K6)" if "sparse_fwd_kernel" in name else
-            "block-sparse bwd (K7)" if "sparse_dkdv_kernel" in name or
-            "sparse_dq_kernel" in name else
+    attn = attention_instance(key)
+    route = "" if attn is None else \
+        ", tensor cores" if attn.startswith("mma_") else ", scalar"
+    return ("block-sparse fwd (K6)" + route if "sparse_fwd_kernel" in name
+            else "block-sparse bwd (K7)" + route
+            if "sparse_dkdv_kernel" in name or "sparse_dq_kernel" in name else
             "flash attention fwd (K1/K3/K4)" + route if "fwd_kernel" in name
             else "flash attention bwd (K2/K3b-K5/K4b)" + route
             if "dkdv_kernel" in name or "dq_kernel" in name else
@@ -751,22 +752,22 @@ def report_profile(name, prof, wall_ms, top=8):
               "trace)", wall_ms=wall_ms)
         return
     rows.sort(reverse=True)
-    groups, flash = {}, {}
+    groups, attention = {}, {}
     for ms, count, key in rows:
         group = kernel_group(key)
         groups[group] = groups.get(group, 0.0) + ms
-        instance = flash_instance(key)
+        instance = attention_instance(key)
         if instance is not None:
-            flash[instance] = flash.get(instance, 0) + count
-    # every path profiled here runs in bf16: its flash attention launches
-    # must all be tensor-core instances
-    scalar = [k for k in flash if not k.startswith("mma_")]
-    check(not scalar, f"{name}: scalar flash attention kernels ran on a "
-          f"bf16 path: {scalar}")
+            attention[instance] = attention.get(instance, 0) + count
+    # every path profiled here runs in bf16: its flash and block-sparse
+    # attention launches must all be tensor-core instances
+    scalar = [k for k in attention if not k.startswith("mma_")]
+    check(not scalar, f"{name}: scalar attention kernels ran on a bf16 "
+          f"path: {scalar}")
     phase(name, wall_ms=round(wall_ms, 3),
           device_busy_ms=round(busy_ms, 3),
           idle_share=round(1 - busy_ms / wall_ms, 4),
-          flash_kernels=json.dumps(flash),
+          attention_kernels=json.dumps(attention),
           groups_ms=json.dumps({g: round(v, 3) for g, v in groups.items()}),
           top=json.dumps([[round(ms, 3), n, key[:70]]
                           for ms, n, key in rows[:top]]))
@@ -1275,9 +1276,24 @@ def sparsity_config(ops, kind, heads=16):
         num_sliding_window_blocks=3, num_global_blocks=1, seed=0)
 
 
+def computed_pairs(layout, coarse, fb):
+    """The (q, k) pairs the tensor-core K6/K7 compute after their skips, at
+    the 16 x 16 granularity of a warp's steps (fine block a multiple of
+    16): every pair of a visited coarse tile whose fine block is live or
+    whose q row has no live block at all (block_sparse_plan.cuh)."""
+    import numpy as np
+    r = layout.shape[-1] // coarse.shape[-1]
+    visited = np.repeat(np.repeat(coarse, r, 1), r, 2)
+    rows_live = layout.any(-1)[:, :, None]
+    return int((visited & (layout | ~rows_live)).sum()) * fb * fb
+
+
 def sparse_case(torch, kind, shape, dtype, seed):
     """Inputs of one K6/K7 check: q, k, v as views of [B, T, H, D] buffers
-    (the BERT block's layout), the layout, its device plan and densities."""
+    (the BERT block's layout), the layout, its device plan and densities:
+    the live (q, k) pairs (the function's work), the pairs of the visited
+    coarse tiles (the scalar kernels' work) and the pairs the tensor-core
+    kernels compute after their skips."""
     from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
     b, h, t, d = shape
@@ -1286,18 +1302,23 @@ def sparse_case(torch, kind, shape, dtype, seed):
     plan = bsa.get_plan(layout, 16, tile, "cuda")
     coarse = bsa.build_plan(layout, 16, tile).coarse
     q, k, v = k3_inputs(torch, shape, dtype, seed)
-    live = b * int(layout.sum()) * 16 * 16           # live (q, k) pairs
-    visited = b * int(coarse.sum()) * tile * tile    # pairs K6/K7 compute
+    r = 64 // 16                                     # fine blocks a sub-tile
+    subtiles = layout.reshape(h, t // 64, r, t // 64, r).any(axis=(2, 4))
     dens = {"layout": kind, "tile": tile,
             "live_tile_density": float(coarse.mean()),
+            "live_subtile_density": float(subtiles.mean()),
             "live_fine_density": float(layout.mean()),
-            "live_pairs": live, "visited_pairs": visited}
+            "live_pairs": b * int(layout.sum()) * 16 * 16,
+            "visited_pairs": b * int(coarse.sum()) * tile * tile,
+            "computed_pairs": b * computed_pairs(layout, coarse, 16)}
     return q, k, v, layout, plan, dens
 
 
 def check_k6(torch, kind, shape, dtype):
-    """K6 against its plain version on the card; its bound counts the live
-    fine pairs (the function's work), the visited pairs beside it; the
+    """K6 against its plain version on the card, summing as the kernel's
+    route does (``tensor_core_path``; ``indep_*``: against the
+    ``torch.matmul`` plain version); its bound counts the live fine pairs
+    (the function's work), the visited and computed pairs beside it; the
     library call is SDPA with the layout expanded to a boolean mask."""
     from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
@@ -1306,8 +1327,14 @@ def check_k6(torch, kind, shape, dtype):
     q, k, v, layout, plan, dens = sparse_case(torch, kind, shape, dtype,
                                               SEED + 20)
     scale = d ** -0.5
+    tc = bsa.tensor_core_path(dtype, d)
+
+    def plain(tensor_core):
+        return bsa.block_sparse_attention_plain(q, k, v, plan, scale,
+                                                tensor_core)
+
     out, lse = bsa.block_sparse_attention_fwd(q, k, v, plan, scale)
-    ref_out, ref_lse = bsa.block_sparse_attention_plain(q, k, v, plan, scale)
+    (ref_out, ref_lse), plain_ms = timed_call(torch, lambda: plain(tc))
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
     err_out, ratio_out = errors(out, ref_out)
@@ -1316,10 +1343,11 @@ def check_k6(torch, kind, shape, dtype):
     check(ratio_out <= 1 and err_lse <= LSE_TOL,
           f"K6 {kind} {dname}: out err {err_out} (ratio {ratio_out} to TOL "
           f"{TOL[dname]}), lse err {err_lse} (tol {LSE_TOL})")
+    indep_out, indep_lse = plain(False) if tc else (ref_out, ref_lse)
+    indep = independent([out], [indep_out], lse, indep_lse)
+    del ref_out, ref_lse, indep_out, indep_lse
     kernel_ms = median_ms(torch, lambda: bsa.block_sparse_attention_fwd(
         q, k, v, plan, scale))
-    plain_ms = median_ms(torch, lambda: bsa.block_sparse_attention_plain(
-        q, k, v, plan, scale), reps=3, inner=1, warmup=1)
     mask = torch.from_numpy(ops.layout_to_mask(layout, 16)).cuda()[None]
     library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask))
@@ -1329,22 +1357,26 @@ def check_k6(torch, kind, shape, dtype):
     flops = 4 * d * dens["live_pairs"]
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dname] * 1e3
-    res = {"dtype": dname, "shape": list(shape), **dens, "err_out": err_out,
-           "err_lse": err_lse, "ratio_out": ratio_out, "tol": TOL[dname],
-           "tol_lse": LSE_TOL, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+    res = {"dtype": dname, "shape": list(shape), "tensor_cores": tc, **dens,
+           "err_out": err_out, "err_lse": err_lse, "ratio_out": ratio_out,
+           "tol": TOL[dname], "tol_lse": LSE_TOL, **indep,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "library": "SDPA with the layout mask",
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "visited_bound_ms": 4 * d * dens["visited_pairs"] /
+           PEAK_FLOPS[dname] * 1e3,
+           "computed_bound_ms": 4 * d * dens["computed_pairs"] /
            PEAK_FLOPS[dname] * 1e3}
     phase("kernel-check K6", **res)
     return res
 
 
 def check_k7(torch, kind, shape, dtype):
-    """K7 against its plain version on the card: K6's output and lse, a
-    random output gradient; the library's backward is SDPA with the layout
-    mask, forward + backward minus forward."""
+    """K7 against its plain version on the card (summing as the kernel's
+    route does; ``indep_*`` as in K6's): K6's output and lse, a random
+    output gradient; the library's backward is SDPA with the layout mask,
+    forward + backward minus forward."""
     from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
@@ -1362,11 +1394,14 @@ def check_k7(torch, kind, shape, dtype):
         return bsa.block_sparse_attention_bwd(q, k, v, out, lse, dout, plan,
                                               scale)
 
-    def plain():
-        return bsa.block_sparse_attention_bwd_plain(q, k, v, dout, lse, delta,
-                                                    plan, scale)
+    tc = bsa.tensor_core_path(dtype, d)
 
-    got, want = kernel(), plain()
+    def plain(tensor_core):
+        return bsa.block_sparse_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                                    plan, scale, tensor_core)
+
+    got = kernel()
+    want, plain_ms = timed_call(torch, lambda: plain(tc))
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
     errs, ratios = zip(*(errors(g, w) for g, w in zip(got, want)))
@@ -1375,8 +1410,9 @@ def check_k7(torch, kind, shape, dtype):
     check(max(ratios) <= 1,
           f"K7 {kind} {dname}: dq/dk/dv errors {errs}, ratios {ratios} to "
           f"TOL {TOL[dname]}")
+    indep = independent(got, plain(False) if tc else want)
+    del want
     kernel_ms = median_ms(torch, kernel)
-    plain_ms = median_ms(torch, plain, reps=3, inner=1, warmup=1)
     mask = torch.from_numpy(ops.layout_to_mask(layout, 16)).cuda()[None]
     q4, k4, v4 = (x.detach().requires_grad_() for x in (q, k, v))
 
@@ -1395,14 +1431,17 @@ def check_k7(torch, kind, shape, dtype):
     flops = 10 * d * dens["live_pairs"]
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dname] * 1e3
-    res = {"dtype": dname, "shape": list(shape), **dens, "err_dq": errs[0],
-           "err_dk": errs[1], "err_dv": errs[2], "ratio": max(ratios),
-           "tol": TOL[dname], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+    res = {"dtype": dname, "shape": list(shape), "tensor_cores": tc, **dens,
+           "err_dq": errs[0], "err_dk": errs[1], "err_dv": errs[2],
+           "ratio": max(ratios), "tol": TOL[dname], **indep,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
            "library": "SDPA with the layout mask, fwd+bwd minus fwd",
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "visited_bound_ms": 10 * d * dens["visited_pairs"] /
+           PEAK_FLOPS[dname] * 1e3,
+           "computed_bound_ms": 10 * d * dens["computed_pairs"] /
            PEAK_FLOPS[dname] * 1e3}
     phase("kernel-check K7", **res)
     return res
@@ -1414,11 +1453,13 @@ def sparse_planted_faults(torch, kind, shape, dtype):
     versions run on a copy of the plan whose last head's last q tile (K6,
     K7's dq) or last k tile (K7's dk/dv) has one live tile fewer, and are
     held against the true plan's results as a kernel's output is; every
-    ratio must exceed 1, so that the checks would catch the fault."""
+    ratio must exceed 1, so that the checks would catch the fault. The
+    plain versions sum as the K6/K7 checks' do."""
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     q, k, v, _, plan, _ = sparse_case(torch, kind, shape, dtype, SEED + 21)
     scale = shape[-1] ** -0.5
+    tc = bsa.tensor_core_path(dtype, shape[-1])
 
     def dropped(counts):
         counts = counts.clone()
@@ -1428,17 +1469,18 @@ def sparse_planted_faults(torch, kind, shape, dtype):
     fwd_fault = plan._replace(nnz=dropped(plan.nnz))
     dq_fault = fwd_fault
     dkdv_fault = plan._replace(nnz_t=dropped(plan.nnz_t))
-    out, lse = bsa.block_sparse_attention_plain(q, k, v, plan, scale)
+    out, lse = bsa.block_sparse_attention_plain(q, k, v, plan, scale, tc)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
     dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     delta = fa.attention_delta(out, dout)
     grads = bsa.block_sparse_attention_bwd_plain(q, k, v, dout, lse, delta,
-                                                 plan, scale)
-    bad_out, _ = bsa.block_sparse_attention_plain(q, k, v, fwd_fault, scale)
+                                                 plan, scale, tc)
+    bad_out, _ = bsa.block_sparse_attention_plain(q, k, v, fwd_fault, scale,
+                                                  tc)
     bad_dq = bsa.block_sparse_attention_bwd_plain(
-        q, k, v, dout, lse, delta, dq_fault, scale)[0]
+        q, k, v, dout, lse, delta, dq_fault, scale, tc)[0]
     _, bad_dk, bad_dv = bsa.block_sparse_attention_bwd_plain(
-        q, k, v, dout, lse, delta, dkdv_fault, scale)
+        q, k, v, dout, lse, delta, dkdv_fault, scale, tc)
     found = {}
     for name, fault, ref in (("out", bad_out, out), ("dq", bad_dq, grads[0]),
                              ("dk", bad_dk, grads[1]),

@@ -17,32 +17,43 @@
 // (uint8) masks inside a tile.
 //
 // The design is the split of flash_attention_bwd.cu, with no atomics and a
-// deterministic result:
-//   sparse_dkdv_kernel: one block per (batch * head, k rows of a coarse
-//     tile); it loops over its k tile's live q tiles, each in 64-row
-//     sub-tiles, and keeps dk, dv in registers;
-//   sparse_dq_kernel: one block per (batch * head, q rows of a coarse tile);
-//     it loops over its q tile's live k tiles, each in 64-key sub-tiles, and
-//     keeps dq in registers.
-// A block's own tile is 64 rows (32 at the 256 head-dim ceiling, as in
-// flash_attention_bwd.cu, for the same register and shared-memory limits);
-// the fine-layout window of each sub-tile pair is staged in shared memory.
+// deterministic result: a dk/dv kernel, one block per (batch * head, k rows
+// of a coarse tile), loops over its k tile's live q tiles (each in 64-row
+// sub-tiles) and keeps dk, dv in registers; a dq kernel, one block per
+// (batch * head, q rows of a coarse tile), loops over its q tile's live k
+// tiles (each in 64-key sub-tiles) and keeps dq in registers. Two pairs
+// compute this, by tensor_core_route (flash_attention_mma.cuh), as the
+// flash attention's do:
+//   mma_sparse_dkdv_kernel + mma_sparse_dq_kernel, bf16 and f16 at the 64
+//     and 128 head-dim ceilings: mma_dkdv_kernel's and mma_dq_kernel's
+//     tensor-core tile steps over the plan, with the forward's two skips
+//     (block_sparse_plan.cuh): (a) a 64 x 64 sub-tile whose fine window is
+//     dead and whose q rows all have a live block is neither copied nor
+//     computed; (b) with fine_block % 16 == 0 a warp skips a dead 16-row
+//     step (a fine-block pair) whose q rows have a live block. Where a q
+//     row has no live block its masked p is 1, not 0 (lse ~ -1e30, as on
+//     the TPU), so its steps are all computed.
+//   sparse_dkdv_kernel + sparse_dq_kernel, f32 and the 256 ceiling: the
+//     products as f32 FMAs on the CUDA cores over whole visited coarse
+//     tiles; a block's own tile is 64 rows (32 at the 256 ceiling, as in
+//     flash_attention_bwd.cu, for the same register and shared-memory
+//     limits); the fine-layout window of each sub-tile pair is staged in
+//     shared memory.
 //
 // What bounds it on the H100: the function needs the live fine pairs, 10*D
-// FLOP each at the bf16 tensor-core peak, and 7 * B*H*T*D values read and
-// written; both are far under a millisecond at BERT-large's T 4096. This
-// version runs every product as f32 FMAs on the CUDA cores over whole
-// visited coarse tiles and recomputes s and dp in both kernels (14*D FLOP a
-// visited pair), so it is bound by the FMA rate over the visited pairs.
-// wgmma, TMA and skipping dead sub-tiles are later work.
+// FLOP each, and 7 * B*H*T*D values read and written; at BERT-large's
+// [4, 16, 4096, 64] under the Fixed layout the FLOPs bound it, ~0.44 ms at
+// the bf16 tensor-core peak. The tensor-core kernels compute the live pairs
+// only (skip (b)) and recompute s and dp in both kernels (14*D FLOP a
+// computed pair), at the rate of mma.sync with 8 warps an SM; wgmma, TMA
+// and warp specialisation are later work (ROADMAP.md queue D).
 
-#include "flash_attention_common.cuh"
+#include "block_sparse_plan.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace {
 
 using namespace dstorch_attn;
-
-constexpr int kMaxWin = 5;  // fine blocks along 64 rows, at most, for fb >= 16
 
 struct SparseBwdArgs {
   const void* q;
@@ -59,11 +70,13 @@ struct SparseBwdArgs {
   const int* qrows_t;      // [H][nt][max_nnz_t]
   const int* nnz_t;        // [H][nt]
   const uint8_t* layout;   // [H][nb][nb]
+  const uint8_t* live_rows;  // [H][nb]: the fine row has a live block
   int max_nnz, max_nnz_t, tile, fine_block;
   HeadStrides sq, sk, sv, sdo, sdq, sdk, sdv;
   int seq, n_head, d;
   float scale;
-  bool vec;  // q, k, v, dout chunks_aligned
+  bool vec;      // q, k, v, dout chunks_aligned
+  bool out_vec;  // dq, dk, dv chunks_aligned
 };
 
 // K, V tiles [own][ld] and Q, dO tiles [loop][ld] in the input type; the P
@@ -81,22 +94,6 @@ template <typename T, int DMAX>
 size_t dq_smem_bytes(int d8) {
   constexpr int own = Tiles<DMAX>::kOwn, loop = Tiles<DMAX>::kLoop;
   return sizeof(T) * 2 * (own + loop) * tile_ld<T>(d8) + sizeof(float) * own * (loop + 1);
-}
-
-// The fine layout of rows [q_off, q_off + nq) x columns [k_off, k_off + nk)
-// of head h, one byte per fine-block pair, into win[(q fine) * kMaxWin +
-// (k fine)] relative to (q_off / fb, k_off / fb). The caller synchronises.
-__device__ __forceinline__ void load_window(uint8_t* win, const uint8_t* lay, int nb, int fb,
-                                            int q_off, int nq, int k_off, int nk) {
-  const int qf0 = q_off / fb, kf0 = k_off / fb;
-  const int nfq = (q_off + nq - 1) / fb - qf0 + 1;
-  const int nfk = (k_off + nk - 1) / fb - kf0 + 1;
-  const int tid = threadIdx.x;
-  if (tid < nfq * nfk) {
-    const int r = tid / nfk;
-    const int c = tid - r * nfk;
-    win[r * kMaxWin + c] = lay[(long long)(qf0 + r) * nb + kf0 + c];
-  }
 }
 
 template <typename T, int DMAX, bool EXACT>
@@ -372,10 +369,417 @@ int launch(const SparseBwdArgs& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- the tensor-core kernels: bf16 and f16 at the 64 and 128 ceilings
+
+constexpr int kMmaBlock = 64;  // rows of the own tile and of each visited sub-tile
+
+// dkdv: K and V tiles, a ring of two (Q, dO) stages, two stages of a q
+// sub-tile's lse and delta (f32); dq: Q and dO tiles and a ring of two (K,
+// V) stages. Tiles [64][DMAX] in the input type, swizzled; then the
+// block's list of visited sub-tiles.
+template <int DMAX>
+size_t mma_dkdv_bytes(int seq) {
+  return 2 * (size_t)kMmaBlock * DMAX * (2 + 2 * 2) + 2 * 2 * kMmaBlock * sizeof(float) +
+         subtile_list_bytes(seq);
+}
+template <int DMAX>
+size_t mma_dq_bytes(int seq) {
+  return 2 * (size_t)kMmaBlock * DMAX * (2 + 2 * 2) + subtile_list_bytes(seq);
+}
+
+// mma_dkdv_kernel (flash_attention_bwd.cu) walked over the transposed plan:
+// one block of 128 threads per (batch, head, 64 k rows), warp w owning k
+// rows 16 w .. 16 w + 15 with their f32 dk and dv in registers. The block
+// lists the 64-row q sub-tiles of its k tile's live q tiles (qrows_t), in
+// plan order, leaving out those whose fine window is dead and whose 64 q
+// rows all have a live block (skip (a)); the next one's Q, dO, lse and
+// delta are in flight by cp.async. Per sub-tile a warp skips the 16-row q
+// steps whose fine block is dead for its k rows and whose q rows have a
+// live block (skip (b): their p is exactly 0). S^T = K Q^T, P^T =
+// exp2(S^T log2(e) scale - lse log2(e)) with masked logits -1e30 (a q row
+// with no live block has p = 1 there, as on the TPU), dV += round(P^T) dO,
+// dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale, dK += round(dS^T) Q.
+template <typename T, int DMAX, bool EXACT>
+__global__ void __launch_bounds__(kThreads) mma_sparse_dkdv_kernel(SparseBwdArgs a) {
+  constexpr int KS = DMAX / 16;
+  constexpr int NT = DMAX / 8;
+  constexpr int QN = kMmaBlock / 8;  // 8-column q tiles of S^T
+  constexpr int kStepUnroll = step_unroll<DMAX, EXACT>();
+  // skip (b) at the 64 ceiling; at 128, where dk and dv take 128 of the 255
+  // registers, a live sub-tile's four steps all run (a dead step of q rows
+  // with a live block has p = 0, so that changes no bit) and no per-step
+  // predicate holds registers
+  constexpr bool kStepSkip = DMAX <= 64;
+  constexpr uint32_t kTileBytes = 2 * kMmaBlock * DMAX;
+  const int d = EXACT ? DMAX : a.d;
+  const int nch = EXACT ? DMAX / 8 : ((d + 15) >> 4) * 2;
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  const uint32_t k_sm = smem_addr(mma_smem);
+  const uint32_t v_sm = k_sm + kTileBytes;
+  const uint32_t qd_sm = v_sm + kTileBytes;  // stage s: Q at + 2 s tiles, dO after it
+  float* stats = reinterpret_cast<float*>(mma_smem + 6 * kTileBytes);  // stage s: lse, delta
+  int* subs = reinterpret_cast<int*>(stats + 4 * kMmaBlock);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const Ldsm<DMAX> ld(lane);
+  const int bh = blockIdx.x;
+  const int b = bh / a.n_head;
+  const int h = bh - b * a.n_head;
+  const int k_off = blockIdx.y * kMmaBlock;
+  const int kw = k_off + 16 * warp;  // this warp's first k row
+  const int nt = a.seq / a.tile;
+  const int kt = k_off / a.tile;
+  const int fb = a.fine_block;
+  const int nb = a.seq / fb;
+  const uint8_t* lay = a.layout + (long long)h * nb * nb;
+  const uint8_t* flags = a.live_rows + (long long)h * nb;
+  const T* q = static_cast<const T*>(a.q) + head_offset(a.sq, b, h);
+  const T* dout = static_cast<const T*>(a.dout) + head_offset(a.sdo, b, h);
+  const float* lse = a.lse + (long long)bh * a.seq;
+  const float* delta = a.delta + (long long)bh * a.seq;
+
+  load_tile_async<T, DMAX, kMmaBlock, kThreads>(
+      k_sm, static_cast<const T*>(a.k) + head_offset(a.sk, b, h), a.sk.t, k_off, d, nch, a.vec);
+  load_tile_async<T, DMAX, kMmaBlock, kThreads>(
+      v_sm, static_cast<const T*>(a.v) + head_offset(a.sv, b, h), a.sv.t, k_off, d, nch, a.vec);
+  uint16_t* codes = reinterpret_cast<uint16_t*>(subs + a.seq / kSubTile);
+  const int ns =
+      list_subtiles(subs, codes, a.qrows_t + ((long long)h * nt + kt) * a.max_nnz_t,
+                    a.nnz_t[h * nt + kt], a.tile, lay, flags, nb, fb, k_off, true);
+  auto fetch = [&](int i) {
+    const int st = i & 1, q_off = subs[i];
+    const uint32_t at = qd_sm + 2 * kTileBytes * st;
+    load_tile_async<T, DMAX, kMmaBlock, kThreads>(at, q, a.sq.t, q_off, d, nch, a.vec);
+    load_tile_async<T, DMAX, kMmaBlock, kThreads>(at + kTileBytes, dout, a.sdo.t, q_off, d, nch,
+                                                  a.vec);
+    const int r = threadIdx.x & (kMmaBlock - 1);
+    const float* src = threadIdx.x < kMmaBlock ? lse : delta;
+    cp_async4(smem_addr(stats + 2 * kMmaBlock * st + threadIdx.x), src + q_off + r);
+  };
+  if (ns > 0) fetch(0);
+  cp_async_commit();
+
+  // p = exp2(s * (scale * log2(e)) - lse * log2(e)) and ds = p (dp - delta)
+  // scale, each step rounded as written (no contraction into an FMA), as
+  // the plain version computes them
+  const float sl2 = __fmul_rn(a.scale, kLog2e);
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int i = 0; i < ns; ++i) {
+    const int q_off = subs[i];
+    cp_async_wait<0>();
+    __syncthreads();  // sub-tile i has landed; every warp is done with sub-tile i - 1
+    if (i + 1 < ns) fetch(i + 1);
+    cp_async_commit();
+    const int st = i & 1;
+    const uint32_t qs_sm = qd_sm + 2 * kTileBytes * st;
+    const uint32_t dos_sm = qs_sm + kTileBytes;
+    const float* lse_s = stats + 2 * kMmaBlock * st;
+    const float* delta_s = lse_s + kMmaBlock;
+    const unsigned code = codes[4 * i + warp];
+    if ((code & 0xFu) == 0) continue;  // every p of the sub-tile is 0 for these k rows
+    const unsigned run = kStepSkip ? code & 0xFu : 0xFu;
+
+    // S^T = K Q^T: element e of tile n is (k row kw + g + 8 (e >> 1), q
+    // column q_off + 8 n + 2 t + (e & 1))
+    float s[QN][4];
+#pragma unroll
+    for (int n = 0; n < QN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll kStepUnroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (2 * kk >= nch) continue;
+      uint32_t ka[4];
+      ldsm_x4(ka, ld.A(k_sm, 16 * warp, kk));
+#pragma unroll
+      for (int np = 0; np < QN / 2; ++np) {
+        if (!((run >> np) & 1u)) continue;
+        uint32_t bf[4];
+        ldsm_x4(bf, ld.B(qs_sm, 16 * np, kk));
+        mma16816<T>(s[2 * np], ka, bf[0], bf[1]);
+        mma16816<T>(s[2 * np + 1], ka, bf[2], bf[3]);
+      }
+    }
+    const unsigned keep = keep_bits(code, a.fine_block, kw, q_off);
+#pragma unroll
+    for (int n = 0; n < QN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * n + 2 * t + (e & 1);
+        const float x = (keep >> (4 * n + e)) & 1u ? __fmul_rn(s[n][e], sl2) : kNegInf;
+        s[n][e] = (run >> (n >> 1)) & 1u
+                      ? exp2f(__fsub_rn(x, __fmul_rn(lse_s[col], kLog2e)))
+                      : 0.f;
+      }
+
+    // dV += round(P^T) dO over the computed 16-row q steps
+#pragma unroll
+    for (int kq = 0; kq < QN / 2; ++kq) {
+      if (!((run >> kq) & 1u)) continue;
+      uint32_t pa[4];
+      frag_a<T>(pa, s[2 * kq], s[2 * kq + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (2 * np >= nch) continue;
+        uint32_t bf[4];
+        ldsm_x4_t(bf, ld.Bt(dos_sm, 16 * kq, np));
+        mma16816<T>(dv[2 * np], pa, bf[0], bf[1]);
+        mma16816<T>(dv[2 * np + 1], pa, bf[2], bf[3]);
+      }
+    }
+
+    // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) scale in place
+    float dp[QN][4];
+#pragma unroll
+    for (int n = 0; n < QN; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll kStepUnroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (2 * kk >= nch) continue;
+      uint32_t va[4];
+      ldsm_x4(va, ld.A(v_sm, 16 * warp, kk));
+#pragma unroll
+      for (int np = 0; np < QN / 2; ++np) {
+        if (!((run >> np) & 1u)) continue;
+        uint32_t bf[4];
+        ldsm_x4(bf, ld.B(dos_sm, 16 * np, kk));
+        mma16816<T>(dp[2 * np], va, bf[0], bf[1]);
+        mma16816<T>(dp[2 * np + 1], va, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < QN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = __fmul_rn(
+            __fmul_rn(s[n][e], __fsub_rn(dp[n][e], delta_s[8 * n + 2 * t + (e & 1)])), a.scale);
+
+    // dK += round(dS^T) Q
+#pragma unroll
+    for (int kq = 0; kq < QN / 2; ++kq) {
+      if (!((run >> kq) & 1u)) continue;
+      uint32_t da[4];
+      frag_a<T>(da, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (2 * np >= nch) continue;
+        uint32_t bf[4];
+        ldsm_x4_t(bf, ld.Bt(qs_sm, 16 * kq, np));
+        mma16816<T>(dk[2 * np], da, bf[0], bf[1]);
+        mma16816<T>(dk[2 * np + 1], da, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dk and dv through this warp's rows of the K and V tiles, then 16-byte
+  // stores
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (2 * (n >> 1) >= nch) continue;
+    stage_acc<T, DMAX>(k_sm, 16 * warp, n, dk[n], lane);
+    stage_acc<T, DMAX>(v_sm, 16 * warp, n, dv[n], lane);
+  }
+  __syncwarp();
+  store_rows16<T, DMAX>(static_cast<T*>(a.dk) + head_offset(a.sdk, b, h), a.sdk.t, k_off, k_sm,
+                        16 * warp, d, a.out_vec);
+  store_rows16<T, DMAX>(static_cast<T*>(a.dv) + head_offset(a.sdv, b, h), a.sdv.t, k_off, v_sm,
+                        16 * warp, d, a.out_vec);
+}
+
+// mma_dq_kernel (flash_attention_bwd.cu) walked over the plan: one block of
+// 128 threads per (batch, head, 64 q rows), warp w owning q rows 16 w .. 16
+// w + 15 with their lse, delta and f32 dq in registers. It lists and skips
+// the plan row's 64-key sub-tiles as the forward does (skips (a) and (b));
+// the next one's K and V are in flight by cp.async. S = Q K^T, P = exp2(S
+// log2(e) scale - lse log2(e)), dP = dO V^T, dS = P (dP - delta) scale, dQ
+// += round(dS) K with dS as the A fragment and K through ldmatrix.trans.
+template <typename T, int DMAX, bool EXACT>
+__global__ void __launch_bounds__(kThreads) mma_sparse_dq_kernel(SparseBwdArgs a) {
+  constexpr int KS = DMAX / 16;
+  constexpr int NT = DMAX / 8;
+  constexpr int KN = kMmaBlock / 8;
+  constexpr int kStepUnroll = step_unroll<DMAX, EXACT>();
+  constexpr uint32_t kTileBytes = 2 * kMmaBlock * DMAX;
+  const int d = EXACT ? DMAX : a.d;
+  const int nch = EXACT ? DMAX / 8 : ((d + 15) >> 4) * 2;
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  const uint32_t q_sm = smem_addr(mma_smem);
+  const uint32_t do_sm = q_sm + kTileBytes;
+  const uint32_t kv_sm = do_sm + kTileBytes;  // stage s: K at + 2 s tiles, V after it
+  int* subs = reinterpret_cast<int*>(mma_smem + 6 * kTileBytes);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const Ldsm<DMAX> ld(lane);
+  const int bh = blockIdx.x;
+  const int b = bh / a.n_head;
+  const int h = bh - b * a.n_head;
+  const int q_off = blockIdx.y * kMmaBlock;
+  const int qw = q_off + 16 * warp;
+  const int nt = a.seq / a.tile;
+  const int qt = q_off / a.tile;
+  const int fb = a.fine_block;
+  const int nb = a.seq / fb;
+  const uint8_t* lay = a.layout + (long long)h * nb * nb;
+  const uint8_t* flags = a.live_rows + (long long)h * nb;
+  const T* k = static_cast<const T*>(a.k) + head_offset(a.sk, b, h);
+  const T* v = static_cast<const T*>(a.v) + head_offset(a.sv, b, h);
+
+  load_tile_async<T, DMAX, kMmaBlock, kThreads>(
+      q_sm, static_cast<const T*>(a.q) + head_offset(a.sq, b, h), a.sq.t, q_off, d, nch, a.vec);
+  load_tile_async<T, DMAX, kMmaBlock, kThreads>(
+      do_sm, static_cast<const T*>(a.dout) + head_offset(a.sdo, b, h), a.sdo.t, q_off, d, nch,
+      a.vec);
+  uint16_t* codes = reinterpret_cast<uint16_t*>(subs + a.seq / kSubTile);
+  const int ns = list_subtiles(subs, codes, a.kcols + ((long long)h * nt + qt) * a.max_nnz,
+                               a.nnz[h * nt + qt], a.tile, lay, flags, nb, fb, q_off, false);
+  auto fetch = [&](int i) {
+    const uint32_t at = kv_sm + 2 * kTileBytes * (i & 1);
+    load_tile_async<T, DMAX, kMmaBlock, kThreads>(at, k, a.sk.t, subs[i], d, nch, a.vec);
+    load_tile_async<T, DMAX, kMmaBlock, kThreads>(at + kTileBytes, v, a.sv.t, subs[i], d, nch,
+                                                  a.vec);
+  };
+  if (ns > 0) fetch(0);
+  cp_async_commit();
+
+  float lse2[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long at = (long long)bh * a.seq + qw + g + 8 * r;
+    lse2[r] = __fmul_rn(a.lse[at], kLog2e);
+    delta_r[r] = a.delta[at];
+  }
+  const float sl2 = __fmul_rn(a.scale, kLog2e);  // rounded as in mma_sparse_dkdv_kernel
+  float dq[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  for (int i = 0; i < ns; ++i) {
+    const int k_off = subs[i];
+    cp_async_wait<0>();
+    __syncthreads();  // sub-tile i has landed; every warp is done with sub-tile i - 1
+    if (i + 1 < ns) fetch(i + 1);
+    cp_async_commit();
+    const uint32_t ks_sm = kv_sm + 2 * kTileBytes * (i & 1);
+    const uint32_t vs_sm = ks_sm + kTileBytes;
+    const unsigned code = codes[4 * i + warp];
+    const unsigned run = code & 0xFu;
+    if (run == 0) continue;  // every p of the sub-tile is 0 for these q rows
+
+    // S = Q K^T, then P: element e of tile n is (q row qw + g + 8 (e >>
+    // 1), k column k_off + 8 n + 2 t + (e & 1))
+    float s[KN][4];
+#pragma unroll
+    for (int n = 0; n < KN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll kStepUnroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (2 * kk >= nch) continue;
+      uint32_t qa[4];
+      ldsm_x4(qa, ld.A(q_sm, 16 * warp, kk));
+#pragma unroll
+      for (int np = 0; np < KN / 2; ++np) {
+        if (!((run >> np) & 1u)) continue;
+        uint32_t bf[4];
+        ldsm_x4(bf, ld.B(ks_sm, 16 * np, kk));
+        mma16816<T>(s[2 * np], qa, bf[0], bf[1]);
+        mma16816<T>(s[2 * np + 1], qa, bf[2], bf[3]);
+      }
+    }
+    const unsigned keep = keep_bits(code, a.fine_block, qw, k_off);
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = (keep >> (4 * n + e)) & 1u ? __fmul_rn(s[n][e], sl2) : kNegInf;
+        s[n][e] = (run >> (n >> 1)) & 1u ? exp2f(__fsub_rn(x, lse2[e >> 1])) : 0.f;
+      }
+
+    // dP = dO V^T, then dS = P (dP - delta) scale in place
+    float dp[KN][4];
+#pragma unroll
+    for (int n = 0; n < KN; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll kStepUnroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (2 * kk >= nch) continue;
+      uint32_t da[4];
+      ldsm_x4(da, ld.A(do_sm, 16 * warp, kk));
+#pragma unroll
+      for (int np = 0; np < KN / 2; ++np) {
+        if (!((run >> np) & 1u)) continue;
+        uint32_t bf[4];
+        ldsm_x4(bf, ld.B(vs_sm, 16 * np, kk));
+        mma16816<T>(dp[2 * np], da, bf[0], bf[1]);
+        mma16816<T>(dp[2 * np + 1], da, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = __fmul_rn(__fmul_rn(s[n][e], __fsub_rn(dp[n][e], delta_r[e >> 1])), a.scale);
+
+    // dQ += round(dS) K over the computed 16-key steps
+#pragma unroll
+    for (int kk = 0; kk < kMmaBlock / 16; ++kk) {
+      if (!((run >> kk) & 1u)) continue;
+      uint32_t da[4];
+      frag_a<T>(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (2 * np >= nch) continue;
+        uint32_t bf[4];
+        ldsm_x4_t(bf, ld.Bt(ks_sm, 16 * kk, np));
+        mma16816<T>(dq[2 * np], da, bf[0], bf[1]);
+        mma16816<T>(dq[2 * np + 1], da, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread's Q copies have landed, also where ns == 0
+
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    if (2 * (n >> 1) < nch) stage_acc<T, DMAX>(q_sm, 16 * warp, n, dq[n], lane);
+  __syncwarp();
+  store_rows16<T, DMAX>(static_cast<T*>(a.dq) + head_offset(a.sdq, b, h), a.sdq.t, q_off, q_sm,
+                        16 * warp, d, a.out_vec);
+}
+
+template <typename T, int DMAX, bool EXACT>
+int launch_mma(const SparseBwdArgs& a, int batch, cudaStream_t stream) {
+  const size_t dkdv_bytes = mma_dkdv_bytes<DMAX>(a.seq);
+  const size_t dq_bytes = mma_dq_bytes<DMAX>(a.seq);
+  cudaError_t err = cudaFuncSetAttribute(mma_sparse_dkdv_kernel<T, DMAX, EXACT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)dkdv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(batch * a.n_head, a.seq / kMmaBlock);
+  mma_sparse_dkdv_kernel<T, DMAX, EXACT><<<grid, kThreads, dkdv_bytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(mma_sparse_dq_kernel<T, DMAX, EXACT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
+  if (err != cudaSuccess) return (int)err;
+  mma_sparse_dq_kernel<T, DMAX, EXACT><<<grid, kThreads, dq_bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The kernels for a type and head dim, by tensor_core_route (as the flash
+// attention's): the scalar pair keeps f32 and the 256 ceiling.
 template <typename T>
 int launch_d(const SparseBwdArgs& a, int batch, cudaStream_t stream) {
   return dispatch_head_dim(a.d, [&](auto dmax, auto exact) {
-    return launch<T, decltype(dmax)::value, decltype(exact)::value>(a, batch, stream);
+    constexpr int kD = decltype(dmax)::value;
+    constexpr bool kExact = decltype(exact)::value;
+    if constexpr (tensor_core_route(sizeof(T), kD))
+      return launch_mma<T, kD, kExact>(a, batch, stream);
+    else
+      return launch<T, kD, kExact>(a, batch, stream);
   });
 }
 
@@ -383,17 +787,20 @@ int launch_d(const SparseBwdArgs& a, int batch, cudaStream_t stream) {
 
 // kcols/nnz and qrows_t/nnz_t: the plan and its transpose, [H][nt][width]
 // and [H][nt] int32 (nt = seq / tile); layout: [H][seq / fine_block]
-// [seq / fine_block] uint8. strides: 21 values, the (batch, head, token)
-// strides of q, k, v, dout, dq, dk and dv. dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16. tile must be a multiple of 64 and
-// fine_block >= 16 must divide it. Launches sparse_dkdv_kernel, then
-// sparse_dq_kernel, on `stream`; returns the first CUDA error (0 on
-// success). The wrapper has checked shapes, types and strides.
+// [seq / fine_block] uint8; live_rows: [H][seq / fine_block] uint8, 1
+// where the fine row has a live block. strides: 21 values, the (batch,
+// head, token) strides of q, k, v, dout, dq, dk and dv. dtype: 0 =
+// float32, 1 = bfloat16, 2 = float16. tile must be a multiple of 64 and
+// fine_block >= 16 must divide it. Launches the dk/dv kernel, then the dq
+// kernel (tensor-core or scalar, by tensor_core_route), on `stream`;
+// returns the first CUDA error (0 on success). The wrapper has checked
+// shapes, types and strides.
 extern "C" int dstorch_block_sparse_bwd(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse, const void* delta,
                                         void* dq, void* dk, void* dv, const void* kcols,
-                                        const void* nnz, const void* layout, int max_nnz,
-                                        int tile, int fine_block, const void* qrows_t,
+                                        const void* nnz, const void* layout,
+                                        const void* live_rows, int max_nnz, int tile,
+                                        int fine_block, const void* qrows_t,
                                         const void* nnz_t, int max_nnz_t, int batch, int seq,
                                         int n_head, int head_dim, const long long* strides,
                                         float scale, int dtype, void* stream) {
@@ -414,6 +821,7 @@ extern "C" int dstorch_block_sparse_bwd(const void* q, const void* k, const void
   a.qrows_t = static_cast<const int*>(qrows_t);
   a.nnz_t = static_cast<const int*>(nnz_t);
   a.layout = static_cast<const uint8_t*>(layout);
+  a.live_rows = static_cast<const uint8_t*>(live_rows);
   a.max_nnz = max_nnz;
   a.max_nnz_t = max_nnz_t;
   a.tile = tile;
@@ -427,6 +835,9 @@ extern "C" int dstorch_block_sparse_bwd(const void* q, const void* k, const void
   const void* inputs[4] = {q, k, v, dout};
   const HeadStrides input_strides[4] = {a.sq, a.sk, a.sv, a.sdo};
   a.vec = chunks_aligned(inputs, input_strides, 4, dtype == 0 ? 4 : 2, head_dim);
+  const void* outputs[3] = {dq, dk, dv};
+  const HeadStrides output_strides[3] = {a.sdq, a.sdk, a.sdv};
+  a.out_vec = chunks_aligned(outputs, output_strides, 3, dtype == 0 ? 4 : 2, head_dim);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

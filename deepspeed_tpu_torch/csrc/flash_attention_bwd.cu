@@ -369,17 +369,6 @@ constexpr size_t mma_tiles_bytes() {
 }
 constexpr size_t kMmaStatsBytes = 2 * 2 * kMmaBlock * sizeof(float);
 
-// Unroll of the 16-column step loops of S and dP: one step at a time at
-// the 128 ceiling and at exact d = 64 (at 128 dk and dv take 128 of the
-// 255 registers, and the unrolled steps' fragments spilled; at exact 64
-// the registers then fit three blocks an SM), all steps for a d masked
-// under 64 (which spilled one step at a time). Chosen from ptxas's
-// reports: with these no instance spills (PERF.md).
-template <int DMAX, bool EXACT>
-__host__ __device__ constexpr int step_unroll() {
-  return DMAX > 64 || EXACT ? 1 : DMAX / 16;
-}
-
 // One block of 128 threads per (batch, head, 64-row k tile); warp w owns k
 // rows 16 w .. 16 w + 15 and keeps their f32 dk and dv in registers. Per
 // visited 64-row q tile (the next one's Q, dO, lse and delta in flight by

@@ -259,6 +259,19 @@ __device__ __forceinline__ bool tile_kept(int causal, int window, int q0, int nq
   return !causal || (k0 + nk - 1 <= q0 && (window <= 0 || q0 + nq - 1 - k0 < window));
 }
 
+// Unroll of the backward kernels' 16-column step loops of S and dP (the
+// flash attention's mma_dkdv_kernel and mma_dq_kernel, the block-sparse
+// mma_sparse_dkdv_kernel and mma_sparse_dq_kernel): one step at a time at
+// the 128 ceiling and at exact d = 64 (at 128 dk and dv take 128 of the 255
+// registers, and the unrolled steps' fragments spilled; at exact 64 the
+// registers then fit three blocks an SM), all steps for a d masked under 64
+// (which spilled one step at a time). Chosen from ptxas's reports: with
+// these no instance spills (PERF.md).
+template <int DMAX, bool EXACT>
+__host__ __device__ constexpr int step_unroll() {
+  return DMAX > 64 || EXACT ? 1 : DMAX / 16;
+}
+
 // the write of one 16 x 8 f32 accumulator tile, rounded to T, into rows
 // [r0, r0 + 16) and 8-column chunk c of a swizzled staging tile
 template <typename T, int DMAX>

@@ -31,6 +31,21 @@ tensors on the CPU. ``delta = rowsum(dO * O)`` is computed in torch, as the
 JAX ``_bwd`` does outside its kernels. ``BlockSparseAttention`` is the
 autograd ``Function``. What bounds each kernel on the H100 and what its
 design does about it is noted in its CUDA source.
+
+bf16 and f16 up to head dim 128 run on the tensor-core kernels
+(:func:`tensor_core_path` asks the kernels' own dispatch), which skip dead
+64 x 64 sub-tiles and, with a fine block that is a multiple of 16, dead
+16 x 16 steps, where no bit of the result depends on them. That needs to
+know which fine rows have a live block at all (the device plan's
+``live_rows``, ``layout.any(-1)``): a row without one keeps the TPU's
+result (the mean of V over the visited columns, p = 1 on its masked
+columns in the backward), so its tiles are all computed. Asked with
+``tensor_core=True``, the plain versions repeat the tensor-core kernels'
+arithmetic as the flash attention's plain versions do (S and dP summed as
+the tensor cores sum them, ``mma_scores``; the softmax in the log2
+domain): the kernel checks on the card ask for it where the kernels take
+the tensor cores. By default they sum with ``torch.matmul`` and the
+natural-log softmax (the scalar kernels' arithmetic).
 """
 
 import ctypes
@@ -41,8 +56,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .flash_attention import (DTYPE_CODES, MAX_HEAD_DIM, NEG_INF,
-                              attention_delta, check_on_card)
+from .flash_attention import (DTYPE_CODES, LN2, LOG2E, MAX_HEAD_DIM,
+                              NEG_INF, _f32, _logits, attention_delta,
+                              check_on_card, kernel_route, mma_scores)
 
 SUB = 64            # the kernels' q-row and k-row sub-tiles of a coarse tile
 # the JAX package's bound on fine blocks per coarse tile (the rows of its
@@ -119,8 +135,10 @@ def supported(q, layout, fine_block: int, tile: int = 0) -> bool:
 
 class DevicePlan(NamedTuple):
     """A plan and its fine layout as tensors on one device: ``kcols``,
-    ``nnz``, ``qrows_t``, ``nnz_t`` int32 and ``layout`` ``[H, nb, nb]``
-    uint8, all contiguous."""
+    ``nnz``, ``qrows_t``, ``nnz_t`` int32, ``layout`` ``[H, nb, nb]`` uint8
+    and ``live_rows`` ``[H, nb]`` uint8 (1 where the fine row has a live
+    block: ``layout.any(-1)``, which the tensor-core kernels' skips need),
+    all contiguous."""
     kcols: torch.Tensor
     nnz: torch.Tensor
     qrows_t: torch.Tensor
@@ -128,16 +146,18 @@ class DevicePlan(NamedTuple):
     layout: torch.Tensor
     tile: int
     fine_block: int
+    live_rows: torch.Tensor
 
     @classmethod
     def from_plan(cls, plan: _Plan, layout, device):
         def put(x, dtype=torch.int32):
             return torch.from_numpy(np.ascontiguousarray(x)).to(
                 device=device, dtype=dtype)
+        layout = np.asarray(layout, bool)
         return cls(put(plan.kcols), put(plan.nnz), put(plan.qrows_t),
-                   put(plan.nnz_t), put(np.asarray(layout, np.uint8),
-                                        torch.uint8),
-                   plan.tile, plan.fine_block)
+                   put(plan.nnz_t), put(layout.astype(np.uint8), torch.uint8),
+                   plan.tile, plan.fine_block,
+                   put(layout.any(-1).astype(np.uint8), torch.uint8))
 
 
 _PLAN_CACHE = OrderedDict()
@@ -187,15 +207,21 @@ def _sub_tiles(tile):
     return [slice(s, s + step) for s in range(0, tile, step)]
 
 
-def block_sparse_attention_plain(q, k, v, plan: DevicePlan, scale):
+def block_sparse_attention_plain(q, k, v, plan: DevicePlan, scale,
+                                 tensor_core=False):
     """K6's arithmetic in plain PyTorch over [B, H, T, D]: for each q tile,
     its live k tiles in the plan's order, each in 64-key sub-tiles, update
     f32 m, l and acc with the fine mask (-1e30), P rounded to the input
-    type before P.V. Returns ``(out [B, H, T, D] in q's dtype, lse [B, H, T]
-    f32)``."""
+    type before P.V. With ``tensor_core`` the logits are the tensor cores'
+    sums in log2 units and P = exp2(s - m), lse = m ln(2) + log(l), as the
+    tensor-core kernel computes them (some 60x the time); without, S sums
+    with ``torch.matmul`` (the scalar kernel's arithmetic). The kernels'
+    skips change no bit, so this visits every sub-tile. Returns ``(out
+    [B, H, T, D] in q's dtype, lse [B, H, T] f32)``."""
     b, h, t, d = q.shape
     tile, f32 = plan.tile, torch.float32
     nt = t // tile
+    exp = torch.exp2 if tensor_core else torch.exp
     heads = torch.arange(h, device=q.device)[:, None]
     tiles = torch.arange(nt, device=q.device)[None, :]
     kcols, nnz = plan.kcols.long(), plan.nnz.long()
@@ -210,11 +236,11 @@ def block_sparse_attention_plain(q, k, v, plan: DevicePlan, scale):
         vt = _gathered(v, heads, cols, tile)
         keep = _keep(plan, heads, tiles, cols)
         for sub in _sub_tiles(tile):
-            s = torch.matmul(qt, kt[..., sub, :].transpose(-1, -2)) * scale
+            s = _logits(qt, kt[..., sub, :], scale, tensor_core)
             s = torch.where(keep[..., sub], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new)
+            alpha = exp(m - m_new)
+            p = exp(s - m_new)
             l_new = l * alpha + p.sum(-1, keepdim=True)
             acc_new = acc * alpha + torch.matmul(p.to(q.dtype).to(f32),
                                                  vt[..., sub, :])
@@ -223,20 +249,29 @@ def block_sparse_attention_plain(q, k, v, plan: DevicePlan, scale):
             acc = torch.where(live, acc_new, acc)
     lc = torch.clamp_min(l, 1e-30)
     out = (acc / lc).to(q.dtype).reshape(b, h, t, d)
-    return out, (m + torch.log(lc)).reshape(b, h, t)
+    lse = m * LN2 + torch.log(lc) if tensor_core else m + torch.log(lc)
+    return out, lse.reshape(b, h, t)
 
 
 def block_sparse_attention_bwd_plain(q, k, v, dout, lse, delta,
-                                     plan: DevicePlan, scale):
+                                     plan: DevicePlan, scale,
+                                     tensor_core=False):
     """K7's arithmetic in plain PyTorch: ``dq`` over each q tile's live k
     tiles (64-key sub-tiles, in the plan's order), ``dk``/``dv`` over each k
     tile's live q tiles from the transposed plan (64-row sub-tiles), with
     ``p = exp(s - lse)``, ``ds = p (dO V^T - delta) scale``, P and dS
-    rounded to the input type before their products and f32 sums. Returns
-    ``(dq, dk, dv)``, each [B, H, T, D] in q's dtype."""
+    rounded to the input type before their products and f32 sums. With
+    ``tensor_core`` (as in :func:`block_sparse_attention_plain`) s and dp
+    are the tensor cores' sums and ``p = exp2(s log2(e) - lse log2(e))``,
+    as the tensor-core kernels compute them. Returns ``(dq, dk, dv)``, each
+    [B, H, T, D] in q's dtype."""
     b, h, t, d = q.shape
     tile, f32, dt = plan.tile, torch.float32, q.dtype
     nt = t // tile
+    exp = torch.exp2 if tensor_core else torch.exp
+    if tensor_core:
+        scale = _f32(scale)
+        lse = lse * LOG2E
     heads = torch.arange(h, device=q.device)[:, None]
     tiles = torch.arange(nt, device=q.device)[None, :]
     lse_t = lse.reshape(b, h, nt, tile, 1)
@@ -244,6 +279,10 @@ def block_sparse_attention_bwd_plain(q, k, v, dout, lse, delta,
 
     def rounded(x):
         return x.to(dt).to(f32)
+
+    def dp_of(dos, vs):
+        return (mma_scores(dos, vs) if tensor_core else
+                torch.matmul(dos, vs.transpose(-1, -2)))
 
     # dq: per q tile over its live k tiles
     qt = q.to(f32).reshape(b, h, nt, tile, d)
@@ -259,10 +298,9 @@ def block_sparse_attention_bwd_plain(q, k, v, dout, lse, delta,
         for sub in _sub_tiles(tile):
             ks, vs = kt[..., sub, :], vt[..., sub, :]
             s = torch.where(keep[..., sub],
-                            torch.matmul(qt, ks.transpose(-1, -2)) * scale,
-                            NEG_INF)
-            p = torch.exp(s - lse_t)
-            dp = torch.matmul(dot, vs.transpose(-1, -2))
+                            _logits(qt, ks, scale, tensor_core), NEG_INF)
+            p = exp(s - lse_t)
+            dp = dp_of(dot, vs)
             ds = rounded(p * (dp - delta_t) * scale)
             dq = torch.where(live, dq + torch.matmul(ds, ks), dq)
 
@@ -282,16 +320,24 @@ def block_sparse_attention_bwd_plain(q, k, v, dout, lse, delta,
         for sub in _sub_tiles(tile):
             qs, dos = qs_t[..., sub, :], dos_t[..., sub, :]
             s = torch.where(keep[..., sub, :],
-                            torch.matmul(qs, kt.transpose(-1, -2)) * scale,
-                            NEG_INF)
-            p = torch.exp(s - lse_r[..., sub, :])
+                            _logits(qs, kt, scale, tensor_core), NEG_INF)
+            p = exp(s - lse_r[..., sub, :])
             dv = torch.where(live, dv + torch.matmul(
                 rounded(p).transpose(-1, -2), dos), dv)
-            dp = torch.matmul(dos, vt.transpose(-1, -2))
+            dp = dp_of(dos, vt)
             ds = rounded(p * (dp - delta_r[..., sub, :]) * scale)
             dk = torch.where(live, dk + torch.matmul(ds.transpose(-1, -2),
                                                      qs), dk)
     return tuple(x.to(dt).reshape(b, h, t, d) for x in (dq, dk, dv))
+
+
+def tensor_core_path(dtype, d) -> bool:
+    """Whether the block-sparse kernels take their tensor-core instances
+    (forward and backward) for this dtype and head dim, as their own
+    dispatch decides it (``tensor_core_route``, asked through the forward
+    library's ``dstorch_block_sparse_tensor_cores``). Card only."""
+    return kernel_route("block_sparse_attention_fwd",
+                        "dstorch_block_sparse_tensor_cores", dtype, d)
 
 
 # ------------------------------------------------------------- launchers
@@ -304,11 +350,10 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _plan_args(plan: DevicePlan, transposed=False):
-    cols = plan.qrows_t if transposed else plan.kcols
-    count = plan.nnz_t if transposed else plan.nnz
-    return (cols.data_ptr(), count.data_ptr(), plan.layout.data_ptr(),
-            cols.shape[-1], plan.tile, plan.fine_block)
+def _plan_args(plan: DevicePlan):
+    return (plan.kcols.data_ptr(), plan.nnz.data_ptr(),
+            plan.layout.data_ptr(), plan.live_rows.data_ptr(),
+            plan.kcols.shape[-1], plan.tile, plan.fine_block)
 
 
 def launch_fwd(q, k, v, out, lse, plan: DevicePlan, scale):
@@ -318,7 +363,7 @@ def launch_fwd(q, k, v, out, lse, plan: DevicePlan, scale):
     fn = load("block_sparse_attention_fwd").dstorch_block_sparse_fwd
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 5 + [ptr] * 3 + [i] * 3 + [i] * 4 + \
+        fn.argtypes = [ptr] * 5 + [ptr] * 4 + [i] * 3 + [i] * 4 + \
             [ptr, ctypes.c_float, i, ptr]
         fn.restype = ctypes.c_int
     b, h, t, d = q.shape
@@ -342,7 +387,7 @@ def launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, plan: DevicePlan,
     fn = load("block_sparse_attention_bwd").dstorch_block_sparse_bwd
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 9 + [ptr] * 3 + [i] * 3 + [ptr] * 2 + \
+        fn.argtypes = [ptr] * 9 + [ptr] * 4 + [i] * 3 + [ptr] * 2 + \
             [i] + [i] * 4 + [ptr, ctypes.c_float, i, ptr]
         fn.restype = ctypes.c_int
     b, h, t, d = q.shape

@@ -164,23 +164,31 @@ def check_on_card(*xs):
 
 # ------------------------------------------------ the tensor cores' sums
 
-def tensor_core_path(dtype, d) -> bool:
-    """Whether the CUDA kernels take their tensor-core instances (forward
-    and backward) for this dtype and head dim, as their own dispatch
-    decides it: ``tensor_core_route`` in ``csrc/flash_attention_mma.cuh``,
-    asked through the forward library's
-    ``dstorch_flash_attention_tensor_cores``. Loads that library, so it
-    answers on a machine that builds the kernels."""
+def kernel_route(library, entry, dtype, d) -> bool:
+    """The answer of a kernel library's route entry (``entry(dtype code,
+    head dim)``: 1 tensor cores, 0 scalar, -1 refused), which reports its
+    own dispatch. Loads the library, so it answers on a machine that builds
+    the kernels."""
     from ..kernel_build import load
-    fn = load("flash_attention_fwd").dstorch_flash_attention_tensor_cores
+    fn = getattr(load(library), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_int
     route = fn(DTYPE_CODES[dtype], int(d))
     if route not in (0, 1):
-        raise ValueError(f"the flash attention kernels take no {dtype} at "
-                         f"head dim {d}")
+        raise ValueError(f"the {library} kernels take no {dtype} at head "
+                         f"dim {d}")
     return bool(route)
+
+
+def tensor_core_path(dtype, d) -> bool:
+    """Whether the CUDA kernels take their tensor-core instances (forward
+    and backward) for this dtype and head dim, as their own dispatch
+    decides it: ``tensor_core_route`` in ``csrc/flash_attention_mma.cuh``,
+    asked through the forward library's
+    ``dstorch_flash_attention_tensor_cores``."""
+    return kernel_route("flash_attention_fwd",
+                        "dstorch_flash_attention_tensor_cores", dtype, d)
 
 
 def mma_on_card(a, b, c):
@@ -229,10 +237,14 @@ def _pow2(n, dtype):
 
 
 def _to_f32_toward_zero(x):
-    """float64 -> float32, rounded toward zero."""
+    """float64 -> float32, rounded toward zero: where rounding to nearest
+    went away from zero, the next float32 toward zero, whose bit pattern
+    is one less for either sign (``torch.nextafter`` gives the same, much
+    slower on the CPU)."""
     y = x.to(torch.float32)
     over = y.to(torch.float64).abs() > x.abs()
-    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+    return torch.where(over, (y.view(torch.int32) - 1).view(torch.float32),
+                       y)
 
 
 def mma_step(acc, a, b):

@@ -296,6 +296,7 @@ def test_kernel_wrapper_refusals():
     # neither the CPU nor CUDA: the wrapper never takes the plain version
     meta = torch.empty((1, 2, 256, 16), device="meta")
     meta_plan = tbsa.DevicePlan(*(x.to("meta") for x in plan[:5]),
-                                plan.tile, plan.fine_block)
+                                plan.tile, plan.fine_block,
+                                plan.live_rows.to("meta"))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tbsa.block_sparse_attention_fwd(meta, meta, meta, meta_plan, 0.25)

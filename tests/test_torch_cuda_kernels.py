@@ -495,26 +495,29 @@ def _sparse_layout(kind, h, t, fb):
     return cls(num_heads=h, block=fb, **kw).make_layout(t)
 
 
-def _sparse_case(device, dtype, shape, kind, fb=16, layout_kind="bthd"):
-    """K6 and K7 against their plain versions on the same inputs: the
-    forward's out and lse ratios, and dq, dk, dv ratios."""
+def _sparse_case(device, dtype, shape, kind, fb=16, layout_kind="bthd",
+                 tile=None):
+    """K6 and K7 against their plain versions on the same inputs (summing
+    as the kernels' route does, ``bsa.tensor_core_path``): the forward's
+    out and lse ratios, and dq, dk, dv ratios."""
     b, h, t, d = shape
     layout = _sparse_layout(kind, h, t, fb)
-    tile = bsa.default_tile(t, fb)
+    tile = tile or bsa.default_tile(t, fb)
     plan = bsa.get_plan(layout, fb, tile, device)
     q, k, v = _bhtd(device, dtype, shape, 13, layout_kind)
     scale = d ** -0.5
+    tc = bsa.tensor_core_path(dtype, d)
     before = (bsa.block_sparse_attention_fwd.launches,
               bsa.block_sparse_attention_bwd.launches)
     out, lse = bsa.block_sparse_attention_fwd(q, k, v, plan, scale)
     want_out, want_lse = bsa.block_sparse_attention_plain(q, k, v, plan,
-                                                          scale)
+                                                          scale, tc)
     gen = torch.Generator(device=device).manual_seed(13)
     dout = torch.randn(out.shape, generator=gen, device=device).to(dtype)
     got = bsa.block_sparse_attention_bwd(q, k, v, out, lse, dout, plan,
                                          scale)
     want = bsa.block_sparse_attention_bwd_plain(
-        q, k, v, dout, lse, tfk.attention_delta(out, dout), plan, scale)
+        q, k, v, dout, lse, tfk.attention_delta(out, dout), plan, scale, tc)
     torch.cuda.synchronize()
     assert (bsa.block_sparse_attention_fwd.launches,
             bsa.block_sparse_attention_bwd.launches) == \
@@ -551,6 +554,42 @@ def test_block_sparse_head_dims_blocks_and_layouts(cuda_device, d, fb,
                                        layout_kind)
     assert r_out <= 1 and e_lse <= LSE_TOL, (r_out, e_lse)
     assert max(bwd) <= 1, bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 80])
+@pytest.mark.parametrize("fb", [16, 32, 64])
+def test_block_sparse_tensor_cores_match_plain(cuda_device, dtype, d, fb):
+    """The tensor-core K6/K7 (with their skips: fine blocks 16, 32 and 64
+    are multiples of the 16-row steps) against the plain versions that sum
+    as the tensor cores do, under every layout, at the exact head dims 64
+    and 128 and a d of 80 masked under the 128 ceiling. The route is the
+    kernels' own dispatch (``tensor_core_route``), the same for the flash
+    and the block-sparse libraries; the BERT profiles of ``chip_smoke.py``
+    name the instances that ran (a run of short profiles loses kernel
+    events, so this file does not)."""
+    assert bsa.tensor_core_path(dtype, d)
+    assert tfk.tensor_core_path(dtype, d)
+    for kind in ("fixed", "bslongformer", "bigbird", "edge"):
+        (r_out, e_lse), bwd = _sparse_case(cuda_device, dtype,
+                                           (1, 2, 1024, d), kind, fb)
+        assert r_out <= 1 and e_lse <= LSE_TOL, (kind, r_out, e_lse)
+        assert max(bwd) <= 1, (kind, bwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_block_sparse_tensor_cores_fine_block_24(cuda_device, dtype):
+    """A fine block that is not a multiple of the 16-row steps (24, with an
+    explicit tile of 192): the tensor-core kernels mask element by element
+    and skip only dead 64 x 64 sub-tiles."""
+    for kind in ("bigbird", "edge"):
+        (r_out, e_lse), bwd = _sparse_case(cuda_device, dtype,
+                                           (1, 2, 1536, 64), kind, 24,
+                                           tile=192)
+        assert r_out <= 1 and e_lse <= LSE_TOL, (kind, r_out, e_lse)
+        assert max(bwd) <= 1, (kind, bwd)
 
 
 TINY_BERT = BertConfig(vocab_size=256, n_positions=128, n_embd=128,
