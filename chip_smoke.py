@@ -36,7 +36,13 @@ depth on ``[1, 16384]`` and trained at 4 layers of its width, each held
 against the path on the kernels' plain versions, and BERT-large with
 ``SparseAttentionUtils``' Fixed sparse surgery is scored at ``[4, 4096]``
 and trained (15% masked positions), held against the dense-masked plain
-path, with a repeated batch at 4 layers and profiles. Each profile names
+path, with a repeated batch at 4 layers and profiles. Last, the serve
+path: ``ServingEngine(init_inference(model, {"dtype": "bf16"}), ...)``
+over LLaMA-7B at full depth (16 slots x 2048, 48 requests; phase
+``serve``: TTFT, TPOT, output tokens/s, decode-tick ms, slot utilization,
+pool and peak memory, with the stream checks of ``SERVE_LLAMA``'s comment)
+and GPT-2-125M (8 x 1024, 24 requests; ``serve gpt2``), each with a
+profiled decode tick (``profile serve``). Each profile names
 the flash and block-sparse attention kernel instances that ran; on these
 bf16 paths they must be the tensor-core ones (``mma_*``). Every check raises
 on failure, so the script exits
@@ -139,6 +145,27 @@ BERT_GRAD_TOL = LLAMA_GRAD_TOL
 # a repeated batch (256 distinct ids) for 10 steps: 1e-3 moves BERT-large's
 # 1024-wide layers about as GPT-2-125M's
 BERT_CONVERGE_LR = 1e-3
+# Continuous-batching serving (ServingEngine over init_inference): LLaMA-7B
+# at full depth, 16 slots x 2048 columns (a 17.2 GB bf16 KV pool), two
+# prefills a tick; 48 requests submitted at tick 0, prompts lognormal
+# (median 384, 128-1024 tokens), new tokens lognormal (median 128,
+# 64-256), every fourth one sampled (temperature 0.8, top-p 0.95, its own
+# seed), and one whose prompt and new tokens fill the 2048 columns.
+# GPT-2-125M: 8 slots x 1024, 24 requests at half the lengths. Checks:
+# every request finishes; greedy tokens equal the plain full forward's
+# argmax where its top-2 gap exceeds the generate margin; 4 requests
+# replayed in another admission order come back bit for bit; 8 prompts
+# served with chunked prefill (chunk_tokens 256) give the monolithic
+# greedy streams, parting only at a token whose top-2 gap is within that
+# margin (bf16 chunks run other GEMM shapes), and pass the same argmax
+# check; one decode shape ran; the pool lives on the card
+SERVE_LLAMA = dict(cfg={"num_slots": 16, "max_model_len": 2048,
+                        "max_prefills_per_tick": 2},
+                   requests=48, prompt=(384, 128, 1024), new=(128, 64, 256))
+SERVE_GPT2 = dict(cfg={"num_slots": 8, "max_model_len": 1024,
+                       "max_prefills_per_tick": 2},
+                  requests=24, prompt=(192, 64, 512), new=(64, 32, 128))
+SERVE_SIGMA, SERVE_CHUNK, SERVE_CHUNKED_NEW = 0.5, 256, 64
 
 
 def phase(name, **fields):
@@ -732,7 +759,7 @@ def kernel_group(key):
             "optimizer (foreach)" if "foreach" in name or
             "multi_tensor" in name else
             "matmul" if any(s in name for s in (
-                "gemm", "nvjet", "xmma", "cutlass", "sm90_")) else
+                "gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")) else
             "elementwise/copy/reduce" if any(s in name for s in (
                 "elementwise", "copy", "reduce", "softmax", "scatter",
                 "gather", "index")) else
@@ -1958,6 +1985,245 @@ def bert_train(torch):
     return launches
 
 
+def serve_traffic(np, spec, vocab, seed):
+    """``[(prompt, SamplingParams kwargs)]`` of one serving run: lognormal
+    lengths clipped to their ranges, a quarter sampled with their own
+    seeds, and the last request filling ``max_model_len``."""
+    rng = np.random.default_rng(seed)
+    n, max_len = spec["requests"], spec["cfg"]["max_model_len"]
+
+    def lengths(median, lo, hi):
+        return np.clip(np.round(median * np.exp(
+            SERVE_SIGMA * rng.standard_normal(n))), lo, hi).astype(int)
+
+    prompts, news = lengths(*spec["prompt"]), lengths(*spec["new"])
+    news[-1] = spec["new"][2]
+    prompts[-1] = max_len - news[-1]
+    traffic = []
+    for i in range(n):
+        kw = dict(max_new_tokens=int(news[i]))
+        if i % 4 == 1:
+            kw.update(temperature=0.8, top_p=0.95, seed=SEED + i)
+        traffic.append((rng.integers(0, vocab, int(prompts[i])), kw))
+    return traffic
+
+
+def serve_run(torch, engine, cfg, traffic, order=None):
+    """Submit ``traffic`` (in ``order``) at tick 0 and tick until idle.
+    Returns the token lists and the requests in traffic order (None for a
+    request not in ``order``), the mean slot utilization over the ticks,
+    the ticks, the wall seconds and the serving engine (not shut down)."""
+    from deepspeed_tpu_torch.serving import SamplingParams, ServingEngine
+    srv = ServingEngine(engine, cfg)
+    order = list(range(len(traffic))) if order is None else order
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    rids = {i: srv.submit(traffic[i][0], SamplingParams(**traffic[i][1]))
+            for i in order}
+    util, ticks = [], 0
+    while srv.step():
+        util.append(srv.active_requests / srv.config.num_slots)
+        ticks += 1
+    wall = time.perf_counter() - s0
+    reqs = [srv.result(rids[i]) if i in rids else None
+            for i in range(len(traffic))]
+    return ([None if r is None else list(r.tokens) for r in reqs], reqs,
+            sum(util) / max(1, len(util)), ticks + 1, wall, srv)
+
+
+def greedy_vs_forward(torch, engine, traffic, reqs, vocab, margin):
+    """Each greedy stream against the plain full forward (the model's
+    attention switched to the plain path) of its prompt and tokens: the
+    argmax must equal the served token wherever the top-2 gap exceeds
+    ``margin``. Returns the positions checked and, by request, where the
+    gap exceeds the margin (the clear positions)."""
+    model = engine.module
+    cfg = model.config
+    model.config = dataclasses.replace(cfg, attn_backend="xla")
+    checked = wrong = 0
+    clear_at = {}
+    try:
+        for i, ((prompt, kw), req) in enumerate(zip(traffic, reqs)):
+            if kw.get("temperature"):
+                continue
+            ids = torch.as_tensor(req.output_ids[None, :-1].astype("int64"))
+            t = len(prompt)
+            full = engine(ids)[0, t - 1:, :vocab].float()
+            top2 = full.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > margin
+            got = torch.as_tensor(req.tokens, device=full.device)
+            checked += int(clear.sum())
+            wrong += int(((full.argmax(-1) != got) & clear).sum())
+            clear_at[i] = clear.cpu().tolist()
+    finally:
+        model.config = cfg
+    check(checked > 0 and wrong == 0,
+          f"served greedy tokens disagree with the plain full forward at "
+          f"{wrong} of {checked} clear positions")
+    return checked, clear_at
+
+
+def parted_at(chunked, mono):
+    """The first position where a chunked-prefill stream and the
+    monolithic one differ, or None."""
+    return next((j for j, (a, b) in enumerate(zip(chunked, mono))
+                 if a != b), None)
+
+
+def profile_decode_tick(torch, engine, pool, positions, name):
+    """One fused decode step over every slot (``slot_decode_step``) under
+    torch.profiler: device time by group and the idle share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    n = pool["k"].shape[1]
+    toks = np.zeros((n,), np.int32)
+    temps = np.zeros((n,), np.float32)
+    engine.slot_decode_step(pool, toks, positions, temps)    # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        engine.slot_decode_step(pool, toks, positions, temps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - s0) * 1e3
+    report_profile(name, prof, wall_ms, top=10)
+
+
+def serve_phase(torch, name, engine, spec, margin, seed):
+    """The serve path: ``ServingEngine(engine, spec["cfg"])`` over the
+    traffic, with its checks and metrics (one phase line), a profiled
+    decode tick, the replay and chunked-prefill runs."""
+    import numpy as np
+    from deepspeed_tpu_torch.serving.kv_slots import tree_nbytes
+    cfg = spec["cfg"]
+    vocab = engine.module.config.vocab_size
+    traffic = serve_traffic(np, spec, vocab, seed)
+    torch.cuda.reset_peak_memory_stats()
+    streams, reqs, util, ticks, wall, srv = serve_run(torch, engine, cfg,
+                                                      traffic)
+    states = {r.state.value for r in reqs}
+    check(states == {"finished"}, f"{name}: request states {states}")
+    check(all(len(r.tokens) == kw["max_new_tokens"]
+              for (_, kw), r in zip(traffic, reqs)),
+          f"{name}: a request stopped short of its max_new_tokens")
+    check(srv.decode_executables() == 1,
+          f"{name}: {srv.decode_executables()} decode shapes ran")
+    pool = srv.scheduler.pool.cache
+    check(all(t.device.type == "cuda" for t in pool.values()),
+          f"{name}: the KV pool is not on the card")
+    pool_gib = tree_nbytes(pool) / 2 ** 30
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    pct = srv.metrics.percentiles()
+    tokens = sum(len(t) for t in streams)
+    tpot = sorted((r.finish_time - r.first_token_time) * 1e3 /
+                  (len(r.tokens) - 1) for r in reqs if len(r.tokens) > 1)
+
+    def q(vals, f):
+        return vals[min(len(vals) - 1, int(f * len(vals)))]
+
+    profile_decode_tick(torch, engine, pool, np.full(
+        (cfg["num_slots"],), int(np.median([len(p) for p, _ in traffic])),
+        np.int32), f"profile {name}")
+    srv.shutdown()
+    del srv, pool
+    torch.cuda.empty_cache()
+    checked, clear_at = greedy_vs_forward(torch, engine, traffic, reqs,
+                                          vocab, margin)
+
+    # replay: two greedy and two sampled requests, in reverse order behind
+    # two others, so they land on other slots and ticks
+    greedy = [i for i, (_, kw) in enumerate(traffic)
+              if not kw.get("temperature")][:2]
+    sampled = [i for i, (_, kw) in enumerate(traffic)
+               if kw.get("temperature")][:2]
+    replay = greedy + sampled
+    fill = [i for i in range(len(traffic)) if i not in replay][:2]
+    again, *_rest, srv2 = serve_run(torch, engine, cfg, traffic,
+                                    order=fill + replay[::-1])
+    srv2.shutdown()
+    del srv2
+    torch.cuda.empty_cache()
+    check(all(again[i] == streams[i] for i in replay),
+          f"{name}: replayed requests {replay} came back different")
+
+    # chunked prefill: 8 greedy prompts longer than a chunk
+    long = [i for i, (p, kw) in enumerate(traffic)
+            if not kw.get("temperature") and len(p) > SERVE_CHUNK][:8]
+    sub = [(traffic[i][0], dict(max_new_tokens=min(
+        SERVE_CHUNKED_NEW, traffic[i][1]["max_new_tokens"]))) for i in long]
+    chunked, chunked_reqs, *_rest, srv3 = serve_run(
+        torch, engine, {**cfg, "chunked_prefill": {
+            "enabled": True, "chunk_tokens": SERVE_CHUNK}}, sub)
+    chunk_shapes = engine.slot_chunk_executables(
+        cfg["num_slots"], cfg["max_model_len"], SERVE_CHUNK)
+    srv3.shutdown()
+    del srv3
+    torch.cuda.empty_cache()
+    # each chunked stream is a right greedy decode of its own prefix, and
+    # parts from the monolithic one only at a token whose top-2 gap (the
+    # plain forward of the monolithic stream) is within the margin: a
+    # chunk's bf16 products run at other GEMM shapes than the whole
+    # prompt's, so its K/V may round a step apart from the monolithic
+    # K/V, which moves only near-tied tokens (the f32 CPU tests hold the
+    # streams bitwise equal)
+    chunk_checked, _ = greedy_vs_forward(torch, engine, sub, chunked_reqs,
+                                         vocab, margin)
+    parts = {i: parted_at(chunked[k], streams[i]) for k, i in enumerate(long)}
+    bad = {i: j for i, j in parts.items()
+           if j is not None and clear_at[i][j]}
+    check(len(long) == 8 and not bad and chunk_shapes == 1,
+          f"{name}: chunked prefill streams part from the monolithic ones "
+          f"at tokens whose top-2 gap exceeds the margin: {bad} (request: "
+          f"position) of {long}; chunk shapes {chunk_shapes}")
+    parted = {i: j for i, j in parts.items() if j is not None}
+    phase(name, requests=len(traffic),
+          sampled=sum(1 for _, kw in traffic if kw.get("temperature")),
+          slots=cfg["num_slots"], max_model_len=cfg["max_model_len"],
+          ticks=ticks, seconds=round(wall, 3), output_tokens=tokens,
+          output_tokens_per_s=round(tokens / wall, 1),
+          ttft_ms_p50=pct["ttft_ms"]["p50"], ttft_ms_p99=pct["ttft_ms"]["p99"],
+          tpot_ms_p50=round(q(tpot, 0.5), 3),
+          tpot_ms_p99=round(q(tpot, 0.99), 3),
+          decode_tick_ms_p50=pct["tpot_ms"]["p50"],
+          decode_tick_ms_p99=pct["tpot_ms"]["p99"],
+          mean_slot_utilization=round(util, 4),
+          pool_gib=round(pool_gib, 3), peak_mem_gib=round(peak_gib, 2),
+          greedy_vs_forward_checked=checked, margin=margin,
+          replayed=json.dumps(replay), replay_equal=True,
+          chunked=json.dumps(long), chunk_tokens=SERVE_CHUNK,
+          chunked_streams_equal=len(long) - len(parted),
+          chunked_parted_at=json.dumps(parted),
+          chunked_vs_forward_checked=chunk_checked,
+          decode_executables=1, pool_device="cuda")
+
+
+def serve_llama(torch, cfg=None):
+    """LLaMA-7B at full depth and width, bf16, served through
+    ``ServingEngine(init_inference(model, {"dtype": "bf16"}), ...)``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    cfg = LLAMA_7B if cfg is None else cfg
+    engine = deepspeed_tpu_torch.init_inference(
+        llama_model(torch, cfg, SEED + 70, torch.bfloat16), {"dtype": "bf16"})
+    serve_phase(torch, "serve", engine, SERVE_LLAMA, LLAMA_ARGMAX_MARGIN,
+                SEED + 71)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def serve_gpt2(torch, cfg=None):
+    """GPT-2-125M served the same way, 8 slots x 1024."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, GPT2_125M
+    cfg = GPT2_125M if cfg is None else cfg
+    model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED + 72))
+    engine = deepspeed_tpu_torch.init_inference(model, {"dtype": "bf16"})
+    serve_phase(torch, "serve gpt2", engine, SERVE_GPT2, ARGMAX_MARGIN,
+                SEED + 73)
+    del engine, model
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2118,6 +2384,10 @@ def main():
     codellama_train_launches = codellama_train(torch)
     bert_fwd_launches = bert_serve(torch)
     bert_train_launches = bert_train(torch)
+
+    # ---- continuous-batching serving: LLaMA-7B, then GPT-2-125M
+    serve_llama(torch)
+    serve_gpt2(torch)
 
     def entry(name, source, replaces, launches, res, err):
         return {"name": name, "route": "cuda",

@@ -1,11 +1,26 @@
-"""InferenceEngine: scoring (``engine(input_ids)``) and KV-cache generation.
+"""InferenceEngine: scoring (``engine(input_ids)``), KV-cache generation,
+beam search and the slot-serving protocol.
 
 The JAX package's engine compiles a prefill + ``lax.scan`` decode program
 per shape bucket; this one runs the same steps eagerly: prefill through
 ``apply_with_cache``, then one ``apply_with_cache`` call per new token, with
 the same sampling (greedy, or temperature then top-k then top-p in HF's
-order), the same EOS freezing and the same left-padding rules. CUDA graphs,
-the counterpart of the compiled program, come in a later PR.
+order), the same keys (``PRNGKey(seed)`` for the first sampled token, then
+one ``split`` a step, threefry2x32 as in ``jax.random``: ``prng.py``), the
+same EOS freezing and the same left-padding rules. ``num_beams > 1`` runs the
+JAX package's beam search. CUDA graphs, the counterpart of the compiled
+program, come in a later PR.
+
+The slot protocol serves ``deepspeed_tpu_torch/serving/``: a pool of decode
+slots, the rows of one KV cache ``[L, num_slots, H_kv, max_len, hd]``
+allocated once (``init_slot_pool``), prompts prefilled into a slot's lane
+(``slot_prefill``, ``slot_suffix_prefill``, ``slot_chunk_prefill``), lanes
+copied, extracted and inserted, and one fused decode step over all slots
+(``slot_decode_step``). The methods update the pool in place (the JAX
+package donates it) and return it, so callers rebind it as they do there.
+Every sampled token's key derives only from ``(request seed, cache
+column)`` (``speculative.row_keys``), so a replayed request regenerates its
+stream bit for bit.
 """
 
 from typing import Optional
@@ -15,16 +30,18 @@ import torch
 
 from ..models.api import ModelSpec
 from ..utils.logging import log_dist, logger
+from . import prng
 from .config import DeepSpeedInferenceConfig
+from .speculative import _softmax, row_keys, sample_rows
 
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1)).bit_length()
 
 
-def _sample(logits, temperature, top_k, top_p, vocab, generator):
+def _sample(logits, temperature, top_k, top_p, vocab, key):
     """One token per row from ``logits [B, V_padded]``, over the real vocab
-    only."""
+    only, with one key for the whole batch (``generate``'s schedule)."""
     logits = logits[:, :vocab].to(torch.float32)
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
@@ -40,12 +57,26 @@ def _sample(logits, temperature, top_k, top_p, vocab, generator):
     if top_p < 1.0:
         # nucleus on the top-k-renormalised distribution: the smallest
         # prefix of descending-probability tokens whose mass reaches top_p
-        probs = torch.softmax(desc, dim=-1)
+        probs = _softmax(desc)
         keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
         thresh = torch.where(keep, desc, torch.inf).amin(-1, keepdim=True)
         logits = torch.where(logits >= thresh, logits, -torch.inf)
-    return torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                             generator=generator).squeeze(-1)
+    return prng.categorical(key, logits)
+
+
+def _sample_one(logits_row, temp, top_k, top_p, seed, col, vocab):
+    """One row's token, keyed at cache column ``col`` (the column the
+    sampled token will be fed at): the key derives only from ``(seed,
+    col)``, so a replay regenerates the same token."""
+    keys = row_keys(torch.tensor([seed]), torch.tensor([col]))   # host
+    return int(sample_rows(logits_row[None], [temp], [top_k], [top_p], keys,
+                           vocab)[0])
+
+
+def _log_softmax(x):
+    """``jax.nn.log_softmax`` over the last axis."""
+    shifted = x - x.amax(-1, keepdim=True)
+    return shifted - torch.log(torch.exp(shifted).sum(-1, keepdim=True))
 
 
 class InferenceEngine:
@@ -81,6 +112,10 @@ class InferenceEngine:
                  f"dtype={str(self.dtype).replace('torch.', '')} "
                  f"max_tokens={config.max_tokens} device={self.device}",
                  ranks=[0])
+        # the decode and chunk-prefill shapes that ran: the counterpart of
+        # the JAX package's compiled slot programs, whose counts its
+        # serving tests read
+        self._slot_shapes = set()
 
     def _ids(self, input_ids):
         if not isinstance(input_ids, torch.Tensor):
@@ -106,9 +141,12 @@ class InferenceEngine:
                  length_penalty: float = 1.0):
         """Autoregressive generation. Returns ``[B, T + max_new_tokens]``
         (prompt + generated; positions after EOS hold ``eos_token_id``).
-        ``attention_mask`` [B, T] (1 = real token) serves LEFT-padded
-        batches: pad columns never act as keys and logical positions shift
-        per row. Sampled draws come from a generator seeded with ``seed``."""
+        ``num_beams > 1`` runs deterministic beam search (temperature,
+        top-k and top-p must be off). ``attention_mask`` [B, T] (1 = real
+        token) serves LEFT-padded batches: pad columns never act as keys
+        and logical positions shift per row. Sampled draws are keyed as the
+        JAX package keys them: ``PRNGKey(seed)`` for the first token, then
+        the second half of a ``split`` of the running key for each next."""
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if temperature <= 0.0 and (top_k or top_p < 1.0):
@@ -126,9 +164,6 @@ class InferenceEngine:
             raise ValueError(
                 "beam search is deterministic: temperature/top_k/top_p "
                 "cannot be combined with num_beams > 1")
-        if num_beams > 1:
-            raise NotImplementedError(
-                "beam search is not ported yet: ROADMAP.md row A6")
         if not hasattr(self.module, "apply_with_cache"):
             raise TypeError(
                 f"generate needs a decoder with a KV-cache path; "
@@ -144,6 +179,10 @@ class InferenceEngine:
             if tuple(mask.shape) != (b, t):
                 raise ValueError(f"attention_mask shape {tuple(mask.shape)} "
                                  f"!= input_ids shape {(b, t)}")
+            if num_beams > 1:
+                raise NotImplementedError(
+                    "attention_mask (padded prompts) + beam search is not "
+                    "supported yet")
             # HF left padding: each row must read 0..0 1..1
             pad_counts = t - mask.sum(-1)
             expect = torch.arange(t, device=self.device)[None, :] >= \
@@ -169,28 +208,301 @@ class InferenceEngine:
             logger.warning(
                 f"generate: {t}+{max_new_tokens} tokens exceeds config "
                 f"max_tokens={self._config.max_tokens}; growing cache")
+        if num_beams > 1:
+            return self._beam_generate(ids, cache_len, max_new_tokens,
+                                       num_beams, eos_token_id,
+                                       length_penalty)
 
         vocab = model.config.vocab_size
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        key = prng.prng_key(seed, device=self.device)
 
-        def sample(logits):
+        def sample(logits, key):
             return _sample(logits[:, -1], temperature, top_k, top_p, vocab,
-                           generator)
+                           key)
 
         cache = model.init_kv_cache(b, cache_len, dtype=self.dtype,
                                     device=self.device)
         logits, cache = model.apply_with_cache(ids, cache, 0, pad_counts)
-        tok = sample(logits)
+        tok = sample(logits, key)
         finished = (torch.zeros(b, dtype=torch.bool, device=self.device)
                     if eos_token_id is None else tok == eos_token_id)
         toks = [tok]
         for i in range(1, max_new_tokens):
+            if temperature > 0.0:
+                key, sub = prng.split(key)
+            else:
+                sub = None           # greedy: the key is never read
             # tok was sampled for position t+i-1; its K/V go there
             logits, cache = model.apply_with_cache(tok[:, None], cache,
                                                    t + i - 1, pad_counts)
-            tok = sample(logits)
+            tok = sample(logits, sub)
             if eos_token_id is not None:
                 tok = torch.where(finished, eos_token_id, tok)
                 finished = finished | (tok == eos_token_id)
             toks.append(tok)
         return torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
+
+    def _beam_generate(self, ids, cache_len, max_new_tokens, k,
+                       eos_token_id, length_penalty):
+        """Deterministic beam search, step for step the JAX package's
+        ``_build_beam_generate``: prefill once at batch B and repeat the
+        cache to B*K beams; only beam 0 proposes the first tokens; each
+        step takes the top K of ``score + log_softmax`` over K*V
+        candidates, reorders the beams' caches by parent, and freezes
+        finished beams (score kept, only EOS may follow); the answer is
+        the beam with the best ``score / length**length_penalty``."""
+        model = self.module
+        vocab = model.config.vocab_size
+        dev = self.device
+        b, t = ids.shape
+        neg = -1e30
+        small = model.init_kv_cache(b, cache_len, dtype=self.dtype,
+                                    device=dev)
+        logits, small = model.apply_with_cache(ids, small, 0)
+        cache = {n: torch.repeat_interleave(c, k, dim=1)
+                 for n, c in small.items()}
+        del small
+        logp = _log_softmax(logits[:, -1, :vocab].to(torch.float32))
+        logp = torch.repeat_interleave(logp, k, dim=0).reshape(b, k, vocab)
+        beam = torch.arange(k, device=dev)[None, :, None]
+        first = torch.where(beam == 0, logp[:, :1], neg)
+        scores, flat = torch.topk(first.reshape(b, k * vocab), k)
+        tok = flat % vocab                                   # [B, K]
+        finished = (tok == eos_token_id) if eos_token_id is not None \
+            else torch.zeros((b, k), dtype=torch.bool, device=dev)
+        lengths = torch.ones((b, k), dtype=torch.float32, device=dev)
+        seqs = torch.zeros((b, k, max_new_tokens), dtype=torch.long,
+                           device=dev)
+        seqs[:, :, 0] = tok
+        if eos_token_id is not None:
+            only_eos = torch.where(
+                torch.arange(vocab, device=dev)[None, None] == eos_token_id,
+                0.0, neg)
+        rows = torch.arange(b, device=dev)[:, None] * k
+        for i in range(1, max_new_tokens):
+            logits, cache = model.apply_with_cache(tok.reshape(b * k, 1),
+                                                   cache, t + i - 1)
+            logp = _log_softmax(logits[:, -1, :vocab].to(torch.float32))
+            logp = logp.reshape(b, k, vocab)
+            if eos_token_id is not None:
+                # finished beams: frozen score, only-EOS continuation
+                logp = torch.where(finished[..., None], only_eos, logp)
+            total = scores[..., None] + logp                 # [B, K, V]
+            scores, flat = torch.topk(total.reshape(b, k * vocab), k)
+            parent = flat // vocab                           # [B, K]
+            tok = flat % vocab
+            seqs = torch.gather(seqs, 1, parent[..., None].expand_as(seqs))
+            seqs[:, :, i] = tok
+            finished = torch.gather(finished, 1, parent)
+            lengths = torch.gather(lengths, 1, parent)
+            # unfinished beams grew by one token (a fresh EOS included);
+            # an already-finished beam's appended EOS is padding
+            lengths = lengths + (~finished).to(torch.float32)
+            if eos_token_id is not None:
+                finished = finished | (tok == eos_token_id)
+            flat_parent = (rows + parent).reshape(b * k)
+            cache = {n: c.index_select(1, flat_parent)
+                     for n, c in cache.items()}
+        norm = scores / torch.pow(torch.clamp_min(lengths, 1.0),
+                                  torch.tensor(length_penalty,
+                                               dtype=torch.float32))
+        best = torch.argmax(norm, dim=-1)                    # [B]
+        out = seqs[torch.arange(b, device=dev), best]        # [B, max_new]
+        if eos_token_id is not None:
+            # positions after EOS hold eos_token_id (the sampled path's rule)
+            hit = torch.cumsum((out == eos_token_id).to(torch.int64), dim=-1)
+            out = torch.where(hit > 1, eos_token_id, out)
+        return torch.cat([ids, out], dim=1)
+
+    # ------------------------------------------------- slot-serving protocol
+    def _slot_model(self, what):
+        if not hasattr(self.module, "decode_with_slots"):
+            raise TypeError(
+                f"{what} needs a decoder with a KV-cache path; "
+                f"{type(self.module).__name__} has none")
+        return self.module
+
+    @staticmethod
+    def _pool_dims(pool):
+        """``(num_slots, max_len)`` of a pool ``{"k", "v": [L, S, H_kv,
+        max_len, hd]}``."""
+        leaf = pool["k"]
+        return int(leaf.shape[1]), int(leaf.shape[-2])
+
+    def _bucket_ids(self, tokens, bucket):
+        """``[1, bucket]`` ids on the engine's device: ``tokens`` right-padded
+        with 0."""
+        tokens = np.asarray(tokens, dtype=np.int64).reshape(-1)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :tokens.shape[0]] = tokens
+        return torch.from_numpy(ids).to(self.device)
+
+    @staticmethod
+    def _lane(pool, slot):
+        """Slot ``slot``'s lane as a one-row cache: views of the pool."""
+        return {n: c[:, slot:slot + 1] for n, c in pool.items()}
+
+    @torch.inference_mode()
+    def init_slot_pool(self, num_slots: int, max_len: int,
+                       quantize: bool = False):
+        """Allocate the slot-pool KV cache ``[L, num_slots, H_kv, max_len,
+        hd]`` in the serving dtype on the engine's device, once. An int8
+        pool (``quantize=True``) is not ported yet: ROADMAP.md row A9."""
+        if quantize:
+            raise NotImplementedError(
+                "the int8 slot pool (kv_quant) is not ported yet: "
+                "ROADMAP.md row A9")
+        model = self._slot_model("init_slot_pool")
+        return model.init_kv_cache(num_slots, max_len, dtype=self.dtype,
+                                   device=self.device)
+
+    @torch.inference_mode()
+    def slot_prefill(self, pool, slot: int, prompt, temperature: float = 0.0,
+                     top_k: int = 0, top_p: float = 1.0, seed: int = 0):
+        """Prefill ``prompt`` (1-D ints) into slot ``slot`` and sample the
+        first generated token. The prompt is right-padded to a pow2 bucket;
+        the lane's columns past the bucket are zeroed, as the JAX package's
+        fresh lane is (the pad columns inside the bucket are masked until
+        decode overwrites them). The first token is keyed at column ``t``,
+        where it will be fed. Returns ``(pool, first_token: int)``."""
+        model = self._slot_model("slot_prefill")
+        prompt = np.asarray(prompt).reshape(-1)
+        t = prompt.shape[0]
+        num_slots, max_len = self._pool_dims(pool)
+        if not 0 < t <= max_len:
+            raise ValueError(f"prompt length {t} not in [1, {max_len}]")
+        bucket = min(_next_pow2(t), max_len)
+        lane = self._lane(pool, slot)
+        for c in lane.values():
+            c[:, :, :, bucket:].zero_()
+        logits, _ = model.apply_with_cache(self._bucket_ids(prompt, bucket),
+                                           lane, 0)
+        tok = _sample_one(logits[0, t - 1], temperature, top_k, top_p, seed,
+                          t, model.config.vocab_size)
+        return pool, tok
+
+    @torch.inference_mode()
+    def slot_suffix_prefill(self, pool, slot: int, tokens, start_pos: int,
+                            temperature: float = 0.0, top_k: int = 0,
+                            top_p: float = 1.0, seed: int = 0):
+        """Prefill only the suffix ``tokens`` of a prompt into slot ``slot``,
+        whose lane already holds the K/V of columns ``[0, start_pos)``
+        (the final chunk of a chunked admission). The suffix is right-padded
+        to a pow2 bucket that must fit: ``start_pos + bucket <= max_len``.
+        The next token is keyed at column ``start_pos + len(tokens)``.
+        Returns ``(pool, next_token: int)``."""
+        model = self._slot_model("slot_suffix_prefill")
+        tokens = np.asarray(tokens).reshape(-1)
+        t = tokens.shape[0]
+        num_slots, max_len = self._pool_dims(pool)
+        if t < 1:
+            raise ValueError("suffix must carry at least one token (the "
+                             "sampled next token needs a query position)")
+        bucket = min(_next_pow2(t), max_len)
+        if start_pos < 0 or start_pos + bucket > max_len:
+            raise ValueError(
+                f"suffix bucket [{start_pos}, {start_pos + bucket}) exceeds "
+                f"max_len={max_len}")
+        logits, _ = model.apply_with_cache(self._bucket_ids(tokens, bucket),
+                                           self._lane(pool, slot), start_pos)
+        tok = _sample_one(logits[0, t - 1], temperature, top_k, top_p, seed,
+                          start_pos + t, model.config.vocab_size)
+        return pool, tok
+
+    @torch.inference_mode()
+    def slot_chunk_prefill(self, pool, slot: int, tokens, start_pos: int):
+        """Write one chunk of a prompt's K/V into slot ``slot`` at cache
+        columns ``[start_pos, start_pos + len(tokens))`` without sampling:
+        the building block of chunked prefill. The chunk is right-padded
+        to a pow2 bucket; the pad columns hold garbage K/V until the next
+        chunk or a decode write overwrites them. Returns the pool."""
+        model = self._slot_model("slot_chunk_prefill")
+        tokens = np.asarray(tokens).reshape(-1)
+        t = tokens.shape[0]
+        num_slots, max_len = self._pool_dims(pool)
+        if t < 1:
+            raise ValueError("chunk must carry at least one token")
+        bucket = min(_next_pow2(t), max_len)
+        if start_pos < 0 or start_pos + bucket > max_len:
+            raise ValueError(
+                f"chunk bucket [{start_pos}, {start_pos + bucket}) exceeds "
+                f"max_len={max_len}; size chunks so every bucket fits")
+        self._slot_shapes.add(("slot_chunk", num_slots, bucket, max_len))
+        model.chunk_prefill_with_cache(self._bucket_ids(tokens, bucket),
+                                       self._lane(pool, slot), start_pos)
+        return pool
+
+    def slot_chunk_executables(self, num_slots: int, max_len: int,
+                               bucket: int) -> int:
+        """How many chunk-prefill shapes of one pow2 bucket ran on this
+        pool shape (the JAX package's compiled-executable count): 0 or 1."""
+        return int(("slot_chunk", num_slots, bucket, max_len)
+                   in self._slot_shapes)
+
+    @torch.inference_mode()
+    def slot_copy_lane(self, pool, src: int, dst: int):
+        """Copy slot ``src``'s whole lane over slot ``dst``'s, on the
+        device. Returns the pool."""
+        for c in pool.values():
+            c[:, dst] = c[:, src]
+        return pool
+
+    def slot_extract_lane(self, pool, slot: int):
+        """Slot ``slot``'s lane, ``{"k", "v": [L, 1, H_kv, max_len, hd]}``,
+        copied to the host (never a view of the pool; ordinary tensors the
+        caller may change)."""
+        return {n: c[:, slot:slot + 1].to("cpu", copy=True)
+                for n, c in pool.items()}
+
+    @torch.inference_mode()
+    def slot_insert_lane(self, pool, slot: int, lane):
+        """Write a lane (``slot_extract_lane``'s, tensors or numpy arrays,
+        possibly another pool's) into slot ``slot``. Returns the pool."""
+        for n, c in pool.items():
+            src = lane[n]
+            if not isinstance(src, torch.Tensor):
+                src = torch.from_numpy(np.asarray(src))
+            c[:, slot:slot + 1] = src.to(device=c.device, dtype=c.dtype)
+        return pool
+
+    @torch.inference_mode()
+    def slot_decode_step(self, pool, toks, positions, temps, top_ks=None,
+                         top_ps=None, seeds=None):
+        """One fused decode step over all slots: feed ``toks[s]`` at cache
+        column ``positions[s]`` and sample the next token per slot (greedy
+        where ``temps[s] <= 0``; else per-row top-k / top-p with the key of
+        ``(seeds[s], positions[s] + 1)``, the column the token will be fed
+        at). Free slots pass dummy inputs and the caller drops their
+        tokens. Returns ``(pool, next_tokens: np.ndarray [S])``."""
+        model = self._slot_model("slot_decode_step")
+        num_slots, max_len = self._pool_dims(pool)
+        self._slot_shapes.add(("slot_decode", num_slots, max_len))
+        n = len(np.asarray(toks).reshape(-1))
+        if top_ks is None:
+            top_ks = np.zeros((n,), np.int32)
+        if top_ps is None:
+            top_ps = np.ones((n,), np.float32)
+        if seeds is None:
+            seeds = np.zeros((n,), np.int32)
+        toks = torch.as_tensor(np.asarray(toks, np.int64), device=self.device)
+        # positions and keys stay on the host: the step waits on no device
+        positions = torch.as_tensor(np.asarray(positions, np.int64))
+        logits, _ = model.decode_with_slots(toks[:, None], pool, positions)
+        keys = row_keys(torch.as_tensor(np.asarray(seeds, np.int64)),
+                        positions + 1)
+        nxt = sample_rows(logits[:, -1], np.asarray(temps, np.float32),
+                          np.asarray(top_ks, np.int64),
+                          np.asarray(top_ps, np.float32), keys,
+                          model.config.vocab_size)
+        return pool, nxt.cpu().numpy()
+
+    def slot_decode_executables(self, num_slots: int, max_len: int) -> int:
+        """How many decode-step shapes ran on this pool shape (the JAX
+        package's compiled-executable count, which its serving tests hold
+        at 1): 0 or 1."""
+        return int(("slot_decode", num_slots, max_len) in self._slot_shapes)
+
+    # ------------------------------------------------------------- properties
+    @property
+    def config(self):
+        return self._config

@@ -15,7 +15,10 @@ forward, K2 backward, through the autograd ``Function`` of
 ``ops/kernels/flash_attention_packed.py``. The KV-cache path
 (``apply_with_cache``) computes its attention with the plain
 ``reference_attention`` under the family's ``_decode_attn_mask``, kv heads
-repeated for grouped-query attention, as the JAX package does.
+repeated for grouped-query attention, as the JAX package does; so do the
+serving slot paths built on it: ``decode_with_slots`` (one token a row at
+per-row cache columns, the continuous-batching step) and
+``chunk_prefill_with_cache`` (a prompt chunk's K/V, no logits).
 
 Training: ``apply(batch)`` is the next-token loss, dense (``_lm_loss``) or
 vocab-chunked (``_chunked_lm_loss``, an autograd ``Function`` that never
@@ -419,12 +422,29 @@ class GPT2Model(ModelSpec):
     def _cache_attn(q, k, v, k_cache, v_cache, start_pos, mask):
         """Write this call's K/V into cache columns ``[start_pos,
         start_pos + T)`` (in place: the cache is the engine's buffer) and
-        attend over the whole cache under ``mask``. Grouped-query attention:
-        each cached kv head serves ``H / kv_heads`` consecutive query heads
-        (``jnp.repeat`` order 0,0,1,1, not ``Tensor.repeat``'s 0,1,0,1)."""
+        attend over the whole cache under ``mask``."""
         t = k.shape[-2]
         k_cache[:, :, start_pos:start_pos + t] = k.to(k_cache.dtype)
         v_cache[:, :, start_pos:start_pos + t] = v.to(v_cache.dtype)
+        return GPT2Model._attend_cache(q, k_cache, v_cache, mask)
+
+    @staticmethod
+    def _slot_cache_attn(q, k, v, k_cache, v_cache, positions, mask):
+        """Decode-slot write: row ``s``'s one K/V column goes to cache
+        column ``positions[s]`` (in place; the JAX package's masked select
+        over the lane writes the same values), then attention over the
+        whole cache under ``mask``."""
+        rows = torch.arange(k.shape[0], device=k.device)
+        k_cache[rows, :, positions] = k[:, :, 0].to(k_cache.dtype)
+        v_cache[rows, :, positions] = v[:, :, 0].to(v_cache.dtype)
+        return GPT2Model._attend_cache(q, k_cache, v_cache, mask)
+
+    @staticmethod
+    def _attend_cache(q, k_cache, v_cache, mask):
+        """The plain attention over a whole cache under ``mask``.
+        Grouped-query attention: each cached kv head serves ``H / kv_heads``
+        consecutive query heads (``jnp.repeat`` order 0,0,1,1, not
+        ``Tensor.repeat``'s 0,1,0,1)."""
         kq, vq = k_cache.to(q.dtype), v_cache.to(q.dtype)
         if q.shape[1] != kq.shape[1]:
             rep = q.shape[1] // kq.shape[1]
@@ -462,6 +482,61 @@ class GPT2Model(ModelSpec):
                 self._cache_attn, k_cache=cache["k"][layer],
                 v_cache=cache["v"][layer], start_pos=start_pos, mask=mask)
             x = self._block(x, p, attn_fn, start_pos, positions)
+        x = self._final_norm(x)
+        return x @ self._unembed_weight(x.dtype).T, cache
+
+    def chunk_prefill_with_cache(self, input_ids, cache, start_pos: int):
+        """One chunk of a long prompt through the stack, its K/V written to
+        cache columns ``[start_pos, start_pos + T)``, no logits: the
+        intermediate chunks of a chunked admission sample no token, so the
+        final norm and the LM head are left out (the JAX package's XLA
+        drops them as dead code). Returns the cache."""
+        b, t = input_ids.shape
+        max_len = cache["k"].shape[-2]
+        if start_pos < 0 or start_pos + t > max_len:
+            raise ValueError(f"cache columns [{start_pos}, {start_pos + t}) "
+                             f"exceed the cache length {max_len}")
+        dev = input_ids.device
+        steps = start_pos + torch.arange(t, device=dev)
+        x = self._embed(input_ids, start_pos=start_pos)
+        mask = self._decode_attn_mask(
+            steps[:, None], torch.arange(max_len, device=dev)[None, :])
+        for layer, p in enumerate(self.blocks):
+            attn_fn = functools.partial(
+                self._cache_attn, k_cache=cache["k"][layer],
+                v_cache=cache["v"][layer], start_pos=start_pos,
+                mask=mask[None, None])
+            x = self._block(x, p, attn_fn, start_pos)
+        return cache
+
+    def decode_with_slots(self, input_ids, cache, positions):
+        """One decode token per row at per-row cache positions: the
+        continuous-batching step. Each row of ``cache`` is a decode slot at
+        its own length: row ``s`` writes its token's K/V at cache column
+        ``positions[s]`` (in place) and attends columns ``<= positions[s]``
+        (under the family's ``_decode_attn_mask``). ``input_ids [S, 1]``,
+        ``positions [S]``. Returns ``(logits [S, 1, V], cache)``."""
+        b, t = input_ids.shape
+        if t != 1:
+            raise ValueError(f"decode_with_slots is single-token: got T={t}")
+        max_len = cache["k"].shape[-2]
+        dev = input_ids.device
+        positions = torch.as_tensor(positions).to(torch.int64)
+        # checked where the positions are (on the host, for the serving
+        # path: no device wait); the JAX package drops such a row's write
+        if bool(((positions < 0) | (positions >= max_len)).any()):
+            raise ValueError(f"decode positions {positions.tolist()} lie "
+                             f"outside the cache length {max_len}")
+        positions = positions.to(dev)
+        pos2d = positions[:, None]
+        x = self._embed(input_ids, positions=pos2d)
+        k_pos = torch.arange(max_len, device=dev)[None, :]
+        mask = self._decode_attn_mask(pos2d, k_pos)[:, None, None, :]
+        for layer, p in enumerate(self.blocks):
+            attn_fn = functools.partial(
+                self._slot_cache_attn, k_cache=cache["k"][layer],
+                v_cache=cache["v"][layer], positions=positions, mask=mask)
+            x = self._block(x, p, attn_fn, 0, pos2d)
         x = self._final_norm(x)
         return x @ self._unembed_weight(x.dtype).T, cache
 

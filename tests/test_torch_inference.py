@@ -104,6 +104,24 @@ def test_greedy_generate_identical_to_jax(engines, kind):
         assert (got[0, 12 + hit:] == eos).all()
 
 
+@pytest.mark.parametrize("kw", [dict(temperature=0.8),
+                                dict(temperature=1.3, top_k=7),
+                                dict(temperature=1.0, top_p=0.9),
+                                dict(temperature=0.7, top_k=40, top_p=0.95,
+                                     eos_token_id=5)])
+def test_sampled_generate_identical_to_jax(engines, kw):
+    """Sampled streams are the JAX package's: ``PRNGKey(seed)`` draws the
+    first token and a ``split`` of the running key each next one, with
+    threefry2x32 ported bit for bit."""
+    jax_engine, port = engines
+    prompts = _prompts(3, 10, seed=4)
+    for seed in (0, 17):
+        want = np.asarray(jax_engine.generate(
+            jnp.asarray(prompts), max_new_tokens=8, seed=seed, **kw))
+        got = port.generate(prompts, max_new_tokens=8, seed=seed, **kw)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_sampling_degenerates_to_greedy_and_repeats_per_seed(engines):
     _, port = engines
     prompts = _prompts(2, 12, seed=3)
@@ -133,8 +151,11 @@ def test_generate_refusals_match_jax(engines):
             port.generate(prompts, **kw)
     with pytest.raises(ValueError, match="LEFT padding"):
         port.generate(prompts[:, :4], attention_mask=[[1, 0, 1, 1]])
-    with pytest.raises(NotImplementedError, match="A6"):
-        port.generate(prompts[:, :4], num_beams=2)
+    # beam search runs; with a padded batch it raises as the JAX package's
+    for engine, ids in ((jax_engine, jnp.asarray(prompts[:, :4])),
+                        (port, prompts[:, :4])):
+        with pytest.raises(NotImplementedError, match="beam"):
+            engine.generate(ids, num_beams=2, attention_mask=[[1, 1, 1, 1]])
     assert torch.equal(port.generate(prompts, max_length=100),
                        torch.from_numpy(prompts).long())
 
@@ -224,7 +245,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deepspeed_tpu'))\n"
         "want = {'models.bert', 'ops.sparse_attention_ops', "
-        "'ops.sparse_attention_utils', 'ops.kernels.block_sparse_attention'}\n"
+        "'ops.sparse_attention_utils', 'ops.kernels.block_sparse_attention', "
+        "'serving', 'serving.engine', 'serving.scheduler', "
+        "'inference.prng', 'telemetry.trace'}\n"
         "missing = sorted(w for w in want if pkg.__name__ + '.' + w "
         "not in mods)\n"
         "print(len(mods), bad, missing)\n"

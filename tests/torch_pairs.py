@@ -1,0 +1,85 @@
+"""Shared helpers for the serving tests of the port: one numpy weight tree
+served by the JAX package's ``InferenceEngine`` and by the port's, in
+float32 on the CPU. Small sizes: 2 layers, width 64."""
+
+import numpy as np
+
+from deepspeed_tpu.inference import config as jconfig
+from deepspeed_tpu.inference.engine import InferenceEngine as JaxEngine
+from deepspeed_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
+from deepspeed_tpu.models.gpt2 import GPT2Model as JaxGPT2Model
+from deepspeed_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from deepspeed_tpu.models.llama import LlamaModel as JaxLlamaModel
+from deepspeed_tpu_torch.inference import config as tconfig
+from deepspeed_tpu_torch.inference.engine import InferenceEngine
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+
+VOCAB = 96
+GPT2 = dict(vocab_size=VOCAB, n_positions=128, n_embd=64, n_layer=2,
+            n_head=4, pad_vocab_to_multiple=8, dtype="float32")
+# grouped-query attention (4 heads on 2 kv heads) and a sliding window
+# shorter than the longer prompts
+LLAMA = dict(vocab_size=VOCAB, n_positions=128, n_embd=64, n_layer=2,
+             n_head=4, n_kv_head=2, mlp_hidden=96, sliding_window=24,
+             pad_vocab_to_multiple=8, dtype="float32")
+FAMILIES = {"gpt2": (GPT2, JaxGPT2Config, JaxGPT2Model, GPT2Config,
+                     GPT2Model),
+            "llama": (LLAMA, JaxLlamaConfig, JaxLlamaModel, LlamaConfig,
+                      LlamaModel)}
+F32 = {"dtype": "float32"}
+
+
+def tree(family, seed=0):
+    """A JAX-layout weight tree of the family's small config: every leaf
+    random (norm scales around 1), wide enough that logits have clear
+    argmaxes."""
+    kw, jcfg_cls = FAMILIES[family][:2]
+    cfg = jcfg_cls(**kw)
+    rng = np.random.default_rng(seed)
+    d, L = cfg.n_embd, cfg.n_layer
+
+    def leaf(*shape, center=0.0, std=0.1):
+        return (center + rng.standard_normal(shape) * std).astype(np.float32)
+
+    if family == "gpt2":
+        f = cfg.mlp_ratio * d
+        blocks = {"ln1_scale": leaf(L, d, center=1.0), "ln1_bias": leaf(L, d),
+                  "qkv_w": leaf(L, d, 3 * d, std=0.2),
+                  "qkv_b": leaf(L, 3 * d), "attn_proj_w": leaf(L, d, d),
+                  "attn_proj_b": leaf(L, d),
+                  "ln2_scale": leaf(L, d, center=1.0), "ln2_bias": leaf(L, d),
+                  "mlp_fc_w": leaf(L, d, f), "mlp_fc_b": leaf(L, f),
+                  "mlp_proj_w": leaf(L, f, d), "mlp_proj_b": leaf(L, d)}
+        return {"wte": leaf(cfg.padded_vocab, d, std=0.5),
+                "wpe": leaf(cfg.n_positions, d), "blocks": blocks,
+                "ln_f_scale": leaf(d, center=1.0), "ln_f_bias": leaf(d)}
+    m = cfg.intermediate
+    qkv = (cfg.n_head + 2 * cfg.kv_head_count) * cfg.head_dim
+    return {"wte": leaf(cfg.padded_vocab, d, std=0.5),
+            "lm_head": leaf(cfg.padded_vocab, d, std=0.1),
+            "ln_f_scale": leaf(d, center=1.0),
+            "blocks": {"ln1_scale": leaf(L, d, center=1.0),
+                       "qkv_w": leaf(L, d, qkv, std=0.2),
+                       "attn_proj_w": leaf(L, d, d),
+                       "ln2_scale": leaf(L, d, center=1.0),
+                       "gate_w": leaf(L, d, m), "up_w": leaf(L, d, m),
+                       "down_w": leaf(L, m, d)}}
+
+
+def engines(family, seed=0):
+    """``(JAX engine, port engine)`` serving the same float32 weights."""
+    kw, jcfg_cls, jmodel_cls, tcfg_cls, tmodel_cls = FAMILIES[family]
+    weights = tree(family, seed)
+    jax_engine = JaxEngine(jmodel_cls(jcfg_cls(**kw)),
+                           jconfig.DeepSpeedInferenceConfig.from_dict(F32),
+                           params=weights)
+    port = InferenceEngine(tmodel_cls(tcfg_cls(**kw)),
+                           tconfig.DeepSpeedInferenceConfig.from_dict(F32),
+                           params=weights, device="cpu")
+    return jax_engine, port
+
+
+def prompts(lengths, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, VOCAB, (t,), dtype=np.int32) for t in lengths]
