@@ -42,7 +42,14 @@ over LLaMA-7B at full depth (16 slots x 2048, 48 requests; phase
 ``serve``: TTFT, TPOT, output tokens/s, decode-tick ms, slot utilization,
 pool and peak memory, with the stream checks of ``SERVE_LLAMA``'s comment)
 and GPT-2-125M (8 x 1024, 24 requests; ``serve gpt2``), each with a
-profiled decode tick (``profile serve``). Each profile names
+profiled decode tick (``profile serve``); on the LLaMA-7B engine,
+speculative decoding off and with self drafts of 32 and 8 layers
+(``serve spec``, a profiled speculative tick), the radix prefix cache on
+and off over cohorts sharing 1024-token prefixes (``serve prefix``) and a
+prefill engine handing bf16 lanes through ``KVHandoff`` frames to a
+decode engine (``serve disagg``); on the GPT-2 engine, a 6-layer self
+draft at ``max_model_len == n_positions`` (``serve spec gpt2``); with the
+checks of ``SPEC_K``'s comment. Each profile names
 the flash and block-sparse attention kernel instances that ran; on these
 bf16 paths they must be the tensor-core ones (``mma_*``). Every check raises
 on failure, so the script exits
@@ -55,6 +62,7 @@ package.
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -166,6 +174,34 @@ SERVE_GPT2 = dict(cfg={"num_slots": 8, "max_model_len": 1024,
                        "max_prefills_per_tick": 2},
                   requests=24, prompt=(192, 64, 512), new=(64, 32, 128))
 SERVE_SIGMA, SERVE_CHUNK, SERVE_CHUNKED_NEW = 0.5, 256, 64
+# Speculation, the prefix cache and disaggregation on the same engines
+# (phases serve spec, serve spec gpt2, serve prefix, serve disagg). serve
+# spec: SERVE_LLAMA's traffic drawn for 16 requests (16 slots x 2048, the
+# last request filling all 2048 columns), served three times on one
+# engine: speculation off, then k 4 with a self draft of all 32 layers
+# (the draft is the target, so only near-ties between the decode step's
+# GEMM shapes and the verify's may reject: every rejected proposal inside
+# a stream must sit within SPEC_REJECT_TIE times the margin of the
+# target's token under the plain forward, since the draft's own lane
+# drifts from the plain forward as the verify's does; acceptance is
+# reported), then of 8 layers (what a user runs). Every stream must equal
+# the off stream or part from it only at a near-tie (``tie_gap``: the two
+# tokens' logit gap when greedy; when sampled, their Gumbel-perturbed
+# score gap times the temperature, or the logit change that moves either
+# across the top-k / top-p edge) under the plain forward, within the
+# margin. serve spec gpt2: 8 requests at 8 x 1024 == n_positions, one
+# filling all 1024 columns, a self draft of 6 layers. serve prefix: 4
+# cohorts of 8 requests, each cohort sharing a PREFIX_LEN-token prefix
+# with its own lognormal suffix, PREFIX_NEW new tokens, a quarter sampled;
+# the 4 leaders first, then the 28 followers; with the cache and without.
+# serve disagg: a prefill engine (4 x 2048) handing each lane through the
+# wire codec to a decode engine (16 x 2048) over serve spec's traffic.
+SPEC_K, SPEC_REJECT_TIE = 4, 2
+SERVE_SPEC = dict(SERVE_LLAMA, requests=16)
+SERVE_SPEC_GPT2 = dict(SERVE_GPT2, requests=8)
+PREFIX_COHORTS, PREFIX_PER_COHORT, PREFIX_LEN = 4, 8, 1024
+PREFIX_SUFFIX, PREFIX_NEW = (96, 32, 256), 64
+DISAGG_PREFILL_SLOTS = 4
 
 
 def phase(name, **fields):
@@ -2008,13 +2044,18 @@ def serve_traffic(np, spec, vocab, seed):
     return traffic
 
 
-def serve_run(torch, engine, cfg, traffic, order=None):
-    """Submit ``traffic`` (in ``order``) at tick 0 and tick until idle.
+def serve_run(torch, engine, cfg, traffic, order=None, on_tick=None,
+              on_start=None):
+    """Submit ``traffic`` (in ``order``) at tick 0 and tick until idle,
+    calling ``on_start(srv)`` first and ``on_tick(srv)`` after each tick.
     Returns the token lists and the requests in traffic order (None for a
     request not in ``order``), the mean slot utilization over the ticks,
-    the ticks, the wall seconds and the serving engine (not shut down)."""
+    the ticks, the wall seconds and the serving engine (not shut
+    down)."""
     from deepspeed_tpu_torch.serving import SamplingParams, ServingEngine
     srv = ServingEngine(engine, cfg)
+    if on_start is not None:
+        on_start(srv)
     order = list(range(len(traffic))) if order is None else order
     torch.cuda.synchronize()
     s0 = time.perf_counter()
@@ -2024,6 +2065,8 @@ def serve_run(torch, engine, cfg, traffic, order=None):
     while srv.step():
         util.append(srv.active_requests / srv.config.num_slots)
         ticks += 1
+        if on_tick is not None:
+            on_tick(srv)
     wall = time.perf_counter() - s0
     reqs = [srv.result(rids[i]) if i in rids else None
             for i in range(len(traffic))]
@@ -2089,6 +2132,20 @@ def profile_decode_tick(torch, engine, pool, positions, name):
     report_profile(name, prof, wall_ms, top=10)
 
 
+def quantile(vals, f):
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(f * len(vals)))] if vals else None
+
+
+def request_latency(reqs):
+    """``(TTFT ms, TPOT ms)`` lists of finished requests: submit to first
+    token, and the decode time over the tokens after the first."""
+    ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in reqs]
+    tpot = [(r.finish_time - r.first_token_time) * 1e3 / (len(r.tokens) - 1)
+            for r in reqs if len(r.tokens) > 1]
+    return ttft, tpot
+
+
 def serve_phase(torch, name, engine, spec, margin, seed):
     """The serve path: ``ServingEngine(engine, spec["cfg"])`` over the
     traffic, with its checks and metrics (one phase line), a profiled
@@ -2115,12 +2172,7 @@ def serve_phase(torch, name, engine, spec, margin, seed):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     pct = srv.metrics.percentiles()
     tokens = sum(len(t) for t in streams)
-    tpot = sorted((r.finish_time - r.first_token_time) * 1e3 /
-                  (len(r.tokens) - 1) for r in reqs if len(r.tokens) > 1)
-
-    def q(vals, f):
-        return vals[min(len(vals) - 1, int(f * len(vals)))]
-
+    _, tpot = request_latency(reqs)
     profile_decode_tick(torch, engine, pool, np.full(
         (cfg["num_slots"],), int(np.median([len(p) for p, _ in traffic])),
         np.int32), f"profile {name}")
@@ -2182,8 +2234,8 @@ def serve_phase(torch, name, engine, spec, margin, seed):
           ticks=ticks, seconds=round(wall, 3), output_tokens=tokens,
           output_tokens_per_s=round(tokens / wall, 1),
           ttft_ms_p50=pct["ttft_ms"]["p50"], ttft_ms_p99=pct["ttft_ms"]["p99"],
-          tpot_ms_p50=round(q(tpot, 0.5), 3),
-          tpot_ms_p99=round(q(tpot, 0.99), 3),
+          tpot_ms_p50=round(quantile(tpot, 0.5), 3),
+          tpot_ms_p99=round(quantile(tpot, 0.99), 3),
           decode_tick_ms_p50=pct["tpot_ms"]["p50"],
           decode_tick_ms_p99=pct["tpot_ms"]["p99"],
           mean_slot_utilization=round(util, 4),
@@ -2197,6 +2249,465 @@ def serve_phase(torch, name, engine, spec, margin, seed):
           decode_executables=1, pool_device="cuda")
 
 
+def plain_logits(torch, engine, ids):
+    """``[T, vocab]`` float32 logits of the plain full forward (the model's
+    attention on the plain path) of one sequence ``ids``."""
+    import numpy as np
+    model = engine.module
+    cfg = model.config
+    model.config = dataclasses.replace(cfg, attn_backend="xla")
+    try:
+        ids = torch.as_tensor(np.asarray(ids, "int64")[None])
+        return engine(ids)[0, :, :cfg.vocab_size].float()
+    finally:
+        model.config = cfg
+
+
+def tie_gap(torch, logits, kw, col, a, b):
+    """How near a tie ``logits`` (one position's) puts tokens ``a`` and
+    ``b``, in logit units: greedy, the gap of their logits. Sampled, the
+    smallest of the gap of their perturbed scores (logits / T plus the
+    Gumbel noise of the key ``(seed, col)``, ``col`` the column the token
+    is fed at) times T, and, for either token at the edge of the top-k or
+    top-p truncation, the logit change that moves it across the edge: a
+    truncation edge is a tie too."""
+    from deepspeed_tpu_torch.inference import prng
+    from deepspeed_tpu_torch.inference.speculative import row_keys
+    temp = kw.get("temperature", 0.0)
+    if not temp:
+        return abs(float(logits[a] - logits[b]))
+    key = row_keys(torch.tensor([kw["seed"]]), torch.tensor([col]))[0]
+    scores = logits / temp + prng.gumbel(key.to(logits.device),
+                                         tuple(logits.shape))
+    gaps = [abs(float(scores[a] - scores[b])) * temp]
+    desc, order = torch.sort(logits, descending=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    top_k, top_p = kw.get("top_k", 0), kw.get("top_p", 1.0)
+    for x in (a, b):
+        r = int(rank[x])
+        if top_k and r in (top_k - 1, top_k):
+            gaps.append(float(desc[top_k - 1] - desc[top_k]))
+        if top_p < 1.0:
+            # mass before x (top-k survivors renormalised, as sample_rows
+            # does); x leaves or joins the nucleus when drifts of +d on the
+            # logits above it and -d below move that mass across top_p:
+            # 2d = T |log(top_p (1 - m) / ((1 - top_p) m))|
+            kept = desc[:top_k] if top_k else desc
+            if r < kept.numel():
+                probs = torch.softmax(kept / temp, dim=-1)
+                m = float(probs[:r].sum())
+                if m > 0:
+                    gaps.append(temp * abs(math.log(
+                        top_p * (1 - m) / ((1 - top_p) * m))))
+    return min(gaps)
+
+
+def part_gap(torch, engine, prompt, kw, tokens, j, other):
+    """``tie_gap`` of position ``j`` of the stream ``tokens`` against the
+    token ``other``, under the plain forward of the stream's prefix."""
+    import numpy as np
+    logits = plain_logits(torch, engine,
+                          np.concatenate([prompt, tokens[:j]]))[-1]
+    return tie_gap(torch, logits, kw, len(prompt) + j, tokens[j], other)
+
+
+def rejection_gaps(torch, engine, traffic, reqs, verifies):
+    """The ``tie_gap`` of every rejected proposal that fell inside its
+    request's stream (``verifies``: ``(request index, position, drafts,
+    targets, accepts)`` a slot a verify), under one plain forward of each
+    stream: the target's token against the draft's."""
+    import numpy as np
+    gaps = []
+    by_req = {}
+    for i, pos, drafts, tgt, a in verifies:
+        if a < len(drafts):
+            by_req.setdefault(i, []).append((pos, drafts[a], tgt[a], a))
+    for i, rejects in by_req.items():
+        (prompt, kw), req = traffic[i], reqs[i]
+        logits = None
+        for pos, d, t, a in rejects:
+            j = pos + 1 + a - len(prompt)       # the target token's index
+            if j >= len(req.tokens):
+                continue                        # past the request's end
+            if logits is None:
+                logits = plain_logits(torch, engine, req.output_ids[:-1])
+            gaps.append(tie_gap(torch, logits[pos + a], kw, pos + 1 + a,
+                                t, d))
+    return gaps
+
+
+def stream_parts(torch, name, engine, traffic, streams, base, margin):
+    """Each stream against the base run's: equal, or parting at a position
+    that the plain forward finds within ``margin`` of a tie (``part_gap``
+    of the base stream's token against the other). Returns ``{request:
+    [position, gap]}`` of the streams that part."""
+    parted = {}
+    for i, ((prompt, kw), got, want) in enumerate(zip(traffic, streams,
+                                                      base)):
+        check(len(got) == len(want), f"{name}: request {i} gave "
+              f"{len(got)} tokens, the base run {len(want)}")
+        j = parted_at(got, want)
+        if j is not None:
+            parted[i] = [j, round(part_gap(torch, engine, prompt, kw, want, j,
+                                           got[j]), 4)]
+    bad = {i: v for i, v in parted.items() if v[1] > margin}
+    check(not bad, f"{name}: streams part from the base run at tokens that "
+          f"are not near-ties (request: [position, gap]): {bad}, margin "
+          f"{margin}")
+    return parted
+
+
+def profile_spec_tick(torch, engine, sched, positions, name):
+    """One speculative tick over every slot (``slot_draft_propose`` and
+    ``slot_verify_step``) under torch.profiler: device time by group and
+    the idle share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    n = sched.pool.num_slots
+    toks = np.zeros((n,), np.int32)
+    temps = np.zeros((n,), np.float32)
+
+    def tick():
+        sched.draft_cache, drafts = engine.slot_draft_propose(
+            sched.draft, sched.draft_cache, toks, positions, temps, None,
+            None, None, SPEC_K)
+        engine.slot_verify_step(sched.pool.cache, toks, drafts, positions,
+                                temps)
+
+    tick()                                                     # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - s0) * 1e3
+    report_profile(name, prof, wall_ms, top=10)
+
+
+def spec_phase(torch, name, engine, spec, margin, seed, drafts, profiled):
+    """``spec``'s traffic served with speculation off, then with a self
+    draft of each ``(label, layers)`` of ``drafts`` (k ``SPEC_K``), on one
+    engine: one phase line a run, the draft of ``profiled`` layers
+    profiled over one tick. Returns the traffic and the off streams."""
+    import numpy as np
+    from deepspeed_tpu_torch.serving.kv_slots import tree_nbytes
+    cfg = spec["cfg"]
+    n_slots, max_len = cfg["num_slots"], cfg["max_model_len"]
+    vocab = engine.module.config.vocab_size
+    traffic = serve_traffic(np, spec, vocab, seed)
+    base = None
+    for label, layers in (("off", None),) + tuple(drafts):
+        run_cfg = dict(cfg)
+        if layers is not None:
+            run_cfg["speculative"] = {
+                "enabled": True, "k": SPEC_K,
+                "draft": {"mode": "self", "layers": layers}}
+        walls = {"draft": [], "verify": []}
+
+        def on_tick(srv):
+            m = srv.metrics
+            if m.spec_ticks > len(walls["draft"]):
+                walls["draft"].append(m.spec_draft_ms)
+                walls["verify"].append(m.spec_verify_ms)
+
+        # the full-depth draft's verifies are recorded: each rejection
+        # must be a near-tie (request ids are traffic indices here)
+        verifies, live = [], {}
+        full = layers == engine.module.config.n_layer
+        if full:
+            verify = engine.slot_verify_step
+
+            def recorded(pool, toks, drafts, positions, *args):
+                out = verify(pool, toks, drafts, positions, *args)
+                slots = live["srv"].scheduler.pool
+                for slot, req in enumerate(slots.requests):
+                    if req is not None:
+                        verifies.append((req.request_id, int(positions[slot]),
+                                         list(drafts[slot]),
+                                         list(out[1][slot]),
+                                         int(out[2][slot])))
+                return out
+
+            engine.slot_verify_step = recorded
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            streams, reqs, util, ticks, wall, srv = serve_run(
+                torch, engine, run_cfg, traffic, on_tick=on_tick,
+                on_start=lambda srv: live.update(srv=srv))
+        finally:
+            if full:
+                del engine.slot_verify_step
+        states = {r.state.value for r in reqs}
+        check(states == {"finished"}, f"{name} {label}: states {states}")
+        check(all(len(r.tokens) == kw["max_new_tokens"]
+                  for (_, kw), r in zip(traffic, reqs)),
+              f"{name} {label}: a request stopped short of its "
+              f"max_new_tokens")
+        sched = srv.scheduler
+        pools = [sched.pool.cache] + ([sched.draft_cache]
+                                      if sched.draft_cache else [])
+        check(all(t.device.type == "cuda" for pool in pools
+                  for t in pool.values()),
+              f"{name} {label}: a KV pool is not on the card")
+        ttft, tpot = request_latency(reqs)
+        tokens = sum(len(t) for t in streams)
+        res = dict(run=label, draft_layers=layers, k=SPEC_K if layers else 0,
+                   requests=len(traffic), slots=n_slots,
+                   max_model_len=max_len, ticks=ticks,
+                   seconds=round(wall, 3), output_tokens=tokens,
+                   output_tokens_per_s=round(tokens / wall, 1),
+                   ttft_ms_p50=round(quantile(ttft, 0.5), 3),
+                   tpot_ms_p50=round(quantile(tpot, 0.5), 3),
+                   tpot_ms_p99=round(quantile(tpot, 0.99), 3),
+                   pool_gib=round(tree_nbytes(sched.pool.cache) / 2 ** 30, 3),
+                   peak_mem_gib=round(torch.cuda.max_memory_allocated() /
+                                      2 ** 30, 2))
+        if layers is not None:
+            m = srv.metrics
+            verify = engine.slot_verify_executables(n_slots, max_len, SPEC_K)
+            shapes = engine.slot_draft_executables(sched.draft, n_slots,
+                                                   max_len, SPEC_K)
+            check(verify == 1 and shapes == 1,
+                  f"{name} {label}: {verify} verify and {shapes} draft "
+                  f"shapes ran")
+            # tokens a request gains a tick (spec_proposed is k x the
+            # active requests summed over the ticks)
+            res.update(acceptance=round(m.spec_accepted / m.spec_proposed, 4),
+                       tokens_per_tick=round(
+                           m.spec_emitted * SPEC_K / m.spec_proposed, 3),
+                       spec_ticks=m.spec_ticks,
+                       draft_ms_p50=round(quantile(walls["draft"], 0.5), 3),
+                       verify_ms_p50=round(quantile(walls["verify"], 0.5), 3),
+                       draft_pool_gib=round(
+                           tree_nbytes(sched.draft_cache) / 2 ** 30, 3),
+                       verify_shapes=verify, draft_shapes=shapes)
+            if layers == profiled:
+                profile_spec_tick(torch, engine, sched, np.full(
+                    (n_slots,), int(np.median([len(p) for p, _ in traffic])),
+                    np.int32), f"profile {name} {label}")
+        srv.shutdown()
+        del srv, sched, pools
+        torch.cuda.empty_cache()
+        res["greedy_vs_forward_checked"], _ = greedy_vs_forward(
+            torch, engine, traffic, reqs, vocab, margin)
+        if base is None:
+            base = streams
+        else:
+            parted = stream_parts(torch, f"{name} {label}", engine, traffic,
+                                  streams, base, margin)
+            res.update(streams_equal=len(traffic) - len(parted),
+                       parted=json.dumps(parted), margin=margin)
+        if full:
+            gaps = rejection_gaps(torch, engine, traffic, reqs, verifies)
+            worst = max(gaps, default=0.0)
+            res.update(rejections=len(gaps),
+                       rejection_gap_max=round(worst, 4))
+            check(worst <= SPEC_REJECT_TIE * margin,
+                  f"{name} {label}: a full-depth self draft's proposal was "
+                  f"rejected where the plain forward puts the two tokens "
+                  f"{worst} apart, above {SPEC_REJECT_TIE} x the margin "
+                  f"{margin}")
+        phase(name, **res)
+    return traffic, base
+
+
+def prefix_traffic(np, vocab, seed):
+    """``PREFIX_COHORTS`` cohorts of ``PREFIX_PER_COHORT`` requests, the
+    first ``PREFIX_COHORTS`` the leaders (one a cohort): each prompt its
+    cohort's ``PREFIX_LEN``-token prefix and a lognormal suffix, each
+    request ``PREFIX_NEW`` new tokens, a quarter sampled."""
+    rng = np.random.default_rng(seed)
+    n = PREFIX_COHORTS * PREFIX_PER_COHORT
+    med, lo, hi = PREFIX_SUFFIX
+    suffix = np.clip(np.round(med * np.exp(
+        SERVE_SIGMA * rng.standard_normal(n))), lo, hi).astype(int)
+    prefixes = [rng.integers(0, vocab, PREFIX_LEN)
+                for _ in range(PREFIX_COHORTS)]
+    traffic = []
+    for i in range(n):
+        kw = dict(max_new_tokens=PREFIX_NEW)
+        if (i // PREFIX_COHORTS) % 4 == 1:
+            kw.update(temperature=0.8, top_p=0.95, seed=SEED + i)
+        traffic.append((np.concatenate([prefixes[i % PREFIX_COHORTS],
+                                        rng.integers(0, vocab, suffix[i])]),
+                        kw))
+    return traffic
+
+
+def prefix_run(torch, engine, cfg, traffic):
+    """The leaders, run until they finish, then the followers. Returns the
+    requests in traffic order, the prefix-cache hits' matched lengths and
+    the serving engine (not shut down)."""
+    from deepspeed_tpu_torch.serving import SamplingParams, ServingEngine
+    srv = ServingEngine(engine, cfg)
+    matched = []
+    pc = srv.scheduler.prefix_cache
+    if pc is not None:
+        lookup = pc.lookup
+
+        def recording(tokens):
+            hit = lookup(tokens)
+            if hit is not None:
+                matched.append(hit.matched)
+            return hit
+
+        pc.lookup = recording
+    rids = {}
+    for batch in (range(PREFIX_COHORTS),
+                  range(PREFIX_COHORTS, len(traffic))):
+        rids.update({i: srv.submit(traffic[i][0],
+                                   SamplingParams(**traffic[i][1]))
+                     for i in batch})
+        srv.run_until_idle()
+    return [srv.result(rids[i]) for i in range(len(traffic))], matched, srv
+
+
+def prefix_phase(torch, name, engine, cfg, margin, seed):
+    """The prefix traffic with the radix cache and without, on one engine:
+    hits, prefill tokens, the followers' TTFT, the streams."""
+    import numpy as np
+    traffic = prefix_traffic(np, engine.module.config.vocab_size, seed)
+    runs = {}
+    for label, run_cfg in (("off", cfg), ("on", {
+            **cfg, "prefix_cache": {"enabled": True}})):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        reqs, matched, srv = prefix_run(torch, engine, run_cfg, traffic)
+        wall = time.perf_counter() - s0
+        states = {r.state.value for r in reqs}
+        check(states == {"finished"}, f"{name} {label}: states {states}")
+        check(all(t.device.type == "cuda"
+                  for t in srv.scheduler.pool.cache.values()),
+              f"{name} {label}: the KV pool is not on the card")
+        pc = srv.scheduler.prefix_cache
+        ttft, _ = request_latency(reqs[PREFIX_COHORTS:])
+        runs[label] = dict(streams=[list(r.tokens) for r in reqs],
+                           matched=matched, pc=pc, wall=wall, ttft=ttft,
+                           cached=0 if pc is None else pc.cached_slots)
+        srv.shutdown()
+        del srv
+        torch.cuda.empty_cache()
+    on = runs["on"]
+    pc = on["pc"]
+    check(pc.hits > 0 and pc.hits == len(on["matched"]) and
+          min(on["matched"]) >= PREFIX_LEN,
+          f"{name}: {pc.hits} hits, matched {on['matched']}, each must "
+          f"match at least {PREFIX_LEN}")
+    parted = stream_parts(torch, name, engine, traffic, on["streams"],
+                          runs["off"]["streams"], margin)
+    prompt_tokens = sum(len(p) for p, _ in traffic)
+    phase(name, requests=len(traffic), cohorts=PREFIX_COHORTS,
+          prefix=PREFIX_LEN, slots=cfg["num_slots"],
+          max_model_len=cfg["max_model_len"], hits=pc.hits,
+          lookups=pc.lookups, hit_rate=round(pc.hit_rate, 4),
+          matched_min=min(on["matched"]), evictions=pc.evictions,
+          prefill_tokens_off=prompt_tokens,
+          prefill_tokens_on=prompt_tokens - pc.tokens_saved,
+          followers_ttft_ms_p50_off=round(quantile(runs["off"]["ttft"], 0.5),
+                                          3),
+          followers_ttft_ms_p99_off=round(quantile(runs["off"]["ttft"],
+                                                   0.99), 3),
+          followers_ttft_ms_p50_on=round(quantile(on["ttft"], 0.5), 3),
+          followers_ttft_ms_p99_on=round(quantile(on["ttft"], 0.99), 3),
+          seconds_off=round(runs["off"]["wall"], 3),
+          seconds_on=round(on["wall"], 3), cached_slots_end=on["cached"],
+          streams_equal=len(traffic) - len(parted),
+          parted=json.dumps(parted), margin=margin, pool_device="cuda")
+
+
+def disagg_phase(torch, name, engine, traffic, base, margin):
+    """A prefill engine (``DISAGG_PREFILL_SLOTS`` slots) whose sink sends
+    each handoff through the wire codec (``to_bytes`` / ``from_bytes``) to
+    a decode engine over the same InferenceEngine, on ``traffic``; each
+    inserted lane is held to the extracted one and each stream to the
+    unified ``base``."""
+    from deepspeed_tpu_torch.serving import SamplingParams, ServingEngine
+    from deepspeed_tpu_torch.serving.fleet import KVHandoff
+    cfg = SERVE_SPEC["cfg"]
+    ms = {"out": [], "codec": [], "in": []}
+    sent, equal, nbytes = {}, [], []
+    extract, insert = engine.slot_extract_lane, engine.slot_insert_lane
+
+    def timed_extract(pool, slot):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        lane = extract(pool, slot)
+        ms["out"].append((time.perf_counter() - s0) * 1e3)
+        return lane
+
+    def checked_insert(pool, slot, lane):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        pool = insert(pool, slot, lane)
+        torch.cuda.synchronize()
+        ms["in"].append((time.perf_counter() - s0) * 1e3)
+        orig, kv_len = sent.pop(id(lane))
+        equal.append(all(torch.equal(
+            c[:, slot, :, :kv_len],
+            orig[n][:, 0, :, :kv_len].to(c.device)) for n, c in pool.items()))
+        return pool
+
+    dec = ServingEngine(engine, {**cfg, "role": "decode"})
+
+    def sink(handoff, request):
+        s0 = time.perf_counter()
+        wired = KVHandoff.from_bytes(handoff.to_bytes())
+        ms["codec"].append((time.perf_counter() - s0) * 1e3)
+        nbytes.append(handoff.nbytes())
+        sent[id(wired.lane)] = (handoff.lane, handoff.kv_len)
+        dec.submit_handoff(wired, request)
+
+    engine.slot_extract_lane = timed_extract
+    engine.slot_insert_lane = checked_insert
+    try:
+        pre = ServingEngine(engine, {**cfg, "role": "prefill",
+                                     "num_slots": DISAGG_PREFILL_SLOTS},
+                            handoff_sink=sink)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        rids = [pre.submit(p, SamplingParams(**kw)) for p, kw in traffic]
+        while pre.step() + dec.step():
+            pass
+        wall = time.perf_counter() - s0
+    finally:
+        del engine.slot_extract_lane, engine.slot_insert_lane
+    reqs = [pre.result(r) for r in rids]
+    states = {r.state.value for r in reqs}
+    check(states == {"finished"}, f"{name}: states {states}")
+    check(len(equal) == len(traffic) and all(equal),
+          f"{name}: {equal.count(False)} of {len(equal)} inserted lanes "
+          f"differ from the extracted ones")
+    check(pre.metrics.handoffs_out == dec.metrics.handoffs_in == len(traffic)
+          and pre.metrics.completed == 0,
+          f"{name}: {pre.metrics.handoffs_out} handed off, "
+          f"{dec.metrics.handoffs_in} received")
+    tick_p50 = dec.metrics.percentiles()["tpot_ms"]["p50"]
+    pre.shutdown()
+    dec.shutdown()
+    del pre, dec
+    torch.cuda.empty_cache()
+    streams = [list(r.tokens) for r in reqs]
+    parted = stream_parts(torch, name, engine, traffic, streams, base,
+                          margin)
+    ttft, tpot = request_latency(reqs)
+    tokens = sum(len(t) for t in streams)
+    phase(name, requests=len(traffic), prefill_slots=DISAGG_PREFILL_SLOTS,
+          decode_slots=cfg["num_slots"], max_model_len=cfg["max_model_len"],
+          seconds=round(wall, 3), output_tokens_per_s=round(tokens / wall, 1),
+          handoff_mib=round(quantile(nbytes, 0.5) / 2 ** 20, 1),
+          out_ms_p50=round(quantile(ms["out"], 0.5), 3),
+          codec_ms_p50=round(quantile(ms["codec"], 0.5), 3),
+          in_ms_p50=round(quantile(ms["in"], 0.5), 3),
+          lanes_equal=sum(equal), ttft_ms_p50=round(quantile(ttft, 0.5), 3),
+          tpot_ms_p50=round(quantile(tpot, 0.5), 3),
+          decode_tick_ms_p50=tick_p50,
+          streams_equal_unified=len(traffic) - len(parted),
+          parted=json.dumps(parted), margin=margin)
+
+
 def serve_llama(torch, cfg=None):
     """LLaMA-7B at full depth and width, bf16, served through
     ``ServingEngine(init_inference(model, {"dtype": "bf16"}), ...)``."""
@@ -2207,6 +2718,15 @@ def serve_llama(torch, cfg=None):
         llama_model(torch, cfg, SEED + 70, torch.bfloat16), {"dtype": "bf16"})
     serve_phase(torch, "serve", engine, SERVE_LLAMA, LLAMA_ARGMAX_MARGIN,
                 SEED + 71)
+    layers = engine.module.config.n_layer
+    user = max(1, layers // 4)
+    traffic, base = spec_phase(torch, "serve spec", engine, SERVE_SPEC,
+                               LLAMA_ARGMAX_MARGIN, SEED + 71,
+                               (("full", layers), ("user", user)), user)
+    prefix_phase(torch, "serve prefix", engine, SERVE_LLAMA["cfg"],
+                 LLAMA_ARGMAX_MARGIN, SEED + 74)
+    disagg_phase(torch, "serve disagg", engine, traffic, base,
+                 LLAMA_ARGMAX_MARGIN)
     del engine
     torch.cuda.empty_cache()
 
@@ -2220,6 +2740,9 @@ def serve_gpt2(torch, cfg=None):
     engine = deepspeed_tpu_torch.init_inference(model, {"dtype": "bf16"})
     serve_phase(torch, "serve gpt2", engine, SERVE_GPT2, ARGMAX_MARGIN,
                 SEED + 73)
+    user = max(1, cfg.n_layer // 2)
+    spec_phase(torch, "serve spec gpt2", engine, SERVE_SPEC_GPT2,
+               ARGMAX_MARGIN, SEED + 75, (("user", user),), None)
     del engine, model
     torch.cuda.empty_cache()
 

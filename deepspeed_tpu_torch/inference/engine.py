@@ -112,10 +112,15 @@ class InferenceEngine:
                  f"dtype={str(self.dtype).replace('torch.', '')} "
                  f"max_tokens={config.max_tokens} device={self.device}",
                  ranks=[0])
-        # the decode and chunk-prefill shapes that ran: the counterpart of
-        # the JAX package's compiled slot programs, whose counts its
-        # serving tests read
+        # the decode, chunk-prefill, draft and verify shapes that ran: the
+        # counterpart of the JAX package's compiled slot programs, whose
+        # counts its serving tests read
         self._slot_shapes = set()
+        #: the checkpoint weights_version these weights came from (0 =
+        #: unversioned: the module's own weights); a decode-role serving
+        #: engine refuses a KV handoff produced under another version
+        self.weights_version = 0
+        self._drafts = {}
 
     def _ids(self, input_ids):
         if not isinstance(input_ids, torch.Tensor):
@@ -342,6 +347,13 @@ class InferenceEngine:
         """Slot ``slot``'s lane as a one-row cache: views of the pool."""
         return {n: c[:, slot:slot + 1] for n, c in pool.items()}
 
+    @staticmethod
+    def _sample_args(n, top_ks, top_ps, seeds):
+        """The per-slot sampling registers, neutral where not given."""
+        return (np.zeros((n,), np.int32) if top_ks is None else top_ks,
+                np.ones((n,), np.float32) if top_ps is None else top_ps,
+                np.zeros((n,), np.int32) if seeds is None else seeds)
+
     @torch.inference_mode()
     def init_slot_pool(self, num_slots: int, max_len: int,
                        quantize: bool = False):
@@ -366,6 +378,16 @@ class InferenceEngine:
         decode overwrites them). The first token is keyed at column ``t``,
         where it will be fed. Returns ``(pool, first_token: int)``."""
         model = self._slot_model("slot_prefill")
+        ids, lane, t = self._fresh_lane(pool, slot, prompt)
+        logits, _ = model.apply_with_cache(ids, lane, 0)
+        tok = _sample_one(logits[0, t - 1], temperature, top_k, top_p, seed,
+                          t, model.config.vocab_size)
+        return pool, tok
+
+    def _fresh_lane(self, pool, slot, prompt):
+        """``(ids, lane, t)`` for a prefill of ``prompt`` into ``slot``: the
+        prompt right-padded to its pow2 bucket, the slot's lane with its
+        columns past the bucket zeroed (a fresh JAX lane), the length."""
         prompt = np.asarray(prompt).reshape(-1)
         t = prompt.shape[0]
         num_slots, max_len = self._pool_dims(pool)
@@ -375,11 +397,7 @@ class InferenceEngine:
         lane = self._lane(pool, slot)
         for c in lane.values():
             c[:, :, :, bucket:].zero_()
-        logits, _ = model.apply_with_cache(self._bucket_ids(prompt, bucket),
-                                           lane, 0)
-        tok = _sample_one(logits[0, t - 1], temperature, top_k, top_p, seed,
-                          t, model.config.vocab_size)
-        return pool, tok
+        return self._bucket_ids(prompt, bucket), lane, t
 
     @torch.inference_mode()
     def slot_suffix_prefill(self, pool, slot: int, tokens, start_pos: int,
@@ -477,13 +495,8 @@ class InferenceEngine:
         model = self._slot_model("slot_decode_step")
         num_slots, max_len = self._pool_dims(pool)
         self._slot_shapes.add(("slot_decode", num_slots, max_len))
-        n = len(np.asarray(toks).reshape(-1))
-        if top_ks is None:
-            top_ks = np.zeros((n,), np.int32)
-        if top_ps is None:
-            top_ps = np.ones((n,), np.float32)
-        if seeds is None:
-            seeds = np.zeros((n,), np.int32)
+        top_ks, top_ps, seeds = self._sample_args(
+            len(np.asarray(toks).reshape(-1)), top_ks, top_ps, seeds)
         toks = torch.as_tensor(np.asarray(toks, np.int64), device=self.device)
         # positions and keys stay on the host: the step waits on no device
         positions = torch.as_tensor(np.asarray(positions, np.int64))
@@ -501,6 +514,136 @@ class InferenceEngine:
         package's compiled-executable count, which its serving tests hold
         at 1): 0 or 1."""
         return int(("slot_decode", num_slots, max_len) in self._slot_shapes)
+
+    # -------------------------------------------- speculative decode protocol
+    # A draft proposes k tokens a slot (k + 1 draft decode steps), the
+    # target verifies all of them in one batched ``verify_with_slots``
+    # forward, and the rejected K/V columns are rolled back inside the
+    # step (inference/speculative.py).
+
+    def init_draft(self, draft_cfg):
+        """Build (or fetch the cached) ``DraftRuntime`` for ``draft_cfg``:
+        serving engines sharing this engine share draft weights."""
+        from .speculative import build_draft, draft_key
+        key = draft_key(draft_cfg)
+        draft = self._drafts.get(key)
+        if draft is None:
+            draft = self._drafts[key] = build_draft(self, draft_cfg)
+            log_dist(f"InferenceEngine: draft runtime ready "
+                     f"({draft.describe})", ranks=[0])
+        return draft
+
+    @torch.inference_mode()
+    def init_draft_pool(self, draft, num_slots: int, max_len: int):
+        """Allocate the draft model's slot-pool KV cache in the serving
+        dtype on the engine's device, once."""
+        return draft.model.init_kv_cache(num_slots, max_len, dtype=self.dtype,
+                                         device=self.device)
+
+    @torch.inference_mode()
+    def draft_prefill(self, draft, dpool, slot: int, prompt):
+        """Prefill ``prompt`` into the draft pool's lane ``slot`` (pow2
+        bucket as ``slot_prefill``, columns past it zeroed; the draft's
+        logits are not needed, so its head is not run). Returns the draft
+        pool."""
+        ids, lane, _ = self._fresh_lane(dpool, slot, prompt)
+        draft.model.chunk_prefill_with_cache(ids, lane, 0)
+        return dpool
+
+    @torch.inference_mode()
+    def slot_draft_propose(self, draft, dpool, toks, positions, temps,
+                           top_ks, top_ps, seeds, k: int):
+        """Propose ``k`` draft tokens a slot: ``k + 1`` draft decode steps
+        (the last writes the last proposal's K/V, so a fully accepted
+        block leaves no gap in the draft lane), each sampling with the
+        target's keys ``(seed, column + 1)``. Writes past the lane are
+        dropped (a request that fills ``max_len`` proposes past it).
+        Returns ``(draft pool, draft tokens [S, k] on the host)``."""
+        model = draft.model
+        num_slots, max_len = self._pool_dims(dpool)
+        self._slot_shapes.add(("slot_draft", num_slots, max_len, int(k),
+                               draft.key))
+        top_ks, top_ps, seeds = self._sample_args(num_slots, top_ks, top_ps,
+                                                  seeds)
+        temps = np.asarray(temps, np.float32)
+        top_ks = np.asarray(top_ks, np.int64)
+        top_ps = np.asarray(top_ps, np.float32)
+        seeds = torch.as_tensor(np.asarray(seeds, np.int64))
+        pos = torch.as_tensor(np.asarray(positions, np.int64))
+        tok = torch.as_tensor(np.asarray(toks, np.int64), device=self.device)
+        drafts = []
+        for _ in range(k + 1):
+            logits, _ = model.verify_with_slots(tok[:, None], dpool, pos)
+            pos = pos + 1
+            tok = sample_rows(logits[:, -1], temps, top_ks, top_ps,
+                              row_keys(seeds, pos), model.config.vocab_size)
+            drafts.append(tok)
+        return dpool, torch.stack(drafts[:k], dim=1).cpu().numpy()
+
+    @torch.inference_mode()
+    def slot_verify_step(self, pool, toks, draft_toks, positions, temps,
+                         top_ks=None, top_ps=None, seeds=None):
+        """Verify ``k`` draft tokens a slot in one batched forward and
+        advance every slot by its accepted prefix plus one target token.
+        Acceptance is exact match against the target's own sample at
+        each column (keys ``(seed, positions + 1 + j)``), so the emitted
+        stream is the plain decode's. The ``k + 1`` columns this verify
+        writes are saved first; every written column past
+        ``positions[s] + accepts[s]`` is restored from them, so the pool
+        ends bitwise as the JAX package's whole-lane select leaves it.
+        Returns ``(pool, target tokens [S, k + 1], accepts [S])`` on the
+        host: slot ``s`` emits ``target[s, :accepts[s] + 1]``."""
+        model = self._slot_model("slot_verify_step")
+        num_slots, max_len = self._pool_dims(pool)
+        draft_toks = np.asarray(draft_toks, np.int64)
+        k = int(draft_toks.shape[1])
+        self._slot_shapes.add(("slot_verify", num_slots, max_len, k))
+        top_ks, top_ps, seeds = self._sample_args(num_slots, top_ks, top_ps,
+                                                  seeds)
+        positions = np.asarray(positions, np.int64)
+        cols = positions[:, None] + np.arange(k + 1)[None, :]   # [S, k+1]
+        rows, offs = np.nonzero(cols < max_len)
+        idx = torch.as_tensor(np.stack([rows, cols[rows, offs]])).to(
+            self.device)
+        saved = {n: c[:, idx[0], :, idx[1]] for n, c in pool.items()}
+        block = np.concatenate([np.asarray(toks, np.int64)[:, None],
+                                draft_toks], axis=1)
+        logits, _ = model.verify_with_slots(
+            torch.as_tensor(block, device=self.device), pool, positions)
+        # the target's candidate at offset j is fed at column
+        # positions + 1 + j: one sampling call over the [S * (k+1)] rows
+        rep = lambda a: np.repeat(np.asarray(a), k + 1)   # noqa: E731
+        keys = row_keys(torch.as_tensor(rep(np.asarray(seeds, np.int64))),
+                        torch.as_tensor((cols + 1).reshape(-1)))
+        tgt = sample_rows(logits.reshape(num_slots * (k + 1), -1),
+                          rep(np.asarray(temps, np.float32)),
+                          rep(np.asarray(top_ks, np.int64)),
+                          rep(np.asarray(top_ps, np.float32)), keys,
+                          model.config.vocab_size)
+        tgt = tgt.reshape(num_slots, k + 1).cpu().numpy()
+        match = (draft_toks == tgt[:, :k]).astype(np.int64)
+        accepts = np.cumprod(match, axis=1).sum(axis=1)
+        # roll back: every written column past positions + accepts
+        back = np.nonzero(offs > accepts[rows])[0]
+        if back.size:
+            sel = torch.as_tensor(back).to(self.device)
+            for n, c in pool.items():
+                c[:, idx[0, sel], :, idx[1, sel]] = saved[n][sel]
+        return pool, tgt, accepts
+
+    def slot_verify_executables(self, num_slots: int, max_len: int,
+                                k: int) -> int:
+        """How many verify shapes of one ``k`` ran on this pool shape (the
+        JAX package's compiled-executable count): 0 or 1."""
+        return int(("slot_verify", num_slots, max_len, int(k))
+                   in self._slot_shapes)
+
+    def slot_draft_executables(self, draft, num_slots: int, max_len: int,
+                               k: int) -> int:
+        """How many draft-propose shapes of one ``k`` ran for ``draft`` on
+        this pool shape: 0 or 1."""
+        return int(("slot_draft", num_slots, max_len, int(k), draft.key)
+                   in self._slot_shapes)
 
     # ------------------------------------------------------------- properties
     @property

@@ -1,21 +1,114 @@
-"""Deterministic per-request sampling: the sampling half of the JAX
-package's ``inference/speculative.py``.
+"""Speculative decoding over the slot pool: the draft runtimes and the
+deterministic per-request sampling of the JAX package's
+``inference/speculative.py``.
+
+A draft model proposes ``k`` tokens a slot
+(``InferenceEngine.slot_draft_propose``, ``k + 1`` draft decode steps);
+the target verifies all of them in one batched forward
+(``GPT2Model.verify_with_slots`` through ``slot_verify_step``), accepts
+the longest prefix that matches its own sample and rolls the rejected
+K/V columns back inside the step.
 
 Every sampled token is drawn with a key that derives only from the
 request's seed and the cache column the token will be fed at,
 ``fold_in(PRNGKey(seed), column)``, with ``jax.random``'s threefry2x32 key
 schedule (``prng.py``). So a request regenerates the same stream whatever
-tick, slot or replica serves it, and the port's streams are the JAX
-package's. The draft runtimes of speculative decoding (``DraftRuntime``,
-``build_draft``) are not ported yet: ROADMAP.md row A6b.
+tick, slot or replica serves it, speculation on or off, and the port's
+streams are the JAX package's. The draft samples with the same keys as
+the target, which couples the two draws and raises acceptance.
+
+Draft flavors (``speculative.draft``):
+
+- ``mode="self"``: the target's first ``layers`` blocks under its own
+  final norm and head; the draft's parameters are the target's
+  ``Parameter`` objects, no copy.
+- ``mode="model"``: a smaller config of the same family (``n_layer``,
+  ``n_embd``, ``n_head``), its weights drawn by the port's own init from
+  ``seed``.
 """
+
+import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import prng
 
-__all__ = ["row_keys", "sample_rows", "sampling_arrays"]
+__all__ = ["DraftRuntime", "build_draft", "draft_key", "row_keys",
+           "sample_rows", "sampling_arrays"]
+
+
+def draft_key(cfg) -> tuple:
+    """Hashable identity of a draft config: the engine keeps one
+    ``DraftRuntime`` per key, so serving engines over one
+    ``InferenceEngine`` share draft weights."""
+    return ("self" if cfg.mode == "self" else "model",
+            int(getattr(cfg, "layers", 0)), int(getattr(cfg, "n_layer", 0)),
+            int(getattr(cfg, "n_embd", 0)), int(getattr(cfg, "n_head", 0)),
+            int(getattr(cfg, "seed", 0)))
+
+
+@dataclasses.dataclass
+class DraftRuntime:
+    """A draft model ready to propose."""
+    model: Any
+    mode: str
+    layers: int
+    key: tuple
+
+    @property
+    def describe(self) -> str:
+        cfg = self.model.config
+        if self.mode == "self":
+            return f"self(layers={self.layers})"
+        return f"model({cfg.n_layer}L/{cfg.n_embd}d)"
+
+
+def _self_draft(target, layers: int):
+    """A model of the target's family over its first ``layers`` blocks and
+    its top leaves: the same ``Parameter`` objects, nothing allocated."""
+    model = type(target).__new__(type(target))
+    nn.Module.__init__(model)
+    model.config = dataclasses.replace(target.config, n_layer=layers)
+    for name in model.top_leaves:
+        setattr(model, name, getattr(target, name))
+    model.blocks = nn.ModuleList(target.blocks[:layers])
+    return model.eval()
+
+
+def build_draft(engine, cfg) -> DraftRuntime:
+    """Build a ``DraftRuntime`` for ``engine`` from a ``DraftConfig``-shaped
+    object (``mode`` / ``layers`` / ``n_layer`` / ``n_embd`` / ``n_head``
+    / ``seed``), as the JAX package's ``build_draft``."""
+    target = engine.module
+    tcfg = target.config
+    mode = getattr(cfg, "mode", "self")
+    if mode == "self":
+        layers = int(getattr(cfg, "layers", 0)) or max(1, tcfg.n_layer // 2)
+        if not 1 <= layers <= tcfg.n_layer:
+            raise ValueError(
+                f"speculative.draft.layers={layers} outside "
+                f"[1, {tcfg.n_layer}]")
+        return DraftRuntime(model=_self_draft(target, layers), mode="self",
+                            layers=layers, key=draft_key(cfg))
+    if mode != "model":
+        raise ValueError(f"speculative.draft.mode must be self|model, "
+                         f"got {mode!r}")
+    over = {name: int(getattr(cfg, name, 0))
+            for name in ("n_layer", "n_embd", "n_head")
+            if int(getattr(cfg, name, 0))}
+    dcfg = dataclasses.replace(tcfg, **over)
+    if dcfg.n_embd % dcfg.n_head:
+        raise ValueError(
+            f"draft n_embd={dcfg.n_embd} not divisible by "
+            f"n_head={dcfg.n_head}")
+    gen = torch.Generator().manual_seed(int(getattr(cfg, "seed", 0)))
+    model = type(target)(dcfg, generator=gen, device=engine.device,
+                         dtype=engine.dtype).eval()
+    return DraftRuntime(model=model, mode="model", layers=dcfg.n_layer,
+                        key=draft_key(cfg))
 
 
 def row_keys(seeds, cols):

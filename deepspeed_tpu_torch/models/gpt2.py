@@ -198,7 +198,12 @@ class GPT2Model(ModelSpec):
         dt = self._compute_dtype()
         t = input_ids.shape[-1]
         if positions is not None:
-            wpe = self.wpe.to(dt)[positions + cfg.pos_offset]
+            # clamped, as the JAX package's gather clamps: a speculative
+            # block may run past n_positions, and its logits there are
+            # never read
+            idx = torch.clamp(positions + cfg.pos_offset, 0,
+                              self.wpe.shape[0] - 1)
+            wpe = self.wpe.to(dt)[idx]
         else:
             first = start_pos + cfg.pos_offset
             if first < 0 or first + t > self.wpe.shape[0]:
@@ -429,14 +434,15 @@ class GPT2Model(ModelSpec):
         return GPT2Model._attend_cache(q, k_cache, v_cache, mask)
 
     @staticmethod
-    def _slot_cache_attn(q, k, v, k_cache, v_cache, positions, mask):
-        """Decode-slot write: row ``s``'s one K/V column goes to cache
-        column ``positions[s]`` (in place; the JAX package's masked select
-        over the lane writes the same values), then attention over the
-        whole cache under ``mask``."""
-        rows = torch.arange(k.shape[0], device=k.device)
-        k_cache[rows, :, positions] = k[:, :, 0].to(k_cache.dtype)
-        v_cache[rows, :, positions] = v[:, :, 0].to(v_cache.dtype)
+    def _slot_cache_attn(q, k, v, k_cache, v_cache, write, mask):
+        """Slot write: ``write = (rows, offsets, columns)`` sends row
+        ``rows[i]``'s K/V of block offset ``offsets[i]`` to cache column
+        ``columns[i]`` (in place; the JAX package's one-hot select over the
+        lane writes the same values), then attention over the whole cache
+        under ``mask``."""
+        rows, offs, cols = write
+        k_cache[rows, :, cols] = k[rows, :, offs].to(k_cache.dtype)
+        v_cache[rows, :, cols] = v[rows, :, offs].to(v_cache.dtype)
         return GPT2Model._attend_cache(q, k_cache, v_cache, mask)
 
     @staticmethod
@@ -520,26 +526,43 @@ class GPT2Model(ModelSpec):
         if t != 1:
             raise ValueError(f"decode_with_slots is single-token: got T={t}")
         max_len = cache["k"].shape[-2]
-        dev = input_ids.device
         positions = torch.as_tensor(positions).to(torch.int64)
         # checked where the positions are (on the host, for the serving
         # path: no device wait); the JAX package drops such a row's write
         if bool(((positions < 0) | (positions >= max_len)).any()):
             raise ValueError(f"decode positions {positions.tolist()} lie "
                              f"outside the cache length {max_len}")
-        positions = positions.to(dev)
-        pos2d = positions[:, None]
+        return self.verify_with_slots(input_ids, cache, positions)
+
+    def verify_with_slots(self, input_ids, cache, positions):
+        """A block of T tokens per row at per-row cache positions: the
+        speculative verify step (T = 1 is ``decode_with_slots``). Row
+        ``s`` feeds ``input_ids[s]``; token ``j`` writes its K/V at cache
+        column ``positions[s] + j`` (in place) and attends columns
+        ``<= positions[s] + j`` under the family's ``_decode_attn_mask``.
+        Writes at or past the cache length are dropped, as the JAX
+        package's one-hot select drops them; their logits are never read.
+        ``positions [S]`` are read on the host (where the serving path
+        keeps them), so the step waits on no device.
+        Returns ``(logits [S, T, V], cache)``."""
+        b, t = input_ids.shape
+        max_len = cache["k"].shape[-2]
+        dev = input_ids.device
+        cols = torch.as_tensor(positions).to("cpu", torch.int64)[:, None] + \
+            torch.arange(t)[None, :]                          # [S, T]
+        rows, offs = torch.nonzero(cols < max_len, as_tuple=True)
+        write = torch.stack([rows, offs, cols[rows, offs]]).to(dev)
+        pos2d = cols.to(dev)
         x = self._embed(input_ids, positions=pos2d)
-        k_pos = torch.arange(max_len, device=dev)[None, :]
-        mask = self._decode_attn_mask(pos2d, k_pos)[:, None, None, :]
+        k_pos = torch.arange(max_len, device=dev)[None, None, :]
+        mask = self._decode_attn_mask(pos2d[:, :, None], k_pos)[:, None]
         for layer, p in enumerate(self.blocks):
             attn_fn = functools.partial(
                 self._slot_cache_attn, k_cache=cache["k"][layer],
-                v_cache=cache["v"][layer], positions=positions, mask=mask)
+                v_cache=cache["v"][layer], write=write, mask=mask)
             x = self._block(x, p, attn_fn, 0, pos2d)
         x = self._final_norm(x)
         return x @ self._unembed_weight(x.dtype).T, cache
-
 
 def _chunk_logits(hf, wte, head_b, lo, hi):
     """float32 logits of vocab rows ``[lo, hi)``, computed in hf's dtype

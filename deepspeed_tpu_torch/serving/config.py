@@ -2,16 +2,18 @@
 ``serving/config.py``, with the same keys, defaults, aliases and
 ``ConfigError``s.
 
-``ServingConfig`` and its ``slo``, ``chunked_prefill`` and ``tenants``
-blocks run here. The blocks of the JAX package that this port does not
-serve yet are parsed (the ones defined in this module with the JAX
-package's own ``ConfigError``s) and accepted while they are absent or
-disabled; enabled, they raise ``NotImplementedError`` naming their
-ROADMAP.md row (``UNPORTED``): ``speculative`` and ``prefix_cache`` (A6b),
+``ServingConfig`` and its ``slo``, ``chunked_prefill``, ``tenants``,
+``speculative`` and ``prefix_cache`` blocks run here, as do the three
+roles (``unified``, ``prefill``, ``decode``). The blocks of the JAX
+package that this port does not serve yet are parsed (the ones defined in
+this module with the JAX package's own ``ConfigError``s) and accepted
+while they are absent or disabled; enabled, they raise
+``NotImplementedError`` naming their ROADMAP.md row (``UNPORTED``):
 ``kv_quant`` (A9), ``monitor`` and its sinks, ``telemetry``, ``statusz``,
-``flight_recorder``, ``resilience.handle_signals``, ``fleet``, ``loadgen``,
-``soak``, ``cost`` and a ``role`` other than ``unified`` (A12),
-``compile_plane`` and ``perf_plane`` (A13).
+``flight_recorder``, ``speculative.acceptance_floor`` above 0 (it fires
+the flight recorder), ``resilience.handle_signals``, ``fleet``,
+``loadgen``, ``soak`` and ``cost`` (A12), ``compile_plane`` and
+``perf_plane`` (A13).
 """
 
 import dataclasses
@@ -65,7 +67,7 @@ class SLOConfig(DeepSpeedConfigModel):
 @dataclasses.dataclass
 class PrefixCacheConfig(DeepSpeedConfigModel):
     """The ``"prefix_cache"`` block: radix reuse of retired slots' KV
-    lanes. Parsed; enabled, it raises naming ROADMAP.md row A6b."""
+    lanes (``serving/fleet/prefix_cache.py``)."""
     enabled: bool = False
     #: shortest shared prefix worth a lane copy (shorter prompts also
     #: never donate their slot)
@@ -213,8 +215,9 @@ class DraftConfig(DeepSpeedConfigModel):
 @dataclasses.dataclass
 class SpeculativeConfig(DeepSpeedConfigModel):
     """The ``"speculative"`` block: draft-model speculative decoding over
-    the slot pool, ``k`` draft tokens a slot a tick. Parsed; enabled, it
-    raises naming ROADMAP.md row A6b."""
+    the slot pool, ``k`` draft tokens a slot a tick
+    (``inference/speculative.py``). An ``acceptance_floor`` above 0 fires
+    the flight recorder, which raises naming ROADMAP.md row A12."""
     enabled: bool = False
     #: draft tokens proposed per slot per tick. Must be a power of two:
     #: each (num_slots, max_model_len, k) flavor of the verify program
@@ -432,8 +435,9 @@ class ServingConfig(DeepSpeedConfigModel):
     perf_plane: Any = None
     resilience: Any = None
 
-    # replica role: "unified" serves end to end; "prefill" / "decode" are
-    # the disaggregated fleet's roles (row A12)
+    # replica role: "unified" serves end to end; "prefill" hands each
+    # prefilled lane to a handoff sink, "decode" takes lanes through
+    # ServingEngine.submit_handoff (serving/fleet/handoff.py)
     role: str = "unified"
 
     prefix_cache: Any = None          # dict -> PrefixCacheConfig
@@ -529,14 +533,16 @@ def _handles_signals(cfg, key):
     return bool((getattr(cfg, key) or {}).get("handle_signals"))
 
 
-def _not_unified(cfg, key):
-    return getattr(cfg, key) != "unified"
+def _acceptance_floor(cfg, key):
+    val = getattr(cfg, key)
+    return bool(getattr(val, "enabled", False) and
+                getattr(val, "acceptance_floor", 0.0) > 0)
 
 
 # key -> (ROADMAP.md row, what the port cannot serve yet, "asks for it")
 UNPORTED = {
-    "speculative": ("A6b", "speculative decoding", _enabled),
-    "prefix_cache": ("A6b", "the prefix cache", _enabled),
+    "speculative": ("A12", "the acceptance-drop trigger of the flight "
+                    "recorder (acceptance_floor > 0)", _acceptance_floor),
     "kv_quant": ("A9", "the int8 slot pool", _enabled),
     "monitor": ("A12", "the serving monitor", _truthy),
     "tensorboard": ("A12", "the tensorboard monitor", _enabled),
@@ -547,7 +553,6 @@ UNPORTED = {
     "statusz": ("A12", "the statusz server", _enabled),
     "flight_recorder": ("A12", "the flight recorder", _enabled),
     "resilience": ("A12", "preemption handling", _handles_signals),
-    "role": ("A12", "a disaggregated prefill/decode role", _not_unified),
     "fleet": ("A12", "the fleet router", _enabled),
     "loadgen": ("A12", "the load generator", _set),
     "soak": ("A12", "the soak harness", _set),

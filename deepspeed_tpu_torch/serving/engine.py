@@ -17,10 +17,15 @@ graceful drain are as in the JAX package.
     srv.shutdown()
 
 The engine's device (``cuda`` unless ``init_inference`` was given
-``device="cpu"``) holds the slot pool. KV handoff, the statusz server,
-the flight recorder, the compile/perf planes and preemption handling are
-not ported yet; their config blocks raise naming ROADMAP.md rows A12 and
-A13 (``serving/config.py``).
+``device="cpu"``) holds the slot pool. Speculative decoding
+(``speculative``), the radix prefix cache (``prefix_cache``) and the
+disaggregated roles run here: a ``role: "prefill"`` engine hands each
+prefilled lane to ``handoff_sink(handoff, request)`` as a ``KVHandoff``
+(``serving/fleet/handoff.py``), and a ``role: "decode"`` engine takes it
+through ``submit_handoff``. The fleet router, the statusz server, the
+flight recorder, the compile/perf planes and preemption handling are not
+ported yet; their config blocks raise naming ROADMAP.md rows A12 and A13
+(``serving/config.py``).
 """
 
 import time
@@ -42,7 +47,8 @@ class ServingEngine:
     """Slot-based continuous-batching serving on top of InferenceEngine."""
 
     def __init__(self, engine, config: Union[ServingConfig, dict, None] = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 handoff_sink: Optional[Callable] = None):
         if config is None:
             config = ServingConfig()
         elif isinstance(config, dict):
@@ -62,7 +68,8 @@ class ServingEngine:
                                       tracer=self.tracer, slo=config.slo,
                                       tenants=config.tenants)
         self.scheduler = ContinuousBatchingScheduler(
-            engine, config, metrics=self.metrics, clock=clock)
+            engine, config, metrics=self.metrics, clock=clock,
+            handoff_sink=handoff_sink)
         self._requests: Dict[int, Request] = {}
         self._next_id = 0
         self._draining = False
@@ -100,6 +107,105 @@ class ServingEngine:
         self._requests[req.request_id] = req
         self._next_id += 1
         return req.request_id
+
+    def submit_handoff(self, handoff, request: Optional[Request] = None,
+                       on_token: Optional[Callable] = None) -> int:
+        """Enqueue a completed prefill (``serving/fleet/handoff.py``) for
+        decode in this engine's pool. With ``request`` (the prefill
+        engine's, handed to its sink) the same Request continues: its
+        token list, callbacks and deadline travel with the KV state.
+        Without one, a Request is rebuilt from the handoff's metadata and
+        the already-sampled first token is delivered here. A lane from
+        another ``weights_version`` is refused and the request prefilled
+        locally. Raises ``QueueFull`` past ``max_queue`` (shared with the
+        prompt queue) and ``ValueError`` when the handoff cannot fit this
+        pool."""
+        if self._draining:
+            raise RuntimeError("ServingEngine is draining; handoff rejected")
+        kv_len = int(handoff.kv_len)
+        max_new = (request.max_new_tokens if request is not None
+                   else int(handoff.max_new_tokens))
+        if kv_len + max_new > self.config.max_model_len:
+            raise ValueError(
+                f"handoff kv_len ({kv_len}) + max_new_tokens ({max_new}) "
+                f"exceeds serving.max_model_len={self.config.max_model_len}")
+        # K/V computed by one model and read by another is silent
+        # corruption: refuse it. None is a producer without versions.
+        incoming = getattr(handoff, "weights_version", None)
+        refused = incoming is not None and \
+            int(incoming) != self.weights_version
+        deliver_first = request is None
+        if request is None:
+            sampling = SamplingParams(
+                temperature=handoff.temperature, top_k=int(handoff.top_k),
+                top_p=float(handoff.top_p), seed=int(handoff.seed),
+                max_new_tokens=handoff.max_new_tokens,
+                eos_token_id=handoff.eos_token_id,
+                tenant=handoff.tenant or "default")
+            request = Request(
+                request_id=self._next_id,
+                prompt=np.asarray(handoff.prompt, np.int32).reshape(-1),
+                sampling=sampling, max_new_tokens=handoff.max_new_tokens,
+                on_token=on_token)
+            self._next_id += 1
+            request.submit_time = self.scheduler.clock()
+            if not refused:
+                self.tracer.async_begin(
+                    "request", request.request_id, cat="serving",
+                    args={"prompt_len": int(request.prompt.size),
+                          "max_new_tokens": request.max_new_tokens,
+                          "handoff": True})
+        if refused:
+            return self._refuse_handoff(handoff, request,
+                                        fresh=deliver_first)
+        self.scheduler.enqueue_handoff(handoff, request)   # QueueFull here
+        self._requests[request.request_id] = request
+        if deliver_first:
+            request.state = RequestState.RUNNING
+            request.first_token_time = self.scheduler.clock()
+            self.scheduler._deliver(request, int(handoff.first_token))
+        return request.request_id
+
+    def _refuse_handoff(self, handoff, request: Request, fresh: bool) -> int:
+        """Refuse a lane from another ``weights_version`` and prefill the
+        request in this engine's pool instead. The ``(seed, column)``
+        sampling keys regenerate the same stream from the local prefill:
+        the refusal costs one prompt pass. ``fresh`` marks a Request just
+        rebuilt here (no lifecycle span open yet)."""
+        if len(self.scheduler.queue) >= self.config.max_queue:
+            # reject before changing the request, so the caller can retry
+            # the untouched handoff elsewhere
+            self.metrics.record_reject()
+            raise QueueFull(
+                f"serving queue at capacity ({self.config.max_queue}); "
+                f"handoff refusal cannot re-prefill")
+        producer = getattr(handoff, "weights_version", None)
+        self.metrics.record_handoff_refused()
+        with self.tracer.span(
+                "handoff_refused", cat="serving",
+                args={"request_id": request.request_id,
+                      "producer_version": producer,
+                      "local_version": self.weights_version,
+                      "source": getattr(handoff, "source", None)}):
+            pass
+        if not fresh:
+            # the request lived a prefill on the producing side: close its
+            # lifecycle span and reset it; enqueue() reopens the span
+            self.tracer.async_end("request", request.request_id,
+                                  cat="serving",
+                                  args={"handoff_refused": True})
+            request.state = RequestState.QUEUED
+            request.tokens.clear()
+            request.prefill_pos = 0
+            request.prefill_started = False
+            request.first_token_time = None
+        self.scheduler.enqueue(request)
+        self._requests[request.request_id] = request
+        log_dist(
+            f"serving: KV handoff for request {request.request_id} "
+            f"refused (producer weights_version {producer} != local "
+            f"{self.weights_version}); prefilling locally", ranks=[0])
+        return request.request_id
 
     # ------------------------------------------------------------------ step
     def step(self) -> int:
@@ -163,6 +269,12 @@ class ServingEngine:
         self.metrics.close()
 
     # ------------------------------------------------------------- inspection
+    @property
+    def weights_version(self) -> int:
+        """The ``weights_version`` this engine serves (0 = unversioned),
+        compared with each KV handoff's."""
+        return int(getattr(self.engine, "weights_version", 0) or 0)
+
     @property
     def queue_depth(self) -> int:
         return len(self.scheduler.queue)

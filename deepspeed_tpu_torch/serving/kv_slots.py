@@ -53,6 +53,9 @@ class SlotPool:
         self.seeds = np.zeros((num_slots,), np.int32)
         self.requests: List[Optional[object]] = [None] * num_slots
         self._free = list(range(num_slots - 1, -1, -1))  # pop(): slot 0 first
+        #: slots parked in the prefix cache: not free, not active; their
+        #: lanes stay resident as reusable prefixes until LRU eviction
+        self.cached: set = set()
         self.total_allocs = 0
 
     # ------------------------------------------------------------ lifecycle
@@ -66,19 +69,35 @@ class SlotPool:
 
     def free(self, slot: int):
         """Retire a slot back to the free list (EOS / max-tokens /
-        timeout). The lane's stale K/V needs no scrubbing: the next prefill
-        writes the lane and the decode mask never looks past the new
-        request's length."""
+        timeout / prefix-cache eviction). The lane's stale K/V needs no
+        scrubbing: the next prefill writes the lane and the decode mask
+        never looks past the new request's length."""
         if self.requests[slot] is None and slot in self._free:
             return
-        self.requests[slot] = None
+        self._detach(slot)
         self.lengths[slot] = 0
+        self.cached.discard(slot)
+        self._free.append(slot)
+
+    def retire_to_cache(self, slot: int):
+        """Park a finished request's slot in the prefix cache: detached
+        from decode (no request, nothing pending) but not freed, its K/V
+        resident as a reusable prefix. ``lengths`` keeps the valid-column
+        count, so the per-tick dummy writes for a parked slot (a decode
+        column, or a verify block's ``k + 1``) land from column
+        ``lengths[slot]`` on, past the cached content: the cached prefix
+        is never clobbered."""
+        self._detach(slot)
+        self.cached.add(slot)
+
+    def _detach(self, slot: int):
+        """No request, nothing pending, greedy neutral registers."""
+        self.requests[slot] = None
         self.pending[slot] = 0
         self.temps[slot] = 0.0
         self.top_ks[slot] = 0
         self.top_ps[slot] = 1.0
         self.seeds[slot] = 0
-        self._free.append(slot)
 
     def bind(self, slot: int, request, length: int, first_token: int,
              sampling=None):
@@ -110,8 +129,8 @@ class SlotPool:
 
     def decode_arrays(self):
         """(toks, positions, temps, top_ks, top_ps, seeds) for one fused
-        decode step. Free slots carry dummy values (token 0 at column 0,
-        greedy); their lane writes land in a lane the next prefill
-        rewrites, and the scheduler drops their sampled tokens."""
+        decode or verify step. Free slots carry dummy values (token 0 at
+        column 0, greedy); their lane writes land in a lane the next
+        prefill rewrites, and the scheduler drops their sampled tokens."""
         return (self.pending.copy(), self.lengths.copy(), self.temps.copy(),
                 self.top_ks.copy(), self.top_ps.copy(), self.seeds.copy())

@@ -15,8 +15,10 @@ The SLO tracker compares the windows against the configured targets
 (``slo.ttft_ms`` / ``tpot_ms`` / ``e2e_ms`` at ``slo.target``) and
 publishes a burn-rate gauge: observed violation rate / allowed violation
 rate (>1 = out of budget). Per-tenant windows give the ``tenant/*`` gauges.
-The speculative-decoding, KV-handoff and prefix-cache counters of the JAX
-package are not ported yet (rows A6b, A12), nor is ``FleetMetrics`` (A12).
+The speculative ticks feed the ``spec/*`` gauges (acceptance and
+tokens-per-tick EMAs, the draft / verify wall split), the KV handoffs and
+the prefix cache their ``serving/*`` counters, under the JAX package's
+series names. ``FleetMetrics`` is row A12.
 """
 
 import time
@@ -96,6 +98,21 @@ class ServingMetrics:
         self.timeouts = 0
         self.tokens_out = 0
         self.ticks = 0
+        self.handoffs_in = 0      # KV lanes received into this pool
+        self.handoffs_out = 0     # KV lanes extracted and handed off
+        self.handoffs_refused = 0  # lanes refused at a weights_version
+                                   # boundary (prefilled locally)
+        # speculative ticks: acceptance EMA, tokens-per-tick EMA and the
+        # draft / verify wall split (the spec/* gauges)
+        self.spec_ticks = 0
+        self.spec_accepted = 0            # accepted draft tokens, lifetime
+        self.spec_proposed = 0            # k x active, lifetime
+        self.spec_emitted = 0             # tokens emitted by spec ticks
+        self.spec_acceptance_ema: Optional[float] = None
+        self.spec_tokens_per_tick_ema: Optional[float] = None
+        self.spec_draft_ms = 0.0          # last tick's draft wall
+        self.spec_verify_ms = 0.0         # last tick's verify wall
+        self.spec_k = 0
         #: last computed SLO burn rate (refreshed every monitor_interval
         #: ticks by _emit_slo_gauges); None until targets produce one.
         #: The per-tick flight-recorder path reads this instead of
@@ -214,6 +231,65 @@ class ServingMetrics:
             self._gauge("serving/e2e_ms", e2e)
             tstats.e2e_ms.append(e2e)
             tstats.e2e_t.append(self._now())
+
+    def record_spec_tick(self, step_s: float, n_active: int, k: int,
+                         accepted: int, emitted: int, draft_s: float,
+                         verify_s: float, ema_alpha: float = 0.2):
+        """One speculative tick advanced ``n_active`` requests by
+        ``emitted`` tokens in all (``accepted`` of them draft-proposed).
+        The per-token latency each request saw is the tick wall over its
+        own emitted count, taken as the mean."""
+        self.spec_ticks += 1
+        self.spec_k = k
+        self.spec_accepted += accepted
+        self.spec_proposed += k * n_active
+        self.spec_emitted += emitted
+        self.tokens_out += emitted
+        per_req = max(1.0, emitted / max(1, n_active))
+        self.token_ms.append(step_s * 1e3 / per_req)
+        self._token_t.append(self._now())
+        self.spec_draft_ms = draft_s * 1e3
+        self.spec_verify_ms = verify_s * 1e3
+        rate = accepted / max(1, k * n_active)
+        tpt = emitted / max(1, n_active)
+        if self.spec_acceptance_ema is None:
+            self.spec_acceptance_ema = rate
+            self.spec_tokens_per_tick_ema = tpt
+        else:
+            a = ema_alpha
+            self.spec_acceptance_ema += a * (rate - self.spec_acceptance_ema)
+            self.spec_tokens_per_tick_ema += \
+                a * (tpt - self.spec_tokens_per_tick_ema)
+        if self.spec_ticks % self.monitor_interval == 0 or \
+                self.spec_ticks == 1:
+            self._gauge("spec/acceptance_ema", self.spec_acceptance_ema)
+            self._gauge("spec/tokens_per_tick", self.spec_tokens_per_tick_ema)
+            self._gauge("spec/k", k)
+            self._gauge("spec/draft_ms", self.spec_draft_ms)
+            self._gauge("spec/verify_ms", self.spec_verify_ms)
+            self._gauge("spec/accepted_total", self.spec_accepted)
+            self._gauge("spec/emitted_total", self.spec_emitted)
+
+    def record_handoff_in(self):
+        self.handoffs_in += 1
+        self._gauge("serving/kv_handoffs_in", self.handoffs_in)
+
+    def record_handoff_out(self):
+        self.handoffs_out += 1
+        self._gauge("serving/kv_handoffs_out", self.handoffs_out)
+
+    def record_handoff_refused(self):
+        self.handoffs_refused += 1
+        self._gauge("serving/kv_handoffs_refused", self.handoffs_refused)
+
+    def record_prefix_cache(self, cache):
+        """Mirror the radix cache's counters into gauges, at the monitor
+        cadence of the queue / utilization gauges."""
+        if self.ticks % self.monitor_interval == 0 or self.ticks == 1:
+            self._gauge("serving/prefix_cache_hit_rate", cache.hit_rate)
+            self._gauge("serving/prefix_cache_hits", cache.hits)
+            self._gauge("serving/prefix_cached_slots", cache.cached_slots)
+            self._gauge("serving/prefix_tokens_saved", cache.tokens_saved)
 
     def record_tick(self, queue_depth: int, slot_utilization: float):
         self.ticks += 1
@@ -345,6 +421,8 @@ class ServingMetrics:
             "timeouts": self.timeouts,
             "tokens_out": self.tokens_out,
             "ticks": self.ticks,
+            "kv_handoffs_in": self.handoffs_in,
+            "kv_handoffs_out": self.handoffs_out,
             "ttft_ms_p50": pct["ttft_ms"]["p50"],
             "ttft_ms_p95": pct["ttft_ms"]["p95"],
             "ttft_ms_p99": pct["ttft_ms"]["p99"],
@@ -359,6 +437,18 @@ class ServingMetrics:
         if len(self.tenant_stats) > 1 or (
                 self.tenant_stats and "default" not in self.tenant_stats):
             out["tenants"] = self.tenant_status()
+        if self.spec_ticks:
+            out["speculative"] = {
+                "ticks": self.spec_ticks,
+                "k": self.spec_k,
+                "acceptance_rate": round(
+                    self.spec_accepted / max(1, self.spec_proposed), 4),
+                "acceptance_ema": round(self.spec_acceptance_ema or 0.0, 4),
+                "tokens_per_tick_ema": round(
+                    self.spec_tokens_per_tick_ema or 0.0, 3),
+                "draft_ms_last": round(self.spec_draft_ms, 3),
+                "verify_ms_last": round(self.spec_verify_ms, 3),
+            }
         if wall_seconds:
             out["tokens_per_s"] = round(self.tokens_out / wall_seconds, 2)
         return out

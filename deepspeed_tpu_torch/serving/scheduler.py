@@ -1,54 +1,41 @@
 """Continuous-batching request scheduler, as the JAX package's
-``serving/scheduler.py`` runs it on the ``unified`` role.
+``serving/scheduler.py`` runs it.
 
 Orca-style iteration-level scheduling on static shapes: each ``tick()``
-(1) expires requests past their deadline, (2) admits queued requests into
-free slots: prefill writes the prompt's K/V into the slot's cache lane and
-samples the request's FIRST token (so TTFT is one prefill away from
-admission), or, with ``chunked_prefill``, a long prompt lands one chunk a
-tick while everyone else decodes, and (3) runs ONE fused decode step over
-all slots, advancing every in-flight request by one token. Requests retire
-on EOS or max-tokens and their slot returns to the free list for the next
-admission; no shape ever changes. Admission order is FIFO, or deficit
-round-robin over tenants with the ``tenants`` block.
+(1) expires requests past their deadline, (2) inserts received KV lanes
+(the ``decode`` role), (3) admits queued requests into free slots:
+prefill writes the prompt's K/V into the slot's cache lane and samples the
+request's FIRST token (so TTFT is one prefill away from admission), or,
+with ``chunked_prefill``, a long prompt lands one chunk a tick while
+everyone else decodes, and (4) runs ONE fused decode step over all slots,
+advancing every in-flight request by one token, or, with ``speculative``,
+one draft proposal and one batched verify that advance each by its
+accepted prefix plus one. Requests retire on EOS or max-tokens and their
+slot returns to the free list, or, with ``prefix_cache``, is parked as a
+reusable prefix that later admissions copy (lane copy + suffix prefill);
+no shape ever changes. Admission order is FIFO, or deficit round-robin
+over tenants with the ``tenants`` block. A ``prefill``-role scheduler
+hands each prefilled lane to ``handoff_sink`` as a ``KVHandoff`` instead
+of decoding it.
 
-The ``prefill`` / ``decode`` roles (KV handoff), the prefix cache,
-speculative decoding, the cost ledger and distributed trace contexts of
-the JAX package are not ported yet: their config blocks raise naming
-ROADMAP.md rows A6b and A12 (``serving/config.py``).
+The cost ledger and the distributed trace contexts of the JAX package are
+ROADMAP.md row A12.
 """
 
 import dataclasses
 import enum
 import time
 from collections import OrderedDict, deque
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from ..inference.engine import _next_pow2
 from ..telemetry.trace import get_tracer
 from ..utils.logging import logger
+from .fleet.handoff import KVHandoff
+from .fleet.prefix_cache import RadixPrefixCache, reuse_plan
 from .kv_slots import SlotPool
 from .metrics import ServingMetrics
-
-
-def reuse_plan(prompt_len: int, matched_len: int,
-               max_len: int) -> Tuple[int, int]:
-    """``(offset, suffix_len)`` for a suffix prefill of a prompt whose first
-    ``matched_len`` tokens already sit in the lane (the JAX package's
-    ``prefix_cache.reuse_plan``). At least one suffix token runs (the
-    sampled next token needs a query position), and the suffix's pow2
-    bucket must fit below ``max_len``: when it would not, the offset backs
-    off (``max_len - bucket`` always fits, since ``prompt_len <= max_len``)
-    and the columns in between recompute to the same K/V."""
-    matched = min(matched_len, prompt_len - 1)
-    if matched <= 0:
-        return 0, prompt_len
-    suffix = prompt_len - matched
-    bucket = min(_next_pow2(suffix), max_len)
-    offset = min(matched, max_len - bucket)
-    return max(0, offset), prompt_len - max(0, offset)
 
 
 class QueueFull(RuntimeError):
@@ -288,19 +275,34 @@ class TenantQueues:
 
 
 class ContinuousBatchingScheduler:
-    """Admission queue + slot pool + fused decode tick (the ``unified``
-    role)."""
+    """Admission queue + slot pool + fused decode tick.
+
+    Three roles share this loop (``config.role``): ``unified`` admits
+    prompts, prefills and decodes; ``prefill`` admits prompts, prefills,
+    then extracts the slot lane into a ``KVHandoff`` for ``handoff_sink``
+    instead of binding it for decode; ``decode`` also drains a handoff
+    queue, inserting received lanes into its own pool, and runs the token
+    loop. With ``prefix_cache.enabled``, finished slots are donated to a
+    radix cache and admissions that share a cached prefix take the lane
+    copy + suffix prefill path. With ``speculative.enabled``, a draft
+    pool beside the target pool is kept in lockstep with it.
+    """
 
     def __init__(self, engine, config, metrics: ServingMetrics = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 handoff_sink: Optional[Callable] = None):
         self.engine = engine
         self.config = config
         self.clock = clock
+        self.role = getattr(config, "role", "unified")
+        self.handoff_sink = handoff_sink
         self.metrics = metrics or ServingMetrics()
         self.pool = SlotPool(engine, config.num_slots, config.max_model_len)
         #: admission queue: per-tenant FIFOs + deficit round-robin when
         #: the tenants block is on, a plain FIFO otherwise (deque API)
         self.queue = TenantQueues(getattr(config, "tenants", None))
+        #: (KVHandoff, Request) pairs awaiting a slot (decode role)
+        self.handoff_queue: "deque" = deque()
         #: chunked prefill in flight: slot -> PREFILLING Request, in
         #: admission order; each holds its slot across ticks while its
         #: prompt lands chunk by chunk (chunked_prefill config block)
@@ -314,6 +316,22 @@ class ContinuousBatchingScheduler:
         #: every tick linear in queued requests
         self.expire_sweep_interval = 64
         self._queue_min_deadline: Optional[float] = None
+        self.prefix_cache = None
+        pc_cfg = getattr(config, "prefix_cache", None)
+        if getattr(pc_cfg, "enabled", False):
+            self.prefix_cache = RadixPrefixCache(pc_cfg)
+        # speculative decoding: a draft model and a draft slot pool in
+        # lockstep with the target pool. A prefill role never decodes, so
+        # it has no draft.
+        self.spec = None
+        self.draft = None
+        self.draft_cache = None
+        spec_cfg = getattr(config, "speculative", None)
+        if getattr(spec_cfg, "enabled", False) and self.role != "prefill":
+            self.spec = spec_cfg
+            self.draft = engine.init_draft(spec_cfg.draft)
+            self.draft_cache = engine.init_draft_pool(
+                self.draft, config.num_slots, config.max_model_len)
         self._tick_no = 0
         # per-request async spans (queue -> prefill -> decode -> complete)
         self.tracer = get_tracer()
@@ -346,25 +364,72 @@ class ContinuousBatchingScheduler:
         self.metrics.record_submit(tenant=request.tenant,
                                    prompt_tokens=int(request.prompt.size))
 
+    def enqueue_handoff(self, handoff, request: Request):
+        """Admission control for the handoff path (decode role): the
+        handoff queue shares ``max_queue`` with the prompt queue."""
+        if len(self.handoff_queue) + len(self.queue) >= self.config.max_queue:
+            self.metrics.record_reject()
+            raise QueueFull(
+                f"serving handoff queue at capacity "
+                f"({self.config.max_queue}); retry with backoff")
+        self.handoff_queue.append((handoff, request))
+        self.tracer.async_begin(
+            "request/handoff_queued", request.request_id, cat="serving",
+            args={"kv_len": int(handoff.kv_len), "source": handoff.source})
+
     # ----------------------------------------------------------------- tick
     def tick(self) -> int:
         """One scheduling iteration. Returns the number of requests still
-        in flight (queued + prefilling + running) after the tick. With
-        chunked prefill, each tick's prefill work is budgeted in units of
-        ``chunk_tokens``: admissions (DRR-ordered) spend the budget, then
-        the OLDEST in-flight chunked prefill always advances one chunk, and
-        every active slot still decodes every tick."""
+        in flight (queued + handed off + prefilling + running) after the
+        tick. With chunked prefill, each tick's prefill work is budgeted
+        in units of ``chunk_tokens``: admissions (DRR-ordered) spend the
+        budget, then the OLDEST in-flight chunked prefill always advances
+        one chunk, and every active slot still decodes every tick."""
         self._tick_no += 1
         now = self.clock()
         self._expire(now)
+        self._admit_handoffs(now)
         budget = (self.chunked.chunk_tokens if self.chunked is not None
                   else None)
         budget = self._admit(now, budget)
         self._advance_prefills(now, budget)
         self._decode()
         self.metrics.record_tick(len(self.queue), self.pool.utilization)
-        return (len(self.queue) + len(self.pool.active_slots) +
-                len(self.prefilling))
+        if self.prefix_cache is not None:
+            self.metrics.record_prefix_cache(self.prefix_cache)
+        return (len(self.queue) + len(self.handoff_queue) +
+                len(self.pool.active_slots) + len(self.prefilling))
+
+    def _alloc_slot(self) -> Optional[int]:
+        """Claim a slot, evicting the LRU prefix-cache entry when the
+        free list is dry: live admissions outrank cached prefixes (pinned
+        entries excepted)."""
+        slot = self.pool.alloc()
+        if slot is None and self.prefix_cache is not None:
+            victim = self.prefix_cache.evict_lru()
+            if victim is not None:
+                self.pool.free(victim)
+                slot = self.pool.alloc()
+        return slot
+
+    def _release_slot(self, slot: int, req: Request, donate_seq=None):
+        """Retire a slot: donate its lane to the prefix cache when it
+        holds reusable K/V (a FINISHED request's whole sequence, or the
+        prompt a prefill-role scheduler just handed off), else return it
+        to the free list."""
+        cache = self.prefix_cache
+        kv_len = int(self.pool.lengths[slot])
+        if cache is not None and donate_seq is None and \
+                req.state is RequestState.FINISHED:
+            donate_seq = req.output_ids[:kv_len]
+        if cache is not None and donate_seq is not None:
+            accepted, evicted = cache.donate(slot, donate_seq, kv_len)
+            if evicted is not None:
+                self.pool.free(evicted)
+            if accepted:
+                self.pool.retire_to_cache(slot)
+                return
+        self.pool.free(slot)
 
     def _expire(self, now: float):
         """Deadline enforcement. Running and prefilling requests are
@@ -416,6 +481,41 @@ class ContinuousBatchingScheduler:
             return req
         return None
 
+    def _admit_handoffs(self, now: float):
+        """Insert received KV lanes into free slots (decode role): no
+        prefill, the prompt's K/V arrives computed; only the lane insert
+        and the bind happen here."""
+        tr = self.tracer
+        while self.handoff_queue:
+            slot = self._alloc_slot()
+            if slot is None:
+                return
+            handoff, req = self.handoff_queue.popleft()
+            tr.async_end("request/handoff_queued", req.request_id,
+                         cat="serving")
+            tr.async_begin("request/decode", req.request_id, cat="serving",
+                           args={"slot": slot, "handoff": True})
+            with tr.span("kv_handoff_in", cat="serving",
+                         args={"request_id": req.request_id, "slot": slot,
+                               "kv_len": int(handoff.kv_len),
+                               "bytes": handoff.nbytes(),
+                               "source": handoff.source}):
+                self.pool.cache = self.engine.slot_insert_lane(
+                    self.pool.cache, slot, handoff.lane)
+            req.state = RequestState.RUNNING
+            self.metrics.record_handoff_in()
+            if self._should_finish(req, handoff.first_token):
+                self._finish(req, RequestState.FINISHED, self.clock())
+                self._release_slot(slot, req)
+            else:
+                self.pool.bind(slot, req, int(handoff.kv_len),
+                               int(handoff.first_token), req.sampling)
+                if self.spec is not None:
+                    # the draft lane has no handoff: rebuild it from the
+                    # prompt (the draft is the cheap side of the trade)
+                    self.draft_cache = self.engine.draft_prefill(
+                        self.draft, self.draft_cache, slot, req.prompt)
+
     def _advance_prefills(self, now: float, budget):
         """Advance in-flight chunked prefills, oldest first. The HEAD
         request always moves one chunk (small admissions cannot starve a
@@ -440,16 +540,19 @@ class ContinuousBatchingScheduler:
     def _admit(self, now: float, budget=None):
         """Move queued requests into free slots, at most
         ``max_prefills_per_tick`` a tick (admission bursts cannot starve
-        in-flight decode). A prompt that fits ``chunk_tokens`` (or any
-        prompt, when chunking is off) prefills inline; a longer one starts
-        a chunked admission. ``budget`` (chunked mode) is the tick's
-        prefill-token budget; each admission spends its prefill work
-        against it, and the rest is returned for the in-flight chunks."""
+        in-flight decode). A prompt whose unshared suffix fits
+        ``chunk_tokens`` (or any prompt, when chunking is off) prefills
+        inline; a longer one starts a chunked admission. With a prefix
+        cache, a prompt sharing a cached prefix admits by lane copy +
+        suffix (or chunk) prefill: only the unshared tail runs through
+        the stack. ``budget`` (chunked mode) is the tick's prefill-token
+        budget; each admission spends its prefill work against it, and
+        the rest is returned for the in-flight chunks."""
         admitted = 0
         tr = self.tracer
         while self.queue and admitted < self.config.max_prefills_per_tick \
                 and (budget is None or budget > 0):
-            slot = self.pool.alloc()
+            slot = self._alloc_slot()
             if slot is None:
                 return budget
             req = self._pop_live(now)
@@ -460,29 +563,58 @@ class ContinuousBatchingScheduler:
             tr.async_begin("request/decode", req.request_id, cat="serving",
                            args={"slot": slot})
             req.prefill_started = True
-            t = int(req.prompt.size)
-            if self.chunked is not None and t > self.chunked.chunk_tokens:
-                spent = self._start_chunked(slot, req)
+            hit = None
+            if self.prefix_cache is not None:
+                hit = self.prefix_cache.lookup(req.prompt)
+            # chunk only the unshared suffix: a prefix hit may take a long
+            # prompt below the chunking threshold
+            suffix = int(req.prompt.size) - \
+                (hit.matched if hit is not None else 0)
+            if self.chunked is not None and \
+                    suffix > self.chunked.chunk_tokens:
+                spent = self._start_chunked(slot, req, hit)
             else:
-                first = self._prefill_into(slot, req)
-                spent = t
+                first = self._prefill_into(slot, req, hit)
+                spent = suffix
                 self._complete_admission(slot, req, first)
             if budget is not None:
                 budget -= spent
             admitted += 1
         return budget
 
-    def _start_chunked(self, slot: int, req: Request) -> int:
-        """Begin a chunked admission: the request holds its slot in
-        PREFILLING state and writes its first chunk now;
-        ``_advance_prefills`` moves it forward on later ticks. Returns the
-        prefill tokens spent now."""
+    def _prefix_span(self, slot: int, req: Request, hit, reused: int,
+                     **args):
+        """The span of a prefix hit's lane copy (and suffix prefill)."""
+        return self.tracer.span(
+            "prefix_reuse", cat="serving",
+            args={"request_id": req.request_id, "slot": slot,
+                  "src_slot": hit.slot, "matched": hit.matched,
+                  "reused": reused, "suffix": int(req.prompt.size) - reused,
+                  **args})
+
+    def _start_chunked(self, slot: int, req: Request, hit) -> int:
+        """Begin a chunked admission: the prefix hit's lane copy, if any,
+        then the first chunk. The request holds its slot in PREFILLING
+        state; ``_advance_prefills`` moves it forward on later ticks.
+        Returns the prefill tokens spent now."""
+        t = int(req.prompt.size)
+        start = 0
+        if hit is not None:
+            start = min(int(hit.matched), t - 1)
+            try:
+                if start > 0:
+                    with self._prefix_span(slot, req, hit, start,
+                                           chunked=True):
+                        self.pool.cache = self.engine.slot_copy_lane(
+                            self.pool.cache, hit.slot, slot)
+            finally:
+                self.prefix_cache.release(hit, used_tokens=max(0, start))
         req.state = RequestState.PREFILLING
-        req.prefill_pos = 0
+        req.prefill_pos = start
         # dummy decode writes for an unbound slot land at column
         # lengths[slot]: keep it at the end of the valid prefix, where the
         # next chunk starts and overwrites them
-        self.pool.lengths[slot] = 0
+        self.pool.lengths[slot] = start
         self.prefilling[slot] = req
         return self._chunk_step(slot, req)
 
@@ -528,8 +660,8 @@ class ContinuousBatchingScheduler:
 
     def _complete_admission(self, slot: int, req: Request, first: int):
         """Shared tail of every prefill path (inline or final chunk):
-        record TTFT, deliver the first token, then bind for decode or
-        finish."""
+        record TTFT, deliver the first token, then bind for decode, hand
+        off or finish."""
         t_first = self.clock()
         req.state = RequestState.RUNNING
         req.first_token_time = t_first
@@ -538,14 +670,38 @@ class ContinuousBatchingScheduler:
         self._deliver(req, first)
         if self._should_finish(req, first):
             self._finish(req, RequestState.FINISHED, t_first)
-            self.pool.free(slot)
+            self._release_slot(slot, req)
+        elif self.role == "prefill":
+            self._hand_off(slot, req, first)
         else:
             self.pool.bind(slot, req, len(req.prompt), first, req.sampling)
+            if self.spec is not None:
+                self.draft_cache = self.engine.draft_prefill(
+                    self.draft, self.draft_cache, slot, req.prompt)
 
-    def _prefill_into(self, slot: int, req: Request) -> int:
-        """Full prefill of the request's prompt into ``slot``. Returns the
-        first sampled token."""
+    def _prefill_into(self, slot: int, req: Request, hit) -> int:
+        """Full prefill of the request's prompt into ``slot``, or, when
+        the radix cache holds a shared prefix (``hit``, looked up by the
+        caller so the chunk-or-inline decision sees the unshared suffix),
+        the lane copy + suffix prefill. Returns the first sampled
+        token."""
         sp = req.sampling
+        if hit is not None:
+            offset, _suffix = reuse_plan(int(req.prompt.size), hit.matched,
+                                         self.config.max_model_len)
+            try:
+                if offset > 0:
+                    with self._prefix_span(slot, req, hit, offset):
+                        self.pool.cache = self.engine.slot_copy_lane(
+                            self.pool.cache, hit.slot, slot)
+                        self.pool.cache, first = \
+                            self.engine.slot_suffix_prefill(
+                                self.pool.cache, slot, req.prompt[offset:],
+                                offset, temperature=sp.temperature,
+                                top_k=sp.top_k, top_p=sp.top_p, seed=sp.seed)
+                    return first
+            finally:
+                self.prefix_cache.release(hit, used_tokens=offset)
         with self.tracer.span("prefill", cat="serving",
                               args={"request_id": req.request_id,
                                     "slot": slot,
@@ -558,11 +714,51 @@ class ContinuousBatchingScheduler:
                 top_p=sp.top_p, seed=sp.seed)
         return first
 
+    def _hand_off(self, slot: int, req: Request, first: int):
+        """Prefill role: package the prefilled lane as a ``KVHandoff``,
+        release the slot (donating the prompt's lane to the prefix cache)
+        and deliver to the sink. The Request travels with the handoff:
+        the decode side keeps appending to the same token list and
+        callbacks."""
+        tr = self.tracer
+        with tr.span("kv_handoff_out", cat="serving",
+                     args={"request_id": req.request_id, "slot": slot,
+                           "kv_len": int(req.prompt.size)}):
+            lane = self.engine.slot_extract_lane(self.pool.cache, slot)
+        # the producing version rides the frame: the decode side refuses
+        # a lane from other weights
+        version = int(getattr(self.engine, "weights_version", 0) or 0)
+        handoff = KVHandoff(
+            prompt=req.prompt, first_token=int(first),
+            kv_len=int(req.prompt.size), lane=lane,
+            temperature=req.sampling.temperature,
+            top_k=req.sampling.top_k, top_p=req.sampling.top_p,
+            seed=req.sampling.seed,
+            max_new_tokens=req.max_new_tokens,
+            eos_token_id=req.sampling.eos_token_id,
+            request_id=req.request_id,
+            tenant=req.tenant,
+            weights_version=version)
+        tr.async_end("request/decode", req.request_id, cat="serving",
+                     args={"handed_off": True})
+        # the lane was only written, never bound: park it in the prefix
+        # cache (or free it) before the sink possibly re-enters us
+        self.pool.lengths[slot] = int(req.prompt.size)
+        self._release_slot(slot, req, donate_seq=req.prompt)
+        self.metrics.record_handoff_out()
+        if self.handoff_sink is None:
+            raise RuntimeError(
+                "role=prefill needs a handoff_sink: a prefill engine has "
+                "nowhere to send its completed KV state")
+        self.handoff_sink(handoff, req)
+
     def _decode(self):
         """One fused decode step over all slots; retire on EOS/max."""
         active = self.pool.active_slots
         if not active:
             return
+        if self.spec is not None:
+            return self._decode_speculative(active)
         toks, positions, temps, top_ks, top_ps, seeds = \
             self.pool.decode_arrays()
         t0 = self.clock()
@@ -585,7 +781,65 @@ class ContinuousBatchingScheduler:
             self.metrics.record_tenant_tokens(req.tenant)
             if finishing:
                 self._finish(req, RequestState.FINISHED, now)
-                self.pool.free(slot)
+                self._release_slot(slot, req)
+
+    def _decode_speculative(self, active):
+        """One speculative tick: the draft proposes k tokens a slot, the
+        target verifies all of them in one batched forward with the
+        rollback inside the step, and every active slot advances by its
+        accepted prefix + 1 (between 1 and k + 1 tokens), the emitted
+        stream bitwise the non-speculative path's."""
+        toks, positions, temps, top_ks, top_ps, seeds = \
+            self.pool.decode_arrays()
+        k = self.spec.k
+        tr = self.tracer
+        t0 = self.clock()
+        with tr.span("draft_propose", cat="serving",
+                     args={"n_active": len(active), "k": k,
+                           "tick": self._tick_no}):
+            self.draft_cache, draft_toks = self.engine.slot_draft_propose(
+                self.draft, self.draft_cache, toks, positions, temps,
+                top_ks, top_ps, seeds, k)
+        t_draft = self.clock()
+        with tr.span("spec_verify", cat="serving",
+                     args={"n_active": len(active), "k": k,
+                           "tick": self._tick_no}):
+            self.pool.cache, out_toks, accepts = self.engine.slot_verify_step(
+                self.pool.cache, toks, draft_toks, positions, temps,
+                top_ks, top_ps, seeds)
+        t_verify = self.clock()
+        now = self.clock()
+        accepted_total = emitted_total = 0
+        for slot in active:
+            req = self.pool.requests[slot]
+            a = int(accepts[slot])
+            p = int(self.pool.lengths[slot])
+            delivered = 0
+            finishing = False
+            for j in range(a + 1):
+                tok = int(out_toks[slot, j])
+                finishing = self._should_finish(req, tok, pending=1)
+                self._deliver(req, tok)
+                delivered += 1
+                if finishing:
+                    break
+            # columns p..p+a hold the fed token + accepted drafts; the
+            # final emitted token (the bonus or the first mismatch) is the
+            # new pending one, its K/V not in the cache yet
+            self.pool.lengths[slot] = p + 1 + min(delivered, a)
+            accepted_total += a
+            emitted_total += delivered
+            self.metrics.record_tenant_tokens(req.tenant, delivered)
+            if finishing:
+                self._finish(req, RequestState.FINISHED, now)
+                self._release_slot(slot, req)
+            else:
+                self.pool.pending[slot] = int(out_toks[slot, a])
+        self.metrics.record_spec_tick(
+            step_s=now - t0, n_active=len(active), k=k,
+            accepted=accepted_total, emitted=emitted_total,
+            draft_s=t_draft - t0, verify_s=t_verify - t_draft,
+            ema_alpha=self.spec.ema_alpha)
 
     # -------------------------------------------------------------- helpers
     def _deliver(self, req: Request, tok: int):

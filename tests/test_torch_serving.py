@@ -426,7 +426,12 @@ GOOD = [{}, {"num_slots": 4, "max_seq_len": 128},
          "monitor": False, "csv_monitor": {"enabled": False},
          "telemetry": {"enabled": False}, "resilience": {},
          "fleet": {"enabled": False}, "cost": {"ema_alpha": 0.5},
-         "loadgen": {}, "compile_plane": {"enabled": False}}]
+         "loadgen": {}, "compile_plane": {"enabled": False}},
+        # served since speculation, the prefix cache and the roles were
+        # ported (they raised naming ROADMAP.md row A6b / A12 before)
+        {"speculative": {"enabled": True}},
+        {"prefix_cache": {"enabled": True}},
+        {"role": "decode"}]
 BAD = [{"num_slots": 0}, {"max_model_len": 1}, {"max_queue": 0},
        {"max_prefills_per_tick": 0}, {"request_timeout_s": 0},
        {"no_such_key": 1}, {"role": "router"},
@@ -438,8 +443,8 @@ BAD = [{"num_slots": 0}, {"max_model_len": 1}, {"max_queue": 0},
        {"tenants": {"quantum_tokens": 0}},
        {"speculative": {"k": 3}}, {"prefix_cache": {"min_prefix_len": 0}},
        {"cost": {"ema_alpha": 0}}, {"loadgen": {"duration_s": 0}}]
-UNPORTED = [({"speculative": {"enabled": True}}, "A6b"),
-            ({"prefix_cache": {"enabled": True}}, "A6b"),
+UNPORTED = [({"speculative": {"enabled": True, "acceptance_floor": 0.5}},
+             "A12"),
             ({"kv_quant": {"enabled": True}}, "A9"),
             ({"monitor": True}, "A12"),
             ({"csv_monitor": {"enabled": True}}, "A12"),
@@ -447,7 +452,6 @@ UNPORTED = [({"speculative": {"enabled": True}}, "A6b"),
             ({"statusz": {"enabled": True}}, "A12"),
             ({"flight_recorder": {"enabled": True}}, "A12"),
             ({"resilience": {"handle_signals": True}}, "A12"),
-            ({"role": "decode"}, "A12"),
             ({"fleet": {"enabled": True}}, "A12"),
             ({"loadgen": {"seed": 3}}, "A12"),
             ({"soak": {"tail_s": 1.0}}, "A12"),
