@@ -49,7 +49,20 @@ and off over cohorts sharing 1024-token prefixes (``serve prefix``) and a
 prefill engine handing bf16 lanes through ``KVHandoff`` frames to a
 decode engine (``serve disagg``); on the GPT-2 engine, a 6-layer self
 draft at ``max_model_len == n_positions`` (``serve spec gpt2``); with the
-checks of ``SPEC_K``'s comment. Each profile names
+checks of ``SPEC_K``'s comment. Slice 7's phases: the threefry dropout
+kernel held bit for bit to its plain version, forward and backward, in
+f32, bf16 and f16 at BERT-large's hidden states, GPT-2's attention
+probabilities and a ragged shape, with a planted fault (one flipped key
+word) it must catch (``kernel-check dropout``); BERT-large with dropout
+0.1 and the default activation-checkpointing policy trained through
+DeepSpeed's user loop (``bert train loop``: K6 launched again in each
+recompute; the user loop against ``train_batch``, remat on against off,
+the kernel path against the plain-kernel path, a repeated batch);
+LLaMA-7B's width with remat off, default and full recompute, then at the
+depth only remat makes fit (``llama train remat``); GPT-2-125M with
+dropout, progressive layer drop and random-LTD through the user loop
+(``gpt2 train loop``: the model's layer coins and kept-token indices
+against a plain draw on the card). Each profile names
 the flash and block-sparse attention kernel instances that ran; on these
 bf16 paths they must be the tensor-core ones (``mma_*``). Every check raises
 on failure, so the script exits
@@ -202,6 +215,42 @@ SERVE_SPEC_GPT2 = dict(SERVE_GPT2, requests=8)
 PREFIX_COHORTS, PREFIX_PER_COHORT, PREFIX_LEN = 4, 8, 1024
 PREFIX_SUFFIX, PREFIX_NEW = (96, 32, 256), 64
 DISAGG_PREFILL_SLOTS = 4
+# Slice 7: dropout on the JAX package's keys (the threefry dropout
+# kernel), activation checkpointing, progressive layer drop, random-LTD.
+# The dropout kernel is held to its plain version bit for bit, forward and
+# backward, in f32, bf16 and f16, at BERT-large's hidden states, GPT-2's
+# attention probabilities and a ragged shape (a scalar tail), the keep
+# share within 5 sigma of the binomial
+DROPOUT_RATE = 0.1                    # GPT-2's and BERT-large's published
+DROPOUT_KEY = (SEED, 0x9E3779B9)
+DROPOUT_SHAPES = {"bert": (4, 4096, 1024), "gpt2 probs": (8, 12, 1024, 1024),
+                  "ragged": (3, 1000, 77)}
+# its bound: DROPOUT_INT_OPS integer operations an element (threefry: 2
+# counter and key adds, 20 rounds of add, rotate and xor, 5 key injections
+# of 2 adds, the xor of the two words; 2 for the uniform's mantissa)
+# against the H100 SXM's INT32 rate: 64 INT32 lanes an SM (half the 128
+# FP32 lanes behind the 67 TFLOP/s f32 peak, which counts an FMA as two) x
+# 132 SMs x 1.98 GHz
+DROPOUT_INT_OPS = 75
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+# GPT-2 loop: progressive layer drop at theta 0.5 with gamma 0.1 (DeepSpeed's
+# is 0.001, under which no layer drops within a few steps) and random-LTD on
+# DeepSpeed's GPT example schedule
+GPT2_PLD = {"enabled": True, "theta": 0.5, "gamma": 0.1}
+GPT2_LTD = {"enabled": True, "data_routing": {"enabled": True, "random_ltd": {
+    "enabled": True, "random_ltd_schedule": {
+        "min_value": 128, "max_value": 1024, "schedule_type": "fixed_linear",
+        "schedule_config": {"seq_per_step": 16, "require_steps": 200000}}}}}
+# LLaMA remat: bytes a parameter at the micro step's peak (f32 masters 4,
+# Adam's two moments 8, the f32 accumulation 4, the bf16 copies 2, their
+# bf16 gradients 2); the deep run takes the most layers whose predicted
+# peak (that, plus the default policy's measured bytes a layer) fills at
+# most REMAT_FILL of the card
+REMAT_BYTES_PER_PARAM, REMAT_FILL, REMAT_TIMED = 20, 0.9, 2
+
+
+# numbers one phase hands to a later one (phases' own measurements)
+MEASURED = {}
 
 
 def phase(name, **fields):
@@ -792,6 +841,7 @@ def kernel_group(key):
             "flash attention fwd (K1/K3/K4)" + route if "fwd_kernel" in name
             else "flash attention bwd (K2/K3b-K5/K4b)" + route
             if "dkdv_kernel" in name or "dq_kernel" in name else
+            "dropout (threefry)" if "threefry_dropout" in name else
             "optimizer (foreach)" if "foreach" in name or
             "multi_tensor" in name else
             "matmul" if any(s in name for s in (
@@ -959,16 +1009,9 @@ def train_converges(torch, cfg, t):
 
 
 def profile_train(torch, engine, batch, name="profile train"):
-    """Device time by kernel group over one ``train_batch``."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        s0 = time.perf_counter()
-        engine.train_batch(batch=batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - s0) * 1e3
-    report_profile(name, prof, wall_ms, top=10)
+    """Device time by kernel group over one ``train_batch``; returns the
+    trace's ``{kernel: launches}``."""
+    return profile_micro(torch, lambda: engine.train_batch(batch=batch), name)
 
 
 def check_streams(torch, name, engine_x, prompts, outs, vocab, margin):
@@ -1977,6 +2020,9 @@ def bert_train(torch):
           launches_per_step=json.dumps(per_step),
           launches=json.dumps(launches),
           peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    MEASURED["bert train"] = {
+        "tokens_per_s": tokens / best,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     profile_train(torch, engine, batches[-1], name="profile bert train")
     del engine, model
     torch.cuda.empty_cache()
@@ -2017,6 +2063,696 @@ def bert_train(torch):
           losses=json.dumps([round(x, 4) for x in losses]),
           threshold=f"last < {CONVERGE_FRACTION} x first")
     del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------- the dropout kernel and slice 7's loops
+
+def dropout_bound(n, itemsize):
+    """``(bound_ms, bound_by, int_ops, bytes)`` of one dropout pass over
+    ``n`` elements: x read once and out written once against the HBM rate,
+    DROPOUT_INT_OPS integer operations an element against the INT32 rate."""
+    nbytes = 2 * n * itemsize
+    ops = DROPOUT_INT_OPS * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def check_dropout(torch):
+    """The threefry dropout kernel against its plain version on the card,
+    bit for bit (``torch.equal``), forward and backward (the autograd
+    ``Function``: the same kernel on the gradient), at each shape of
+    DROPOUT_SHAPES in f32, bf16 and f16; the keep share within 5 sigma of
+    the binomial; then a planted fault (one flipped key word) the same
+    comparison must catch. Times the kernel, its plain version and
+    ``torch.nn.functional.dropout`` (PyTorch's one-call dropout, which
+    draws other bits) at the same shape. Returns the BERT bf16 case."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import dropout as drop
+    from deepspeed_tpu_torch.ops.kernels import threefry_dropout as tfd
+    key, rate = DROPOUT_KEY, DROPOUT_RATE
+    gen = torch.Generator("cuda").manual_seed(SEED + 60)
+    main = None
+    for name, shape in DROPOUT_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            xg = x.clone().requires_grad_()
+            out = drop.token_dropout(xg, key, rate)
+            out.backward(g)
+            torch.cuda.synchronize()
+            want, plain_ms = timed_call(
+                torch, lambda: tfd.threefry_dropout_plain(x, key, rate))
+            dwant = tfd.threefry_dropout_plain(g, key, rate)
+            fwd_equal = torch.equal(out.detach(), want)
+            bwd_equal = torch.equal(xg.grad, dwant)
+            err = max((out.detach().float() - want.float()).abs().max()
+                      .item(), (xg.grad.float() - dwant.float()).abs().max()
+                      .item())
+            check(fwd_equal and bwd_equal,
+                  f"dropout kernel {name} {dtype}: forward equal "
+                  f"{fwd_equal}, backward equal {bwd_equal}, max abs {err}")
+            n = x.numel()
+            kept = ((want != 0) | (x == 0)).sum().item()
+            z = (kept / n - (1 - rate)) / math.sqrt(rate * (1 - rate) / n)
+            check(abs(z) <= 5, f"dropout {name} {dtype}: keep share "
+                  f"{kept / n} is {z:.2f} sigma from {1 - rate}")
+            # planted fault: one flipped key word; the check must catch it
+            bad = tfd.threefry_dropout(x, (key[0] ^ 1, key[1]), rate)
+            caught = not torch.equal(bad, want)
+            mismatched = (bad != want).sum().item()
+            check(caught, f"dropout {name} {dtype}: a flipped key word "
+                  f"gave the same output")
+            kernel_ms = median_ms(
+                torch, lambda: tfd.threefry_dropout(x, key, rate), reps=7,
+                inner=5, warmup=2)
+            library_ms = median_ms(
+                torch, lambda: F.dropout(x, rate, training=True), reps=7,
+                inner=5, warmup=2)
+            bound_ms, bound_by, ops, nbytes = dropout_bound(
+                n, x.element_size())
+            res = {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms, "err": err}
+            phase("kernel-check dropout", shape=list(shape),
+                  case=name, dtype=str(dtype).replace("torch.", ""),
+                  rate=rate, fwd_bitwise=fwd_equal, bwd_bitwise=bwd_equal,
+                  max_abs_err=err, keep_share=round(kept / n, 6),
+                  keep_sigma=round(z, 3), fault_caught=caught,
+                  fault_mismatched=mismatched, kernel_ms=round(kernel_ms, 4),
+                  plain_ms=round(plain_ms, 2), bound_ms=round(bound_ms, 4),
+                  bound_by=bound_by, int_ops=ops, bytes=nbytes,
+                  int_ops_per_element=DROPOUT_INT_OPS,
+                  library_ms=round(library_ms, 4),
+                  library="torch.nn.functional.dropout (other bits)")
+            if name == "bert" and dtype == torch.bfloat16:
+                main = res
+            del x, g, xg, out, want, dwant, bad
+            torch.cuda.empty_cache()
+    return main
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count set to 0 (before a main path)."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as k1
+    from deepspeed_tpu_torch.ops.kernels import threefry_dropout as tfd
+    for fn in (k1.packed_flash_attention_fwd, k1.packed_flash_attention_bwd,
+               fa.flash_attention_fwd, fa.flash_attention_bwd,
+               bsa.block_sparse_attention_fwd,
+               bsa.block_sparse_attention_bwd, tfd.threefry_dropout):
+        fn.launches = 0
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd):
+        fn.streamed_launches = 0
+
+
+def counts():
+    """``{kernel: launches}`` of every wrapper now."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as k1
+    from deepspeed_tpu_torch.ops.kernels import threefry_dropout as tfd
+    return {"K1": k1.packed_flash_attention_fwd.launches,
+            "K2": k1.packed_flash_attention_bwd.launches,
+            "K3": fa.flash_attention_fwd.launches,
+            "K3b/K5": fa.flash_attention_bwd.launches,
+            "K6": bsa.block_sparse_attention_fwd.launches,
+            "K7": bsa.block_sparse_attention_bwd.launches,
+            "dropout": tfd.threefry_dropout.launches}
+
+
+def counts_since(before):
+    now = counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def user_loop_step(engine, batch):
+    """One global step of DeepSpeed's user loop over a ``[gas, micro, ...]``
+    batch: ``engine(mb)``, ``engine.backward(loss)`` per micro batch, then
+    ``engine.step()``. Returns the step's metrics."""
+    gas = len(next(iter(batch.values())))
+    for i in range(gas):
+        loss = engine({k: v[i] for k, v in batch.items()})
+        engine.backward(loss)
+    return engine.step()
+
+
+def run_steps(torch, fn, batches):
+    """``fn(batch)`` for each batch, each ended by a synchronize: the
+    seconds, the launches and the losses of every step."""
+    step_s, per_step, losses = [], [], []
+    for batch in batches:
+        before = counts()
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        loss = fn(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+        per_step.append(counts_since(before))
+        losses.append(float(loss))
+    return step_s, per_step, losses
+
+
+def profile_micro(torch, fn, name):
+    """Device time by kernel group over one micro step (``fn``: forward
+    and backward) under ``torch.profiler``; returns ``{kernel key: count}``
+    of the trace's device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - s0) * 1e3
+    report_profile(name, prof, wall_ms, top=10)
+    return {e.key: e.count for e in prof.key_averages()
+            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0}
+
+
+def launches_named(kernels, pattern):
+    """Launches in a profile of the kernels whose name matches."""
+    return sum(n for k, n in kernels.items() if re.search(pattern, k))
+
+
+def grads_of(torch, model, mb, **kwargs):
+    """``(loss, {name: f32 grad})`` of one micro batch through ``apply``."""
+    loss = model.apply(mb, **kwargs)
+    loss.backward()
+    return loss.item(), {n: (p.grad.float() if p.grad is not None else
+                             torch.zeros_like(p, dtype=torch.float32))
+                         for n, p in model.named_parameters()}
+
+
+def bitwise(a, b):
+    """Whether two ``grads_of`` results are the same bits."""
+    return a[0] == b[0] and all(
+        a[1][n].shape == b[1][n].shape and bool((a[1][n] == b[1][n]).all())
+        for n in a[1])
+
+
+class PlainSparseKernels:
+    """The K6/K7 kernels' tiled plain versions and the dropout kernel's
+    plain version in place of the kernels for a ``with`` block (their
+    calls are no launches): the plain-kernel path the BERT loop's kernel
+    path is held against."""
+
+    def __init__(self):
+        from deepspeed_tpu_torch.ops import dropout as drop
+        from deepspeed_tpu_torch.ops.kernels import block_sparse_attention \
+            as bsa
+        from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+        from deepspeed_tpu_torch.ops.kernels import threefry_dropout as tfd
+        self.drop, self.bsa, self.fa, self.tfd = drop, bsa, fa, tfd
+
+    def __enter__(self):
+        bsa, fa = self.bsa, self.fa
+        self.saved = (bsa.block_sparse_attention_fwd,
+                      bsa.block_sparse_attention_bwd, self.drop.threefry_dropout)
+
+        def fwd(q, k, v, plan, scale):
+            return bsa.block_sparse_attention_plain(q, k, v, plan, scale)
+
+        def bwd(q, k, v, out, lse, dout, plan, scale):
+            delta = fa.attention_delta(out, dout)
+            return bsa.block_sparse_attention_bwd_plain(
+                q, k, v, dout, lse, delta, plan, scale)
+
+        bsa.block_sparse_attention_fwd = fwd
+        bsa.block_sparse_attention_bwd = bwd
+        self.drop.threefry_dropout = self.tfd.threefry_dropout_plain
+        return self
+
+    def __exit__(self, *exc):
+        (self.bsa.block_sparse_attention_fwd,
+         self.bsa.block_sparse_attention_bwd,
+         self.drop.threefry_dropout) = self.saved
+
+
+def with_dropout(model, rate, **changes):
+    """The model with its (frozen) config's dropout and other fields
+    changed."""
+    model.config = dataclasses.replace(model.config, dropout=rate, **changes)
+    return model
+
+
+def bert_train_loop(torch):
+    """BERT-large with the Fixed surgery, BERT-large's published dropout
+    0.1 and ``"activation_checkpointing": {}`` (the default policy),
+    trained through DeepSpeed's user loop (micro 4, T 4096, gas 2, bf16 on
+    fp32 masters, AdamW): K6 launched 2 x 24 x gas a step (each layer's
+    recompute runs it again), K7 24 x gas, the dropout kernel on every
+    residual and embedding dropout (the sparse override forgoes the
+    probability dropout, as in the JAX package). Then, at 4 layers: the
+    user loop against ``train_batch`` without dropout (masters bitwise),
+    remat on against off with dropout (gradients), the kernel path
+    against the plain-kernel path on the same keys, a repeated batch; a
+    profile of one micro step. Returns the loop's launches."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import prng
+    model, layout = bert_model(torch, torch.float32, SEED + 42)
+    with_dropout(model, DROPOUT_RATE)
+    cfg = model.config
+    t, gas, micro = BERT_T, BERT_GAS, BERT_MICRO
+    config = dict(bert_train_config(1e-4, gas, micro),
+                  activation_checkpointing={})
+    engine = deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+    check(engine.module.config.remat and engine.module.config.remat_policy
+          == "dots_with_no_batch_dims_saveable",
+          f"activation_checkpointing {{}} gave remat "
+          f"{engine.module.config.remat} policy "
+          f"{engine.module.config.remat_policy}")
+    rng = np.random.default_rng(SEED + 43)
+    batches = [bert_batch(np, rng, gas, micro, t, 1000, cfg.vocab_size)
+               for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+               for b in batches]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_s, per_step, losses = run_steps(
+        torch, lambda b: user_loop_step(engine, b)["loss"], batches)
+    launches = counts()
+    n_layer = cfg.n_layer
+    want = {"K6": 2 * n_layer * gas, "K7": n_layer * gas}
+    # forward and backward: the embeddings' and 2 a layer; the recompute
+    # remakes what the backward needs (early stop)
+    drop_min = 2 * gas * (2 * n_layer + 1)
+    check(all(n["K6"] == want["K6"] and n["K7"] == want["K7"] and
+              n["dropout"] >= drop_min and n["K3"] == 0 for n in per_step),
+          f"bert train loop launched {per_step} a step, want K6 "
+          f"{want['K6']} (forward + recompute), K7 {want['K7']}, dropout "
+          f">= {drop_min}, K3 0")
+    check(all(np.isfinite(losses)), f"bert loop losses {losses} not finite")
+    tokens = gas * micro * t
+    best = min(step_s[TRAIN_WARMUP:])
+    sparse_fpt = model.flops_per_token() + \
+        12 * cfg.n_layer * cfg.n_embd * t * float(layout.mean())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref = MEASURED.get("bert train", {})
+    phase("bert train loop", model="BERT-large + Fixed sparse attention",
+          loop="engine(mb); engine.backward(loss); engine.step()",
+          dropout=DROPOUT_RATE, remat="dots_with_no_batch_dims_saveable",
+          micro=micro, gas=gas, seq=t, dtype="bf16 on fp32 masters",
+          steps=len(step_s), warmup=TRAIN_WARMUP,
+          seconds=json.dumps([round(x, 4) for x in step_s]),
+          step_s_best=round(best, 4), tokens_per_s=round(tokens / best, 1),
+          mfu=round(tokens * sparse_fpt / best / PEAK_FLOPS["bfloat16"], 4),
+          peak_mem_gib=round(peak, 2),
+          vs_bert_train_tokens=round(tokens / best / ref["tokens_per_s"], 4)
+          if ref else "not measured",
+          vs_bert_train_peak=round(peak / ref["peak_mem_gib"], 4)
+          if ref else "not measured",
+          losses=json.dumps([round(x, 4) for x in losses]),
+          launches_per_step=json.dumps(per_step),
+          launches=json.dumps(launches))
+    mb = {k: v[0] for k, v in batches[-1].items()}
+
+    def micro_step():
+        engine.backward(engine(mb))
+
+    kernels = profile_micro(torch, micro_step, "profile bert train loop")
+    k6 = launches_named(kernels, r"mma_sparse_fwd_kernel")
+    drops = launches_named(kernels, r"threefry_dropout_kernel")
+    phase("profile bert train loop launches", k6_per_micro=k6,
+          dropout_per_micro=drops, want_k6=2 * n_layer)
+    check(k6 == 2 * n_layer and drops > 0,
+          f"profile of one micro step: K6 {k6} (want {2 * n_layer}: "
+          f"forward + recompute), dropout kernel {drops}")
+    del engine, model, batches
+    torch.cuda.empty_cache()
+
+    layers = BERT_SMALL_LAYERS
+    # without dropout the user loop and train_batch share one update
+    small = bert_batch(np, rng, gas, micro, t, 1000, cfg.vocab_size)
+    small = {k: torch.as_tensor(v).cuda() for k, v in small.items()}
+    masters = []
+    for route in ("train_batch", "user loop"):
+        m, _ = bert_model(torch, torch.float32, SEED + 44, layers)
+        e = deepspeed_tpu_torch.initialize(model=m, config=config)[0]
+        for _ in range(2):
+            if route == "train_batch":
+                e.train_batch(batch=small)
+            else:
+                user_loop_step(e, small)
+        masters.append([p.detach().clone() for p in m.parameters()])
+        del e, m
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(*masters))
+    check(same, "dropout 0: two user-loop steps did not leave the masters "
+          "bitwise those of two train_batch steps")
+    phase("bert user loop vs train_batch", layers=layers, steps=2,
+          dropout=0.0, masters_bitwise=same, leaves=len(masters[0]))
+    del masters
+
+    # dropout 0.1: remat on against off, then the kernel path against the
+    # plain-kernel path, one micro batch on the same key
+    key = prng.fold_in_words(prng.prng_key(SEED).tolist(), 7)
+    one = {k: v[0][:1] for k, v in small.items()}
+    out = {}
+    for name, remat, plain in (("remat", True, False), ("no remat", False,
+                                                         False),
+                               ("plain kernels", True, True)):
+        m, _ = bert_model(torch, torch.bfloat16, SEED + 45, layers)
+        with_dropout(m, DROPOUT_RATE, remat=remat)
+        if plain:
+            with PlainSparseKernels():
+                out[name] = grads_of(torch, m, one, rng=key)
+        else:
+            out[name] = grads_of(torch, m, one, rng=key)
+        del m
+        torch.cuda.empty_cache()
+    grad_phase(torch, "bert loop remat vs no remat", out["remat"],
+               out["no remat"], BERT_GRAD_TOL)
+    phase("bert loop remat vs no remat bitwise",
+          bitwise=bitwise(out["remat"], out["no remat"]))
+    grad_phase(torch, "bert loop vs plain-kernel path", out["remat"],
+               out["plain kernels"], BERT_GRAD_TOL)
+    del out
+    torch.cuda.empty_cache()
+
+    m, _ = bert_model(torch, torch.float32, SEED + 46, layers)
+    with_dropout(m, DROPOUT_RATE)
+    e = deepspeed_tpu_torch.initialize(
+        model=m, config=dict(bert_train_config(BERT_CONVERGE_LR, 1, micro),
+                             activation_checkpointing={}))[0]
+    batch = bert_batch(np, rng, 1, micro, t, 1000, 1256)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    losses = [float(user_loop_step(e, batch)["loss"])
+              for _ in range(CONVERGE_STEPS)]
+    check(losses[-1] < CONVERGE_FRACTION * losses[0],
+          f"bert loop loss on a repeated batch went {losses[0]} -> "
+          f"{losses[-1]}, want below {CONVERGE_FRACTION} x the first")
+    phase("bert train loop converges", layers=layers, steps=CONVERGE_STEPS,
+          lr=BERT_CONVERGE_LR, dropout=DROPOUT_RATE,
+          losses=json.dumps([round(x, 4) for x in losses]),
+          threshold=f"last < {CONVERGE_FRACTION} x first")
+    del e, m
+    torch.cuda.empty_cache()
+    return launches
+
+
+def llama_params(cfg, layers):
+    """Parameters of LLaMA-7B's width at ``layers`` layers."""
+    d, m = cfg.n_embd, cfg.intermediate
+    per_layer = d * (cfg.n_head + 2 * cfg.kv_head_count) * cfg.head_dim + \
+        d * d + 3 * d * m + 2 * d
+    return layers * per_layer + 2 * cfg.padded_vocab * d + d
+
+
+def llama_train_remat(torch):
+    """LLaMA-7B's width trained through ``train_batch`` (micro 4, T 2048,
+    gas 2, bf16 on fp32 masters, AdamW) with activation checkpointing: at
+    4 layers with remat off, the default policy and full recompute
+    (``partition_activations``), tokens/s and peak memory, K3 launched
+    again in each recompute, gradients against remat off; a profile of the
+    default policy's step. Then the depth that only remat makes fit, from
+    REMAT_BYTES_PER_PARAM and the 4-layer peaks, trained with the default
+    policy. Returns the launches of its main-path steps."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    t, gas, micro = LLAMA_T, LLAMA_GAS, LLAMA_MICRO
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=LLAMA_TRAIN_LAYERS)
+    rng = np.random.default_rng(SEED + 14)
+    batches = [{"input_ids": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (gas, micro, t), dtype=np.int64)).cuda()}
+        for _ in range(1 + REMAT_TIMED)]
+    total = torch.cuda.get_device_properties(0).total_memory
+    policies = {"off": None, "default": {},
+                "full": {"partition_activations": True}}
+    res, launches = {}, {"K3": 0, "K3b/K5": 0}
+    for name, block in policies.items():
+        config = llama_train_config(1e-4, gas)
+        if block is not None:
+            config["activation_checkpointing"] = block
+        model = llama_model(torch, cfg, SEED + 13, torch.float32)
+        engine = deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        step_s, per_step, _ = run_steps(
+            torch, lambda b: engine.train_batch(batch=b), batches)
+        got = counts()
+        launches = {k: launches[k] + got[k] for k in launches}
+        recompute = 2 if block is not None else 1
+        want = [cfg.n_layer * gas * recompute, cfg.n_layer * gas]
+        check(all([n["K3"], n["K3b/K5"]] == want for n in per_step),
+              f"llama remat {name}: K3 forward/backward launched "
+              f"{[[n['K3'], n['K3b/K5']] for n in per_step]} a step, want "
+              f"{want}")
+        best = min(step_s[1:])
+        res[name] = {"tokens_per_s": gas * micro * t / best,
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "k3_per_step": per_step[-1]["K3"]}
+        if name == "default":
+            kernels = profile_train(torch, engine, batches[-1],
+                                    name="profile llama train remat")
+            k3 = launches_named(kernels, r"mma_fwd_kernel")
+            phase("profile llama train remat launches", k3_per_step=k3,
+                  want=2 * cfg.n_layer * gas)
+            check(k3 == 2 * cfg.n_layer * gas,
+                  f"profile of a remat step: K3 {k3}, want "
+                  f"{2 * cfg.n_layer * gas} (forward + recompute)")
+        del engine, model
+        torch.cuda.empty_cache()
+    static4 = REMAT_BYTES_PER_PARAM * llama_params(cfg, cfg.n_layer)
+    act = {k: (v["peak"] - static4) / cfg.n_layer for k, v in res.items()}
+    phase("llama train remat", model=f"LLAMA_7B width, {cfg.n_layer} layers",
+          micro=micro, gas=gas, seq=t, dtype="bf16 on fp32 masters",
+          tokens_per_s=json.dumps({k: round(v["tokens_per_s"], 1)
+                                   for k, v in res.items()}),
+          peak_mem_gib=json.dumps({k: round(v["peak"] / 2 ** 30, 2)
+                                   for k, v in res.items()}),
+          k3_per_step=json.dumps({k: v["k3_per_step"]
+                                  for k, v in res.items()}),
+          static_gib=round(static4 / 2 ** 30, 2),
+          activation_gib_per_layer=json.dumps(
+              {k: round(v / 2 ** 30, 3) for k, v in act.items()}))
+
+    # gradients of one bf16 micro batch: each policy against remat off
+    mb = {"input_ids": batches[-1]["input_ids"][0]}
+    grads = {}
+    for name, policy in (("off", None), ("default",
+                                         "dots_with_no_batch_dims_saveable"),
+                         ("full", "nothing_saveable")):
+        m = llama_model(torch, cfg, SEED + 13, torch.bfloat16)
+        if policy is not None:
+            m.config = dataclasses.replace(m.config, remat=True,
+                                           remat_policy=policy)
+        grads[name] = grads_of(torch, m, mb)
+        del m
+        torch.cuda.empty_cache()
+    for name in ("default", "full"):
+        grad_phase(torch, f"llama remat {name} vs off", grads[name],
+                   grads["off"], LLAMA_GRAD_TOL)
+    phase("llama remat bitwise",
+          default=bitwise(grads["default"], grads["off"]),
+          full=bitwise(grads["full"], grads["off"]))
+    del grads
+    torch.cuda.empty_cache()
+
+    # the depth only remat makes fit: the deepest the default policy's
+    # per-layer cost fits in REMAT_FILL of the card, where remat off's
+    # per-layer cost would not
+    def predicted(layers, policy):
+        return REMAT_BYTES_PER_PARAM * llama_params(cfg, layers) + \
+            layers * act[policy]
+    depth = max(n for n in range(1, LLAMA_7B.n_layer + 1)
+                if predicted(n, "default") <= REMAT_FILL * total)
+    deep = dataclasses.replace(LLAMA_7B, n_layer=depth)
+    model = llama_model(torch, deep, SEED + 15, torch.float32)
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, config=dict(llama_train_config(1e-4, gas),
+                                 activation_checkpointing={}))[0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_s, per_step, losses = run_steps(
+        torch, lambda b: engine.train_batch(batch=b), batches)
+    got = counts()
+    launches = {k: launches[k] + got[k] for k in launches}
+    check(all(n["K3"] == 2 * depth * gas for n in per_step) and
+          all(np.isfinite(losses)),
+          f"llama deep remat: K3 {[n['K3'] for n in per_step]} a step "
+          f"(want {2 * depth * gas}), losses {losses}")
+    best = min(step_s[1:])
+    tokens = gas * micro * t
+    fpt = model.flops_per_token(t)
+    peak = torch.cuda.max_memory_allocated()
+    phase("llama train remat deep", model=f"LLAMA_7B width, {depth} layers",
+          params=model.num_params(), policy="dots_with_no_batch_dims_saveable",
+          micro=micro, gas=gas, seq=t,
+          seconds=json.dumps([round(x, 4) for x in step_s]),
+          tokens_per_s=round(tokens / best, 1),
+          mfu=round(tokens * fpt / best / PEAK_FLOPS["bfloat16"], 4),
+          peak_mem_gib=round(peak / 2 ** 30, 2),
+          predicted_gib=round(predicted(depth, "default") / 2 ** 30, 2),
+          predicted_off_gib=round(predicted(depth, "off") / 2 ** 30, 2),
+          card_gib=round(total / 2 ** 30, 2),
+          fits_without_remat=predicted(depth, "off") <= total,
+          losses=json.dumps([round(x, 4) for x in losses]))
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gpt2_train_loop(torch):
+    """GPT-2-125M in bench.py's configuration (micro 8, T 1024, gas 4)
+    with GPT-2's published dropout 0.1, progressive layer drop (GPT2_PLD:
+    theta 0.5, gamma 0.1) and random-LTD on DeepSpeed's GPT example
+    schedule, through the user loop: theta, kept tokens and skipped layers
+    a step; the model's coins and indices against a plain draw on the
+    card; the kernel path against the plain path on the same keys; a
+    repeated batch. Dropping, the attention takes the plain path (as the
+    JAX package leaves its packed kernel), so this path's kernel is the
+    dropout kernel. Returns the loop's launches."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import prng
+    from deepspeed_tpu_torch.models import gpt2 as gpt2_mod
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, GPT2_125M
+    from deepspeed_tpu_torch.ops import dropout as drop
+    from deepspeed_tpu_torch.ops.kernels import threefry_dropout as tfd
+    cfg = dataclasses.replace(GPT2_125M, dropout=DROPOUT_RATE)
+    t, gas, micro = 1024, TRAIN_GAS, TRAIN_MICRO
+    config = dict(train_config(1e-4, gas), progressive_layer_drop=GPT2_PLD,
+                  data_efficiency=GPT2_LTD)
+    model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
+    engine = deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+    rng = np.random.default_rng(SEED + 5)
+    batches = [{"input_ids": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (gas, micro, t), dtype=np.int64)).cuda()}
+        for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    # record the model's host draws: coins (layer, kept) and indices
+    draws = []
+    real_coin, real_idx = prng.bernoulli_scalar, gpt2_mod.sample_token_indices
+
+    def coin(key, p):
+        kept = real_coin(key, p)
+        draws.append(("coin", key, float(p), kept))
+        return kept
+
+    def indices(key, keep, b, seq):
+        idx = real_idx(key, keep, b, seq)
+        draws.append(("idx", key, (keep, b, seq), idx))
+        return idx
+
+    prng.bernoulli_scalar, gpt2_mod.sample_token_indices = coin, indices
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        thetas, keeps, skipped = [], [], []
+
+        def step(b):
+            start = len(draws)
+            loss = user_loop_step(engine, b)["loss"]
+            theta, keep = engine._last_modifiers
+            thetas.append(float(theta))
+            keeps.append(keep)
+            skipped.append(sum(1 for d in draws[start:]
+                               if d[0] == "coin" and not d[3]))
+            return loss
+
+        step_s, per_step, losses = run_steps(torch, step, batches)
+    finally:
+        prng.bernoulli_scalar, gpt2_mod.sample_token_indices = \
+            real_coin, real_idx
+    launches = counts()
+    coins = [d for d in draws if d[0] == "coin"]
+    n_kept = sum(1 for d in coins if d[3])
+    check(len(coins) == len(batches) * gas * cfg.n_layer,
+          f"{len(coins)} layer coins, want one a layer and micro step")
+    # forward and backward: the embeddings' dropout and three a kept layer
+    want_drop = 2 * (len(batches) * gas + 3 * n_kept)
+    check(launches["dropout"] == want_drop and launches["K1"] == 0 and
+          launches["K3"] == 0,
+          f"gpt2 loop launched {launches}, want dropout {want_drop} (2 x "
+          f"(micro steps + 3 x kept layers)), K1 and K3 0 (dropping leaves "
+          f"the packed path)")
+    # the host's draws against a plain draw on the card: the tensor-path
+    # bernoulli and permutation of the same keys
+    plain_ok, checked = True, 0
+    for d in draws:
+        if d[0] == "coin":
+            again = prng.bernoulli(prng.key_tensor(d[1], "cuda"), d[2],
+                                   ()).item()
+            plain_ok &= again == d[3]
+        else:
+            keep, b, seq = d[2]
+            keys = prng.key_tensor(torch.tensor(prng.split_words(d[1], b)),
+                                   "cuda")
+            again = prng.permutation(keys, seq)[:, :keep].sort(dim=1).values
+            plain_ok &= torch.equal(again.cpu(), d[3])
+        checked += 1
+    check(plain_ok, "the model's layer coins or kept-token indices differ "
+          "from the plain draw on the card")
+    tokens = gas * micro * t
+    best = min(step_s[TRAIN_WARMUP:])
+    phase("gpt2 train loop", model="GPT2_125M", dropout=DROPOUT_RATE,
+          pld=json.dumps(GPT2_PLD), ltd=json.dumps(GPT2_LTD["data_routing"]
+                                                   ["random_ltd"]
+                                                   ["random_ltd_schedule"]),
+          micro=micro, gas=gas, seq=t, dtype="bf16 on fp32 masters",
+          steps=len(step_s), warmup=TRAIN_WARMUP,
+          seconds=json.dumps([round(x, 4) for x in step_s]),
+          tokens_per_s=round(tokens / best, 1),
+          theta_per_step=json.dumps([round(x, 6) for x in thetas]),
+          keep_per_step=json.dumps(keeps),
+          layers_skipped_per_step=json.dumps(skipped),
+          layer_runs=f"{n_kept} of {len(coins)}",
+          draws_checked=checked, draws_equal_plain=plain_ok,
+          losses=json.dumps([round(x, 4) for x in losses]),
+          launches_per_step=json.dumps(per_step),
+          launches=json.dumps(launches),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    # after the launch counts were read: one micro step's device time
+    mb = {"input_ids": batches[-1]["input_ids"][0]}
+    profile_micro(torch, lambda: engine.backward(engine(mb)),
+                  "profile gpt2 train loop")
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path on the same keys, one micro
+    # batch with the step-0 modifiers
+    key = prng.fold_in_words(prng.prng_key(SEED).tolist(), 11)
+    kw = {"rng": key, "pld_theta": np.float32(thetas[0]),
+          "ltd_keep": keeps[0]}
+    out = {}
+    for route in ("kernel", "plain"):
+        m = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
+        m = m.to("cuda", torch.bfloat16)
+        if route == "plain":
+            drop.threefry_dropout = tfd.threefry_dropout_plain
+        try:
+            out[route] = grads_of(torch, m, mb, **kw)
+        finally:
+            drop.threefry_dropout = tfd.threefry_dropout
+        del m
+    grad_phase(torch, "gpt2 loop vs plain path", out["kernel"], out["plain"],
+               TRAIN_GRAD_TOL)
+    phase("gpt2 loop vs plain path bitwise",
+          bitwise=bitwise(out["kernel"], out["plain"]))
+    del out
+    torch.cuda.empty_cache()
+
+    m = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
+    e = deepspeed_tpu_torch.initialize(
+        model=m, config=dict(train_config(1e-3, 1),
+                             progressive_layer_drop=GPT2_PLD,
+                             data_efficiency=GPT2_LTD))[0]
+    batch = {"input_ids": torch.as_tensor(rng.integers(
+        0, 256, (1, micro, t))).cuda()}
+    losses = [float(user_loop_step(e, batch)["loss"])
+              for _ in range(CONVERGE_STEPS)]
+    check(losses[-1] < CONVERGE_FRACTION * losses[0],
+          f"gpt2 loop loss on a repeated batch went {losses[0]} -> "
+          f"{losses[-1]}, want below {CONVERGE_FRACTION} x the first")
+    phase("gpt2 train loop converges", steps=CONVERGE_STEPS, lr=1e-3,
+          losses=json.dumps([round(x, 4) for x in losses]),
+          threshold=f"last < {CONVERGE_FRACTION} x first")
+    del e, m
     torch.cuda.empty_cache()
     return launches
 
@@ -2825,6 +3561,7 @@ def main():
     main_k7 = [check_k7(torch, kind, K6_SHAPE, getattr(torch, dt))
                for kind, dt in K6_CASES][0]
     sparse_planted_faults(torch, "fixed", K6_SHAPE, bf16)
+    main_drop = check_dropout(torch)
 
     # ---- main path: init_inference -> engine(ids) and generate
     model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
@@ -2896,17 +3633,21 @@ def main():
     del train_engine
     torch.cuda.empty_cache()
     train_converges(torch, cfg, t)
+    # ---- the user loop with dropout, layer drop and random-LTD
+    gpt2_loop_launches = gpt2_train_loop(torch)
 
-    # ---- LLaMA: serving at full depth, training at 4 layers, GQA
+    # ---- LLaMA: serving at full depth, training at 4 layers, GQA; remat
     llama_fwd_launches = llama_serve(torch)
     llama_train_launches = llama_train(torch)
     llama_gqa(torch)
+    llama_remat_launches = llama_train_remat(torch)
 
     # ---- Code Llama 7B at T 16384 (K4, K4b); BERT-large sparse (K6, K7)
     codellama_fwd_launches = codellama_serve(torch)
     codellama_train_launches = codellama_train(torch)
     bert_fwd_launches = bert_serve(torch)
     bert_train_launches = bert_train(torch)
+    bert_loop_launches = bert_train_loop(torch)
 
     # ---- continuous-batching serving: LLaMA-7B, then GPT-2-125M
     serve_llama(torch)
@@ -2935,12 +3676,13 @@ def main():
               train_launches["K2"], main_k2, bwd_err(main_k2)),
         entry("flash_attention_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention.py:141",
-              llama_fwd_launches + llama_train_launches["K3"], main_k3,
-              main_k3["err_out"]),
+              llama_fwd_launches + llama_train_launches["K3"] +
+              llama_remat_launches["K3"], main_k3, main_k3["err_out"]),
         entry("flash_attention_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention.py:222 (K3b); "
               f"{pallas}/flash_attention.py:329,358 (K5)",
-              llama_train_launches["K3b/K5"], main_k3b, bwd_err(main_k3b)),
+              llama_train_launches["K3b/K5"] +
+              llama_remat_launches["K3b/K5"], main_k3b, bwd_err(main_k3b)),
         entry("flash_attention_streamed_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention.py:483",
               codellama_fwd_launches + codellama_train_launches["K4"],
@@ -2950,11 +3692,19 @@ def main():
               codellama_train_launches["K4b"], main_k4b, bwd_err(main_k4b)),
         entry("block_sparse_attention_fwd", "block_sparse_attention_fwd.cu",
               f"{pallas}/block_sparse_attention.py:114",
-              bert_fwd_launches + bert_train_launches["K6"], main_k6,
-              main_k6["err_out"]),
+              bert_fwd_launches + bert_train_launches["K6"] +
+              bert_loop_launches["K6"], main_k6, main_k6["err_out"]),
         entry("block_sparse_attention_bwd", "block_sparse_attention_bwd.cu",
               f"{pallas}/block_sparse_attention.py:205,239",
-              bert_train_launches["K7"], main_k7, bwd_err(main_k7))]
+              bert_train_launches["K7"] + bert_loop_launches["K7"], main_k7,
+              bwd_err(main_k7)),
+        # no Pallas kernel: the counterpart of the JAX package's dropout
+        entry("threefry_dropout", "threefry_dropout.cu",
+              "deepspeed_tpu/models/gpt2.py:97 (_token_dropout); "
+              "deepspeed_tpu/ops/flash_attention.py:45 (probability "
+              "dropout); no Pallas kernel",
+              bert_loop_launches["dropout"] + gpt2_loop_launches["dropout"],
+              main_drop, main_drop["err"])]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,20 @@ tensors with ``& 0xFFFFFFFF`` after each add and shift, on any device:
   counter ``(hi, lo)``) is the xor of the two hash words.
 - ``uniform``, ``gumbel`` (mode ``"low"``) and ``categorical`` (the
   Gumbel-max draw) as ``jax/_src/random.py`` computes them in float32.
+- ``bernoulli`` (mode ``"low"``: ``uniform(key, shape) < float32(p)``) and
+  ``permutation`` (``_shuffle``: ``ceil(3 ln n / ln(2**32 - 1))`` rounds,
+  each ``key, sub = split(key)`` and a stable sort on ``random_bits(sub,
+  (n,))``).
 
-A key is an int64 tensor whose last axis holds the two words.
+A key is an int64 tensor whose last axis holds the two words. The
+training path derives a few keys a layer and micro step on the host; it
+holds them as ``(word0, word1)`` tuples of Python ints, which
+``threefry2x32`` hashes as well as tensors (``as_key``, ``fold_in_words``,
+``split_words``, ``bernoulli_scalar``): no tensor op and no device wait a
+key.
 """
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -113,3 +123,82 @@ def categorical(key, logits):
     else:
         noise = gumbel(key, tuple(logits.shape[-1:]))
     return torch.argmax(noise + logits.to(torch.float32), dim=-1)
+
+
+# ------------------------------------------------------ host key words
+
+def as_key(key):
+    """A key as a ``(word0, word1)`` tuple of Python ints, from a tuple, a
+    numpy array (a JAX key's ``np.asarray``) or a tensor ``[2]``."""
+    if isinstance(key, torch.Tensor):
+        key = key.tolist()
+    w0, w1 = (int(w) & M32 for w in np.asarray(key).reshape(2).tolist())
+    return w0, w1
+
+
+def fold_in_words(key, data):
+    """``jax.random.fold_in`` of a ``(word0, word1)`` key with an int."""
+    k0, k1 = as_key(key)
+    return threefry2x32(k0, k1, 0, int(data) & M32)
+
+
+def split_words(key, num: int = 2):
+    """``jax.random.split`` of a ``(word0, word1)`` key: ``num`` tuples."""
+    k0, k1 = as_key(key)
+    return [threefry2x32(k0, k1, i >> 32, i & M32) for i in range(num)]
+
+
+def uniform_scalar(key):
+    """``jax.random.uniform(key, ())`` in float32, as a numpy float32: one
+    hash of the counter ``(0, 0)``."""
+    o0, o1 = threefry2x32(*as_key(key), 0, 0)
+    bits = np.uint32((((o0 ^ o1) >> 9) | 0x3F800000) & M32)
+    return bits.view(np.float32) - np.float32(1.0)
+
+
+def bernoulli_scalar(key, p) -> bool:
+    """``jax.random.bernoulli(key, p)`` for a scalar ``p`` (taken to
+    float32, as JAX takes it): ``uniform(key, ()) < p``."""
+    return bool(uniform_scalar(key) < np.float32(p))
+
+
+def key_tensor(key, device=None):
+    """A key (tuple, array or tensor ``[..., 2]``) as an int64 tensor."""
+    if isinstance(key, torch.Tensor):
+        return key.to(device=device, dtype=torch.int64)
+    return torch.tensor(as_key(key), dtype=torch.int64, device=device)
+
+
+def bernoulli(key, p, shape, device=None):
+    """``jax.random.bernoulli(key, p, shape)`` (mode ``"low"``) for one key:
+    a bool tensor, ``uniform(key, shape) < float32(p)``."""
+    key = key_tensor(key, device)
+    return uniform(key, tuple(shape)) < torch.tensor(
+        float(np.float32(p)), dtype=torch.float32, device=key.device)
+
+
+def shuffle_rounds(n: int) -> int:
+    """The number of sort rounds of ``jax.random.permutation`` over ``n``
+    elements (``_shuffle``): 1 up to n = 1625, 2 above, as JAX computes it
+    in float64."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(key, n: int):
+    """``jax.random.permutation(key, n)`` for keys ``[..., 2]`` (one
+    permutation a key, as under ``vmap``): int64 ``key.shape[:-1] + (n,)``.
+    Each round splits the key and sorts stably on fresh 32-bit words, as
+    ``lax.sort_key_val`` (stable) does."""
+    key = key_tensor(key)
+    lead = key.shape[:-1]
+    x = torch.arange(n, dtype=torch.int64, device=key.device).expand(
+        lead + (n,)).contiguous()
+    for _ in range(shuffle_rounds(n)):
+        z = torch.zeros_like(key[..., 0])
+        n0, n1 = threefry2x32(key[..., 0], key[..., 1], z, z)
+        s0, s1 = threefry2x32(key[..., 0], key[..., 1], z, z + 1)
+        key = torch.stack([n0, n1], dim=-1)
+        bits = random_bits(torch.stack([s0, s1], dim=-1), (n,))
+        order = torch.sort(bits, dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x

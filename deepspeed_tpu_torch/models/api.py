@@ -14,11 +14,14 @@ A family names its JAX parameter leaves in ``top_leaves`` and
 in and out through them.
 """
 
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..runtime.activation_checkpointing import checkpointing
 
 
 class ModelSpec(nn.Module):
@@ -70,6 +73,19 @@ class ModelSpec(nn.Module):
 
     def init_weights(self, generator) -> None:
         raise NotImplementedError
+
+    def _remat_policy(self):
+        """The layers' remat policy (``config.remat`` / ``remat_policy``)
+        while gradients are taken, else None."""
+        cfg = self.config
+        if not cfg.remat or not torch.is_grad_enabled():
+            return None
+        return checkpointing.get_policy(cfg.remat_policy)
+
+    def _layer_leaves(self, p):
+        """A layer's leaves as they are now (the engine's compute-dtype
+        copies inside ``functional_call``), held for a later recompute."""
+        return SimpleNamespace(**{n: getattr(p, n) for n in self.block_leaves})
 
     def apply(self, batch, rng=None, train=True):
         """The training loss of one micro batch (a float32 scalar)."""

@@ -18,8 +18,16 @@ block-sparse attention there (K6 forward, K7 backward).
 Batch: ``{"input_ids" [B,T], optional "token_type_ids" [B,T],
 "attention_mask" [B,T] (1=keep), "labels" [B,T] (-100 = unmasked)}`` or,
 for the MLM head on the masked positions only, ``"masked_positions"``
-[B, P] and ``"masked_labels"`` [B, P]. Dropout and activation checkpointing
-(``remat``) are not ported yet and raise naming ROADMAP.md row A2b.
+[B, P] and ``"masked_labels"`` [B, P].
+
+Training with a key ``rng`` drops as the JAX family does: the embeddings
+under ``fold_in(rng, 2)``, and in layer ``i`` (key ``fold_in(rng, i)``) the
+attention and MLP outputs under salts 0 and 1 and, without an
+``attn_override``, the attention probabilities under salt 3 (an override
+forgoes that dropout: its hook takes no key). ``config.remat`` checkpoints
+each layer (``runtime/activation_checkpointing``). There is no progressive
+layer drop or random-LTD: ``apply`` takes no ``pld_theta`` or
+``ltd_keep``, so the engine refuses both for BERT, as the JAX engine does.
 """
 
 import dataclasses
@@ -29,8 +37,11 @@ import torch
 
 from .api import ModelSpec
 from .gpt2 import GPT2Config, BlockParams, _activation, _param, normal_
+from ..inference import prng
 from ..ops import memory_efficient as me
+from ..ops.dropout import salted_dropout
 from ..ops.flash_attention import flash_attention
+from ..runtime.activation_checkpointing import checkpointing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +127,10 @@ class BertModel(ModelSpec):
     def _ln(self, x, scale, bias):
         return me.layer_norm(x, scale, bias, self.config.layer_norm_epsilon)
 
-    def _block(self, x, p, mask):
+    def _dropout(self, x, rng, train, salt):
+        return salted_dropout(x, rng, train, salt, self.config.dropout)
+
+    def _block(self, x, p, mask, rng=None, train=False):
         """Post-LN encoder block (HF BertLayer semantics)."""
         cfg = self.config
         b, t, d = x.shape
@@ -127,19 +141,26 @@ class BertModel(ModelSpec):
         if self.attn_override is not None:
             attn = self.attn_override(q, k, v, mask)
         else:
-            attn = flash_attention(q, k, v, causal=False, mask=mask,
-                                   backend=cfg.attn_backend)
+            dropping = train and cfg.dropout > 0 and rng is not None
+            attn = flash_attention(
+                q, k, v, causal=False, mask=mask,
+                dropout_rate=cfg.dropout if train else 0.0,
+                dropout_rng=prng.fold_in_words(rng, 3) if dropping else None,
+                backend=cfg.attn_backend)
         attn = attn.transpose(1, 2).reshape(b, t, d)
         attn = attn @ p.attn_out_w.to(x.dtype) + p.attn_out_b.to(x.dtype)
-        x = self._ln(x + attn, p.attn_ln_scale, p.attn_ln_bias)
+        x = self._ln(x + self._dropout(attn, rng, train, 0), p.attn_ln_scale,
+                     p.attn_ln_bias)
         mid = _activation(x @ p.inter_w.to(x.dtype) + p.inter_b.to(x.dtype),
                           cfg.activation)
         out = mid @ p.out_w.to(x.dtype) + p.out_b.to(x.dtype)
-        return self._ln(x + out, p.out_ln_scale, p.out_ln_bias)
+        return self._ln(x + self._dropout(out, rng, train, 1),
+                        p.out_ln_scale, p.out_ln_bias)
 
-    def encode(self, input_ids, token_type_ids=None, attention_mask=None):
+    def encode(self, input_ids, token_type_ids=None, attention_mask=None,
+               rng=None, train=True):
         """Embeddings + encoder stack. Returns [B, T, D] in the compute
-        dtype."""
+        dtype; dropout only with a key ``rng`` while training."""
         dt = self._compute_dtype()
         t = input_ids.shape[-1]
         if t > self.wpe.shape[0]:
@@ -150,12 +171,21 @@ class BertModel(ModelSpec):
             x = x + self.tte.to(dt)[token_type_ids]
         else:
             x = x + self.tte[0].to(dt)
-        x = self._ln(x, self.emb_ln_scale, self.emb_ln_bias)
+        rng = None if rng is None else prng.as_key(rng)
+        x = self._dropout(self._ln(x, self.emb_ln_scale, self.emb_ln_bias),
+                          rng, train, 2)
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].to(torch.bool)
-        for p in self.blocks:
-            x = self._block(x, p, mask)
+        policy = self._remat_policy()
+        for i, p in enumerate(self.blocks):
+            layer_rng = None if rng is None else prng.fold_in_words(rng, i)
+
+            def run(h, leaves=self._layer_leaves(p), layer_rng=layer_rng):
+                return self._block(h, leaves, mask, layer_rng, train)
+
+            x = run(x) if policy is None else \
+                checkpointing.run(policy, run, x)
         return x
 
     def _mlm_head(self, x):
@@ -168,9 +198,11 @@ class BertModel(ModelSpec):
 
     def mlm_logits(self, input_ids, token_type_ids=None,
                    attention_mask=None):
-        """``[B, T, padded_vocab]`` MLM logits in the compute dtype."""
+        """``[B, T, padded_vocab]`` MLM logits in the compute dtype
+        (inference: ``train=False``, as the JAX inference engine calls its
+        model)."""
         return self._mlm_head(self.encode(input_ids, token_type_ids,
-                                          attention_mask))
+                                          attention_mask, train=False))
 
     def logits(self, input_ids):
         """MLM logits: the inference engine's scoring contract."""
@@ -184,22 +216,14 @@ class BertModel(ModelSpec):
 
         If the batch carries ``masked_positions`` [B, P] (+ ``masked_labels``
         [B, P], -100 = slot unused), the vocab head runs ONLY on those P
-        gathered positions. Overrides ``nn.Module.apply(fn)``: on a model of
+        gathered positions. ``rng`` / ``train``: dropout, as in
+        :meth:`encode`. Overrides ``nn.Module.apply(fn)``: on a model of
         this port, ``apply`` is the loss, as in the JAX package."""
         cfg = self.config
-        unported = []
-        if train and cfg.dropout > 0:
-            unported.append(f"dropout={cfg.dropout}")
-        if cfg.remat:
-            unported.append("remat")
-        if unported:
-            raise NotImplementedError(
-                f"{type(self).__name__} training with {', '.join(unported)} "
-                f"is not ported yet: ROADMAP.md row A2b")
         fields = batch if isinstance(batch, dict) else {"input_ids": batch}
         input_ids = fields["input_ids"]
         x = self.encode(input_ids, fields.get("token_type_ids"),
-                        fields.get("attention_mask"))
+                        fields.get("attention_mask"), rng=rng, train=train)
         mpos = fields.get("masked_positions")
         if mpos is not None:
             labels = fields["masked_labels"]

@@ -20,11 +20,25 @@ serving slot paths built on it: ``decode_with_slots`` (one token a row at
 per-row cache columns, the continuous-batching step) and
 ``chunk_prefill_with_cache`` (a prompt chunk's K/V, no logits).
 
-Training: ``apply(batch)`` is the next-token loss, dense (``_lm_loss``) or
-vocab-chunked (``_chunked_lm_loss``, an autograd ``Function`` that never
-holds ``[B, T, V]`` logits), dispatched as in the JAX package. Dropout,
-activation checkpointing (``remat``), progressive layer drop, random-LTD
-and ``act_bits`` are not ported yet and raise naming ROADMAP.md row A2b.
+Training: ``apply(batch, rng, train, pld_theta, ltd_keep)`` is the
+next-token loss, dense (``_lm_loss``) or vocab-chunked
+(``_chunked_lm_loss``, an autograd ``Function`` that never holds ``[B, T,
+V]`` logits), dispatched as in the JAX package. With a key ``rng`` (a
+``(word0, word1)`` pair, ``inference/prng.py``) and ``config.dropout > 0``
+it drops as the JAX package does, bit for bit: layer ``i``'s key is
+``fold_in(rng, i)``, with salts 0 (attention output), 1 (MLP output), 2
+(embeddings, under ``rng`` itself) and 3 (attention probabilities, which
+take the plain attention, as the JAX package leaves its packed kernel
+while dropping); ``ops/dropout.py`` runs the hand-written threefry
+dropout kernel on the card. The layer wrappers nest as the JAX layer
+scan's do: random-LTD (``ltd_keep``: the block runs on a sorted random
+subset of tokens, at positions ``0..keep-1``) inside progressive layer
+drop (``pld_theta``: a host coin under ``fold_in(layer_key, 1002)``, a
+dropped layer is the identity) inside activation checkpointing
+(``config.remat`` / ``remat_policy``:
+``runtime/activation_checkpointing``). Without a key there is no dropout
+and no wrapper. ``act_bits`` (the compression library's activation
+fake-quant) raises naming ROADMAP.md row A12.
 """
 
 import dataclasses
@@ -37,9 +51,15 @@ import torch
 from torch import nn
 
 from .api import ModelSpec
+from ..inference import prng
 from ..ops import memory_efficient as me
+from ..ops.dropout import salted_dropout
 from ..ops.flash_attention import flash_attention, reference_attention
 from ..ops.kernels import flash_attention_packed as k1
+from ..ops.random_ltd_ops import (sample_token_indices, token_gather,
+                                  token_scatter)
+from ..runtime.activation_checkpointing import checkpointing
+from ..runtime.progressive_layer_drop import keep_prob_for_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,17 +242,19 @@ class GPT2Model(ModelSpec):
         return self.wte.to(dtype)
 
     def _attn_sublayer(self, x, p, attn_fn=None, start_pos=0,
-                       positions=None):
-        """ln1 -> qkv -> attention -> proj -> residual. ``attn_fn(q, k, v)``
-        over ``[B, H, T, D]`` replaces the attention (the KV-cache path).
-        ``start_pos`` and ``positions`` [B, T] are the tokens' positions,
-        which GPT-2 reads in ``_embed`` and rotary families here."""
+                       positions=None, rng=None, train=False):
+        """ln1 -> qkv -> attention -> proj -> residual (+dropout).
+        ``attn_fn(q, k, v)`` over ``[B, H, T, D]`` replaces the attention
+        (the KV-cache path). ``start_pos`` and ``positions`` [B, T] are the
+        tokens' positions, which GPT-2 reads in ``_embed`` and rotary
+        families here. ``rng`` is the layer's key."""
         cfg = self.config
         b, t, d = x.shape
         h, hd = cfg.n_head, cfg.head_dim
         ln1 = me.layer_norm(x, p.ln1_scale, p.ln1_bias, cfg.layer_norm_epsilon)
         qkv = ln1 @ p.qkv_w.to(ln1.dtype) + p.qkv_b.to(ln1.dtype)
-        if (attn_fn is None and self.causal_attention and
+        dropping = train and cfg.dropout > 0 and rng is not None
+        if (attn_fn is None and not dropping and self.causal_attention and
                 self._packed_attn_ok(x, t, hd, h)):
             # the kernels read q/k/v as the column thirds of the qkv
             # projection through its strides (no head transpose, no copy);
@@ -240,7 +262,7 @@ class GPT2Model(ModelSpec):
             attn = k1.packed_flash_attention_qkv(qkv, h)
             attn = attn @ p.attn_proj_w.to(attn.dtype) + \
                 p.attn_proj_b.to(attn.dtype)
-            return x + attn
+            return x + self._dropout(attn, rng, train, 0)
         q, k, v = qkv.split(d, dim=-1)
         q = q.reshape(b, t, h, hd).transpose(1, 2)
         k = k.reshape(b, t, h, hd).transpose(1, 2)
@@ -248,11 +270,14 @@ class GPT2Model(ModelSpec):
         if attn_fn is not None:
             attn = attn_fn(q, k, v)
         else:
-            attn = flash_attention(q, k, v, causal=self.causal_attention,
-                                   backend=cfg.attn_backend)
+            attn = flash_attention(
+                q, k, v, causal=self.causal_attention,
+                dropout_rate=cfg.dropout if train else 0.0,
+                dropout_rng=prng.fold_in_words(rng, 3) if dropping else None,
+                backend=cfg.attn_backend)
         attn = attn.transpose(1, 2).reshape(b, t, d)
         attn = attn @ p.attn_proj_w.to(attn.dtype) + p.attn_proj_b.to(attn.dtype)
-        return x + attn
+        return x + self._dropout(attn, rng, train, 0)
 
     def _packed_attn_ok(self, x, t: int, hd: int, h: int) -> bool:
         """Packed-kernel eligibility, decided as in the JAX package: backend
@@ -268,31 +293,76 @@ class GPT2Model(ModelSpec):
             return False
         return k1.supported(t, hd, h, True, None)
 
-    def _mlp_sublayer(self, x, p):
-        """ln2 -> fc -> activation -> proj -> residual."""
+    def _mlp_sublayer(self, x, p, rng=None, train=False):
+        """ln2 -> fc -> activation -> proj -> residual (+dropout)."""
         cfg = self.config
         ln2 = me.layer_norm(x, p.ln2_scale, p.ln2_bias, cfg.layer_norm_epsilon)
         hmid = ln2 @ p.mlp_fc_w.to(ln2.dtype) + p.mlp_fc_b.to(ln2.dtype)
         hmid = _activation(hmid, cfg.activation)
         out = hmid @ p.mlp_proj_w.to(hmid.dtype) + p.mlp_proj_b.to(hmid.dtype)
-        return x + out
+        return x + self._dropout(out, rng, train, 1)
 
-    def _block(self, x, p, attn_fn=None, start_pos=0, positions=None):
+    def _block(self, x, p, attn_fn=None, start_pos=0, positions=None,
+               rng=None, train=False):
         return self._mlp_sublayer(
-            self._attn_sublayer(x, p, attn_fn, start_pos, positions), p)
+            self._attn_sublayer(x, p, attn_fn, start_pos, positions, rng,
+                                train), p, rng, train)
+
+    def _dropout(self, x, rng, train, salt):
+        return salted_dropout(x, rng, train, salt, self.config.dropout)
 
     # ------------------------------------------------------------- forward
-    def hidden_states(self, input_ids):
+    def hidden_states(self, input_ids, rng=None, train=True, pld_theta=None,
+                      ltd_keep=None, act_bits=None):
         """The decoder stack up to and including the final LayerNorm:
-        ``[B, T, D]`` in the compute dtype (inference: no dropout)."""
-        x = self._embed(input_ids)
-        for p in self.blocks:
-            x = self._block(x, p)
+        ``[B, T, D]`` in the compute dtype. Without ``rng`` (inference)
+        there is no dropout and no layer wrapper; ``pld_theta`` and
+        ``ltd_keep`` as the JAX ``hidden_states`` takes them."""
+        if act_bits is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__} training with act_bits={act_bits} "
+                f"(activation fake-quant, the compression library's) is not "
+                f"ported yet: ROADMAP.md row A12")
+        cfg = self.config
+        rng = None if rng is None else prng.as_key(rng)
+        x = self._dropout(self._embed(input_ids), rng, train, 2)
+        wrappers = train and rng is not None
+        t = x.shape[1]
+        policy = self._remat_policy()
+        for i, p in enumerate(self.blocks):
+            layer_rng = None if rng is None else prng.fold_in_words(rng, i)
+            if wrappers and pld_theta is not None:
+                keep_p = keep_prob_for_layer(pld_theta, i, cfg.n_layer)
+                if not prng.bernoulli_scalar(
+                        prng.fold_in_words(layer_rng, 1002), keep_p):
+                    continue          # a dropped layer: the identity
+            idx = None
+            if wrappers and ltd_keep is not None and ltd_keep < t:
+                idx = sample_token_indices(
+                    prng.fold_in_words(layer_rng, 1001), ltd_keep,
+                    x.shape[0], t).to(x.device, non_blocking=True)
+            x = self._wrapped_block(x, self._layer_leaves(p), layer_rng,
+                                    train, idx, policy)
         return self._final_norm(x)
 
+    def _wrapped_block(self, x, leaves, layer_rng, train, idx, policy):
+        """One layer: on the tokens ``idx`` only (random-LTD) when given,
+        under ``policy``'s checkpoint when given."""
+        def run(h):
+            if idx is None:
+                return self._block(h, leaves, rng=layer_rng, train=train)
+            out = self._block(token_gather(h, idx), leaves, rng=layer_rng,
+                              train=train)
+            return token_scatter(h, out, idx)
+
+        if policy is None:
+            return run(x)
+        return checkpointing.run(policy, run, x)
+
     def logits(self, input_ids):
-        """``[B, T, padded_vocab]`` logits in the compute dtype."""
-        x = self.hidden_states(input_ids)
+        """``[B, T, padded_vocab]`` logits in the compute dtype (inference:
+        ``train=False``, as the JAX inference engine calls its model)."""
+        x = self.hidden_states(input_ids, train=False)
         return x @ self._unembed_weight(x.dtype).T
 
     forward = logits
@@ -310,22 +380,15 @@ class GPT2Model(ModelSpec):
         ``batch``: ``{"input_ids": [B, T]}`` (+ optional ``"labels"``
         ``[B, T]``, -100 = ignore) or the ids tensor itself.
 
+        ``rng``, ``train``, ``pld_theta``, ``ltd_keep``: see
+        :meth:`hidden_states`.
+
         This overrides ``nn.Module.apply(fn)``: on a model of this port,
         ``apply`` is the loss, as in the JAX package's model protocol."""
-        cfg = self.config
-        unported = [name for name, value in (
-            ("pld_theta", pld_theta), ("ltd_keep", ltd_keep),
-            ("act_bits", act_bits)) if value is not None]
-        if train and cfg.dropout > 0:
-            unported.append(f"dropout={cfg.dropout}")
-        if cfg.remat:
-            unported.append("remat")
-        if unported:
-            raise NotImplementedError(
-                f"{type(self).__name__} training with {', '.join(unported)} "
-                f"is not ported yet: ROADMAP.md row A2b")
         input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
-        x = self.hidden_states(input_ids)
+        x = self.hidden_states(input_ids, rng=rng, train=train,
+                               pld_theta=pld_theta, ltd_keep=ltd_keep,
+                               act_bits=act_bits)
         return self._head_loss_from_hidden(
             x, self._unembed_weight(x.dtype), batch,
             head_b=self._head_bias(x.dtype))

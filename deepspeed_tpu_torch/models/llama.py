@@ -12,7 +12,11 @@ Attention always goes through ``ops/seq_parallel.sp_attention`` ->
 the ``[B, H, T, D]`` Hopper kernels (K3 forward, the K3b/K5 backward), with
 the kv heads repeated for the kernels first. The KV-cache path keeps
 ``kv_heads`` heads in the cache and repeats them in the plain cache
-attention; ``_decode_attn_mask`` applies the window there.
+attention; ``_decode_attn_mask`` applies the window there. Training
+drops as the JAX family does (salt 3 on the attention probabilities, which
+then take the plain attention; 0 and 1 on the two sublayer outputs); the
+layer wrappers (progressive layer drop, random-LTD, remat) come from the
+GPT-2 base.
 """
 
 import dataclasses
@@ -23,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .gpt2 import GPT2Config, GPT2Model, normal_
+from ..inference import prng
 from ..ops.seq_parallel import sp_attention
 
 
@@ -171,7 +176,7 @@ class LlamaModel(GPT2Model):
 
     # ----------------------------------------------------------------- block
     def _attn_sublayer(self, x, p, attn_fn=None, start_pos=0,
-                       positions=None):
+                       positions=None, rng=None, train=False):
         cfg = self.config
         b, t, d = x.shape
         h, hk, hd = cfg.n_head, cfg.kv_head_count, cfg.head_dim
@@ -192,18 +197,24 @@ class LlamaModel(GPT2Model):
             if hk != h:                   # GQA: repeat kv heads for the kernel
                 k = torch.repeat_interleave(k, h // hk, dim=1)
                 v = torch.repeat_interleave(v, h // hk, dim=1)
-            attn = sp_attention(q, k, v, causal=True, impl=cfg.sp_attention,
-                                backend=cfg.attn_backend,
-                                window=cfg.sliding_window)
+            dropping = train and cfg.dropout > 0 and rng is not None
+            attn = sp_attention(
+                q, k, v, causal=True,
+                dropout_rate=cfg.dropout if train else 0.0,
+                dropout_rng=prng.fold_in_words(rng, 3) if dropping else None,
+                impl=cfg.sp_attention, backend=cfg.attn_backend,
+                window=cfg.sliding_window)
         attn = attn.transpose(1, 2).reshape(b, t, d)
-        return x + attn @ p.attn_proj_w.to(attn.dtype)
+        attn = attn @ p.attn_proj_w.to(attn.dtype)
+        return x + self._dropout(attn, rng, train, 0)
 
-    def _mlp_sublayer(self, x, p):
+    def _mlp_sublayer(self, x, p, rng=None, train=False):
         cfg = self.config
         ln2 = _rms_norm(x, p.ln2_scale, cfg.layer_norm_epsilon)
         g = ln2 @ p.gate_w.to(ln2.dtype)
         u = ln2 @ p.up_w.to(ln2.dtype)
-        return x + (F.silu(g) * u) @ p.down_w.to(ln2.dtype)
+        out = (F.silu(g) * u) @ p.down_w.to(ln2.dtype)
+        return x + self._dropout(out, rng, train, 1)
 
     def flops_per_token(self, seq_len: Optional[int] = None):
         """Training FLOPs/token: 6 x (block weights + one V x d head) +

@@ -105,12 +105,16 @@ _TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 def _kernel_name(mangled):
     """``dkdv_kernel<bf16,128,exact>`` for a kernel template instance
     ``dkdv_kernel<T, DMAX, EXACT>`` (``sparse_dq_kernel<...>`` and the
-    like keep their whole name); other names as they are."""
+    like keep their whole name), ``threefry_dropout_kernel<bf16>`` for one
+    templated on its type alone; other names as they are."""
     m = re.search(
         r"([a-z_]+_kernel)I(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E",
         mangled)
     if m is None:
-        return mangled
+        m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16|6__half)E",
+                      mangled)
+        return mangled if m is None else \
+            f"{m.group(1)}<{_TYPES[m.group(2)]}>"
     kind = "exact" if m.group(4) == "1" else "masked"
     return f"{m.group(1)}<{_TYPES[m.group(2)]},{m.group(3)},{kind}>"
 

@@ -1,0 +1,100 @@
+"""Dropout on the JAX package's threefry keys: the hand-written Hopper
+kernel ``csrc/threefry_dropout.cu`` and its plain PyTorch version.
+
+It replaces no Pallas kernel. It computes, in one pass, what the JAX
+package's ``_token_dropout`` (``deepspeed_tpu/models/gpt2.py:97-102``) and
+the attention-probability dropout of its plain attention
+(``deepspeed_tpu/ops/flash_attention.py:45-47``) compute:
+``x * bernoulli(key, 1 - rate, x.shape) / (1 - rate)``, with the mask bit
+for bit ``jax.random``'s (``inference/prng.py``) and the divisor ``1 -
+rate`` rounded to x's dtype first, as JAX's weak-typed Python float is
+(bf16 0.8984375 for rate 0.1). :func:`threefry_dropout` launches the
+kernel for CUDA tensors and counts its launches; it takes
+:func:`threefry_dropout_plain` only for tensors on the CPU. What bounds
+the kernel on the H100 and what its design does about it is noted in its
+CUDA source.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ...inference import prng
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def divisor(rate: float, dtype) -> float:
+    """``1 - rate`` rounded to ``dtype`` (as a float that holds it
+    exactly)."""
+    return float(torch.tensor(1.0 - rate, dtype=torch.float64).to(dtype))
+
+
+def threshold(rate: float) -> float:
+    """The keep threshold, ``float32(1 - rate)``, as ``bernoulli`` takes
+    its ``p``."""
+    return float(np.float32(1.0 - rate))
+
+
+def _check(x, rate):
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"threefry dropout takes float32, bfloat16 or "
+                        f"float16 tensors, got {x.dtype}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+
+
+def threefry_dropout(x, key, rate: float):
+    """``x * keep / (1 - rate)`` with ``keep = bernoulli(key, 1 - rate,
+    x.shape)`` as ``jax.random`` draws it; ``key`` is a ``(word0, word1)``
+    tuple (or anything :func:`prng.as_key` takes). Launches the CUDA kernel
+    for a CUDA tensor (made contiguous first) and raises on anything it
+    does not take; CPU tensors go through :func:`threefry_dropout_plain`."""
+    _check(x, rate)
+    if x.device.type == "cpu":
+        return threefry_dropout_plain(x, key, rate)
+    if x.device.type != "cuda":
+        raise ValueError(f"threefry dropout runs on CUDA or CPU tensors, "
+                         f"got {x.device}")
+    k0, k1 = prng.as_key(key)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    launch(x, out, k0, k1, threshold(rate), divisor(rate, x.dtype))
+    threefry_dropout.launches += 1
+    return out
+
+
+threefry_dropout.launches = 0
+
+
+def launch(x, out, k0, k1, thresh, div):
+    """Launch the kernel on contiguous ``x`` into ``out`` (same shape and
+    dtype). The caller has checked types and devices."""
+    from ..kernel_build import load
+    fn = load("threefry_dropout").dstorch_threefry_dropout
+    if fn.argtypes is None:
+        ptr, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        fn.argtypes = [ptr, ptr, ctypes.c_longlong, u, u, ctypes.c_float,
+                       ctypes.c_float, i, i, ptr]
+        fn.restype = ctypes.c_int
+    vec = int(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), k0, k1, thresh,
+                 div, DTYPE_CODES[x.dtype], vec,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"threefry_dropout kernel launch failed with CUDA "
+                           f"error {err}")
+
+
+def threefry_dropout_plain(x, key, rate: float):
+    """The kernel's arithmetic in plain PyTorch, on any device: the mask by
+    ``prng.bernoulli`` (int64 threefry), ``float32(x) * keep`` divided
+    elementwise by the rounded divisor (a full tensor, so no path takes a
+    reciprocal), rounded to x's dtype."""
+    _check(x, rate)
+    keep = prng.bernoulli(key, 1.0 - rate, tuple(x.shape), device=x.device)
+    y = x.to(torch.float32) * keep
+    return torch.div(y, torch.full_like(y, divisor(rate, x.dtype))).to(
+        x.dtype)

@@ -5,7 +5,10 @@ The JAX package shards T over a ``seq`` mesh axis and runs Ulysses (an
 all-to-all between heads and sequence) or ring attention across devices.
 The port has no device mesh yet (the engines refuse one, naming ROADMAP.md
 row A8), so the ``seq`` axis has size 1 and ``sp_attention`` is what the
-JAX function is then: argument checks and one ``flash_attention`` call.
+JAX function is then: argument checks and one ``flash_attention`` call,
+attention dropout included. (Over a live ``seq`` axis the JAX package
+refuses dropout under ring attention; with no such axis here, neither
+package does.)
 """
 
 from .flash_attention import flash_attention
@@ -18,17 +21,13 @@ def sp_attention(q, k, v, causal=True, softmax_scale=None, dropout_rate=0.0,
                  window=None):
     """Attention over ``[B, H, T, D]`` with the JAX signature. ``impl``
     names the sequence-parallel strategy the JAX package would take over a
-    live ``seq`` axis; here it is validated only. Attention dropout is not
-    ported (ROADMAP.md row A2b)."""
+    live ``seq`` axis; here it is validated only."""
     if impl not in SP_IMPLS:
         raise ValueError(f"sp_attention impl must be 'ulysses' or 'ring', "
                          f"got {impl!r}")
     if window is not None and not causal:
         raise ValueError("sliding window requires causal=True")
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            f"attention dropout (rate {dropout_rate}) is not ported yet: "
-            f"ROADMAP.md row A2b")
     return flash_attention(q, k, v, causal=causal,
-                           softmax_scale=softmax_scale, backend=backend,
-                           bias=bias, window=window)
+                           softmax_scale=softmax_scale,
+                           dropout_rate=dropout_rate, dropout_rng=dropout_rng,
+                           backend=backend, bias=bias, window=window)

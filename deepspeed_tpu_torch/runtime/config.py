@@ -5,7 +5,9 @@ Parsed as in the JAX package, with the same ``ConfigError`` texts: the
 batch triangle (``train_batch_size = micro × gradient_accumulation_steps ×
 dp``), ``fp16`` / ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``gradient_accumulation_dtype``, ``steps_per_print``,
-``seed`` and ``zero_optimization``.
+``seed``, ``zero_optimization``, ``activation_checkpointing``,
+``progressive_layer_drop`` and ``data_efficiency.data_routing``
+(random-LTD).
 
 Every other block the JAX config parses is accepted while it is disabled
 (or at its default) and raises ``NotImplementedError`` naming its
@@ -62,6 +64,18 @@ class SchedulerConfig(DeepSpeedConfigModel):
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+@dataclasses.dataclass
+class ActivationCheckpointingConfig(DeepSpeedConfigModel):
+    """The ``activation_checkpointing`` block (the JAX package's, and the
+    reference's ``checkpointing.configure()``)."""
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    cpu_checkpointing: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+
 def _enabled(block):
     return isinstance(block, dict) and bool(block.get("enabled"))
 
@@ -74,17 +88,11 @@ def _truthy(value):
     return bool(value)
 
 
-def _present(value):
-    return value is not None
-
-
-def _data_efficiency(block):
-    """data_efficiency asks for something when it is enabled and one of
-    its sampling (curriculum) or routing (random-LTD) parts is."""
-    if not _enabled(block):
-        return False
-    return any(_enabled(block.get(part)) for part in
-               ("data_sampling", "data_routing"))
+def _data_sampling(block):
+    """data_efficiency asks for curriculum data sampling when it is enabled
+    and its ``data_sampling`` part is (``data_routing``, random-LTD, is
+    ported)."""
+    return _enabled(block) and _enabled(block.get(C.DATA_SAMPLING))
 
 
 # key -> (ROADMAP.md row, what the port cannot run yet, "asks for it")
@@ -94,12 +102,8 @@ UNPORTED = {
     C.SEQUENCE_PARALLEL_SIZE: ("A11", "sequence parallelism", _above_one),
     C.EXPERT_PARALLEL_SIZE: ("A11", "expert parallelism", _above_one),
     C.PIPELINE: ("A11", "the pipeline engine", _enabled),
-    # the JAX engine turns remat on whenever this block is present
-    C.ACTIVATION_CHECKPOINTING: ("A2b", "activation checkpointing (remat)",
-                                 _present),
-    C.PROGRESSIVE_LAYER_DROP: ("A2b", "progressive layer drop", _enabled),
-    C.DATA_EFFICIENCY: ("A2b", "data efficiency (curriculum sampling, "
-                        "random-LTD)", _data_efficiency),
+    C.DATA_EFFICIENCY: ("A12", "curriculum data sampling "
+                        "(data_efficiency.data_sampling)", _data_sampling),
     C.CURRICULUM_LEARNING_LEGACY: ("A12", "curriculum learning", _enabled),
     C.COMPRESSION_TRAINING: ("A12", "compression training", _truthy),
     C.QUANTIZE_TRAINING: ("A12", "MoQ quantize_training", _enabled),
@@ -177,6 +181,12 @@ class DeepSpeedConfig:
         if self.fp16.enabled and self.bf16.enabled:
             raise ConfigError("fp16 and bf16 cannot both be enabled")
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get(C.ZERO_OPTIMIZATION, {}))
+        # the engine turns remat on whenever the block is present
+        self.activation_checkpointing = \
+            ActivationCheckpointingConfig.from_dict(
+                pd.get(C.ACTIVATION_CHECKPOINTING) or {})
+        self.progressive_layer_drop = pd.get(C.PROGRESSIVE_LAYER_DROP) or {}
+        self.data_efficiency = pd.get(C.DATA_EFFICIENCY) or {}
 
         # ---- scalars ----
         self.steps_per_print = pd.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)

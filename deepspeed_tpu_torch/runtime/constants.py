@@ -104,6 +104,7 @@ DATALOADER_DROP_LAST = "dataloader_drop_last"
 PIPELINE = "pipeline"
 COMPRESSION_TRAINING = "compression_training"
 DATA_EFFICIENCY = "data_efficiency"
+DATA_SAMPLING = "data_sampling"      # data_efficiency's curriculum part
 CURRICULUM_LEARNING_LEGACY = "curriculum_learning"
 PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
 ELASTICITY = "elasticity"

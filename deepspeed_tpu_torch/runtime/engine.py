@@ -3,7 +3,10 @@
 
 The JAX engine compiles one program per global step: the gas micro steps
 scanned, then the optimizer update. This engine runs the same steps
-eagerly and keeps the JAX engine's mixed-precision contract:
+eagerly, through ``train_batch`` or DeepSpeed's user loop (``loss =
+engine(batch); engine.backward(loss); engine.step()``), which share one
+accumulation and one update, and keeps the JAX engine's mixed-precision
+contract:
 
 - the model's ``Parameter``s are the float32 masters;
 - once per global step each master is cast to the compute dtype (bf16 or
@@ -17,27 +20,45 @@ eagerly and keeps the JAX engine's mixed-precision contract:
   ``min(1, clip / (norm + 1e-6))``, a skipped step on non-finite gradients
   under fp16, the optimizer on the masters, and the loss-scale update.
 
+Randomness is the JAX engine's, key for key (``inference/prng.py``): the
+base key is ``PRNGKey(seed + 1)``; ``train_batch`` keys micro step ``i``
+``fold_in(fold_in(base, global_steps), i)``, ``forward`` keys
+``fold_in(base, micro_steps)``. Each step hands the model its modifiers:
+progressive layer drop's ``pld_theta`` and random-LTD's ``ltd_keep``. An
+``activation_checkpointing`` block turns the model's ``remat`` on under
+the configured policy (``runtime/activation_checkpointing``).
+
+One deliberate difference from the JAX engine: its ``backward`` ignores
+its argument (the gradients were taken in ``forward``); this one
+differentiates the loss it is given, ``forward``'s unless another is
+passed. The two agree when the loss is ``forward``'s.
+
 It runs on ``cuda`` unless it is given ``device=`` (the CPU tests pass
 ``"cpu"``), and raises without a GPU. ZeRO stages above 0, offload,
-model/pipeline parallelism, client optimizers, the ``forward`` /
-``backward`` / ``step`` user loop and checkpoints raise naming their
-ROADMAP.md rows.
+model/pipeline parallelism, client optimizers and checkpoints raise naming
+their ROADMAP.md rows.
 """
 
+import dataclasses
+import inspect
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..inference import prng
 from ..models.api import ModelSpec
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
+from .activation_checkpointing import checkpointing
 from .config import DeepSpeedConfig
 from .config_utils import ConfigError
+from .data_pipeline.random_ltd import RandomLTDScheduler
 from .dataloader import DeepSpeedDataLoader
 from .fp16.loss_scaler import (grads_finite, init_loss_scale_state,
                                update_loss_scale)
 from .lr_schedules import get_lr_scheduler
 from .optimizers import get_optimizer
+from .progressive_layer_drop import ProgressiveLayerDrop
 
 
 class _ApplyCall(torch.nn.Module):
@@ -56,6 +77,16 @@ def _global_norm(grads):
     """sqrt of the sum over leaves of sum(g^2), in float32."""
     norms = torch._foreach_norm([g.to(torch.float32) for g in grads])
     return torch.stack(norms).square().sum().sqrt()
+
+
+def _micro(batch, i):
+    """Micro batch ``i`` of a ``[gas, ...]`` batch (a tensor, a dict or a
+    tuple of them)."""
+    if isinstance(batch, torch.Tensor):
+        return batch[i]
+    if isinstance(batch, dict):
+        return {k: v[i] for k, v in batch.items()}
+    return type(batch)(v[i] for v in batch)
 
 
 def _stack(micros):
@@ -118,6 +149,12 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self.skipped_steps = 0
         self._last_grad_norm = None
+        self._base_rng = tuple(prng.prng_key(cfg.seed + 1).tolist())
+        # the accumulation buffers train_batch and the user loop share
+        self._grad_acc = None
+        self._grad_acc_count = 0
+        self._loss_acc = None
+        self._pending = None
 
         # ---- precision (the JAX engine's dtype wiring) ----
         if cfg.fp16.enabled:
@@ -155,6 +192,25 @@ class DeepSpeedEngine:
         self.scaler_state = init_loss_scale_state(
             cfg.fp16 if cfg.fp16.enabled else None)
 
+        # ---- progressive layer drop, random-LTD, activation checkpointing
+        self.progressive_layer_drop = None
+        pld = dict(cfg.progressive_layer_drop)
+        if pld.get("enabled"):
+            self._require_fwd_kwarg("pld_theta", "progressive_layer_drop")
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=float(pld.get("theta", 0.5)),
+                gamma=float(pld.get("gamma", 0.001)))
+        self.random_ltd_scheduler = None
+        de = dict(cfg.data_efficiency)
+        routing = dict(de.get("data_routing") or {})
+        rl = dict(routing.get("random_ltd") or {})
+        if de.get("enabled") and routing.get("enabled") and rl.get("enabled"):
+            self._require_fwd_kwarg("ltd_keep", "random_ltd")
+            self.random_ltd_scheduler = RandomLTDScheduler(rl)
+        self._last_modifiers = (None, None)
+        if cfg._param_dict.get("activation_checkpointing") is not None:
+            self._configure_remat()
+
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data)
         n_params = sum(p.numel() for p in self._masters)
@@ -165,6 +221,37 @@ class DeepSpeedEngine:
             f"batch={cfg.train_batch_size} "
             f"(micro={cfg.train_micro_batch_size_per_gpu} "
             f"gas={cfg.gradient_accumulation_steps})", ranks=[0])
+
+    def _require_fwd_kwarg(self, name: str, feature: str):
+        """A feature that needs the model's cooperation raises when the
+        model's ``apply`` cannot take its keyword, as in the JAX engine."""
+        params = inspect.signature(self.module.apply).parameters
+        if name not in params and not any(
+                p.kind is inspect.Parameter.VAR_KEYWORD
+                for p in params.values()):
+            raise ConfigError(
+                f"config enables {feature} but "
+                f"{type(self.module).__name__}.apply() does not accept "
+                f"'{name}' — this model cannot honor the setting")
+
+    def _configure_remat(self):
+        """The ``activation_checkpointing`` block -> the model's ``remat``
+        and ``remat_policy`` (the JAX engine's ``configure()`` call).
+        Host-offloaded remat warns and takes the default policy, as the
+        JAX engine does off a TPU."""
+        pol = checkpointing.configure(deepspeed_config=self._config)
+        if pol == "offload_dots":
+            logger.warning(
+                "cpu_checkpointing: host-offload remat is not ported to the "
+                "card; falling back to dots_with_no_batch_dims_saveable for "
+                "this run")
+            pol = checkpointing.DEFAULT_POLICY
+        mcfg = getattr(self.module, "config", None)
+        if mcfg is not None and hasattr(mcfg, "remat"):
+            updates = {"remat": True}
+            if hasattr(mcfg, "remat_policy"):
+                updates["remat_policy"] = pol
+            self.module.config = dataclasses.replace(mcfg, **updates)
 
     # ------------------------------------------------------------------
     # data
@@ -205,42 +292,57 @@ class DeepSpeedEngine:
         return {n: p.detach().to(self._compute_dtype).requires_grad_()
                 for n, p in zip(self._names, self._masters)}
 
-    def _micro_loss(self, pc, mb, train=True):
-        """Loss of one micro batch on the compute-dtype copies ``pc``."""
+    def _micro_loss(self, pc, mb, rng=None, train=True, pld_theta=None,
+                    ltd_keep=None):
+        """Loss of one micro batch on the compute-dtype copies ``pc``, with
+        the step's key and modifiers (passed only when set, as the JAX
+        engine passes them)."""
+        kwargs = {"rng": rng, "train": train}
+        if pld_theta is not None:
+            kwargs["pld_theta"] = pld_theta
+        if ltd_keep is not None:
+            kwargs["ltd_keep"] = ltd_keep
         out = torch.func.functional_call(
             self._apply_call, {"model." + n: t for n, t in pc.items()},
-            (mb,), {"train": train})
+            (mb,), kwargs)
         loss = out[0] if isinstance(out, tuple) else out
         return loss.to(torch.float32)
 
-    def _accum_grads(self, batch):
-        """Sum over the gas micro batches of loss * scale and of its
-        gradients (compute dtype) into ``gradient_accumulation_dtype``
-        buffers. Returns ``(lsum, gsum, gas)``."""
-        leaves = [batch] if isinstance(batch, torch.Tensor) else \
-            list(batch.values()) if isinstance(batch, dict) else list(batch)
-        gas = leaves[0].shape[0]
-        scale = self.scaler_state.scale
-        pc = self._cast_params()
+    def _accumulate(self, scaled_loss, pc, dtype):
+        """Gradients of ``scaled_loss`` (loss * scale) with respect to the
+        compute-dtype copies ``pc``, added into the shared accumulation
+        buffers (made in ``dtype`` by the first micro step); the loss too,
+        detached."""
         params = list(pc.values())
-        lsum, gsum = None, None
-        for i in range(gas):
-            mb = batch[i] if isinstance(batch, torch.Tensor) else \
-                {k: v[i] for k, v in batch.items()} \
-                if isinstance(batch, dict) else type(batch)(v[i] for v in batch)
-            loss = self._micro_loss(pc, mb) * scale
-            grads = torch.autograd.grad(loss, params)
-            loss = loss.detach()
-            if gsum is None and gas == 1:
-                gsum = [g.to(torch.float32) for g in grads]
-            elif gsum is None:
-                gsum = [g.to(self._grad_acc_dtype) for g in grads]
-            else:
-                for acc, g in zip(gsum, grads):
-                    acc.add_(g)
-            lsum = loss if lsum is None else lsum + loss
-            self.micro_steps += 1
-        return lsum, gsum, gas
+        # a layer progressive layer drop skipped has zero gradients, as
+        # under jax.grad
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params, torch.autograd.grad(scaled_loss, params,
+                                        allow_unused=True))]
+        loss = scaled_loss.detach()
+        if self._grad_acc is None:
+            self._grad_acc = [g.to(dtype) for g in grads]
+            self._loss_acc = loss
+        else:
+            for acc, g in zip(self._grad_acc, grads):
+                acc.add_(g)
+            self._loss_acc = self._loss_acc + loss
+        self._grad_acc_count += 1
+        self.micro_steps += 1
+
+    def _step_modifiers(self):
+        """This step's forward modifiers: ``(pld_theta, ltd_keep)``, each
+        None when its feature is off; theta in float32, as the JAX engine
+        hands it to the model."""
+        theta = keep = None
+        if self.progressive_layer_drop is not None:
+            theta = np.float32(self.progressive_layer_drop.update_state(
+                self.global_steps))
+        if self.random_ltd_scheduler is not None:
+            keep = int(self.random_ltd_scheduler.get_current_seq(
+                self.global_steps))
+        self._last_modifiers = (theta, keep)
+        return theta, keep
 
     def _clip_grads(self, grads):
         clip = self._config.gradient_clipping
@@ -277,18 +379,88 @@ class DeepSpeedEngine:
         if self.optimizer is None:
             raise ConfigError("train_batch needs an optimizer: add an "
                               "'optimizer' block to the config")
+        if self._grad_acc is not None:
+            raise RuntimeError("train_batch() while the user loop has "
+                               "gradients accumulated: call step() first")
         if batch is None:
             batch = self._next_gas_batch(data_iter)
         batch = self._to_device_batch(batch)
+        leaves = [batch] if isinstance(batch, torch.Tensor) else \
+            list(batch.values()) if isinstance(batch, dict) else list(batch)
+        gas = leaves[0].shape[0]
         scale = self.scaler_state.scale
-        lr = self.get_lr()[0]
-        lsum, gsum, gas = self._accum_grads(batch)
-        finite, grad_norm = self._apply_update(gsum, lr, denom=float(gas))
-        metrics = {"loss": lsum / (gas * scale), "grad_norm": grad_norm,
-                   "loss_scale": scale, "overflow": not finite}
+        rng = prng.fold_in_words(self._base_rng, self.global_steps)
+        theta, keep = self._step_modifiers()
+        pc = self._cast_params()
+        # the accumulation dtype: f32 at gas 1 (no buffer round trip in the
+        # JAX step), else gradient_accumulation_dtype
+        dtype = torch.float32 if gas == 1 else self._grad_acc_dtype
+        for i in range(gas):
+            loss = self._micro_loss(pc, _micro(batch, i),
+                                    prng.fold_in_words(rng, i), True, theta,
+                                    keep)
+            self._accumulate(loss * scale, pc, dtype)
+        del pc, loss          # the compute-dtype copies: not held in the update
+        return self._step()["loss"]
+
+    # ------------------------------------------------------------------
+    # DeepSpeed's user loop: forward / backward / step
+    # ------------------------------------------------------------------
+    def forward(self, batch, train=True):
+        """The loss of one micro batch (float32, unscaled, on the autograd
+        graph of this step's compute-dtype copies), keyed
+        ``fold_in(base, micro_steps)``; ``train`` gates the step's
+        modifiers, as in the JAX engine."""
+        mb = self._to_device_batch(batch)
+        rng = prng.fold_in_words(self._base_rng, self.micro_steps)
+        theta, keep = self._step_modifiers() if train else (None, None)
+        pc = self._cast_params()
+        loss = self._micro_loss(pc, mb, rng, True, theta, keep)
+        self._pending = (pc, loss)
+        return loss
+
+    __call__ = forward
+
+    def backward(self, loss=None, allreduce_gradients=True):
+        """Differentiate ``loss * scale`` (``forward``'s loss when None)
+        into the accumulation buffers ``train_batch`` uses (float32, as the
+        JAX engine's user loop accumulates)."""
+        if self._pending is None:
+            raise RuntimeError("backward() without forward()")
+        pc, pending = self._pending
+        loss = pending if loss is None else loss
+        self._accumulate(loss * self.scaler_state.scale, pc, torch.float32)
+        self._pending = None
+
+    def is_gradient_accumulation_boundary(self):
+        return self._grad_acc_count >= \
+            self._config.gradient_accumulation_steps
+
+    def step(self):
+        """The update over the gradients accumulated since the last one
+        (``denom`` = their count), as ``train_batch`` applies it."""
+        if self.optimizer is None:
+            raise ConfigError("step() needs an optimizer: add an "
+                              "'optimizer' block to the config")
+        if self._grad_acc is None:
+            raise RuntimeError("step() without backward()")
+        return self._step()
+
+    def _step(self):
+        """Unscale, clip and apply the accumulated gradients; clear the
+        buffers; the step's bookkeeping. Returns the step's metrics (the
+        mean loss among them)."""
+        scale = self.scaler_state.scale
+        count = self._grad_acc_count
+        finite, grad_norm = self._apply_update(self._grad_acc, self.get_lr()[0],
+                                               denom=float(count))
+        metrics = {"loss": self._loss_acc / (count * scale),
+                   "grad_norm": grad_norm, "loss_scale": scale,
+                   "overflow": not finite}
+        self._grad_acc, self._loss_acc, self._grad_acc_count = None, None, 0
         self._last_grad_norm = grad_norm
         self._post_step(metrics)
-        return metrics["loss"]
+        return metrics
 
     @torch.no_grad()
     def eval_batch(self, batch):
@@ -315,12 +487,6 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # what this slice does not run
     # ------------------------------------------------------------------
-    def forward(self, *args, **kwargs):
-        raise _not_ported("the forward/backward/step user loop (use "
-                          "train_batch)", "A2b")
-
-    __call__ = backward = step = forward
-
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True, exclude_frozen_parameters=False):
         raise _not_ported("save_checkpoint", "A7")

@@ -13,8 +13,13 @@ without ``bias_correction``). The order of operations is the JAX package's
     u  = u + wd p                         (every leaf, no mask)
     p  = p - lr u
 
-The update runs in place on the f32 master tensors and the moment buffers.
-The other optimizer types raise naming ROADMAP.md row A11.
+The update runs in place on the f32 master tensors and the moment buffers,
+a group of leaves at a time (``_GROUP_BYTES``): the foreach temporaries
+(the corrected moments, the denominators, the updates) then hold at most
+about a gigabyte each, not a copy of every leaf, which would be three more
+f32 copies of the model at the step's peak. The foreach ops are the same
+on every group, so the values do not depend on the grouping. The other
+optimizer types raise naming ROADMAP.md row A11.
 """
 
 from typing import Callable, List, NamedTuple
@@ -22,6 +27,7 @@ from typing import Callable, List, NamedTuple
 import torch
 
 ADAM_FAMILY = ("adam", "adamw", "fusedadam", "cpu_adam")
+_GROUP_BYTES = 1 << 30
 
 
 class AdamState(NamedTuple):
@@ -52,13 +58,18 @@ class _ScaleByAdam:
         return AdamState(count=0, mu=zeros, nu=[z.clone() for z in zeros])
 
     def update(self, grads, state):
+        count = state.count + 1
+        return self.group_update(grads, state.mu, state.nu, count), \
+            AdamState(count, state.mu, state.nu)
+
+    def group_update(self, grads, mu, nu, count):
+        """Step ``count`` on one group of leaves: their moments in place,
+        their updates returned."""
         b1, b2 = self.b1, self.b2
-        mu, nu = state.mu, state.nu
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, grads, alpha=1 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
-        count = state.count + 1
         if self.bias_correction:
             mu_hat = torch._foreach_div(mu, 1 - b1 ** count)
             den = torch._foreach_div(nu, 1 - b2 ** count)
@@ -66,19 +77,39 @@ class _ScaleByAdam:
             mu_hat, den = mu, [v.clone() for v in nu]
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
-        return torch._foreach_div(mu_hat, den), AdamState(count, mu, nu)
+        return torch._foreach_div(mu_hat, den)
+
+
+def _groups(tensors):
+    """Index lists of consecutive leaves of at most ``_GROUP_BYTES`` in
+    f32 (a larger leaf alone)."""
+    group, size = [], 0
+    for i, t in enumerate(tensors):
+        nbytes = 4 * t.numel()
+        if group and size + nbytes > _GROUP_BYTES:
+            yield group
+            group, size = [], 0
+        group.append(i)
+        size += nbytes
+    if group:
+        yield group
 
 
 def _chain_update(core, params, grads, state, lr, weight_decay):
     """Adam updates plus decoupled decay, then ``p - lr u``, in place on
-    ``params``. (The JAX package's L2-into-grads branch serves only the
-    optimizers of row A11.)"""
-    updates, new_state = core.update(grads, state)
-    if weight_decay:
-        torch._foreach_add_(updates, params, alpha=weight_decay)
-    with torch.no_grad():
-        torch._foreach_add_(params, updates, alpha=-lr)
-    return params, new_state
+    ``params``, a group of leaves at a time. (The JAX package's
+    L2-into-grads branch serves only the optimizers of row A11.)"""
+    count = state.count + 1
+    for idx in _groups(params):
+        ps = [params[i] for i in idx]
+        updates = core.group_update([grads[i] for i in idx],
+                                    [state.mu[i] for i in idx],
+                                    [state.nu[i] for i in idx], count)
+        if weight_decay:
+            torch._foreach_add_(updates, ps, alpha=weight_decay)
+        with torch.no_grad():
+            torch._foreach_add_(ps, updates, alpha=-lr)
+    return params, AdamState(count, state.mu, state.nu)
 
 
 def get_optimizer(name: str, params_config: dict = None) -> Optimizer:

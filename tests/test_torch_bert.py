@@ -331,9 +331,50 @@ def test_inference_engine_scores_bert_and_refuses_generate():
 def test_flops_per_token_and_refusals():
     jmodel, _, tmodel = _models(TINY)
     assert tmodel.flops_per_token(T) == jmodel.flops_per_token(T)
-    ids = torch.zeros((1, 64), dtype=torch.long)
-    for kw in (dict(dropout=0.1), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="BertModel.*A2b"):
-            tbert.BertModel(tbert.BertConfig(**dict(TINY, **kw))).apply(ids)
+    # dropout and remat: the JAX apply's loss
+    # under the same key, both with and without remat
+    batch = _batch(2, 64, seed=6)
+    key = jax.random.PRNGKey(3)
+    want = None
+    for kw in (dict(dropout=0.1), dict(dropout=0.1, remat=True)):
+        jmodel, jparams, tmodel = _models(dict(TINY, **kw), seed=2)
+        if want is None:
+            want = jmodel.apply(jparams, {k: jnp.asarray(v) for k, v in
+                                          batch.items()}, rng=key, train=True)
+        got = tmodel.apply(_torch(batch), rng=tuple(np.asarray(key).tolist()))
+        np.testing.assert_allclose(got.item(), float(want), rtol=LOSS_TOL)
     with pytest.raises(ValueError, match="n_positions"):
         tmodel.encode(torch.zeros((1, 200), dtype=torch.long))
+
+
+@pytest.mark.parametrize("policy", ["everything_saveable", "nothing_saveable",
+                                    "dots_saveable",
+                                    "dots_with_no_batch_dims_saveable"])
+def test_dropout_and_remat_after_surgery_match_jax(kernel_route, policy):
+    """Dropout 0.1 under one key and each remat policy, after the sparse
+    surgery: ``jax.grad`` of the JAX ``apply`` (its dense-masked path)
+    against autograd of the port's through K6/K7's plain versions, which
+    a recompute runs again (the override forgoes probability dropout in
+    both packages; the residual and embedding dropouts apply)."""
+    kw = dict(TINY, dropout=0.1, remat=True, remat_policy=policy)
+    jmodel, jparams, tmodel = _surgery(*_models(kw, seed=7))
+    batch = _batch(1, T, seed=8)
+    key = jax.random.PRNGKey(5)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    want_loss, want = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.apply(p, jb, rng=key, train=True)))(jparams)
+    loss = tmodel.apply(_torch(batch), rng=tuple(np.asarray(key).tolist()))
+    loss.backward()
+    recomputes = 0 if policy == "everything_saveable" else TINY["n_layer"]
+    assert len(kernel_route) == TINY["n_layer"] + recomputes
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=LOSS_TOL)
+    for name in tmodel.top_leaves:
+        np.testing.assert_allclose(getattr(tmodel, name).grad.numpy(),
+                                   np.asarray(want[name]), atol=ATOL,
+                                   rtol=RTOL, err_msg=name)
+    for name in tmodel.block_leaves:
+        got = np.stack([getattr(blk, name).grad.numpy()
+                        for blk in tmodel.blocks])
+        np.testing.assert_allclose(got, np.asarray(want["blocks"][name]),
+                                   atol=ATOL, rtol=RTOL,
+                                   err_msg=f"blocks/{name}")

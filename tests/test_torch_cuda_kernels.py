@@ -641,3 +641,46 @@ def test_bert_with_surgery_takes_k6_and_k7_never_k3(cuda_device):
     assert (fwd.launches, bwd.launches, tfk.flash_attention_fwd.launches) \
         == (before[0] + want, before[1] + want, before[2])
     assert np.isfinite(loss.item())
+
+
+# ------------------------------------------------- threefry dropout kernel
+
+def _drop_input(device, dtype, shape, seed=3):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return x.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(3, 1000, 77), (5, 13), (2, 4, 64, 64)])
+def test_threefry_dropout_bitwise_its_plain_version(cuda_device, dtype,
+                                                    shape):
+    """Forward and backward (the same kernel on the gradient) equal the
+    plain version bit for bit, on a ragged shape (a scalar tail), a tiny
+    one and an aligned one, and on an unaligned view (no vector loads)."""
+    from deepspeed_tpu_torch.ops import dropout as drop
+    from deepspeed_tpu_torch.ops.kernels import threefry_dropout as tfd
+    key = (123456789, 987654321)
+    x = _drop_input(cuda_device, dtype, shape)
+    before = tfd.threefry_dropout.launches
+    got = tfd.threefry_dropout(x, key, 0.1)
+    want = tfd.threefry_dropout_plain(x, key, 0.1)
+    torch.cuda.synchronize()
+    assert tfd.threefry_dropout.launches == before + 1
+    assert torch.equal(got, want)
+    kept = (want != 0).float().mean().item()
+    assert abs(kept - 0.9) < 5 * (0.9 * 0.1 / want.numel()) ** 0.5 + 1e-3
+    flat = x.reshape(-1)
+    view = flat[1:]                                 # 16-byte misaligned
+    assert torch.equal(tfd.threefry_dropout(view, key, 0.25),
+                       tfd.threefry_dropout_plain(view, key, 0.25))
+    xg = x.clone().requires_grad_()
+    out = drop.token_dropout(xg, key, 0.1)
+    g = _drop_input(cuda_device, dtype, shape, seed=4)
+    out.backward(g)
+    assert torch.equal(out.detach(), want)
+    assert torch.equal(xg.grad, tfd.threefry_dropout_plain(g, key, 0.1))
+    # one flipped key bit gives another mask
+    assert not torch.equal(tfd.threefry_dropout(x, (key[0] ^ 1, key[1]),
+                                                0.1), want)

@@ -250,11 +250,11 @@ def test_batch_triangle_solutions_match_jax():
 # one asking value per unported key
 _ASKS = {"tensor_parallel_size": 2, "pipeline_parallel_size": 2,
          "sequence_parallel_size": 2, "expert_parallel_size": 2,
-         "activation_checkpointing": {}, "compression_training": {"x": 1},
+         "compression_training": {"x": 1},
          "comm_compression": {"policy": "int8"}, "resilience": {"x": 1},
          "wall_clock_breakdown": True, "memory_breakdown": True,
          "data_efficiency": {"enabled": True,
-                             "data_routing": {"enabled": True}}}
+                             "data_sampling": {"enabled": True}}}
 
 
 @pytest.mark.parametrize("key", sorted(tconfig.UNPORTED))
@@ -265,7 +265,6 @@ def test_unported_config_values_raise_naming_their_row(key):
         tconfig.DeepSpeedConfig(dict(BASE, **{key: value}))
     off = 1 if key.endswith("_size") else \
         False if key.endswith("breakdown") else \
-        None if key == "activation_checkpointing" else \
         {} if key in _ASKS else {"enabled": False}
     tconfig.DeepSpeedConfig(dict(BASE, **{key: off}))   # disabled: accepted
 
@@ -307,11 +306,13 @@ def test_engine_surface_and_what_it_refuses():
     assert loader is engine.training_dataloader
     assert len(list(loader)) == 8 // MICRO
     for call, row in ((lambda: engine.save_checkpoint("x"), "A7"),
-                      (lambda: engine.load_checkpoint("x"), "A7"),
-                      (lambda: engine.forward({}), "A2b"),
-                      (lambda: engine.step(), "A2b")):
+                      (lambda: engine.load_checkpoint("x"), "A7")):
         with pytest.raises(NotImplementedError, match=row):
             call()
+    # the user loop: nothing to step yet
+    with pytest.raises(RuntimeError, match="without backward"):
+        engine.step()
+    assert not engine.is_gradient_accumulation_boundary()
     assert engine.train_batch_size == MICRO * GAS
     assert engine.gradient_accumulation_steps == GAS
     assert engine.train_micro_batch_size_per_gpu == MICRO

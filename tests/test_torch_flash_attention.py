@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from deepspeed_tpu.ops import seq_parallel as jsp
 from deepspeed_tpu.ops.pallas import flash_attention as jfa
 from deepspeed_tpu_torch.ops import flash_attention as tdispatch
 from deepspeed_tpu_torch.ops import seq_parallel as tsp
@@ -160,8 +161,15 @@ def test_sp_attention_without_a_seq_axis():
         tsp.sp_attention(q, k, v, impl="megatron")
     with pytest.raises(ValueError, match="causal"):
         tsp.sp_attention(q, k, v, causal=False, window=8)
-    with pytest.raises(NotImplementedError, match="A2b"):
-        tsp.sp_attention(q, k, v, dropout_rate=0.1)
+    # attention dropout: the JAX package's
+    # plain attention under the same key, within the forward tolerance
+    key = jax.random.PRNGKey(4)
+    want = jsp.sp_attention(*(jnp.asarray(a.numpy()) for a in (q, k, v)),
+                            dropout_rate=0.1, dropout_rng=key, backend="xla")
+    got = tsp.sp_attention(q, k, v, dropout_rate=0.1,
+                           dropout_rng=np.asarray(key))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FWD_TOL,
+                               rtol=0)
 
 
 # ------------------------------------------------ streamed regime (K4/K4b)

@@ -150,15 +150,55 @@ def test_loss_chunk_and_flops_per_token_match_jax():
 @pytest.mark.parametrize("what", ["dropout", "remat", "pld_theta",
                                   "ltd_keep", "act_bits"])
 def test_unported_training_options_raise_naming_a2b(what):
-    kw = dict(SMALL)
-    call = {}
+    """These options raised naming ROADMAP.md row A2b until it was ported;
+    now each one's loss and gradients match the JAX ``apply``'s under one
+    key (f32): dropout 0.1 (the plain attention, as the JAX package leaves
+    its packed kernel while dropping), remat (the packed attention's
+    plain versions recomputed), progressive layer drop (theta 0.5) and
+    random-LTD (64 of 128 tokens, off the packed envelope). ``act_bits``
+    still raises, now naming row A12."""
+    kw, call, backend = dict(SMALL), {}, "pallas"
     if what == "dropout":
-        kw["dropout"] = 0.1
+        kw["dropout"], backend = 0.1, "auto"
     elif what == "remat":
         kw["remat"] = True
+    elif what == "pld_theta":
+        call[what] = np.float32(0.5)
+    elif what == "ltd_keep":
+        call[what], backend = 64, "auto"
     else:
-        call[what] = 0.5 if what == "pld_theta" else 64
-    model = tgpt2.GPT2Model(tgpt2.GPT2Config(**kw))
-    ids = torch.zeros((1, 128), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A2b"):
-        model.apply({"input_ids": ids}, **call)
+        model = tgpt2.GPT2Model(tgpt2.GPT2Config(**kw))
+        with pytest.raises(NotImplementedError, match="A12"):
+            model.apply({"input_ids": torch.zeros((1, 128), dtype=torch.long)},
+                        act_bits=8)
+        return
+    key = jax.random.PRNGKey(9)
+    cfg = JaxConfig(**kw)
+    tree, batch = _tree(cfg, seed=5), _batch(cfg.vocab_size, seed=5)
+    jmodel = JaxModel(JaxConfig(**dict(kw, attn_backend="xla")))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jcall = {k: jnp.float32(v) if k == "pld_theta" else v
+             for k, v in call.items()}
+    want_loss, want = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.apply(p, jb, rng=key, train=True, **jcall)))(
+            jax.tree.map(jnp.asarray, tree))
+    model = tgpt2.GPT2Model(tgpt2.GPT2Config(**dict(kw,
+                                                    attn_backend=backend)))
+    model.load_jax_params(tree)
+    loss = model.apply({k: torch.from_numpy(v).long()
+                        for k, v in batch.items()},
+                       rng=tuple(np.asarray(key).tolist()), **call)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=LOSS_TOL)
+    for name in tgpt2.GPT2Model.top_leaves:
+        np.testing.assert_allclose(getattr(model, name).grad.numpy(),
+                                   np.asarray(want[name]), atol=GRAD_TOL,
+                                   rtol=1e-4, err_msg=name)
+    for name in tgpt2.GPT2Model.block_leaves:
+        got = np.stack([np.zeros(tuple(getattr(blk, name).shape), np.float32)
+                        if getattr(blk, name).grad is None else
+                        getattr(blk, name).grad.numpy()
+                        for blk in model.blocks])
+        np.testing.assert_allclose(got, np.asarray(want["blocks"][name]),
+                                   atol=GRAD_TOL, rtol=1e-4,
+                                   err_msg=f"blocks/{name}")

@@ -302,8 +302,19 @@ def test_flops_per_token_and_refusals():
     jmodel, tmodel = _models(kw)
     assert tmodel.flops_per_token(T) == jmodel.flops_per_token(T)
     assert tmodel.kv_heads == 2
-    with pytest.raises(NotImplementedError, match="LlamaModel.*A2b"):
-        tllama.LlamaModel(tllama.LlamaConfig(**dict(kw, dropout=0.1))).apply(
-            torch.zeros((1, T), dtype=torch.long))
+    # dropout: the JAX apply's loss under the
+    # same key; without a key, no dropout in either package
+    drop = dict(kw, dropout=0.1)
+    jdrop = JaxModel(JaxConfig(**dict(drop, attn_backend="xla")))
+    tdrop = tllama.LlamaModel(tllama.LlamaConfig(**drop))
+    tdrop.load_jax_params(_tree(kw))
+    ids = _ids(2, T, seed=3)
+    key = jax.random.PRNGKey(2)
+    for rng, trng in ((key, tuple(np.asarray(key).tolist())), (None, None)):
+        want = jdrop.apply(_jax_tree(_tree(kw)), {"input_ids": jnp.asarray(
+            ids)}, rng=rng, train=True)
+        got = tdrop.apply({"input_ids": torch.from_numpy(ids).long()},
+                          rng=trng)
+        np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
     with pytest.raises(ValueError, match="multiple of n_kv_head"):
         tllama.LlamaModel(tllama.LlamaConfig(**dict(kw, n_kv_head=3)))
