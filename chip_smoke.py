@@ -62,7 +62,17 @@ LLaMA-7B's width with remat off, default and full recompute, then at the
 depth only remat makes fit (``llama train remat``); GPT-2-125M with
 dropout, progressive layer drop and random-LTD through the user loop
 (``gpt2 train loop``: the model's layer coins and kept-token indices
-against a plain draw on the card). Each profile names
+against a plain draw on the card). Slice 8's checkpoint phases: LLaMA-7B's
+width at 4 layers trained, saved after two steps and resumed bit for bit
+by a fresh engine on other weights (``ckpt train resume``: save and load
+seconds, GB/s, hashing share, the host memory each takes against the
+largest leaf and the tag); GPT-2-125M's keep-last-2 retention, a retried
+write and the fallback past a truncated tag (``ckpt fallback``);
+LLaMA-7B at full depth saved by an optimizer-less engine and served from
+the tag through ``init_inference`` and a ``ServingEngine``, bitwise the
+saving model's logits and streams (``ckpt serve``); a tp 2 x pp 2
+Megatron-LM GPT-2-125M directory served bitwise as its single shard
+(``ckpt megatron``). Each profile names
 the flash and block-sparse attention kernel instances that ran; on these
 bf16 paths they must be the tensor-core ones (``mma_*``). Every check raises
 on failure, so the script exits
@@ -247,6 +257,24 @@ GPT2_LTD = {"enabled": True, "data_routing": {"enabled": True, "random_ltd": {
 # peak (that, plus the default policy's measured bytes a layer) fills at
 # most REMAT_FILL of the card
 REMAT_BYTES_PER_PARAM, REMAT_FILL, REMAT_TIMED = 20, 0.9, 2
+# Slice 8: checkpoints. Tags go under CKPT_DIR (build/ is ignored by git)
+# and each phase removes its own. ckpt train resume: the llama train cell
+# (LLaMA-7B's width at 4 layers, micro 4, T 2048, gas 2, bf16 on f32
+# masters, AdamW under WarmupLR) takes CKPT_STEPS steps, saving after
+# CKPT_SAVE_AT; a fresh engine on other weights loads the tag and takes
+# the rest, bitwise. ckpt serve: LLaMA-7B at CKPT_SERVE_LAYERS layers (its
+# full depth: 26.9 GB of f32 masters, qkv_w 6.4 GB and gate_w 5.8 GB
+# chunked; the card machine's disk holds it, PERF.md) saved by an
+# optimizer-less engine and served through init_inference's checkpoint
+# key, then CKPT_SERVE_REQUESTS requests through a ServingEngine of
+# SERVE_LLAMA's pool. ckpt megatron: GPT-2-125M (Megatron's padded vocab
+# 50304, a multiple of 128 x tp) written tp 2 x pp 2 at qkv version 0 and
+# as one shard at 2.0 (the JAX package reads 0, 1.0 and 2.0 and refuses
+# every other version, so the port does too).
+CKPT_DIR = "build/ckpt"
+CKPT_STEPS, CKPT_SAVE_AT = 4, 2
+CKPT_SERVE_LAYERS, CKPT_SERVE_REQUESTS = 32, 8
+CKPT_MEGATRON_VOCAB, CKPT_MEGATRON_TP, CKPT_MEGATRON_PP = 50304, 2, 2
 
 
 # numbers one phase hands to a later one (phases' own measurements)
@@ -3483,6 +3511,560 @@ def serve_gpt2(torch, cfg=None):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- slice 8
+
+def rss_bytes():
+    """This process's resident set (``VmRSS``), bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class RssPeak:
+    """A thread samples ``VmRSS`` every 5 ms inside the ``with`` block;
+    ``gib`` is the peak less the value before it, and ``seconds`` the
+    block's wall time."""
+
+    def __enter__(self):
+        import threading
+        self.base = self.peak = rss_bytes()
+        self.stop = threading.Event()
+
+        def sample():
+            while not self.stop.wait(0.005):
+                self.peak = max(self.peak, rss_bytes())
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
+        self.stop.set()
+        self.thread.join(timeout=10)
+        self.peak = max(self.peak, rss_bytes())
+        self.gib = (self.peak - self.base) / 2 ** 30
+
+
+def tag_layout(tag_dir):
+    """``(largest leaf bytes, state-file bytes, chunked leaf paths)`` of a
+    tag, from its files' structure (no data read)."""
+    import os
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import msgpack_codec
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.msgpack_codec import \
+        _itemsize
+    largest, total, chunked = 0, 0, []
+    for name in ("model_states.msgpack", "optim_states.msgpack"):
+        path = os.path.join(tag_dir, name)
+        total += os.path.getsize(path)
+        with open(path, "rb") as f:
+            leaves, paths = msgpack_codec.describe(f)
+        chunked += [f"{name.split('.')[0]}:{p}" for p in paths]
+        largest = max([largest] + [math.prod(shape) * _itemsize(dt)
+                                   for shape, dt in leaves.values()])
+    return largest, total, chunked
+
+
+def io_fields(prefix, rss, bytes_, hash_s, seconds=None):
+    seconds = rss.seconds if seconds is None else seconds
+    return {f"{prefix}_s": round(seconds, 3),
+            f"{prefix}_gb_per_s": round(bytes_ / seconds / 1e9, 3),
+            f"{prefix}_hash_share": round(hash_s / seconds, 4),
+            f"{prefix}_host_gib": round(rss.gib, 3)}
+
+
+def state_of(engine):
+    """Masters, mu and nu of an engine, in order."""
+    st = engine.opt_state
+    return list(engine._masters) + list(st.mu) + list(st.nu)
+
+
+def ckpt_train_resume(torch):
+    """The llama train cell takes CKPT_STEPS steps (run A), saving after
+    CKPT_SAVE_AT; the engine is deleted and the card freed; a fresh engine
+    on weights from another seed loads the tag and takes the same last
+    steps. Losses, masters and moments, counters, LR and the resumed steps'
+    launches must equal run A's bit for bit (else no more than two
+    uninterrupted runs differ). Returns the launches of both runs."""
+    import gc
+    import shutil
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=LLAMA_TRAIN_LAYERS)
+    config = dict(llama_train_config(1e-4, LLAMA_GAS), scheduler={
+        "type": "WarmupLR", "params": {"warmup_min_lr": 0.0,
+                                       "warmup_max_lr": 1e-4,
+                                       "warmup_num_steps": CKPT_STEPS}})
+    rng = np.random.default_rng(SEED + 80)
+    batches = [{"input_ids": rng.integers(
+        0, cfg.vocab_size, (LLAMA_GAS, LLAMA_MICRO, LLAMA_T),
+        dtype=np.int64)} for _ in range(CKPT_STEPS)]
+    tag_root = f"{CKPT_DIR}/resume"
+    shutil.rmtree(tag_root, ignore_errors=True)
+
+    def engine_of(seed):
+        model = llama_model(torch, cfg, seed, torch.float32)
+        return deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+
+    def host_state(engine):
+        return [t.detach().cpu() for t in state_of(engine)]
+
+    def steps(engine, batch_list):
+        _, per_step, losses = run_steps(
+            torch, lambda b: engine.train_batch(batch=b), batch_list)
+        return per_step, losses
+
+    reset_counts()
+
+    engine = engine_of(SEED + 81)
+    steps(engine, batches[:CKPT_SAVE_AT])
+    torch.cuda.synchronize()
+    with RssPeak() as save:
+        tag_dir = engine.save_checkpoint(tag_root)
+    saved = engine._ckpt_history[-1]
+    largest, tag_bytes, chunked = tag_layout(tag_dir)
+    a_steps, a_losses = steps(engine, batches[CKPT_SAVE_AT:])
+    a_state = host_state(engine)
+    a_counters = (engine.global_steps, engine.global_samples,
+                  engine.micro_steps, engine.get_lr())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_after_delete = torch.cuda.mem_get_info()[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    engine = engine_of(SEED + 82)             # another initial model
+    with RssPeak() as load:
+        engine.load_checkpoint(tag_root)
+    loaded = engine._ckpt_history[-1]
+    check(engine.global_steps == CKPT_SAVE_AT,
+          f"resumed at step {engine.global_steps}, want {CKPT_SAVE_AT}")
+    b_steps, b_losses = steps(engine, batches[CKPT_SAVE_AT:])
+    peak = torch.cuda.max_memory_allocated()
+    b_counters = (engine.global_steps, engine.global_samples,
+                  engine.micro_steps, engine.get_lr())
+    equal = [bool(torch.equal(x.cpu(), y)) for x, y in
+             zip(state_of(engine), a_state)]
+    check(b_counters == a_counters,
+          f"counters/LR after resume {b_counters}, run A {a_counters}")
+    check(b_steps == a_steps,
+          f"resumed steps launched {b_steps}, run A {a_steps}")
+    nondeterministic = None
+    if not (all(equal) and b_losses == a_losses):
+        # two uninterrupted runs: the resume may differ by no more
+        def worst(state):
+            return max(float((x.cpu().double() - y.double()).abs().max())
+                       for x, y in zip(state, a_state))
+        resumed_diff = worst(state_of(engine))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = engine_of(SEED + 81)
+        steps(engine, batches)
+        control_diff = worst(state_of(engine))
+        nondeterministic = {"resume_max_abs": resumed_diff,
+                            "two_runs_max_abs": control_diff}
+        check(control_diff > 0 and resumed_diff <= control_diff,
+              f"resume differs from run A by {resumed_diff}, two "
+              f"uninterrupted runs by {control_diff}")
+    phase("ckpt train resume", model=f"LLAMA_7B width, {cfg.n_layer} layers",
+          params=engine.module.num_params(), steps=CKPT_STEPS,
+          saved_after=CKPT_SAVE_AT, losses_a=json.dumps(a_losses),
+          losses_resumed=json.dumps(b_losses), bitwise=all(equal),
+          tensors_equal=f"{sum(equal)}/{len(equal)}",
+          nondeterministic=json.dumps(nondeterministic),
+          global_steps=b_counters[0], micro_steps=b_counters[2],
+          lr=b_counters[3][0], launches_resumed_steps=json.dumps(b_steps),
+          tag_gb=round(tag_bytes / 1e9, 3),
+          largest_leaf_gib=round(largest / 2 ** 30, 3),
+          tag_gib=round(tag_bytes / 2 ** 30, 3), chunked=json.dumps(chunked),
+          **io_fields("save", save, saved["bytes"], saved["hash_seconds"]),
+          **io_fields("load", load, loaded["bytes"], loaded["hash_seconds"]),
+          card_free_gib_before_load=round(free_after_delete / 2 ** 30, 2),
+          peak_mem_gib=round(peak / 2 ** 30, 2))
+    launches = counts()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tag_root, ignore_errors=True)
+    return launches
+
+
+def ckpt_fallback(torch):
+    """GPT-2-125M (the main train cell) with keep_last_n 2 and save_retries
+    2: three saves (the first tag collected), a save through one injected
+    write failure (retried), then the newest tag's optim_states truncated
+    on disk: loading falls back to the previous tag with one rollback
+    counted and training resumes from it; with every tag truncated, the
+    load raises CheckpointLoadError naming each tag. Returns the K1/K2
+    launches of its steps."""
+    import os
+    import shutil
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, GPT2_125M
+    from deepspeed_tpu_torch.resilience import (CheckpointLoadError,
+                                                get_injector, list_tags)
+    cfg = GPT2_125M
+    config = dict(train_config(1e-4, TRAIN_GAS), resilience={
+        "keep_last_n": 2, "save_retries": 2, "retry_backoff_s": 0.05,
+        "retry_max_backoff_s": 0.1})
+    root = f"{CKPT_DIR}/fallback"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 83)
+    batches = [{"input_ids": rng.integers(
+        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_MICRO, cfg.n_positions),
+        dtype=np.int64)} for _ in range(4)]
+
+    def engine_of(seed):
+        model = GPT2Model(cfg, generator=torch.Generator().manual_seed(seed))
+        return deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+
+    def counter(engine, tag):
+        return engine.tracer.counter_value(tag, 0.0)
+
+    reset_counts()
+    engine = engine_of(SEED + 84)
+    losses = []
+    for b in batches[:3]:
+        losses.append(float(engine.train_batch(batch=b)))
+        engine.save_checkpoint(root)
+    tags3 = list_tags(root)
+    check(tags3 == ["global_step3", "global_step2"],
+          f"keep_last_n 2 left {tags3}")
+    retries0 = counter(engine, "resilience/ckpt_retries")
+    losses.append(float(engine.train_batch(batch=batches[3])))
+    injector = get_injector()
+    injector.arm("io_write_fail", times=1)
+    engine.save_checkpoint(root)
+    retried = counter(engine, "resilience/ckpt_retries") - retries0
+    check(injector.fired.get("io_write_fail") == 1 and retried == 1,
+          f"io_write_fail fired {injector.fired}, retries counted {retried}")
+    tags4 = list_tags(root)
+    check(tags4 == ["global_step4", "global_step3"], f"tags {tags4}")
+    newest = os.path.join(root, "global_step4", "optim_states.msgpack")
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    del engine
+    torch.cuda.empty_cache()
+
+    engine = engine_of(SEED + 85)
+    rollbacks0 = counter(engine, "resilience/rollbacks")
+    path, _ = engine.load_checkpoint(root)
+    rollbacks = counter(engine, "resilience/rollbacks") - rollbacks0
+    check(path.endswith("global_step3") and engine.global_steps == 3 and
+          rollbacks == 1, f"fallback loaded {path} at step "
+          f"{engine.global_steps} with {rollbacks} rollbacks")
+    resumed = float(engine.train_batch(batch=batches[3]))
+    check(math.isfinite(resumed) and engine.global_steps == 4,
+          f"resumed loss {resumed} at step {engine.global_steps}")
+    for tag in ("global_step3",):
+        p = os.path.join(root, tag, "optim_states.msgpack")
+        with open(p, "r+b") as f:
+            f.truncate(os.path.getsize(p) // 2)
+    try:
+        engine_of(SEED + 86).load_checkpoint(root)
+        raised = None
+    except CheckpointLoadError as e:
+        raised = str(e)
+    check(raised is not None and "global_step4" in raised and
+          "global_step3" in raised,
+          f"every tag truncated: load raised {raised!r}")
+    launches = counts()
+    phase("ckpt fallback", model="GPT2_125M", tags_after_3_saves=tags3,
+          write_failures_retried=retried, tags_after_retry=tags4,
+          truncated="global_step4/optim_states.msgpack", loaded=path,
+          rollbacks=rollbacks, losses=json.dumps([round(x, 4)
+                                                  for x in losses]),
+          resumed_loss=round(resumed, 4), resumed_loss_before=round(
+              losses[3], 4), all_truncated_raises="CheckpointLoadError",
+          launches=json.dumps(launches))
+    del engine
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def ckpt_serve(torch):
+    """LLaMA-7B at CKPT_SERVE_LAYERS layers: an optimizer-less engine holds
+    the f32 masters and saves a tag (chunked leaves); ``init_inference``
+    of a model from another seed with the tag in its config serves every
+    weight as the masters cast to bf16, [4, 2048] logits and greedy streams
+    bitwise those of an engine built on the saving model, at
+    weights_version 1; then a ServingEngine over each serves the same
+    requests, bitwise. Returns K3's launches in the scoring calls."""
+    import gc
+    import shutil
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=CKPT_SERVE_LAYERS)
+    root = f"{CKPT_DIR}/serve"
+    shutil.rmtree(root, ignore_errors=True)
+    need = 4 * sum(math.prod(s) for s in _llama_leaf_shapes(cfg))
+    free = shutil.disk_usage("build").free
+    check(free > 1.1 * need, f"{free / 1e9:.1f} GB free under build/, the "
+          f"tag needs {need / 1e9:.1f} GB")
+    model = llama_model(torch, cfg, SEED + 90, torch.float32)
+    trainer = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_batch_size": 1, "bf16": {"enabled": True},
+        "steps_per_print": 0})[0]
+    check(trainer.optimizer is None, "the saving engine has an optimizer")
+    torch.cuda.synchronize()
+    with RssPeak() as save:
+        tag_dir = trainer.save_checkpoint(root)
+    saved = trainer._ckpt_history[-1]
+    largest, tag_bytes, chunked = tag_layout(tag_dir)
+    check(chunked, "the full-depth tag has no chunked leaf")
+
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as load:
+        served = deepspeed_tpu_torch.init_inference(
+            llama_model(torch, cfg, SEED + 91, torch.bfloat16),
+            {"dtype": "bfloat16", "checkpoint": root})
+        torch.cuda.synchronize()
+    load_peak = torch.cuda.max_memory_allocated()
+    check(served.weights_version == 1,
+          f"weights_version {served.weights_version}")
+    with torch.no_grad():
+        same = [torch.equal(p, m.to(torch.bfloat16)) for p, m in
+                zip(served.module.parameters(), trainer._masters)]
+    check(all(same), f"{same.count(False)} served weights differ from the "
+          f"masters cast to bf16")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    direct = deepspeed_tpu_torch.init_inference(model, {"dtype": "bfloat16"})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ids = torch.randint(0, cfg.vocab_size, (4, LLAMA_T),
+                        generator=torch.Generator().manual_seed(SEED + 92))
+    reset_counts()
+    logits = served(ids)
+    per_call = [fa.flash_attention_fwd.launches]
+    logits_direct = direct(ids)
+    per_call.append(fa.flash_attention_fwd.launches - per_call[0])
+    check(per_call == [cfg.n_layer] * 2,
+          f"K3 launched {per_call} times a scoring call, want "
+          f"{cfg.n_layer}")
+    check(torch.equal(logits, logits_direct),
+          "logits from the tag differ from the saving model's")
+    del logits, logits_direct
+    prompts = torch.randint(0, cfg.vocab_size, (4, 128),
+                            generator=torch.Generator().manual_seed(SEED + 93))
+    greedy = [e.generate(prompts, max_new_tokens=32) for e in (served,
+                                                                direct)]
+    check(torch.equal(*greedy), "greedy streams from the tag differ")
+    spec = dict(SERVE_LLAMA, requests=CKPT_SERVE_REQUESTS)
+    traffic = serve_traffic(np, spec, cfg.vocab_size, SEED + 94)
+    streams, walls = [], []
+    for engine in (served, direct):
+        toks, reqs, _, ticks, wall, srv = serve_run(torch, engine,
+                                                    spec["cfg"], traffic)
+        srv.shutdown()
+        del srv
+        torch.cuda.empty_cache()
+        states = {r.state.value for r in reqs}
+        check(states == {"finished"}, f"ckpt serve: request states {states}")
+        streams.append(toks)
+        walls.append(round(wall, 3))
+    check(streams[0] == streams[1],
+          "served streams from the tag differ from the saving model's")
+    launches = counts()["K3"]
+    phase("ckpt serve", model=f"LLAMA_7B, {cfg.n_layer} layers",
+          params=served.module.num_params(), tag_gb=round(tag_bytes / 1e9, 3),
+          tag_gib=round(tag_bytes / 2 ** 30, 3),
+          largest_leaf_gib=round(largest / 2 ** 30, 3),
+          chunked=json.dumps(chunked), disk_free_gb=round(free / 1e9, 1),
+          **io_fields("save", save, saved["bytes"], saved["hash_seconds"]),
+          load_s=round(load.seconds, 3),
+          load_gb_per_s=round(tag_bytes / load.seconds / 1e9, 3),
+          load_host_gib=round(load.gib, 3),
+          host_below_tag=save.gib < tag_bytes / 2 ** 30 and
+          load.gib < tag_bytes / 2 ** 30,
+          weights_equal_masters_bf16=True, logits_bitwise=True,
+          k3_launches_per_call=json.dumps(per_call), k3_launches=launches,
+          greedy_streams_equal=True,
+          weights_version=served.weights_version,
+          served_requests=len(traffic), served_streams_equal=True,
+          serve_seconds=json.dumps(walls),
+          load_peak_mem_gib=round(load_peak / 2 ** 30, 2))
+    check(save.gib < tag_bytes / 2 ** 30 and load.gib < tag_bytes / 2 ** 30,
+          f"save took {save.gib:.2f} GiB of host memory and load "
+          f"{load.gib:.2f}, the tag is {tag_bytes / 2 ** 30:.2f} GiB")
+    del served, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def _llama_leaf_shapes(cfg):
+    d, m = cfg.n_embd, cfg.intermediate
+    qkv = (cfg.n_head + 2 * cfg.kv_head_count) * cfg.head_dim
+    return [(cfg.padded_vocab, d)] * 2 + [(d,)] + [
+        (cfg.n_layer,) + s for s in ((d,), (d, qkv), (d, d), (d,), (d, m),
+                                     (d, m), (m, d))]
+
+
+def write_megatron(torch, root, full, tp, pp, version, n_head, n_layer):
+    """A Megatron-LM GPT checkpoint of ``full`` (Megatron's names, f32
+    numpy) in ``tp`` x ``pp`` shards with the qkv rows of ``version``, as
+    ``tests/unit/test_megatron_ckpt.py`` writes its fixtures."""
+    import os
+    import types
+    import numpy as np
+    hd = full["wpe"].shape[1] // n_head
+    per_stage = n_layer // pp
+
+    def relayout(shard, heads):
+        w = shard.reshape(heads, 3, hd, -1)
+        if version == 1.0:
+            return np.transpose(w, (0, 2, 1, 3)).reshape(shard.shape)
+        if version == 0:
+            return np.transpose(w, (1, 0, 2, 3)).reshape(shard.shape)
+        return shard
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    for s in range(pp):
+        for r in range(tp):
+            trans = {}
+            for g in range(s * per_stage, (s + 1) * per_stage):
+                for k, v in full.items():
+                    if not k.startswith(f"layers.{g}."):
+                        continue
+                    suffix = k.split(".", 2)[2]
+                    if "query_key_value" in k:
+                        shard = np.split(v, tp, axis=0)[r]
+                        shard = relayout(shard.reshape(shard.shape[0], -1),
+                                         n_head // tp).reshape(shard.shape)
+                    elif "dense_h_to_4h" in k:
+                        shard = np.split(v, tp, axis=0)[r]
+                    elif k.endswith(("attention.dense.weight",
+                                     "mlp.dense_4h_to_h.weight")):
+                        shard = np.split(v, tp, axis=1)[r]
+                    else:
+                        shard = v
+                    trans[f"layers.{g - s * per_stage}.{suffix}"] = t(shard)
+            lm = {"transformer": trans}
+            if s == 0:
+                lm["embedding"] = {
+                    "word_embeddings": {"weight": t(np.split(
+                        full["wte"], tp, axis=0)[r])},
+                    "position_embeddings": {"weight": t(full["wpe"])}}
+            if s == pp - 1:
+                for k in ("final_layernorm.weight", "final_layernorm.bias"):
+                    trans[k] = t(full[k])
+            d = os.path.join(root, f"mp_rank_{r:02d}_{s:03d}" if pp > 1
+                             else f"mp_rank_{r:02d}")
+            os.makedirs(d, exist_ok=True)
+            torch.save({"args": types.SimpleNamespace(
+                num_attention_heads=n_head), "checkpoint_version": version,
+                "model": {"language_model": lm}},
+                os.path.join(d, "model_optim_rng.pt"))
+
+
+def megatron_tensors(np, cfg, vocab, seed):
+    """GPT-2-125M's tensors under Megatron's names, random from ``seed``."""
+    rng = np.random.default_rng(seed)
+    d, f = cfg.n_embd, cfg.mlp_ratio * cfg.n_embd
+
+    def w(*shape, std=0.02, center=0.0):
+        return (center + rng.standard_normal(shape, np.float32) * std)
+
+    full = {"wte": w(vocab, d), "wpe": w(cfg.n_positions, d),
+            "final_layernorm.weight": w(d, center=1.0),
+            "final_layernorm.bias": w(d)}
+    for i in range(cfg.n_layer):
+        for name, shape, center in (
+                ("input_layernorm.weight", (d,), 1.0),
+                ("input_layernorm.bias", (d,), 0.0),
+                ("attention.query_key_value.weight", (3 * d, d), 0.0),
+                ("attention.query_key_value.bias", (3 * d,), 0.0),
+                ("attention.dense.weight", (d, d), 0.0),
+                ("attention.dense.bias", (d,), 0.0),
+                ("post_attention_layernorm.weight", (d,), 1.0),
+                ("post_attention_layernorm.bias", (d,), 0.0),
+                ("mlp.dense_h_to_4h.weight", (f, d), 0.0),
+                ("mlp.dense_h_to_4h.bias", (f,), 0.0),
+                ("mlp.dense_4h_to_h.weight", (d, f), 0.0),
+                ("mlp.dense_4h_to_h.bias", (d,), 0.0)):
+            full[f"layers.{i}.{name}"] = w(*shape, center=center)
+    return full
+
+
+def ckpt_megatron(torch):
+    """A Megatron-LM GPT-2-125M directory in tp 2 x pp 2 (qkv version 0)
+    and as one shard (2.0), written here with torch.save from one seed:
+    both load to bitwise-equal trees, and init_inference(dir, bf16) of each
+    scores [8, 1024] with 12 K1 launches a call to bitwise-equal logits and
+    serves equal greedy streams. Returns K1's launches."""
+    import shutil
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint.megatron import \
+        load_megatron_checkpoint
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_125M
+    from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as k1
+    cfg = GPT2_125M
+    root = f"{CKPT_DIR}/megatron"
+    shutil.rmtree(root, ignore_errors=True)
+    full = megatron_tensors(np, cfg, CKPT_MEGATRON_VOCAB, SEED + 95)
+    t0 = time.perf_counter()
+    write_megatron(torch, f"{root}/grid", full, CKPT_MEGATRON_TP,
+                   CKPT_MEGATRON_PP, 0, cfg.n_head, cfg.n_layer)
+    write_megatron(torch, f"{root}/flat", full, 1, 1, 2.0, cfg.n_head,
+                   cfg.n_layer)
+    write_s = time.perf_counter() - t0
+    trees = [load_megatron_checkpoint(f"{root}/{d}")[1]
+             for d in ("grid", "flat")]
+    from deepspeed_tpu_torch.elasticity.logical import _leaves
+    flat = [dict(_leaves(tr)) for tr in trees]
+    check(flat[0].keys() == flat[1].keys() and all(
+        np.array_equal(flat[0][k], flat[1][k]) for k in flat[1]),
+        "the tp x pp tree differs from the single shard's")
+    del trees, flat
+    ids = torch.randint(0, cfg.vocab_size, (8, cfg.n_positions),
+                        generator=torch.Generator().manual_seed(SEED + 96))
+    prompts = ids[:4, :128]
+    reset_counts()
+    logits, streams, per_call = [], [], []
+    for d in ("grid", "flat"):
+        s0 = time.perf_counter()
+        engine = deepspeed_tpu_torch.init_inference(f"{root}/{d}",
+                                                    {"dtype": "bfloat16"})
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - s0
+        before = k1.packed_flash_attention_fwd.launches
+        logits.append(engine(ids))
+        per_call.append(k1.packed_flash_attention_fwd.launches - before)
+        streams.append(engine.generate(prompts, max_new_tokens=32))
+        del engine
+    launches = counts()["K1"]
+    check(per_call == [cfg.n_layer] * 2,
+          f"K1 launched {per_call} times a scoring call, want {cfg.n_layer}")
+    check(torch.equal(*logits), "tp x pp logits differ from one shard's")
+    check(torch.equal(*streams), "tp x pp greedy streams differ")
+    phase("ckpt megatron", model=f"GPT2_125M (vocab {CKPT_MEGATRON_VOCAB})",
+          layouts=f"tp{CKPT_MEGATRON_TP} x pp{CKPT_MEGATRON_PP} v0 vs tp1 "
+          f"v2.0", write_s=round(write_s, 2), init_inference_s=round(
+              load_s, 2), trees_bitwise=True, logits_bitwise=True,
+          greedy_equal=True, k1_launches=launches,
+          k1_launches_per_call=per_call)
+    del logits, streams
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3653,6 +4235,13 @@ def main():
     serve_llama(torch)
     serve_gpt2(torch)
 
+    # ---- checkpoints: resume, fallback, serving from a tag and from a
+    #      Megatron directory
+    resume_launches = ckpt_train_resume(torch)
+    fallback_launches = ckpt_fallback(torch)
+    ckpt_serve_launches = ckpt_serve(torch)
+    megatron_launches = ckpt_megatron(torch)
+
     def entry(name, source, replaces, launches, res, err):
         return {"name": name, "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{source}",
@@ -3669,20 +4258,23 @@ def main():
     kernels = [
         entry("flash_attention_packed_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention_packed.py:65",
-              launches + train_launches["K1"], main_case,
-              main_case["err_out"]),
+              launches + train_launches["K1"] + fallback_launches["K1"] +
+              megatron_launches, main_case, main_case["err_out"]),
         entry("flash_attention_packed_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention_packed.py:148",
-              train_launches["K2"], main_k2, bwd_err(main_k2)),
+              train_launches["K2"] + fallback_launches["K2"], main_k2,
+              bwd_err(main_k2)),
         entry("flash_attention_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention.py:141",
               llama_fwd_launches + llama_train_launches["K3"] +
-              llama_remat_launches["K3"], main_k3, main_k3["err_out"]),
+              llama_remat_launches["K3"] + resume_launches["K3"] +
+              ckpt_serve_launches, main_k3, main_k3["err_out"]),
         entry("flash_attention_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention.py:222 (K3b); "
               f"{pallas}/flash_attention.py:329,358 (K5)",
               llama_train_launches["K3b/K5"] +
-              llama_remat_launches["K3b/K5"], main_k3b, bwd_err(main_k3b)),
+              llama_remat_launches["K3b/K5"] + resume_launches["K3b/K5"],
+              main_k3b, bwd_err(main_k3b)),
         entry("flash_attention_streamed_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention.py:483",
               codellama_fwd_launches + codellama_train_launches["K4"],

@@ -8,7 +8,8 @@ hand-written for ``sm_90a`` (``csrc/``) and built by ``nvcc`` at first use
 the CPU take. It serves GPT-2, LLaMA and BERT through ``init_inference``
 and trains them through ``initialize`` -> ``DeepSpeedEngine.train_batch``;
 ``ops/sparse_attention_utils.SparseAttentionUtils`` puts block-sparse
-attention into BERT.
+attention into BERT. Checkpoints are the JAX package's format: a tag
+either package writes loads in the other.
 """
 
 __version__ = "0.1.0"
@@ -21,7 +22,8 @@ def init_inference(model, config=None, device=None, **kwargs):
 
     ``model`` is a deepspeed_tpu_torch model (``GPT2Model``,
     ``LlamaModel``, ``BertModel``: ``engine(ids)`` scores each, and
-    ``generate`` serves the decoders); ``config`` a dict (merged with ``kwargs``) or a
+    ``generate`` serves the decoders) or the path of a Megatron-LM GPT
+    checkpoint directory (``checkpoint/megatron.py``); ``config`` a dict (merged with ``kwargs``) or a
     ``DeepSpeedInferenceConfig``. The engine runs on ``cuda`` unless
     ``device`` says otherwise, and raises when no GPU is present."""
     from .inference.config import DeepSpeedInferenceConfig
@@ -31,9 +33,9 @@ def init_inference(model, config=None, device=None, **kwargs):
     if isinstance(config, dict):
         config = DeepSpeedInferenceConfig.from_dict({**config, **kwargs})
     if isinstance(model, str):
-        raise NotImplementedError(
-            "serving a Megatron checkpoint directory is not ported yet: "
-            "ROADMAP.md row A7")
+        from .checkpoint.megatron import load_megatron_checkpoint
+        spec, params = load_megatron_checkpoint(model)
+        return InferenceEngine(spec, config, params=params, device=device)
     return InferenceEngine(model, config, device=device)
 
 

@@ -3,10 +3,11 @@
 max_out_tokens, replace_with_kernel_inject, ...), with the same keys,
 aliases and ``ConfigError``s. Dtype names map to ``torch`` dtypes.
 
-Keys whose values this port cannot serve yet are parsed and then refused
-with ``NotImplementedError`` naming their ROADMAP.md row: tensor-parallel
-serving (``tp_size`` or ``mp_size`` > 1), weight-only quantization
-(``quant`` or ``dtype: int8``) and ``checkpoint``.
+``checkpoint`` names a training checkpoint directory (either package's)
+that the engine loads at start. Keys whose values this port cannot serve
+yet are parsed and then refused with ``NotImplementedError`` naming their
+ROADMAP.md row: tensor-parallel serving (``tp_size`` or ``mp_size`` > 1)
+and weight-only quantization (``quant`` or ``dtype: int8``).
 """
 
 import dataclasses
@@ -135,7 +136,3 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
             raise NotImplementedError(
                 "weight-only quantized serving (quant / dtype int8) is not "
                 "ported yet: ROADMAP.md row A9")
-        if self.checkpoint:
-            raise NotImplementedError(
-                "loading a checkpoint into the inference engine is not "
-                "ported yet: ROADMAP.md row A7")

@@ -73,6 +73,19 @@ def _sample_one(logits_row, temp, top_k, top_p, seed, col, vocab):
                            vocab)[0])
 
 
+def _clone_structure(module):
+    """A copy of ``module`` and its submodules that shares their tensors
+    but owns its parameter and module tables, so setting a parameter on
+    the copy leaves the original as it was."""
+    import copy
+    clone = copy.copy(module)
+    clone._parameters = dict(module._parameters)
+    clone._buffers = dict(module._buffers)
+    clone._modules = {k: _clone_structure(v) if v is not None else None
+                      for k, v in module._modules.items()}
+    return clone
+
+
 def _log_softmax(x):
     """``jax.nn.log_softmax`` over the last axis."""
     shifted = x - x.amax(-1, keepdim=True)
@@ -121,6 +134,64 @@ class InferenceEngine:
         #: engine refuses a KV handoff produced under another version
         self.weights_version = 0
         self._drafts = {}
+        if config.checkpoint:
+            self.load_checkpoint(config.checkpoint)
+
+    # ------------------------------------------------------------ checkpoints
+    def load_checkpoint(self, load_dir, tag=None):
+        """Load a training checkpoint tag of either package (``latest``
+        unless ``tag``) into this engine's weights, cast to the serving
+        dtype; ``weights_version`` becomes the tag's."""
+        from ..runtime.checkpointing import read_weights_version
+        self.module.load_jax_params(self._load_params(load_dir, tag))
+        self.weights_version = read_weights_version(load_dir, tag=tag)
+        return load_dir
+
+    def _load_params(self, load_dir, tag=None):
+        """A tag's params as a JAX tree on this engine's device in the
+        serving dtype, each leaf moved and cast as it is read; structure
+        gated: a drifted leaf set raises with the per-leaf diff before
+        anything is copied."""
+        from ..runtime.checkpointing import (load_params_for_inference,
+                                             shapes_tree)
+        like = shapes_tree(self.module, list(self.module.parameters()))
+
+        def cast(t):
+            return t.to(self.dtype) if t.is_floating_point() else t
+        return load_params_for_inference(load_dir, tag=tag, like=like,
+                                         device=self.device, cast=cast)
+
+    def with_params(self, params, weights_version=None):
+        """A shallow engine view serving ``params`` (a JAX tree of tensors
+        in the serving dtype, on this engine's device) beside this one: its
+        module shares this module's structure and config but holds its own
+        Parameters (views of ``params``' leaves, no copy); this engine is
+        unchanged. Drafts are rebuilt for the view."""
+        import copy
+        view = copy.copy(self)
+        view.module = _clone_structure(self.module)
+        with torch.no_grad():
+            for (name, _), value in zip(self.module.named_parameters(),
+                                        self.module.from_jax_tree(params)):
+                owner, _, leaf = name.rpartition(".")
+                mod = view.module.get_submodule(owner) if owner else \
+                    view.module
+                setattr(mod, leaf, torch.nn.Parameter(
+                    value.to(self.device, self.dtype), requires_grad=False))
+        view._drafts = {}
+        view._slot_shapes = set()
+        if weights_version is not None:
+            view.weights_version = int(weights_version)
+        return view
+
+    def load_version(self, load_dir, tag=None):
+        """Load a checkpoint WITHOUT changing this engine: a view
+        (``with_params``) serving the tag's weights at its
+        ``weights_version``. The manifest and the structure gate run
+        before the view exists, so a bad tag aborts here."""
+        from ..runtime.checkpointing import read_weights_version
+        return self.with_params(self._load_params(load_dir, tag),
+                                read_weights_version(load_dir, tag=tag))
 
     def _ids(self, input_ids):
         if not isinstance(input_ids, torch.Tensor):

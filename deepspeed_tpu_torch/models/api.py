@@ -10,8 +10,10 @@ loss`` with its compute-dtype copies of the weights swapped in through
 on purpose: on a model of this port it is the loss, as in the JAX package.
 A family names its JAX parameter leaves in ``top_leaves`` and
 ``block_leaves`` (one layer's leaves, held by each module of
-``self.blocks``), and ``load_jax_params`` / ``jax_params`` move a JAX tree
-in and out through them.
+``self.blocks``); ``jax_tree`` / ``from_jax_tree`` map any list of tensors
+aligned with ``named_parameters()`` (weights, optimizer moments) to the
+JAX tree and back, and ``load_jax_params`` / ``jax_params`` move the
+weights in and out through them.
 """
 
 from types import SimpleNamespace
@@ -30,34 +32,87 @@ class ModelSpec(nn.Module):
     top_leaves = ()      # JAX leaf names of the top level
     block_leaves = ()    # those of one layer (the [L, ...] params["blocks"])
 
-    @torch.no_grad()
-    def load_jax_params(self, tree):
-        """Copy a JAX parameter tree of this family (numpy arrays in the JAX
-        layout: the ``top_leaves``, e.g. GPT-2's ``wte [Vp, D]``,
-        ``wpe [P, D]``, ``ln_f_*``, and the stacked
-        ``blocks/<leaf> [L, ...]`` of ``block_leaves``) into this module,
-        casting to each parameter's dtype."""
-        def put(p, value, name):
-            value = np.asarray(value)
-            if tuple(value.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: JAX leaf has shape {value.shape}, "
-                                 f"the module wants {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+    def jax_layout(self):
+        """Where each tensor of ``named_parameters()`` lives in the JAX
+        tree: a list, aligned with it, of ``(leaf name, layer)``, where a
+        top-level leaf has layer None and ``blocks/<leaf>`` is the stacked
+        ``[L, ...]`` leaf whose row ``layer`` the tensor is."""
+        tops, blocks = set(self.top_leaves), set(self.block_leaves)
+        out = []
+        for name, _ in self.named_parameters():
+            parts = name.split(".")
+            if len(parts) == 1 and name in tops:
+                out.append((name, None))
+            elif len(parts) == 3 and parts[0] == "blocks" and \
+                    parts[2] in blocks:
+                out.append((f"blocks/{parts[2]}", int(parts[1])))
+            else:
+                raise ValueError(f"parameter {name!r} has no leaf in the "
+                                 f"JAX tree of {type(self).__name__}")
+        return out
 
-        missing = [n for n in self.top_leaves if n not in tree] + \
-            [f"blocks/{n}" for n in self.block_leaves
-             if n not in tree.get("blocks", {})]
+    def jax_tree(self, tensors, stack=None):
+        """The JAX tree of ``tensors``, any list aligned with
+        ``named_parameters()`` (the weights, or an optimizer's moments of
+        them): each top-level leaf as given, each ``blocks/<leaf>`` the
+        result of ``stack`` on its per-layer tensors in layer order
+        (default: ``torch.stack``)."""
+        stack = torch.stack if stack is None else stack
+        layout = self.jax_layout()
+        if len(tensors) != len(layout):
+            raise ValueError(f"{len(tensors)} tensors for "
+                             f"{len(layout)} parameters")
+        tree, layers = {}, {}
+        for (leaf, layer), t in zip(layout, tensors):
+            if layer is None:
+                tree[leaf] = t
+            else:
+                layers.setdefault(leaf.split("/")[1], {})[layer] = t
+        tree["blocks"] = {name: stack([rows[i] for i in range(len(rows))])
+                          for name, rows in layers.items()}
+        return tree
+
+    def from_jax_tree(self, tree):
+        """The inverse of :meth:`jax_tree`: a list aligned with
+        ``named_parameters()``, each entry the JAX leaf or its row
+        ``layer``, as given (numpy arrays or tensors). Raises ``KeyError``
+        naming the leaves the tree lacks and ``ValueError`` on a stacked
+        leaf with another layer count."""
+        layout = self.jax_layout()
+        blocks = tree.get("blocks", {}) if isinstance(tree, dict) else {}
+        missing = sorted({leaf for leaf, layer in layout
+                          if (tree.get(leaf) if layer is None else
+                              blocks.get(leaf.split("/")[1])) is None})
         if missing:
             raise KeyError(f"JAX parameter tree lacks {missing}")
-        for name in self.top_leaves:
-            put(getattr(self, name), tree[name], name)
-        for name in self.block_leaves:
-            stacked = np.asarray(tree["blocks"][name])
+        out = []
+        for leaf, layer in layout:
+            if layer is None:
+                out.append(tree[leaf])
+                continue
+            stacked = blocks[leaf.split("/")[1]]
             if stacked.shape[0] != len(self.blocks):
-                raise ValueError(f"blocks/{name}: {stacked.shape[0]} layers, "
-                                 f"the module has {len(self.blocks)}")
-            for i, blk in enumerate(self.blocks):
-                put(getattr(blk, name), stacked[i], f"blocks/{name}[{i}]")
+                raise ValueError(f"{leaf}: {stacked.shape[0]} layers, the "
+                                 f"module has {len(self.blocks)}")
+            out.append(stacked[layer])
+        return out
+
+    @torch.no_grad()
+    def load_jax_params(self, tree):
+        """Copy a JAX parameter tree of this family (numpy arrays or
+        tensors in the JAX layout: the ``top_leaves``, e.g. GPT-2's ``wte
+        [Vp, D]``, ``wpe [P, D]``, ``ln_f_*``, and the stacked
+        ``blocks/<leaf> [L, ...]`` of ``block_leaves``) into this module,
+        casting to each parameter's dtype."""
+        values = self.from_jax_tree(tree)
+        for (name, p), value in zip(self.named_parameters(), values):
+            if not isinstance(value, torch.Tensor):
+                value = torch.from_numpy(np.ascontiguousarray(value))
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: JAX leaf has shape "
+                                 f"{tuple(value.shape)}, the module wants "
+                                 f"{tuple(p.shape)}")
+            p.copy_(value)
         return self
 
     def jax_params(self):
@@ -65,11 +120,8 @@ class ModelSpec(nn.Module):
         arrays (the inverse of :meth:`load_jax_params`)."""
         def arr(p):
             return p.detach().to("cpu", torch.float32).numpy()
-        tree = {name: arr(getattr(self, name)) for name in self.top_leaves}
-        tree["blocks"] = {
-            name: np.stack([arr(getattr(blk, name)) for blk in self.blocks])
-            for name in self.block_leaves}
-        return tree
+        return self.jax_tree([arr(p) for p in self.parameters()],
+                             stack=np.stack)
 
     def init_weights(self, generator) -> None:
         raise NotImplementedError

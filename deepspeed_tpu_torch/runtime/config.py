@@ -6,8 +6,9 @@ batch triangle (``train_batch_size = micro × gradient_accumulation_steps ×
 dp``), ``fp16`` / ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``gradient_accumulation_dtype``, ``steps_per_print``,
 ``seed``, ``zero_optimization``, ``activation_checkpointing``,
-``progressive_layer_drop`` and ``data_efficiency.data_routing``
-(random-LTD).
+``progressive_layer_drop``, ``data_efficiency.data_routing``
+(random-LTD), ``checkpoint``, ``nebula``, ``load_universal_checkpoint`` and
+the checkpoint keys of ``resilience``.
 
 Every other block the JAX config parses is accepted while it is disabled
 (or at its default) and raises ``NotImplementedError`` naming its
@@ -22,6 +23,7 @@ from typing import Any, Dict, Optional
 from . import constants as C
 from .config_utils import ConfigError, DeepSpeedConfigModel
 from .zero.config import DeepSpeedZeroConfig
+from ..resilience.config import ResilienceConfig, unported_keys
 from ..utils.logging import logger
 
 
@@ -76,6 +78,23 @@ class ActivationCheckpointingConfig(DeepSpeedConfigModel):
     profile: bool = False
 
 
+@dataclasses.dataclass
+class CheckpointConfig(DeepSpeedConfigModel):
+    """The ``checkpoint`` block, as the JAX package parses it.
+    ``async_save`` warns and takes the msgpack engine (no orbax on the
+    card); ``tag_validation`` is parsed and checked, as there."""
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    async_save: bool = False
+
+    def validate(self):
+        if str(self.tag_validation).lower() not in ("ignore", "warn", "fail"):
+            raise ConfigError(
+                "checkpoint.tag_validation must be Ignore|Warn|Fail")
+
+
 def _enabled(block):
     return isinstance(block, dict) and bool(block.get("enabled"))
 
@@ -122,8 +141,11 @@ UNPORTED = {
     C.OVERLAP_SCHEDULE: ("A8", "the ZeRO overlap schedule", _enabled),
     C.COMPILE_PLANE: ("A13", "the compile plane", _enabled),
     C.PERF_PLANE: ("A13", "the perf plane", _enabled),
-    C.RESILIENCE: ("A12", "resilience (sentinel, autosave, preemption)",
-                   _truthy),
+    C.RESILIENCE: ("A12", "preemption handling, autosave or the training "
+                   "sentinel (resilience.handle_signals, "
+                   "emergency_checkpoint_dir, autosave_interval > 0, "
+                   "sentinel_policy other than 'off')",
+                   lambda block: bool(unported_keys(block))),
     C.WALL_CLOCK_BREAKDOWN: ("A12", "wall_clock_breakdown timers", _truthy),
     C.MEMORY_BREAKDOWN: ("A12", "memory_breakdown", _truthy),
     "hybrid_engine": ("A12", "the hybrid engine", _enabled),
@@ -187,6 +209,13 @@ class DeepSpeedConfig:
                 pd.get(C.ACTIVATION_CHECKPOINTING) or {})
         self.progressive_layer_drop = pd.get(C.PROGRESSIVE_LAYER_DROP) or {}
         self.data_efficiency = pd.get(C.DATA_EFFICIENCY) or {}
+        self.checkpoint_config = CheckpointConfig.from_dict(
+            pd.get(C.CHECKPOINT, {}))
+        # checkpoint integrity, fallback, retention and retries
+        self.resilience = ResilienceConfig.from_dict(pd.get(C.RESILIENCE, {}))
+        # every tag is universal: whole arrays load under any layout
+        self.load_universal_checkpoint = pd.get(C.LOAD_UNIVERSAL_CHECKPOINT,
+                                                False)
 
         # ---- scalars ----
         self.steps_per_print = pd.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)

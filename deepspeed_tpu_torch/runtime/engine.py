@@ -33,14 +33,19 @@ its argument (the gradients were taken in ``forward``); this one
 differentiates the loss it is given, ``forward``'s unless another is
 passed. The two agree when the loss is ``forward``'s.
 
+Checkpoints are the JAX package's (``runtime/checkpointing.py``): a tag
+either package writes loads in the other, and a resumed run continues the
+same stream (keys, layer-drop theta, LTD schedule, LR step, Adam count).
+
 It runs on ``cuda`` unless it is given ``device=`` (the CPU tests pass
 ``"cpu"``), and raises without a GPU. ZeRO stages above 0, offload,
-model/pipeline parallelism, client optimizers and checkpoints raise naming
-their ROADMAP.md rows.
+model/pipeline parallelism and client optimizers raise naming their
+ROADMAP.md rows.
 """
 
 import dataclasses
 import inspect
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -48,6 +53,7 @@ import torch
 
 from ..inference import prng
 from ..models.api import ModelSpec
+from ..telemetry.trace import get_tracer
 from ..utils.logging import log_dist, logger
 from .activation_checkpointing import checkpointing
 from .config import DeepSpeedConfig
@@ -142,6 +148,12 @@ class DeepSpeedEngine:
 
         self.module = model.to(device=self.device, dtype=torch.float32)
         self._apply_call = _ApplyCall(self.module)
+        # the process tracer: checkpoint spans, retry and rollback counters
+        self.tracer = get_tracer()
+        self._last_save_dir = None   # updated by save_checkpoint
+        # recent checkpoint activity: kind, tag, step, seconds, bytes and
+        # the seconds spent hashing (runtime/checkpointing.py)
+        self._ckpt_history = deque(maxlen=32)
         self.training_dataloader = None
         self.collate_fn = collate_fn
         self.global_steps = 0
@@ -213,6 +225,10 @@ class DeepSpeedEngine:
 
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data)
+        if cfg.load_universal_checkpoint:
+            log_dist("load_universal_checkpoint: checkpoints here are "
+                     "universal by construction (whole arrays, any layout "
+                     "loads them); the flag is honored trivially", ranks=[0])
         n_params = sum(p.numel() for p in self._masters)
         log_dist(
             f"DeepSpeedEngine initialized: params={n_params / 1e6:.1f}M "
@@ -485,17 +501,61 @@ class DeepSpeedEngine:
                      f"skipped={self.skipped_steps}", ranks=[0])
 
     # ------------------------------------------------------------------
-    # what this slice does not run
+    # checkpointing: runtime/checkpointing.py, bound here
     # ------------------------------------------------------------------
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True, exclude_frozen_parameters=False):
-        raise _not_ported("save_checkpoint", "A7")
+        from .checkpointing import save_checkpoint
+        return save_checkpoint(self, save_dir, tag=tag,
+                               client_state=client_state,
+                               save_latest=save_latest)
 
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
                         load_optimizer_states=True,
                         load_lr_scheduler_states=True,
                         load_module_only=False):
-        raise _not_ported("load_checkpoint", "A7")
+        """Restore a tag (either package's); returns ``(tag dir,
+        client_state)``. The masters and moments are copied in place on
+        the engine's device, so the optimizer's references stay valid."""
+        from .checkpointing import load_checkpoint
+        out = load_checkpoint(self, load_dir, tag=tag,
+                              load_optimizer_states=load_optimizer_states,
+                              load_lr_scheduler_states=load_lr_scheduler_states,
+                              load_module_only=load_module_only)
+        sampler = getattr(self.training_dataloader, "data_sampler", None) \
+            if self.training_dataloader is not None else None
+        if sampler is not None and hasattr(sampler, "set_step"):
+            sampler.set_step(self.global_steps)
+        return out
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.msgpack"):
+        from .checkpointing import save_16bit_model
+        return save_16bit_model(self, save_dir, save_filename)
+
+    def get_fp32_params(self):
+        """The f32 masters as a JAX-layout tree (copies, on the engine's
+        device): the zero_to_fp32 path as a live call."""
+        return self.module.jax_tree([m.detach().clone()
+                                     for m in self._masters])
+
+    @property
+    def param_shapes(self):
+        """The masters' JAX tree of ``ShapeDtype`` (shape, dtype)."""
+        from .checkpointing import param_shapes
+        return param_shapes(self)
+
+    @property
+    def opt_state_shapes(self):
+        """The optimizer state's JAX tree of ``ShapeDtype`` (``count``,
+        ``mu``, ``nu``), or None without an optimizer."""
+        from .checkpointing import opt_state_shapes
+        return opt_state_shapes(self)
+
+    def _drop_step_state(self):
+        """Forget gradients accumulated and a pending micro step (stale
+        once the masters are replaced)."""
+        self._grad_acc = self._loss_acc = self._pending = None
+        self._grad_acc_count = 0
 
     # ------------------------------------------------------------------
     # properties

@@ -684,3 +684,60 @@ def test_threefry_dropout_bitwise_its_plain_version(cuda_device, dtype,
     # one flipped key bit gives another mask
     assert not torch.equal(tfd.threefry_dropout(x, (key[0] ^ 1, key[1]),
                                                 0.1), want)
+
+
+@pytest.mark.cuda
+def test_checkpoint_codec_round_trips_a_cuda_bf16_tensor(cuda_device):
+    """A bf16 tensor on the card is written from the device (whole and a
+    row at a time, chunked at a small chunk size) and read back on the
+    card bit for bit."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import \
+        msgpack_codec as codec
+    x = torch.randn(6, 70, device=cuda_device).to(torch.bfloat16)
+    data = codec.dumps({"w": x, "n": np.asarray(3, np.int32)})
+    back = codec.loads(data, on_leaf=lambda p, a: torch.as_tensor(a).to(
+        cuda_device))
+    assert back["w"].dtype == torch.bfloat16 and torch.equal(back["w"], x)
+    rows = codec.ArrayLeaf(x.shape, x.dtype, lambda: list(x))
+    assert codec.dumps({"w": rows, "n": np.asarray(3, np.int32)}) == data
+    chunk, codec.MAX_CHUNK_SIZE = codec.MAX_CHUNK_SIZE, 256
+    try:
+        chunked = codec.dumps({"w": rows})
+        assert b"__msgpack_chunked_array__" in chunked
+        assert torch.equal(codec.loads(chunked)["w"].to(cuda_device), x)
+    finally:
+        codec.MAX_CHUNK_SIZE = chunk
+
+
+@pytest.mark.cuda
+def test_checkpoint_save_load_on_the_card_is_bitwise(cuda_device, tmp_path):
+    """A LLaMA engine on the card trains, saves, and a fresh engine (other
+    initial weights) loads the tag and continues bitwise; the masters and
+    moments stay on the card and keep their storage."""
+    import deepspeed_tpu_torch
+    cfg = LlamaConfig(vocab_size=256, n_positions=256, n_embd=128,
+                      n_layer=2, n_head=2, mlp_hidden=256)
+    config = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+              "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+              "bf16": {"enabled": True}, "steps_per_print": 0}
+
+    def engine(seed):
+        model = LlamaModel(cfg, generator=torch.Generator().manual_seed(seed))
+        return deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+    ids = torch.randint(0, 256, (4, 2, 2, 128),
+                        generator=torch.Generator().manual_seed(0))
+    whole, first = engine(0), engine(0)
+    for b in ids:
+        whole.train_batch(batch={"input_ids": b})
+    for b in ids[:2]:
+        first.train_batch(batch={"input_ids": b})
+    first.save_checkpoint(tmp_path)
+    resumed = engine(1)
+    ptrs = [m.data_ptr() for m in resumed._masters]
+    resumed.load_checkpoint(tmp_path)
+    assert [m.data_ptr() for m in resumed._masters] == ptrs
+    for b in ids[2:]:
+        resumed.train_batch(batch={"input_ids": b})
+    for a, b in zip(resumed._masters + resumed.opt_state.mu,
+                    whole._masters + whole.opt_state.mu):
+        assert a.device.type == "cuda" and torch.equal(a, b)

@@ -166,6 +166,7 @@ GOOD_CONFIGS = [
     {"replace_with_kernel_inject": True, "enable_cuda_graph": True},
     {"moe": True, "quant": {"enabled": False, "bits": 8}, "seed": 3,
      "compiled_cache_size": 0, "max_batch_size": 4},
+    {"checkpoint": "ckpt/"},
 ]
 BAD_CONFIGS = [{"dtype": "int4"}, {"no_such_key": 1}, {"max_tokens": 0},
                {"tensor_parallel": {"tp_size": 0}},
@@ -173,8 +174,7 @@ BAD_CONFIGS = [{"dtype": "int4"}, {"no_such_key": 1}, {"max_tokens": 0},
                {"quant": {"enabled": True, "bits": 4}}]
 UNPORTED_CONFIGS = [({"tensor_parallel": {"tp_size": 2}}, "A8"),
                     ({"mp_size": 2}, "A8"), ({"dtype": "int8"}, "A9"),
-                    ({"quant": {"enabled": True}}, "A9"),
-                    ({"checkpoint": "ckpt/"}, "A7")]
+                    ({"quant": {"enabled": True}}, "A9")]
 
 
 def _normal(d):
@@ -219,7 +219,7 @@ def test_init_inference_entry_points():
     assert engine.module.wte.dtype == torch.float32
     bf16 = deepspeed_tpu_torch.init_inference(model, device="cpu")
     assert bf16.module.wte.dtype == torch.bfloat16     # the default dtype
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(FileNotFoundError, match="mp_rank"):
         deepspeed_tpu_torch.init_inference("megatron/ckpt", device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         deepspeed_tpu_torch.init_inference(torch.nn.Linear(2, 2),
