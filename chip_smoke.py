@@ -68,11 +68,21 @@ by a fresh engine on other weights (``ckpt train resume``: save and load
 seconds, GB/s, hashing share, the host memory each takes against the
 largest leaf and the tag); GPT-2-125M's keep-last-2 retention, a retried
 write and the fallback past a truncated tag (``ckpt fallback``);
-LLaMA-7B at full depth saved by an optimizer-less engine and served from
-the tag through ``init_inference`` and a ``ServingEngine``, bitwise the
-saving model's logits and streams (``ckpt serve``); a tp 2 x pp 2
+LLaMA-7B at 16 of its 32 layers saved by an optimizer-less engine and
+served from the tag through ``init_inference`` and a ``ServingEngine``,
+bitwise the saving model's logits and streams (``ckpt serve``); a tp 2 x pp 2
 Megatron-LM GPT-2-125M directory served bitwise as its single shard
-(``ckpt megatron``). Each profile names
+(``ckpt megatron``); ``ckpt train resume`` also reports the device peak
+of the load beside the engine's resident bytes. Slice 9's phases: the
+dropout kernel at a data-parallel rank's element offsets, bit for bit its
+plain version and the rows of the global draw (``kernel-check dropout
+offset``); then, on an NCCL process group of one rank, GPT-2-125M at the
+main train cell through ZeRO stages 0-3 (``zero train``) and LLaMA-7B's
+width at 4 layers at stage 3 against stage 0 (``zero train llama``), each
+stage's tokens/s, device peak and launches a step, stages 1-3 bit for bit
+stage 0; GPT-2-125M saved at stage 3 and resumed bit for bit by a fresh
+stage-3 and a fresh stage-0 engine, with each load's device peak beside
+the engine's resident bytes (``ckpt zero resume``). Each profile names
 the flash and block-sparse attention kernel instances that ran; on these
 bf16 paths they must be the tensor-core ones (``mma_*``). Every check raises
 on failure, so the script exits
@@ -83,6 +93,7 @@ exits non-zero and prints no result. It imports neither JAX nor the JAX
 package.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -262,8 +273,9 @@ REMAT_BYTES_PER_PARAM, REMAT_FILL, REMAT_TIMED = 20, 0.9, 2
 # (LLaMA-7B's width at 4 layers, micro 4, T 2048, gas 2, bf16 on f32
 # masters, AdamW under WarmupLR) takes CKPT_STEPS steps, saving after
 # CKPT_SAVE_AT; a fresh engine on other weights loads the tag and takes
-# the rest, bitwise. ckpt serve: LLaMA-7B at CKPT_SERVE_LAYERS layers (its
-# full depth: 26.9 GB of f32 masters, qkv_w 6.4 GB and gate_w 5.8 GB
+# the rest, bitwise. ckpt serve: LLaMA-7B at CKPT_SERVE_LAYERS layers (16
+# of its 32 since the ZeRO phases joined the script, to keep it inside
+# its time limit: 13.5 GB of f32 masters, qkv_w 3.2 GB and gate_w 2.9 GB
 # chunked; the card machine's disk holds it, PERF.md) saved by an
 # optimizer-less engine and served through init_inference's checkpoint
 # key, then CKPT_SERVE_REQUESTS requests through a ServingEngine of
@@ -273,7 +285,7 @@ REMAT_BYTES_PER_PARAM, REMAT_FILL, REMAT_TIMED = 20, 0.9, 2
 # every other version, so the port does too).
 CKPT_DIR = "build/ckpt"
 CKPT_STEPS, CKPT_SAVE_AT = 4, 2
-CKPT_SERVE_LAYERS, CKPT_SERVE_REQUESTS = 32, 8
+CKPT_SERVE_LAYERS, CKPT_SERVE_REQUESTS = 16, 8
 CKPT_MEGATRON_VOCAB, CKPT_MEGATRON_TP, CKPT_MEGATRON_PP = 50304, 2, 2
 
 
@@ -2662,9 +2674,9 @@ def gpt2_train_loop(torch):
         draws.append(("coin", key, float(p), kept))
         return kept
 
-    def indices(key, keep, b, seq):
-        idx = real_idx(key, keep, b, seq)
-        draws.append(("idx", key, (keep, b, seq), idx))
+    def indices(key, keep, b, seq, first_row=0):
+        idx = real_idx(key, keep, b, seq, first_row)
+        draws.append(("idx", key, (keep, b, seq, first_row), idx))
         return idx
 
     prng.bernoulli_scalar, gpt2_mod.sample_token_indices = coin, indices
@@ -2708,8 +2720,9 @@ def gpt2_train_loop(torch):
                                    ()).item()
             plain_ok &= again == d[3]
         else:
-            keep, b, seq = d[2]
-            keys = prng.key_tensor(torch.tensor(prng.split_words(d[1], b)),
+            keep, b, seq, first = d[2]
+            keys = prng.key_tensor(torch.tensor(prng.split_words(d[1], b,
+                                                                 first)),
                                    "cuda")
             again = prng.permutation(keys, seq)[:, :keep].sort(dim=1).values
             plain_ok &= torch.equal(again.cpu(), d[3])
@@ -3548,6 +3561,17 @@ class RssPeak:
         self.gib = (self.peak - self.base) / 2 ** 30
 
 
+def host_staging_bound(name, host_gib, tag_bytes, largest, dp):
+    """A load stages this rank's parts of the tag in host memory, one
+    leaf whole at a time: its host peak (GiB) may not pass the tag over
+    ``dp`` plus the largest leaf, plus 2 % and 0.05 GiB for what else
+    the process allocates. Returns the bound."""
+    bound = (tag_bytes / dp + largest) / 2 ** 30 * 1.02 + 0.05
+    check(host_gib <= bound, f"{name}: the load's host peak {host_gib:.3f} "
+          f"GiB passes {bound:.3f} GiB (the tag over dp {dp} and one leaf)")
+    return bound
+
+
 def tag_layout(tag_dir):
     """``(largest leaf bytes, state-file bytes, chunked leaf paths)`` of a
     tag, from its files' structure (no data read)."""
@@ -3637,13 +3661,18 @@ def ckpt_train_resume(torch):
 
     torch.cuda.reset_peak_memory_stats()
     engine = engine_of(SEED + 82)             # another initial model
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     with RssPeak() as load:
         engine.load_checkpoint(tag_root)
+    load_peak = torch.cuda.max_memory_allocated()
+    host_bound = host_staging_bound("ckpt train resume", load.gib,
+                                    tag_bytes, largest, engine.dp_world_size)
     loaded = engine._ckpt_history[-1]
     check(engine.global_steps == CKPT_SAVE_AT,
           f"resumed at step {engine.global_steps}, want {CKPT_SAVE_AT}")
     b_steps, b_losses = steps(engine, batches[CKPT_SAVE_AT:])
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(load_peak, torch.cuda.max_memory_allocated())
     b_counters = (engine.global_steps, engine.global_samples,
                   engine.micro_steps, engine.get_lr())
     equal = [bool(torch.equal(x.cpu(), y)) for x, y in
@@ -3683,7 +3712,11 @@ def ckpt_train_resume(torch):
           tag_gib=round(tag_bytes / 2 ** 30, 3), chunked=json.dumps(chunked),
           **io_fields("save", save, saved["bytes"], saved["hash_seconds"]),
           **io_fields("load", load, loaded["bytes"], loaded["hash_seconds"]),
+          load_host_bound_gib=round(host_bound, 3),
           card_free_gib_before_load=round(free_after_delete / 2 ** 30, 2),
+          resident_gib_before_load=round(resident / 2 ** 30, 3),
+          load_peak_gib=round(load_peak / 2 ** 30, 3),
+          load_extra_gib=round((load_peak - resident) / 2 ** 30, 3),
           peak_mem_gib=round(peak / 2 ** 30, 2))
     launches = counts()
     del engine
@@ -4065,6 +4098,319 @@ def ckpt_megatron(torch):
     return launches
 
 
+# ---------------------------------------------------------------- ZeRO
+
+ZERO_STAGES = (0, 1, 2, 3)
+ZERO_STEPS, ZERO_LLAMA_STEPS, ZERO_CKPT_STEPS = 3, 2, 4
+ZERO_T = 1024                         # the main train cell's sequence
+ZERO_STORE = "build/zero_store"
+# the dropout kernel at a rank's rows: rank 1 of 2 at BERT's micro batch
+# (its counters start after rank 0's 4 sequences), and past 2**32
+DROPOUT_OFFSETS = (4 * 4096 * 1024, (1 << 32) + 4 * 4096 * 1024)
+# the offset-0 row of PERF.md's table of kernels (the BERT bf16 shape)
+DROPOUT_ROW = {"kernel_ms": 0.0962, "bound_ms": 0.0752}
+
+
+def check_dropout_offset(torch):
+    """The dropout kernel at BERT-large's hidden states ``[4, 4096, 1024]``
+    (bf16) at non-zero element offsets (a data-parallel rank's rows of the
+    global mask): bit for bit its plain version at the same offset, and
+    the last rows of the kernel's draw over a batch twice as large from
+    the offset less the first half's size (at the first offset, the
+    global draw from 0; at the second, a draw from 2**32); timed beside
+    the offset-0 row of ``kernel-check dropout``."""
+    from deepspeed_tpu_torch.ops.kernels import threefry_dropout as tfd
+    key, rate = DROPOUT_KEY, DROPOUT_RATE
+    shape = DROPOUT_SHAPES["bert"]
+    gen = torch.Generator("cuda").manual_seed(SEED + 61)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    first = torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    res = None
+    for offset in DROPOUT_OFFSETS:
+        got = tfd.threefry_dropout(x, key, rate, offset)
+        want, plain_ms = timed_call(
+            torch, lambda: tfd.threefry_dropout_plain(x, key, rate, offset))
+        equal = torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        check(equal, f"dropout kernel at offset {offset}: not its plain "
+              f"version's bits (max abs {err})")
+        # the rows of a draw over [first; x] from ``offset - first``'s
+        # size: at the first offset the global draw from 0
+        rows = tfd.threefry_dropout(torch.cat([first, x]), key, rate,
+                                    offset - first.numel())[shape[0]:]
+        global_rows = torch.equal(got, rows)
+        check(global_rows, f"dropout kernel at offset {offset} is not the "
+              f"rows of the draw over the batch before it")
+        del rows
+        kernel_ms = median_ms(
+            torch, lambda: tfd.threefry_dropout(x, key, rate, offset),
+            reps=7, inner=5, warmup=2)
+        bound_ms, bound_by, ops, nbytes = dropout_bound(x.numel(), 2)
+        phase("kernel-check dropout offset", shape=list(shape),
+              dtype="bfloat16", rate=rate, offset=offset, bitwise=equal,
+              global_rows_bitwise=global_rows, max_abs_err=err,
+              kernel_ms=round(kernel_ms, 4), plain_ms=round(plain_ms, 2),
+              bound_ms=round(bound_ms, 4), bound_by=bound_by,
+              offset0_row_ms=DROPOUT_ROW["kernel_ms"],
+              offset0_row_bound_ms=DROPOUT_ROW["bound_ms"])
+        res = res or {"kernel_ms": kernel_ms, "err": err}
+        del got, want
+    del x, first
+    torch.cuda.empty_cache()
+    return res
+
+
+def zero_config(config, stage):
+    return dict(config, zero_optimization={"stage": stage})
+
+
+@contextlib.contextmanager
+def one_rank_planner(on=True):
+    """Engines made inside the block partition each leaf as the ZeRO
+    planner would over several ranks, here over the one rank of the card
+    (where the planner as shipped partitions nothing and the engine runs
+    stage 0): stages 1-3 then take every gather and reduce-scatter, each
+    an identity. ``on=False``: the planner as shipped."""
+    from deepspeed_tpu_torch.runtime import engine as engine_module
+    from deepspeed_tpu_torch.runtime.zero import partition
+
+    class OneRankPlanner(partition.ZeroShardingPlanner):
+        def _leaf_spec(self, path, shape, dp_sharded):
+            spec = partition._tp_spec(path, self.rules, len(shape))
+            if dp_sharded:
+                spec = partition._add_dp_axis(spec, tuple(shape),
+                                              partition.DP_AXES, 1,
+                                              self.persistence_threshold)
+            return tuple(spec)
+
+    saved = engine_module.ZeroShardingPlanner
+    if on:
+        engine_module.ZeroShardingPlanner = OneRankPlanner
+    try:
+        yield
+    finally:
+        engine_module.ZeroShardingPlanner = saved
+
+
+def whole_state(engine):
+    """Masters, mu and nu of an engine, whole at any stage, copied to the
+    host."""
+    n, st = len(engine._names), engine.opt_state
+    return ([engine.whole_master(i).detach().cpu() for i in range(n)] +
+            [engine.whole(i, st.mu[i]).cpu() for i in range(n)] +
+            [engine.whole(i, st.nu[i]).cpu() for i in range(n)])
+
+
+def zero_stages(torch, name, model_of, config, batches, tokens, want,
+                stages=ZERO_STAGES, shipped=()):
+    """One engine a ZeRO stage on the same weights and batches (the NCCL
+    group of one rank), partitioned over that rank (``one_rank_planner``),
+    then each stage of ``shipped`` under the planner as shipped (which
+    runs stage 0 on one rank): tokens/s, device peak and launches a step
+    for each; every run must equal stage 0 bit for bit (losses, masters,
+    moments: every collective is an identity on one rank and AdamW is
+    elementwise), compared on the host so that no stage's peak holds
+    another's state. ``want``: ``{kernel: launches a step}``. Returns the
+    launches of all runs."""
+    import gc
+    import deepspeed_tpu_torch
+    ref, launches = None, {}
+    runs = [(stage, True) for stage in stages] + \
+        [(stage, False) for stage in shipped]
+    for stage, partitioned in runs:
+        with one_rank_planner(partitioned):
+            engine = deepspeed_tpu_torch.initialize(
+                model=model_of(), config=zero_config(config, stage))[0]
+        runs_stage = engine._stage
+        check(runs_stage == (stage if partitioned else 0),
+              f"{name} stage {stage} (partitioned={partitioned}) runs "
+              f"stage {runs_stage}")
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_s, per_step, losses = run_steps(
+            torch, lambda b: engine.train_batch(batch=b), batches)
+        peak = torch.cuda.max_memory_allocated()
+        gathers = engine.zero_gather_stats.as_dict()
+        state = whole_state(engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        for step in per_step:
+            for k, v in step.items():
+                launches[k] = launches.get(k, 0) + v
+        check(all(step[k] == n for step in per_step for k, n in want.items()),
+              f"{name} stage {stage}: launches a step {per_step}, want "
+              f"{want}")
+        if ref is None:
+            ref = (losses, state)
+        equal = [bool(torch.equal(a, b)) for a, b in zip(state, ref[1])]
+        check(losses == ref[0] and all(equal),
+              f"{name} stage {stage}: losses {losses} vs stage "
+              f"{stages[0]} {ref[0]}, {sum(equal)}/{len(equal)} tensors "
+              f"equal")
+        del state
+        best = min(step_s[1:] or step_s)
+        phase(name, stage=stage, planner="one-rank" if partitioned else
+              "shipped", runs_stage=runs_stage, steps=len(step_s),
+              seconds=json.dumps([round(x, 4) for x in step_s]),
+              tokens_per_s=round(tokens / best, 1),
+              peak_mem_gib=round(peak / 2 ** 30, 2),
+              resident_gib=round(resident / 2 ** 30, 2),
+              losses=json.dumps(losses),
+              bitwise_stage0=losses == ref[0] and all(equal),
+              launches_per_step=json.dumps(
+                  {k: per_step[0][k] for k in want}),
+              gathered_peak_gib=round(gathers["peak"] / 2 ** 30, 4),
+              gathers=gathers["gathers"], regathers=gathers["regathers"])
+    return launches
+
+
+def zero_train(torch):
+    """GPT-2-125M at the main train cell (micro 8, T 1024, gas 4, bf16 on
+    fp32 masters, AdamW) at ZeRO stages 0-3, ZERO_STEPS steps each."""
+    import numpy as np
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, GPT2_125M
+    cfg, t = GPT2_125M, ZERO_T
+    rng = np.random.default_rng(SEED + 90)
+    batches = [{"input_ids": rng.integers(
+        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_MICRO, t), dtype=np.int64)}
+        for _ in range(ZERO_STEPS)]
+    want = {"K1": cfg.n_layer * TRAIN_GAS, "K2": cfg.n_layer * TRAIN_GAS}
+    return zero_stages(
+        torch, "zero train",
+        lambda: GPT2Model(cfg, generator=torch.Generator().manual_seed(
+            SEED + 91)), train_config(1e-4, TRAIN_GAS), batches,
+        TRAIN_GAS * TRAIN_MICRO * t, want, shipped=(3,))
+
+
+def zero_train_llama(torch):
+    """LLaMA-7B's width at 4 layers (the llama train cell: micro 4, T 2048,
+    gas 2) at stage 3 against stage 0, ZERO_LLAMA_STEPS steps each; the
+    states compared on the host."""
+    import numpy as np
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=LLAMA_TRAIN_LAYERS)
+    rng = np.random.default_rng(SEED + 92)
+    batches = [{"input_ids": rng.integers(
+        0, cfg.vocab_size, (LLAMA_GAS, LLAMA_MICRO, LLAMA_T),
+        dtype=np.int64)} for _ in range(ZERO_LLAMA_STEPS)]
+    n = cfg.n_layer * LLAMA_GAS
+    return zero_stages(
+        torch, "zero train llama",
+        lambda: llama_model(torch, cfg, SEED + 93, torch.float32),
+        llama_train_config(1e-4, LLAMA_GAS), batches,
+        LLAMA_GAS * LLAMA_MICRO * LLAMA_T, {"K3": n, "K3b/K5": n},
+        stages=(0, 3))
+
+
+def ckpt_zero_resume(torch):
+    """GPT-2-125M at stage 3 (the main train cell): run A saves after 2 of
+    ZERO_CKPT_STEPS steps; a fresh stage-3 engine and a fresh stage-0
+    engine (other initial weights) load the tag and take the last steps,
+    each bit for bit run A's; stage 3 partitioned over the card's one
+    rank (``one_rank_planner``). The device peak of each load (its peak
+    stats reset just before) beside the engine's resident bytes: the tag
+    is staged in host memory and each leaf's part copied to the card; the
+    host peak of each load within ``host_staging_bound``."""
+    import gc
+    import shutil
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, GPT2_125M
+    cfg, t, save_at = GPT2_125M, ZERO_T, 2
+    rng = np.random.default_rng(SEED + 94)
+    batches = [{"input_ids": rng.integers(
+        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_MICRO, t), dtype=np.int64)}
+        for _ in range(ZERO_CKPT_STEPS)]
+    tag_root = f"{CKPT_DIR}/zero"
+    shutil.rmtree(tag_root, ignore_errors=True)
+    launches = {}
+
+    def engine_of(seed, stage):
+        with one_rank_planner():
+            return deepspeed_tpu_torch.initialize(
+                model=GPT2Model(cfg, generator=torch.Generator().manual_seed(
+                    seed)),
+                config=zero_config(train_config(1e-4, TRAIN_GAS), stage))[0]
+
+    def steps(engine, batch_list):
+        _, per_step, losses = run_steps(
+            torch, lambda b: engine.train_batch(batch=b), batch_list)
+        for step in per_step:
+            for k, v in step.items():
+                launches[k] = launches.get(k, 0) + v
+        return losses
+
+    def free(engine):
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    engine = engine_of(SEED + 95, 3)
+    steps(engine, batches[:save_at])
+    with RssPeak() as save:
+        tag_dir = engine.save_checkpoint(tag_root)
+    largest, tag_bytes, _ = tag_layout(tag_dir)
+    a_losses = steps(engine, batches[save_at:])
+    a_state = whole_state(engine)
+    free(engine)
+    fields = {"tag_gib": round(tag_bytes / 2 ** 30, 3),
+              "largest_leaf_gib": round(largest / 2 ** 30, 3)}
+    for stage in (3, 0):
+        engine = engine_of(SEED + 96, stage)
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with RssPeak() as load:
+            engine.load_checkpoint(tag_root)
+        load_peak = torch.cuda.max_memory_allocated()
+        bound = host_staging_bound(f"ckpt zero resume into stage {stage}",
+                                   load.gib, tag_bytes, largest,
+                                   engine.dp_world_size)
+        losses = steps(engine, batches[save_at:])
+        equal = [bool(torch.equal(a, b)) for a, b in
+                 zip(whole_state(engine), a_state)]
+        check(losses == a_losses and all(equal),
+              f"ckpt zero resume into stage {stage}: losses {losses} vs "
+              f"{a_losses}, {sum(equal)}/{len(equal)} tensors equal")
+        fields.update({
+            f"stage{stage}_bitwise": True,
+            f"stage{stage}_resident_gib": round(resident / 2 ** 30, 3),
+            f"stage{stage}_load_peak_gib": round(load_peak / 2 ** 30, 3),
+            f"stage{stage}_load_extra_gib": round(
+                (load_peak - resident) / 2 ** 30, 3),
+            f"stage{stage}_load_seconds": round(load.seconds, 3),
+            f"stage{stage}_load_host_gib": round(load.gib, 3),
+            f"stage{stage}_load_host_bound_gib": round(bound, 3)})
+        free(engine)
+    phase("ckpt zero resume", model="GPT2_125M", saved_stage=3,
+          steps=ZERO_CKPT_STEPS, saved_after=save_at,
+          losses=json.dumps(a_losses), save_seconds=round(save.seconds, 3),
+          **fields)
+    shutil.rmtree(tag_root, ignore_errors=True)
+    return launches
+
+
+def zero_phases(torch):
+    """The ZeRO phases on an NCCL process group of one rank (the card);
+    the group is destroyed at the end. Returns each phase's launches."""
+    import os
+    from deepspeed_tpu_torch import comm
+    os.makedirs(os.path.dirname(ZERO_STORE), exist_ok=True)
+    if os.path.exists(ZERO_STORE):
+        os.remove(ZERO_STORE)
+    comm.init_distributed("nccl", init_method=f"file://{os.path.abspath(ZERO_STORE)}",
+                          rank=0, world_size=1)
+    try:
+        check(comm.get_backend() == "nccl" and comm.get_world_size() == 1,
+              f"process group {comm.get_backend()} of "
+              f"{comm.get_world_size()} ranks, want nccl of 1")
+        return (zero_train(torch), zero_train_llama(torch),
+                ckpt_zero_resume(torch))
+    finally:
+        comm.destroy_process_group()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4144,6 +4490,7 @@ def main():
                for kind, dt in K6_CASES][0]
     sparse_planted_faults(torch, "fixed", K6_SHAPE, bf16)
     main_drop = check_dropout(torch)
+    check_dropout_offset(torch)
 
     # ---- main path: init_inference -> engine(ids) and generate
     model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
@@ -4242,6 +4589,10 @@ def main():
     ckpt_serve_launches = ckpt_serve(torch)
     megatron_launches = ckpt_megatron(torch)
 
+    # ---- ZeRO stages 0-3 on an NCCL group of one rank
+    reset_counts()
+    zero_gpt2, zero_llama, zero_ckpt = zero_phases(torch)
+
     def entry(name, source, replaces, launches, res, err):
         return {"name": name, "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{source}",
@@ -4259,22 +4610,24 @@ def main():
         entry("flash_attention_packed_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention_packed.py:65",
               launches + train_launches["K1"] + fallback_launches["K1"] +
-              megatron_launches, main_case, main_case["err_out"]),
+              megatron_launches + zero_gpt2["K1"] + zero_ckpt["K1"],
+              main_case, main_case["err_out"]),
         entry("flash_attention_packed_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention_packed.py:148",
-              train_launches["K2"] + fallback_launches["K2"], main_k2,
-              bwd_err(main_k2)),
+              train_launches["K2"] + fallback_launches["K2"] +
+              zero_gpt2["K2"] + zero_ckpt["K2"], main_k2, bwd_err(main_k2)),
         entry("flash_attention_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention.py:141",
               llama_fwd_launches + llama_train_launches["K3"] +
               llama_remat_launches["K3"] + resume_launches["K3"] +
-              ckpt_serve_launches, main_k3, main_k3["err_out"]),
+              ckpt_serve_launches + zero_llama["K3"], main_k3,
+              main_k3["err_out"]),
         entry("flash_attention_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention.py:222 (K3b); "
               f"{pallas}/flash_attention.py:329,358 (K5)",
               llama_train_launches["K3b/K5"] +
-              llama_remat_launches["K3b/K5"] + resume_launches["K3b/K5"],
-              main_k3b, bwd_err(main_k3b)),
+              llama_remat_launches["K3b/K5"] + resume_launches["K3b/K5"] +
+              zero_llama["K3b/K5"], main_k3b, bwd_err(main_k3b)),
         entry("flash_attention_streamed_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention.py:483",
               codellama_fwd_launches + codellama_train_launches["K4"],

@@ -9,12 +9,19 @@ the CPU take. It serves GPT-2, LLaMA and BERT through ``init_inference``
 and trains them through ``initialize`` -> ``DeepSpeedEngine.train_batch``;
 ``ops/sparse_attention_utils.SparseAttentionUtils`` puts block-sparse
 attention into BERT. Checkpoints are the JAX package's format: a tag
-either package writes loads in the other.
+either package writes loads in the other. Training runs over
+``torch.distributed`` ranks (``comm``, ``init_distributed``, the rank
+topology of ``parallel``) with ZeRO stages 0-3 (``zero``).
 """
 
 __version__ = "0.1.0"
 
 from .utils.logging import logger, log_dist  # noqa: E402
+from . import comm  # noqa: E402
+from . import zero  # noqa: E402
+from .comm import init_distributed  # noqa: E402
+from .parallel import (DeviceMeshManager, ProcessTopology,  # noqa: E402
+                       initialize_mesh)
 
 
 def init_inference(model, config=None, device=None, **kwargs):
@@ -57,10 +64,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``masked_positions`` / ``masked_labels``) holding the initial weights; ``model_parameters`` is
     accepted and unused, as in the JAX package. The engine runs on
     ``cuda`` unless ``device`` says otherwise, and raises when no GPU is
-    present. Returns ``(engine, optimizer, dataloader, lr_scheduler)``.
+    present. ``mesh_manager`` is the rank topology
+    (``initialize_mesh(dp=...)``; default: data parallelism over every
+    rank of the process group). Returns ``(engine, optimizer, dataloader,
+    lr_scheduler)``.
 
     The hybrid engine, the pipeline engine and LoRA raise naming their
-    ROADMAP.md rows, as does a client optimizer object."""
+    ROADMAP.md rows, as do a client optimizer object and an ``mpu``."""
     from .runtime.engine import DeepSpeedEngine
     if config is None:
         config = config_params

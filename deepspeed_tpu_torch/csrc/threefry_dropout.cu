@@ -8,8 +8,12 @@
 // affordable: the same arithmetic in plain PyTorch on the card takes some
 // 130 elementwise passes over int64 tensors a call.
 //
-// One pass. Element i of the row-major tensor (i < n) takes
-//   bits = o0 ^ o1, (o0, o1) = Threefry-2x32(key, counter (i >> 32, i))
+// One pass. Element i of the row-major tensor (i < n) takes counter
+// c = offset + i (a 64-bit element offset: the tensor is then elements
+// [offset, offset + n) of a larger draw, as a data-parallel rank's rows of
+// the global batch are; jax_threefry_partitionable gives element c of a
+// draw the bits of counter c) and
+//   bits = o0 ^ o1, (o0, o1) = Threefry-2x32(key, counter (c >> 32, c))
 //   u    = bitcast<float>((bits >> 9) | 0x3F800000) - 1       (jax uniform)
 //   keep = u < threshold                  (threshold = float32(1 - rate))
 //   out  = round_T((float(x) * keep) / divisor)
@@ -109,6 +113,7 @@ __device__ __forceinline__ __half from_float<__half>(float v) {
 }
 
 struct DropArgs {
+  unsigned long long offset;  // the first element's counter
   uint32_t k0, k1;
   float threshold;  // float32(1 - rate)
   float divisor;    // 1 - rate rounded to the element type
@@ -116,7 +121,8 @@ struct DropArgs {
 
 template <typename T>
 __device__ __forceinline__ T drop_one(T x, unsigned long long i, const DropArgs& a) {
-  const uint32_t bits = threefry_bits(a.k0, a.k1, (uint32_t)(i >> 32), (uint32_t)i);
+  const unsigned long long c = a.offset + i;
+  const uint32_t bits = threefry_bits(a.k0, a.k1, (uint32_t)(c >> 32), (uint32_t)c);
   const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
   const float keep = u < a.threshold ? 1.0f : 0.0f;
   return from_float<T>(__fdiv_rn(__fmul_rn(to_float(x), keep), a.divisor));
@@ -167,16 +173,18 @@ int launch(const void* x, void* out, unsigned long long n, const DropArgs& a, in
 }  // namespace
 
 // Dropout of n contiguous elements of x into out (dtype 0 = float32, 1 =
-// bfloat16, 2 = float16) under the key words (k0, k1): keep where the
-// element's uniform is below `threshold`, then divide by `divisor`. `vec`
+// bfloat16, 2 = float16) under the key words (k0, k1), element i drawn at
+// counter offset + i: keep where the element's uniform is below
+// `threshold`, then divide by `divisor`. `vec`
 // = 1 when both pointers are 16-byte aligned. Returns the CUDA error of
 // the launch (0 on success). The wrapper has checked types and layout.
-extern "C" int dstorch_threefry_dropout(const void* x, void* out, long long n, unsigned k0,
-                                        unsigned k1, float threshold, float divisor, int dtype,
-                                        int vec, void* stream) {
+extern "C" int dstorch_threefry_dropout(const void* x, void* out, long long n,
+                                        unsigned long long offset, unsigned k0, unsigned k1,
+                                        float threshold, float divisor, int dtype, int vec,
+                                        void* stream) {
   if (n < 0 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const DropArgs a{k0, k1, threshold, divisor};
+  const DropArgs a{offset, k0, k1, threshold, divisor};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned long long count = (unsigned long long)n;
   switch (dtype) {

@@ -1,5 +1,5 @@
 """Logical shardings — the topology-free half of a checkpoint: the JAX
-package's ``elasticity/logical.py``, for one device.
+package's ``elasticity/logical.py``, over the port's rank topology.
 
 Checkpoints store whole (global) arrays (``runtime/checkpointing.py``), so
 any tag loads whatever layout wrote it. What an array alone cannot answer
@@ -7,12 +7,14 @@ is *what layout the run intended* and *whether the live model matches what
 was saved*. This module records both:
 
 - ``shardings.json`` — written into every checkpoint tag next to
-  ``model_states.msgpack``: one record per leaf (global shape, the JAX
-  package's named-axis spec, dtype) for params and optimizer state, plus
-  the saving run's topology (pp/dp/ep/sp/tp axis sizes, world size,
-  process count: all 1 here, every spec replicated, ``[null, ...]``) and
-  batch triangle. The integrity manifest covers it like every other file
-  of the tag.
+  ``model_states.msgpack``: one record per leaf (global shape, dtype, and
+  the spec the JAX package's planner gives it: ``[null, ["data",
+  "expert"], null]`` for a leaf sharded over the dp axes on its dim 1)
+  for params and optimizer state, plus the saving run's topology
+  (pp/dp/ep/sp/tp axis sizes, world size, process count: one process a
+  rank here, where the JAX package runs one process for every device of
+  a host) and batch triangle. The integrity manifest covers it like every
+  other file of the tag.
 - **per-leaf structure diff** — the loader compares the live model's leaf
   set against the checkpoint's before any state changes: a mismatch
   raises ``CheckpointLoadError`` naming every missing and extra leaf (and
@@ -82,15 +84,18 @@ def spec_from_json(doc) -> List[Any]:
             else str(e) for e in doc]
 
 
-def logical_records(tree) -> Dict[str, dict]:
+def logical_records(tree, spec_fn=None) -> Dict[str, dict]:
     """Per-leaf ``{path: {shape, dtype, spec}}`` of a tree of arrays (or
-    anything with ``shape`` and ``dtype``), each spec replicated."""
+    anything with ``shape`` and ``dtype``); ``spec_fn(path, shape)`` gives
+    a leaf's spec (default: replicated)."""
     out: Dict[str, dict] = {}
     for path, leaf in _leaves(tree):
         shape = [int(d) for d in leaf.shape]
-        out[_path_str(path)] = {"shape": shape,
-                                "dtype": _dtype_str(leaf.dtype),
-                                "spec": [None] * len(shape)}
+        name = _path_str(path)
+        spec = [None] * len(shape) if spec_fn is None or not shape else \
+            spec_to_json(spec_fn(name, tuple(shape)))
+        out[name] = {"shape": shape, "dtype": _dtype_str(leaf.dtype),
+                     "spec": spec}
     return out
 
 
@@ -101,12 +106,19 @@ def build_logical_manifest(engine) -> Dict[str, Any]:
     ``engine.opt_state_shapes``."""
     cfg = engine._config
     opt = engine.opt_state_shapes
+    mm, planner = engine.mesh_manager, engine.planner
+
+    def opt_spec(path, shape):
+        # mu/<leaf> and nu/<leaf> take the leaf's optimizer-state spec
+        return planner.opt_spec(path.split("/", 1)[1], shape)
+
     return {
         "version": 1,
         "topology": {
-            "axes": {"pp": 1, "dp": 1, "ep": 1, "sp": 1, "tp": 1},
-            "world_size": 1,
-            "processes": 1,
+            "axes": {"pp": mm.pp, "dp": mm.dp, "ep": mm.ep, "sp": mm.sp,
+                     "tp": mm.tp},
+            "world_size": int(mm.world_size),
+            "processes": int(mm.world_size),
             "zero_stage": int(engine.zero_stage),
         },
         "batch": {
@@ -116,8 +128,9 @@ def build_logical_manifest(engine) -> Dict[str, Any]:
             "dp": int(engine.dp_world_size),
         },
         "seed": int(getattr(cfg, "seed", 0)),
-        "params": logical_records(engine.param_shapes),
-        "opt_state": logical_records(opt) if opt is not None else None,
+        "params": logical_records(engine.param_shapes, planner.param_spec),
+        "opt_state": logical_records(opt, opt_spec) if opt is not None
+        else None,
     }
 
 

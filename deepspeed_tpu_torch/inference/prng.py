@@ -80,14 +80,20 @@ def split(key, num: int = 2):
     return torch.stack([o0, o1], dim=-1)
 
 
-def random_bits(key, shape):
+def random_bits(key, shape, offset: int = 0):
     """32 random bits per element of ``shape`` for each key of ``key
     [..., 2]``: int64 ``key.shape[:-1] + shape`` of uint32 values (one
-    ``jax.random.bits`` call per key, as under ``vmap``)."""
+    ``jax.random.bits`` call per key, as under ``vmap``). With ``offset``
+    the counters start there: the elements of ``shape`` are those at flat
+    indices ``[offset, offset + n)`` of a larger array drawn under the
+    same key (a rank's rows of a global draw: with
+    ``jax_threefry_partitionable`` an element's bits depend only on its
+    flat index)."""
     n = 1
     for s in shape:
         n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=key.device).reshape(shape)
     lead = key.shape[:-1]
     k1 = key[..., 0].reshape(lead + (1,) * len(shape))
     k2 = key[..., 1].reshape(lead + (1,) * len(shape))
@@ -95,10 +101,12 @@ def random_bits(key, shape):
     return o0 ^ o1
 
 
-def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            offset: int = 0):
     """``jax.random.uniform`` in float32: the top 23 bits become the
-    mantissa of a float in [1, 2), less 1, scaled to [minval, maxval)."""
-    bits = random_bits(key, shape)
+    mantissa of a float in [1, 2), less 1, scaled to [minval, maxval)
+    (``offset``: see :func:`random_bits`)."""
+    bits = random_bits(key, shape, offset)
     one = 0x3F800000                       # float32 1.0
     floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
@@ -142,10 +150,13 @@ def fold_in_words(key, data):
     return threefry2x32(k0, k1, 0, int(data) & M32)
 
 
-def split_words(key, num: int = 2):
-    """``jax.random.split`` of a ``(word0, word1)`` key: ``num`` tuples."""
+def split_words(key, num: int = 2, first: int = 0):
+    """``jax.random.split`` of a ``(word0, word1)`` key: ``num`` tuples,
+    keys ``first .. first + num - 1`` of a larger split (the partitionable
+    split's key ``i`` depends only on ``i``)."""
     k0, k1 = as_key(key)
-    return [threefry2x32(k0, k1, i >> 32, i & M32) for i in range(num)]
+    return [threefry2x32(k0, k1, i >> 32, i & M32)
+            for i in range(first, first + num)]
 
 
 def uniform_scalar(key):
@@ -169,11 +180,13 @@ def key_tensor(key, device=None):
     return torch.tensor(as_key(key), dtype=torch.int64, device=device)
 
 
-def bernoulli(key, p, shape, device=None):
+def bernoulli(key, p, shape, device=None, offset: int = 0):
     """``jax.random.bernoulli(key, p, shape)`` (mode ``"low"``) for one key:
-    a bool tensor, ``uniform(key, shape) < float32(p)``."""
+    a bool tensor, ``uniform(key, shape) < float32(p)`` (``offset``: the
+    draw's elements start at that flat index of a larger draw, see
+    :func:`random_bits`)."""
     key = key_tensor(key, device)
-    return uniform(key, tuple(shape)) < torch.tensor(
+    return uniform(key, tuple(shape), offset=offset) < torch.tensor(
         float(np.float32(p)), dtype=torch.float32, device=key.device)
 
 

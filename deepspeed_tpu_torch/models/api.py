@@ -13,9 +13,13 @@ A family names its JAX parameter leaves in ``top_leaves`` and
 ``self.blocks``); ``jax_tree`` / ``from_jax_tree`` map any list of tensors
 aligned with ``named_parameters()`` (weights, optimizer moments) to the
 JAX tree and back, and ``load_jax_params`` / ``jax_params`` move the
-weights in and out through them.
+weights in and out through them. A layer loop takes each layer's leaves
+from ``_layer_leaves`` and runs the layer inside ``open_leaves``: under
+ZeRO stage 3 the engine's hook hands out a handle there that gathers the
+layer's partitioned leaves for that block (``runtime/zero/stage3.py``).
 """
 
+import contextlib
 from types import SimpleNamespace
 from typing import Optional
 
@@ -31,6 +35,9 @@ class ModelSpec(nn.Module):
 
     top_leaves = ()      # JAX leaf names of the top level
     block_leaves = ()    # those of one layer (the [L, ...] params["blocks"])
+    # set by a ZeRO stage-3 engine for its micro steps: hands out the
+    # gather handle of a layer's leaves (runtime/zero/stage3.py)
+    _zero_hook = None
 
     def jax_layout(self):
         """Where each tensor of ``named_parameters()`` lives in the JAX
@@ -136,12 +143,22 @@ class ModelSpec(nn.Module):
 
     def _layer_leaves(self, p):
         """A layer's leaves as they are now (the engine's compute-dtype
-        copies inside ``functional_call``), held for a later recompute."""
-        return SimpleNamespace(**{n: getattr(p, n) for n in self.block_leaves})
+        copies inside ``functional_call``), held for a later recompute; under
+        a stage-3 engine, the handle that gathers them (open it with
+        :func:`open_leaves`)."""
+        leaves = {n: getattr(p, n) for n in self.block_leaves}
+        if self._zero_hook is not None:
+            return self._zero_hook(p, leaves)
+        return SimpleNamespace(**leaves)
 
     def apply(self, batch, rng=None, train=True):
         """The training loss of one micro batch (a float32 scalar)."""
         raise NotImplementedError
+
+    def loss_count(self, batch):
+        """The count of targets ``apply``'s loss is the mean over (a 0-d
+        tensor), or None when the loss is not such a mean."""
+        return None
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -149,3 +166,16 @@ class ModelSpec(nn.Module):
     def flops_per_token(self, seq_len: Optional[int] = None) -> Optional[float]:
         """Approximate training FLOPs per token (None when unknown)."""
         return None
+
+
+@contextlib.contextmanager
+def open_leaves(leaves, recomputed: bool = False):
+    """A layer's leaves as a namespace for the ``with`` block: a stage-3
+    handle gathered for it (``recomputed``: the layer runs under a
+    recomputing checkpoint), anything else as it is."""
+    gathered = getattr(leaves, "gathered", None)
+    if gathered is None:
+        yield leaves
+        return
+    with gathered(recomputed) as full:
+        yield full

@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from .api import ModelSpec
+from .api import ModelSpec, open_leaves
 from .gpt2 import GPT2Config, BlockParams, _activation, _param, normal_
 from ..inference import prng
 from ..ops import memory_efficient as me
@@ -178,11 +178,13 @@ class BertModel(ModelSpec):
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].to(torch.bool)
         policy = self._remat_policy()
+        recomputed = policy is not None and policy.recompute
         for i, p in enumerate(self.blocks):
             layer_rng = None if rng is None else prng.fold_in_words(rng, i)
 
             def run(h, leaves=self._layer_leaves(p), layer_rng=layer_rng):
-                return self._block(h, leaves, mask, layer_rng, train)
+                with open_leaves(leaves, recomputed) as lv:
+                    return self._block(h, lv, mask, layer_rng, train)
 
             x = run(x) if policy is None else \
                 checkpointing.run(policy, run, x)
@@ -219,23 +221,33 @@ class BertModel(ModelSpec):
         gathered positions. ``rng`` / ``train``: dropout, as in
         :meth:`encode`. Overrides ``nn.Module.apply(fn)``: on a model of
         this port, ``apply`` is the loss, as in the JAX package."""
-        cfg = self.config
         fields = batch if isinstance(batch, dict) else {"input_ids": batch}
         input_ids = fields["input_ids"]
         x = self.encode(input_ids, fields.get("token_type_ids"),
                         fields.get("attention_mask"), rng=rng, train=train)
         mpos = fields.get("masked_positions")
         if mpos is not None:
-            labels = fields["masked_labels"]
             x = torch.gather(x, 1, mpos[..., None].expand(-1, -1,
                                                           x.shape[-1]))
-        else:
-            labels = fields.get("labels", input_ids)
+        labels, valid = self._mlm_labels(fields)
         logits = self._mlm_head(x)
-        valid = (labels >= 0) & (labels < cfg.vocab_size)
         total = me.dense_xent_sum(logits, torch.where(valid, labels, 0).long(),
                                   valid)
         return total / torch.clamp_min(valid.sum(), 1)
+
+    def _mlm_labels(self, fields):
+        """The labels ``apply`` scores (``masked_labels`` when the batch
+        gathers ``masked_positions``) and their valid mask."""
+        labels = fields["masked_labels"] \
+            if fields.get("masked_positions") is not None else \
+            fields.get("labels", fields["input_ids"])
+        return labels, (labels >= 0) & (labels < self.config.vocab_size)
+
+    def loss_count(self, batch):
+        """The valid masked-LM targets of ``batch`` (``apply``'s
+        divisor)."""
+        fields = batch if isinstance(batch, dict) else {"input_ids": batch}
+        return self._mlm_labels(fields)[1].sum()
 
     def flops_per_token(self, seq_len: Optional[int] = None):
         """Training FLOPs/token: 6 x (block weights + head) + the attention

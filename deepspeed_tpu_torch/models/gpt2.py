@@ -50,10 +50,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .api import ModelSpec
+from .api import ModelSpec, open_leaves
 from ..inference import prng
 from ..ops import memory_efficient as me
-from ..ops.dropout import salted_dropout
+from ..ops.dropout import first_row, salted_dropout
 from ..ops.flash_attention import flash_attention, reference_attention
 from ..ops.kernels import flash_attention_packed as k1
 from ..ops.random_ltd_ops import (sample_token_indices, token_gather,
@@ -340,19 +340,24 @@ class GPT2Model(ModelSpec):
             if wrappers and ltd_keep is not None and ltd_keep < t:
                 idx = sample_token_indices(
                     prng.fold_in_words(layer_rng, 1001), ltd_keep,
-                    x.shape[0], t).to(x.device, non_blocking=True)
+                    x.shape[0], t, first_row()).to(x.device,
+                                                   non_blocking=True)
             x = self._wrapped_block(x, self._layer_leaves(p), layer_rng,
                                     train, idx, policy)
         return self._final_norm(x)
 
     def _wrapped_block(self, x, leaves, layer_rng, train, idx, policy):
         """One layer: on the tokens ``idx`` only (random-LTD) when given,
-        under ``policy``'s checkpoint when given."""
+        under ``policy``'s checkpoint when given; its leaves opened
+        (gathered, under ZeRO stage 3) inside the checkpointed function."""
+        recomputed = policy is not None and policy.recompute
+
         def run(h):
-            if idx is None:
-                return self._block(h, leaves, rng=layer_rng, train=train)
-            out = self._block(token_gather(h, idx), leaves, rng=layer_rng,
-                              train=train)
+            with open_leaves(leaves, recomputed) as lv:
+                if idx is None:
+                    return self._block(h, lv, rng=layer_rng, train=train)
+                out = self._block(token_gather(h, idx), lv, rng=layer_rng,
+                                  train=train)
             return token_scatter(h, out, idx)
 
         if policy is None:
@@ -392,6 +397,11 @@ class GPT2Model(ModelSpec):
         return self._head_loss_from_hidden(
             x, self._unembed_weight(x.dtype), batch,
             head_b=self._head_bias(x.dtype))
+
+    def loss_count(self, batch):
+        """The valid next-token targets of ``batch`` (``apply``'s
+        divisor)."""
+        return self._shifted_labels(batch, self.config.vocab_size)[1].sum()
 
     @staticmethod
     def _shifted_labels(batch, vocab_size):

@@ -45,22 +45,33 @@ def _check(x, rate):
         raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
 
 
-def threefry_dropout(x, key, rate: float):
+def _check_offset(offset):
+    if not 0 <= int(offset) < 1 << 64:
+        raise ValueError(f"dropout counter offset must lie in [0, 2**64), "
+                         f"got {offset}")
+    return int(offset)
+
+
+def threefry_dropout(x, key, rate: float, offset: int = 0):
     """``x * keep / (1 - rate)`` with ``keep = bernoulli(key, 1 - rate,
     x.shape)`` as ``jax.random`` draws it; ``key`` is a ``(word0, word1)``
-    tuple (or anything :func:`prng.as_key` takes). Launches the CUDA kernel
-    for a CUDA tensor (made contiguous first) and raises on anything it
-    does not take; CPU tensors go through :func:`threefry_dropout_plain`."""
+    tuple (or anything :func:`prng.as_key` takes). ``offset`` starts the
+    element counters there: ``x`` is then the elements ``[offset, offset +
+    n)`` of a larger draw (a rank's rows of the global batch). Launches
+    the CUDA kernel for a CUDA tensor (made contiguous first) and raises on
+    anything it does not take; CPU tensors go through
+    :func:`threefry_dropout_plain`."""
     _check(x, rate)
+    offset = _check_offset(offset)
     if x.device.type == "cpu":
-        return threefry_dropout_plain(x, key, rate)
+        return threefry_dropout_plain(x, key, rate, offset)
     if x.device.type != "cuda":
         raise ValueError(f"threefry dropout runs on CUDA or CPU tensors, "
                          f"got {x.device}")
     k0, k1 = prng.as_key(key)
     x = x.contiguous()
     out = torch.empty_like(x)
-    launch(x, out, k0, k1, threshold(rate), divisor(rate, x.dtype))
+    launch(x, out, k0, k1, threshold(rate), divisor(rate, x.dtype), offset)
     threefry_dropout.launches += 1
     return out
 
@@ -68,33 +79,35 @@ def threefry_dropout(x, key, rate: float):
 threefry_dropout.launches = 0
 
 
-def launch(x, out, k0, k1, thresh, div):
+def launch(x, out, k0, k1, thresh, div, offset=0):
     """Launch the kernel on contiguous ``x`` into ``out`` (same shape and
-    dtype). The caller has checked types and devices."""
+    dtype), element counters from ``offset``. The caller has checked types
+    and devices."""
     from ..kernel_build import load
     fn = load("threefry_dropout").dstorch_threefry_dropout
     if fn.argtypes is None:
         ptr, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        fn.argtypes = [ptr, ptr, ctypes.c_longlong, u, u, ctypes.c_float,
-                       ctypes.c_float, i, i, ptr]
+        fn.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_ulonglong, u, u,
+                       ctypes.c_float, ctypes.c_float, i, i, ptr]
         fn.restype = ctypes.c_int
     vec = int(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), k0, k1, thresh,
-                 div, DTYPE_CODES[x.dtype], vec,
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), offset, k0, k1,
+                 thresh, div, DTYPE_CODES[x.dtype], vec,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"threefry_dropout kernel launch failed with CUDA "
                            f"error {err}")
 
 
-def threefry_dropout_plain(x, key, rate: float):
+def threefry_dropout_plain(x, key, rate: float, offset: int = 0):
     """The kernel's arithmetic in plain PyTorch, on any device: the mask by
-    ``prng.bernoulli`` (int64 threefry), ``float32(x) * keep`` divided
-    elementwise by the rounded divisor (a full tensor, so no path takes a
-    reciprocal), rounded to x's dtype."""
+    ``prng.bernoulli`` (int64 threefry, counters from ``offset``),
+    ``float32(x) * keep`` divided elementwise by the rounded divisor (a
+    full tensor, so no path takes a reciprocal), rounded to x's dtype."""
     _check(x, rate)
-    keep = prng.bernoulli(key, 1.0 - rate, tuple(x.shape), device=x.device)
+    keep = prng.bernoulli(key, 1.0 - rate, tuple(x.shape), device=x.device,
+                          offset=_check_offset(offset))
     y = x.to(torch.float32) * keep
     return torch.div(y, torch.full_like(y, divisor(rate, x.dtype))).to(
         x.dtype)

@@ -2,7 +2,8 @@
 
 ``sample_token_indices`` draws each row's kept tokens as the JAX function
 does, bit for bit: ``split(key, B)``, then a row's ``permutation(T)[:keep]``,
-sorted (so kept tokens keep their order). The keys and indices are made on
+sorted (so kept tokens keep their order); a data-parallel rank draws its
+rows of the global batch's draw. The keys and indices are made on
 the host (int64, CPU) and moved to the device once a layer.
 ``token_gather`` / ``token_scatter`` are ``torch.gather`` / ``scatter``
 along the token axis.
@@ -13,9 +14,14 @@ import torch
 from ..inference import prng
 
 
-def sample_token_indices(key, keep: int, batch: int, seqlen: int):
-    """``[batch, keep]`` sorted int64 indices of the kept tokens (CPU)."""
-    keys = torch.tensor(prng.split_words(key, batch), dtype=torch.int64)
+def sample_token_indices(key, keep: int, batch: int, seqlen: int,
+                         first_row: int = 0):
+    """``[batch, keep]`` sorted int64 indices of the kept tokens (CPU):
+    rows ``first_row .. first_row + batch - 1`` of the JAX function's draw
+    over a larger batch (a rank's rows of the global batch; row ``i``'s key
+    is ``split(key, B)[i]``, which depends only on ``i``)."""
+    keys = torch.tensor(prng.split_words(key, batch, first_row),
+                        dtype=torch.int64)
     return prng.permutation(keys, seqlen)[:, :keep].sort(dim=1).values
 
 

@@ -3,10 +3,10 @@
 
 The JAX package shards T over a ``seq`` mesh axis and runs Ulysses (an
 all-to-all between heads and sequence) or ring attention across devices.
-The port has no device mesh yet (the engines refuse one, naming ROADMAP.md
-row A8), so the ``seq`` axis has size 1 and ``sp_attention`` is what the
-JAX function is then: argument checks and one ``flash_attention`` call,
-attention dropout included. (Over a live ``seq`` axis the JAX package
+The port's rank topology takes no ``seq`` axis above 1 yet (it raises
+naming ROADMAP.md row A11), so the axis has size 1 and ``sp_attention`` is
+what the JAX function is then: argument checks and one ``flash_attention``
+call, attention dropout included. (Over a live ``seq`` axis the JAX package
 refuses dropout under ring attention; with no such axis here, neither
 package does.)
 """

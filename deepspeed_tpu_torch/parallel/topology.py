@@ -1,0 +1,200 @@
+"""The rank topology: the JAX package's ``parallel/topology.py`` over
+``torch.distributed`` ranks instead of devices.
+
+The axis order is the JAX package's, outer to inner:
+
+    ('pipe', 'data', 'expert', 'seq', 'model')
+
+Rank ``r`` sits at ``ProcessTopology``'s grid coordinate of ``r`` (the same
+numpy grid), so a rank's data-parallel index is the JAX mesh's device index
+along ``data``. ``data`` x ``expert`` form the data-parallel world that
+ZeRO shards over (``DP_AXES``); ``dp_world_size`` is ``dp * ep``. The
+manager makes one process group for each slice of each axis of more than
+one rank (every rank calls ``new_group`` for every slice, in the same
+order, as torch requires); an axis slice that is the whole world uses the
+default group, and a one-rank axis needs no group: its collectives are the
+identity.
+
+What runs here: the ``data`` axis. ``tp > 1`` raises naming ROADMAP.md row
+A8b, and ``pp``, ``sp`` or ``ep`` above 1 name row A11, as the config
+does. The hierarchical (host, local) split of an axis waits for the
+compressed collectives (row A8c).
+"""
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+PIPE_AXIS = "pipe"
+DATA_AXIS = "data"
+EXPERT_AXIS = "expert"
+SEQ_AXIS = "seq"
+MODEL_AXIS = "model"
+MESH_AXES = (PIPE_AXIS, DATA_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
+
+# the composite data-parallel axes ZeRO shards over
+DP_AXES = (DATA_AXIS, EXPERT_AXIS)
+
+
+class ProcessTopology:
+    """Named-axis cartesian topology over ranks (the JAX package's numpy
+    grid, reference ``pipe/topology.py:12``)."""
+
+    def __init__(self, axes: Sequence[str], dims: Sequence[int]):
+        assert len(axes) == len(dims)
+        self.axes = list(axes)
+        self.dims = list(int(d) for d in dims)
+        self._grid = np.arange(int(np.prod(self.dims))).reshape(self.dims)
+
+    def get_rank(self, **coords) -> int:
+        idx = tuple(coords[a] for a in self.axes)
+        return int(self._grid[idx])
+
+    def get_coord(self, rank: int):
+        pos = np.argwhere(self._grid == rank)[0]
+        return dict(zip(self.axes, (int(p) for p in pos)))
+
+    def get_dim(self, axis: str) -> int:
+        return self.dims[self.axes.index(axis)]
+
+    def get_axis_names(self) -> List[str]:
+        return list(self.axes)
+
+    def world_size(self) -> int:
+        return int(np.prod(self.dims))
+
+    def get_axis_comm_lists(self, axis: str) -> List[List[int]]:
+        """Every group of ranks that differ only along ``axis``."""
+        ax = self.axes.index(axis)
+        moved = np.moveaxis(self._grid, ax, -1).reshape(-1, self.dims[ax])
+        return [list(map(int, row)) for row in moved]
+
+    def get_axes_comm_lists(self, axes: Sequence[str]) -> List[List[int]]:
+        """Every group of ranks that differ only along ``axes`` (in grid
+        order: the first axis outermost)."""
+        idx = [self.axes.index(a) for a in axes]
+        moved = np.moveaxis(self._grid, idx, list(range(-len(idx), 0)))
+        size = int(np.prod([self.dims[i] for i in idx]))
+        return [list(map(int, row)) for row in moved.reshape(-1, size)]
+
+    def filter_match(self, **coords) -> List[int]:
+        return [r for r in range(self.world_size())
+                if all(self.get_coord(r)[k] == v for k, v in coords.items())]
+
+
+def _refuse(pp, ep, sp, tp):
+    if tp > 1:
+        raise NotImplementedError(
+            f"tensor parallelism (tp={tp}) is not ported yet: ROADMAP.md "
+            f"row A8b")
+    for name, size in (("pipeline", pp), ("expert", ep), ("sequence", sp)):
+        if size > 1:
+            raise NotImplementedError(
+                f"{name} parallelism ({name[0]}p={size}) is not ported yet: "
+                f"ROADMAP.md row A11")
+
+
+class DeviceMeshManager:
+    """The rank mesh and its process groups: one rank a device. The JAX
+    package's ``DeviceMeshManager`` surface (sizes, ``batch_spec``) with
+    ``group(axis)`` in place of a ``jax.sharding.Mesh``."""
+
+    def __init__(self, pp: int = 1, dp: Optional[int] = None, ep: int = 1,
+                 sp: int = 1, tp: int = 1, world_size: Optional[int] = None,
+                 rank: Optional[int] = None):
+        from ..comm import comm
+        _refuse(pp, ep, sp, tp)
+        n = comm.get_world_size() if world_size is None else int(world_size)
+        fixed = pp * ep * sp * tp
+        if dp is None:
+            if n % fixed:
+                raise ValueError(
+                    f"{n} ranks not divisible by pp*ep*sp*tp={fixed}")
+            dp = n // fixed
+        total = pp * dp * ep * sp * tp
+        if total != n:
+            raise ValueError(
+                f"mesh {pp}x{dp}x{ep}x{sp}x{tp}={total} != world size {n}")
+        self.topology = ProcessTopology(MESH_AXES, (pp, dp, ep, sp, tp))
+        self.pp, self.dp, self.ep, self.sp, self.tp = pp, dp, ep, sp, tp
+        self.world_size = n
+        self.rank = comm.get_rank() if rank is None else int(rank)
+        self.coords = self.topology.get_coord(self.rank)
+        self._groups: Dict[tuple, object] = {}
+        self._build_groups()
+
+    def _build_groups(self):
+        """A process group for every slice of more than one rank of each
+        axis and of ``DP_AXES``; all ranks make them in the same order."""
+        from ..comm import comm
+        for axes in [(a,) for a in MESH_AXES] + [DP_AXES]:
+            lists = self.topology.get_axes_comm_lists(axes)
+            size = len(lists[0])
+            if size == 1 or not comm.is_initialized():
+                self._groups[axes] = comm.SINGLE
+                continue
+            if size == self.world_size:
+                self._groups[axes] = None          # the default group
+                continue
+            for ranks in lists:
+                g = comm.new_group(ranks)
+                if self.rank in ranks:
+                    self._groups[axes] = g
+
+    # ---- sizes ----
+    @property
+    def dp_world_size(self) -> int:
+        """The full data-parallel degree (data x expert)."""
+        return self.dp * self.ep
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's index in the data-parallel world."""
+        return self.coords[DATA_AXIS] * self.ep + self.coords[EXPERT_AXIS]
+
+    def axis_size(self, axis: str) -> int:
+        return self.topology.get_dim(axis)
+
+    def group(self, axis):
+        """The process group of ``axis`` (a name or a tuple of names) that
+        holds this rank: None for the default group, ``comm.SINGLE`` for
+        one rank."""
+        key = (axis,) if isinstance(axis, str) else tuple(axis)
+        if key not in self._groups:
+            raise KeyError(f"no process group for mesh axes {key}; the "
+                           f"axes are {MESH_AXES}")
+        return self._groups[key]
+
+    def batch_spec(self, shard_seq: bool = True):
+        """The batch dim over the dp axes (the JAX package's
+        ``P(DP_AXES)``, as a tuple of entries)."""
+        return (DP_AXES,)
+
+
+_MESH_MANAGER: Optional[DeviceMeshManager] = None
+
+
+def initialize_mesh(pp=1, dp=None, ep=1, sp=1, tp=1, world_size=None,
+                    rank=None) -> DeviceMeshManager:
+    """Make (or replace) the global rank mesh over the default process
+    group (every rank calls it)."""
+    global _MESH_MANAGER
+    _MESH_MANAGER = DeviceMeshManager(pp=pp, dp=dp, ep=ep, sp=sp, tp=tp,
+                                      world_size=world_size, rank=rank)
+    return _MESH_MANAGER
+
+
+def get_mesh_manager() -> DeviceMeshManager:
+    """The global rank mesh; a data-parallel one over the whole world when
+    none was made."""
+    global _MESH_MANAGER
+    from ..comm import comm
+    if _MESH_MANAGER is None or (
+            _MESH_MANAGER.world_size != comm.get_world_size()):
+        _MESH_MANAGER = DeviceMeshManager()
+    return _MESH_MANAGER
+
+
+def reset_mesh():
+    global _MESH_MANAGER
+    _MESH_MANAGER = None

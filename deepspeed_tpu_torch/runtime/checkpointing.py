@@ -13,18 +13,30 @@ A tag holds whole arrays in the JAX package's tree, not a torch
     <dir>/<tag>/engine_state.json         — counters, lr scheduler, client
                                             state, weights_version, rng_key
     <dir>/<tag>/ds_config.json            — config snapshot
-    <dir>/<tag>/shardings.json            — logical shardings (one device)
+    <dir>/<tag>/shardings.json            — logical shardings: the JAX
+                                            planner's per-leaf specs and
+                                            the rank topology
     <dir>/<tag>/manifest.json             — per-file SHA-256 integrity map
 
 The masters, ``mu`` and ``nu`` are lists aligned with the model's
 ``named_parameters()``; ``ModelSpec.jax_tree`` / ``from_jax_tree`` map each
-to the JAX tree. The files are written in flax's msgpack format by the
-port's codec (``checkpoint_engine/msgpack_codec.py``) one leaf at a time —
-a stacked leaf one layer at a time — straight from the device to the file,
-hashed on the fly; they are read one leaf at a time into the engine's
-device, where the whole tag is staged until every read and the leaf gate
-have finished, and only then copied into the live state. The host holds
-one leaf, never the file.
+to the JAX tree. A tag holds whole arrays whatever the ZeRO stage and rank
+count that wrote it, so any tag loads under any stage and rank count.
+
+Save: the files are written in flax's msgpack format by the port's codec
+(``checkpoint_engine/msgpack_codec.py``) one leaf at a time — a stacked
+leaf one layer at a time — each gathered whole across the ranks when it
+is partitioned (a collective: every rank walks the same leaves in the same
+order, and only rank 0 writes), straight from the device to the file,
+hashed on the fly. Only rank 0 writes the tag's other files; the ranks
+meet at a barrier before ``save_checkpoint`` returns.
+
+Load: every rank reads the files one leaf at a time into host memory,
+as the JAX package stages a tag on the host; the whole tag is staged there until every read and the leaf
+gate have finished (and, over several ranks, until every rank has read it),
+and only then does each rank copy its part of each leaf into the device
+state. The device holds one leaf's part at a time beyond the engine's own
+state.
 
 Fault tolerance (``resilience/``, config block ``resilience``): every tag
 carries an integrity manifest written at commit time and verified on
@@ -161,28 +173,61 @@ def read_weights_version(load_dir, tag=None) -> int:
 
 # ------------------------------------------------------------- the trees
 
-def _stacked(rows, dtype=None):
-    """A ``[L, ...]`` leaf written one layer at a time from the device
-    (cast to ``dtype`` a layer at a time when given)."""
-    dtype = rows[0].dtype if dtype is None else dtype
-    return ArrayLeaf((len(rows),) + tuple(rows[0].shape), dtype,
-                     lambda: (r.detach().to(dtype) for r in rows))
+class _Whole:
+    """One parameter's whole tensor, made when it is written: ``get()``
+    gathers it across the ranks when it is partitioned (a collective)."""
+
+    __slots__ = ("shape", "dtype", "get")
+
+    def __init__(self, shape, dtype, get):
+        self.shape, self.dtype, self.get = tuple(shape), dtype, get
 
 
-def _lazy(t, dtype):
-    """A top-level leaf cast to ``dtype`` when it is written."""
-    return ArrayLeaf(tuple(t.shape), dtype, lambda: [t.detach().to(dtype)])
+def _wholes(engine, parts, dtype=None, masters=False):
+    """``_Whole``s of a list aligned with the engine's parameters: this
+    rank's parts of each (``mu``, ``nu``), or with ``masters`` the f32
+    masters; cast to ``dtype`` when given."""
+    out = []
+    for i, shape in enumerate(engine._shapes):
+        if masters:
+            get = (lambda i=i: engine.whole_master(i))
+            dt = torch.float32
+        else:
+            get = (lambda i=i, t=parts[i]: engine.whole(i, t))
+            dt = parts[i].dtype
+        out.append(_Whole(shape, dt if dtype is None else dtype, get))
+    return out
 
 
-def param_tree(engine, tensors, dtype=None):
-    """The JAX tree of a list aligned with the engine's parameters, each
-    leaf streamed from the device when it is written."""
-    tree = engine.module.jax_tree(
-        tensors, stack=lambda rows: _stacked(rows, dtype))
-    if dtype is not None:
-        tree = {k: v if k == "blocks" else _lazy(v, dtype)
-                for k, v in tree.items()}
-    return tree
+def _stacked(rows):
+    """A ``[L, ...]`` leaf written one layer at a time from the device."""
+    dtype = rows[0].dtype
+    return ArrayLeaf((len(rows),) + rows[0].shape, dtype,
+                     lambda: (r.get().detach().to(dtype) for r in rows))
+
+
+def param_tree(engine, wholes):
+    """The JAX tree of a list of ``_Whole``s aligned with the engine's
+    parameters, each leaf made (and gathered) when it is written."""
+    tree = engine.module.jax_tree(wholes, stack=_stacked)
+    return {k: v if k == "blocks" else ArrayLeaf(
+        v.shape, v.dtype, lambda v=v: [v.get().detach().to(v.dtype)])
+        for k, v in tree.items()}
+
+
+def _walk_arrays(tree):
+    """Make every array of ``tree`` in the writer's order without writing
+    it: what a rank that does not write runs while rank 0 writes, so that
+    both issue the same gathers in the same order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _walk_arrays(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            _walk_arrays(v)
+    elif isinstance(tree, ArrayLeaf):
+        for _ in tree.pieces():
+            pass
 
 
 def shapes_tree(module, tensors):
@@ -194,20 +239,25 @@ def shapes_tree(module, tensors):
                                       rows[0].dtype))
 
 
+def _global_shapes(engine, dtype=torch.float32):
+    return engine.module.jax_tree(
+        [ShapeDtype(shape, dtype) for shape in engine._shapes],
+        stack=lambda rows: ShapeDtype((len(rows),) + rows[0].shape,
+                                      rows[0].dtype))
+
+
 def param_shapes(engine):
     """The masters' JAX tree of ``ShapeDtype`` (the engine's
-    ``param_shapes``)."""
-    return shapes_tree(engine.module, engine._masters)
+    ``param_shapes``: whole shapes, at any stage)."""
+    return _global_shapes(engine)
 
 
 def opt_state_shapes(engine):
     """The optimizer state's JAX tree of ``ShapeDtype``, or None."""
-    st = engine.opt_state
-    if st is None:
+    if engine.opt_state is None:
         return None
     return {"count": ShapeDtype((), np.int32),
-            "mu": shapes_tree(engine.module, st.mu),
-            "nu": shapes_tree(engine.module, st.nu)}
+            "mu": _global_shapes(engine), "nu": _global_shapes(engine)}
 
 
 def _optim_tree(engine):
@@ -215,14 +265,19 @@ def _optim_tree(engine):
     sc = engine.scaler_state
     return {
         "opt_state": {"count": np.asarray(st.count, np.int32),
-                      "mu": param_tree(engine, st.mu),
-                      "nu": param_tree(engine, st.nu)}
+                      "mu": param_tree(engine, _wholes(engine, st.mu)),
+                      "nu": param_tree(engine, _wholes(engine, st.nu))}
         if st is not None else None,
         "offload": None,
         "scaler": {"scale": float(sc.scale),
                    "good_steps": int(sc.good_steps),
                    "hysteresis": int(sc.hysteresis)},
     }
+
+
+def _writer() -> bool:
+    from ..comm import comm
+    return comm.get_rank() == 0
 
 
 def _to_device(device, cast=None):
@@ -255,26 +310,31 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None,
     span = tracer.span("save_checkpoint", cat="resilience",
                        args={"tag": str(tag)}) \
         if tracer is not None else nullcontext()
+    is_writer = _writer()
     t0 = time.perf_counter()
     with span:
         hash_s = _save_checkpoint_files(engine, ckpt_engine, _save, ckpt_dir,
-                                        tag, client_state)
-        # seal BEFORE advancing 'latest': an async write failure surfaces
-        # here (raise or False) and the pointer keeps naming the previous
-        # good checkpoint — never a torn tag
-        if ckpt_engine.commit(tag) is False:
-            raise IOError(
-                f"checkpoint_engine.commit({tag!r}) failed; 'latest' still "
-                f"names the previous checkpoint")
-        # integrity manifest at commit time, from the writer's intended
-        # bytes where known — a torn write mismatches it on load
-        write_manifest(ckpt_dir, tag=str(tag),
-                       intents=getattr(ckpt_engine, "written", None))
-        _emit_zero_to_fp32_script(save_dir)
-        if save_latest:
-            _write_latest(save_dir, tag)
-        if rcfg.keep_last_n:
-            gc_checkpoints(save_dir, rcfg.keep_last_n, protect=(str(tag),))
+                                        tag, client_state, is_writer)
+        if is_writer:
+            # seal BEFORE advancing 'latest': an async write failure
+            # surfaces here (raise or False) and the pointer keeps naming
+            # the previous good checkpoint — never a torn tag
+            if ckpt_engine.commit(tag) is False:
+                raise IOError(
+                    f"checkpoint_engine.commit({tag!r}) failed; 'latest' "
+                    f"still names the previous checkpoint")
+            # integrity manifest at commit time, from the writer's intended
+            # bytes where known — a torn write mismatches it on load
+            write_manifest(ckpt_dir, tag=str(tag),
+                           intents=getattr(ckpt_engine, "written", None))
+            _emit_zero_to_fp32_script(save_dir)
+            if save_latest:
+                _write_latest(save_dir, tag)
+            if rcfg.keep_last_n:
+                gc_checkpoints(save_dir, rcfg.keep_last_n,
+                               protect=(str(tag),))
+    from ..comm import comm
+    comm.barrier()
     seconds = time.perf_counter() - t0
     log_dist(f"saved checkpoint {ckpt_dir}", ranks=[0])
     # remembered for sentinel rollback and emergency preemption saves
@@ -294,20 +354,44 @@ def _tag_bytes(ckpt_dir) -> int:
                if os.path.isfile(os.path.join(ckpt_dir, n)))
 
 
+def _save_state_file(engine, ckpt_engine, _save, path, tree, is_writer,
+                     label):
+    """Rank 0 writes ``tree`` to ``path``; another rank walks its arrays
+    when any of them is gathered (so the gathers match), else does
+    nothing. Returns the seconds spent hashing."""
+    if not is_writer:
+        if engine.dp_world_size > 1 and engine._stage >= 1:
+            _walk_arrays(tree)
+        return 0.0
+    # over several ranks a retried write would issue its gathers again on
+    # rank 0 alone: one attempt
+    if engine.dp_world_size > 1 and engine._stage >= 1:
+        ckpt_engine.save(tree, path)
+    else:
+        _save(ckpt_engine.save, tree, path, label=label)
+    digest = getattr(ckpt_engine, "last_digest", None)
+    return digest.hash_seconds if digest is not None else 0.0
+
+
 def _save_checkpoint_files(engine, ckpt_engine, _save, ckpt_dir, tag,
-                           client_state):
-    """Write the tag's files; returns the seconds spent hashing the state
-    files while they were written."""
-    ckpt_engine.create(tag)
-    os.makedirs(ckpt_dir, exist_ok=True)
+                           client_state, is_writer=True):
+    """Write the tag's files (the state files' gathers on every rank, the
+    writes on rank 0); returns the seconds spent hashing the state files
+    while they were written."""
+    if is_writer:
+        ckpt_engine.create(tag)
+        os.makedirs(ckpt_dir, exist_ok=True)
     hash_s = 0.0
-    for name, tree in (("model_states", param_tree(engine, engine._masters)),
+    for name, tree in (("model_states",
+                        param_tree(engine, _wholes(engine, None,
+                                                   masters=True))),
                        ("optim_states", _optim_tree(engine))):
-        _save(ckpt_engine.save, tree,
-              os.path.join(ckpt_dir, f"{name}.msgpack"),
-              label=f"ckpt save {name}")
-        digest = getattr(ckpt_engine, "last_digest", None)
-        hash_s += digest.hash_seconds if digest is not None else 0.0
+        hash_s += _save_state_file(
+            engine, ckpt_engine, _save,
+            os.path.join(ckpt_dir, f"{name}.msgpack"), tree, is_writer,
+            label=f"ckpt save {name}")
+    if not is_writer:
+        return hash_s
     engine_state = {
         "global_steps": engine.global_steps,
         "global_samples": engine.global_samples,
@@ -402,10 +486,9 @@ def load_checkpoint(engine, load_dir, tag=None, load_optimizer_states=True,
                     errors.append(f"{cand}: " + "; ".join(problems))
                     continue
             try:
-                result = _load_tag(engine, ckpt_dir, rcfg, tracer,
-                                   load_optimizer_states,
-                                   load_lr_scheduler_states,
-                                   load_module_only)
+                staged = _read_tag(engine, ckpt_dir, rcfg, tracer,
+                                   load_optimizer_states, load_module_only)
+                error = None
             except Exception as e:  # torn state that slipped past verify
                 if isinstance(e, CheckpointLoadError) and \
                         e.leaf_diff is not None:
@@ -413,9 +496,14 @@ def load_checkpoint(engine, load_dir, tag=None, load_optimizer_states=True,
                     # directory has the same leaf set, so falling back
                     # newest->oldest can only mask the real error
                     raise
-                logger.warning(f"checkpoint {ckpt_dir} unreadable: {e}")
-                errors.append(f"{cand}: {type(e).__name__}: {e}")
+                staged, error = None, f"{type(e).__name__}: {e}"
+            if not _all_read(engine, staged is not None):
+                error = error or "another rank could not read the tag"
+                logger.warning(f"checkpoint {ckpt_dir} unreadable: {error}")
+                errors.append(f"{cand}: {error}")
                 continue
+            result = _apply_tag(engine, ckpt_dir, staged,
+                                load_lr_scheduler_states, load_module_only)
             if i > 0:
                 # rolled back past the (corrupt) latest to an older tag
                 _bump(tracer, "resilience/rollbacks", owner=engine)
@@ -436,12 +524,64 @@ def load_checkpoint(engine, load_dir, tag=None, load_optimizer_states=True,
         + (f"; errors: {errors}" if errors else ""))
 
 
+class _Parts:
+    """A leaf as a rank stages it: its shape on disk (what the leaf gate
+    reads) and this rank's part of each of its rows (of the leaf itself
+    when it is not stacked), in host memory; no parts when the leaf has no
+    home in the live model or another shape there."""
+
+    __slots__ = ("shape", "parts")
+
+    def __init__(self, shape, parts):
+        self.shape, self.parts = tuple(shape), parts
+
+    def __getitem__(self, layer):
+        return self.parts[layer]
+
+
+def _stage_parts(engine):
+    """``on_leaf`` for the codec: each array read is cut, while only it is
+    in host memory, to this rank's parts of the engine's parameters it
+    holds (rows of a stacked leaf by layer), and the whole buffer is
+    dropped, so that a rank stages about the tag over dp plus one leaf;
+    0-d leaves stay numpy. Pageable memory: pinned staging was no faster
+    on a cold load, as PERF.md records, and torch's caching host allocator
+    would keep the pinned tag for the process's life."""
+    homes = {}
+    for i, (leaf, layer) in enumerate(engine._layout):
+        homes.setdefault(leaf, []).append((i, layer))
+    want = {leaf: (len(idx),) + engine._shapes[idx[0][0]]
+            if idx[0][1] is not None else engine._shapes[idx[0][0]]
+            for leaf, idx in homes.items()}
+
+    def on_leaf(path, arr):
+        if getattr(arr, "ndim", 0) == 0:
+            return arr
+        t = torch.from_numpy(arr) if isinstance(arr, np.ndarray) else arr
+        leaf = "/".join(str(k) for k in path[-2:]) \
+            if len(path) >= 2 and path[-2] == "blocks" else str(path[-1])
+        if want.get(leaf) != tuple(t.shape):
+            return _Parts(t.shape, [])
+        idx = homes[leaf]
+        if idx[0][1] is None:
+            parts = [engine._pshards[idx[0][0]].take(t)]
+        else:
+            parts = [None] * len(idx)
+            for i, layer in idx:
+                parts[layer] = engine._pshards[i].take(t[layer])
+        if sum(p.numel() for p in parts) < t.numel():
+            parts = [p.clone() for p in parts]   # let the whole leaf go
+        return _Parts(t.shape, parts)
+    return on_leaf
+
+
 def _aligned(engine, tree, what, where, drift=True):
-    """A loaded JAX tree as a list aligned with the engine's parameters,
-    after the leaf gate against the masters' shapes: a drifted leaf set
-    raises ``CheckpointLoadError`` with the per-leaf diff (``drift``), or
-    ``ValueError`` for the optimizer state, which the JAX package's
-    loader also treats as an unreadable tag."""
+    """A staged JAX tree (of ``_Parts``) as a list of this rank's parts
+    aligned with the engine's parameters, after the leaf gate against the
+    masters' shapes: a drifted leaf set raises ``CheckpointLoadError``
+    with the per-leaf diff (``drift``), or ``ValueError`` for the
+    optimizer state, which the JAX package's loader also treats as an
+    unreadable tag."""
     from ..elasticity.logical import leaf_diff, require_leaf_match
     if drift:
         require_leaf_match(engine.param_shapes, tree, what=what, where=where)
@@ -450,11 +590,25 @@ def _aligned(engine, tree, what, where, drift=True):
         if any(diff.values()):
             raise ValueError(f"{what} at {where} does not match the live "
                              f"model: {diff}")
-    return engine.module.from_jax_tree(tree)
+    return [p.parts[0] if isinstance(p, _Parts) else p
+            for p in engine.module.from_jax_tree(tree)]
 
 
-def _load_tag(engine, ckpt_dir, rcfg, tracer, load_optimizer_states,
-              load_lr_scheduler_states, load_module_only):
+def _all_read(engine, ok: bool) -> bool:
+    """Whether every rank read the tag (one decision for all ranks, so
+    none restores a tag another falls back past)."""
+    from ..comm import comm
+    if engine.dp_world_size == 1:
+        return ok
+    flag = torch.tensor([0.0 if ok else 1.0], device=engine.device)
+    comm.all_reduce(flag, op=comm.ReduceOp.MAX, axis_name=engine._dp_group)
+    return not bool(flag.item())
+
+
+def _read_tag(engine, ckpt_dir, rcfg, tracer, load_optimizer_states,
+              load_module_only):
+    """Read a tag into host memory and gate its leaves; the engine does not
+    change. Returns the staged state."""
     ckpt_engine = _engine_for_layout(engine._config,
                                      os.path.join(ckpt_dir,
                                                   "model_states.msgpack"))
@@ -464,8 +618,9 @@ def _load_tag(engine, ckpt_dir, rcfg, tracer, load_optimizer_states,
                   engine.opt_state is not None)
     # every read and the leaf gate finish before any engine state
     # mutates, so a torn file cannot leave the engine half-restored: the
-    # tag is staged on the engine's device, leaf by leaf
-    on_leaf = _to_device(engine.device)
+    # tag is staged in host memory, leaf by leaf, as the JAX package
+    # stages it, each rank keeping its parts only
+    on_leaf = _stage_parts(engine)
     params = _load(ckpt_engine.load,
                    os.path.join(ckpt_dir, "model_states.msgpack"),
                    on_leaf=on_leaf, label="ckpt load model_states")
@@ -487,13 +642,21 @@ def _load_tag(engine, ckpt_dir, rcfg, tracer, load_optimizer_states,
     if os.path.isfile(state_path):
         with open(state_path) as f:
             engine_state = json.load(f)
+    return {"masters": masters, "opt": opt, "need_optim": need_optim,
+            "scaler": optim.get("scaler", {}) if need_optim else None,
+            "engine_state": engine_state}
 
+
+def _apply_tag(engine, ckpt_dir, staged, load_lr_scheduler_states,
+               load_module_only):
+    """Copy a staged tag into the engine: each rank its parts, a leaf at a
+    time."""
+    masters, opt = staged["masters"], staged["opt"]
+    engine_state, need_optim = staged["engine_state"], staged["need_optim"]
     # ---- from here on the engine changes
     engine._drop_step_state()
-    with torch.no_grad():
-        for m, v in zip(engine._masters, masters):
-            m.copy_(v)
-    del params, masters
+    engine.set_master_parts(masters)
+    del masters
     client_state: Dict[str, Any] = {}
     if engine_state is not None:
         if not load_module_only:
@@ -517,7 +680,7 @@ def _load_tag(engine, ckpt_dir, rcfg, tracer, load_optimizer_states,
                                     mu + nu):
                     dst.copy_(src)
             engine.opt_state = engine.opt_state._replace(count=count)
-        sc = optim.get("scaler", {})
+        sc = staged["scaler"]
         engine.scaler_state = LossScaleState(
             scale=float(sc.get("scale", 1.0)),
             good_steps=int(sc.get("good_steps", 0)),
@@ -530,15 +693,21 @@ def _load_tag(engine, ckpt_dir, rcfg, tracer, load_optimizer_states,
 
 def save_16bit_model(engine, save_dir, save_filename="pytorch_model.msgpack"):
     """Consolidated 16-bit export (the reference's ``save_16bit_model``):
-    the masters cast to the compute dtype, one file."""
-    dtype = engine._compute_dtype
+    the whole masters cast to the compute dtype, one file, written by rank
+    0 (every rank calls it: under stage 3 the leaves are gathered)."""
+    tree = param_tree(engine, _wholes(engine, None, engine._compute_dtype,
+                                      masters=True))
+    path = os.path.join(save_dir, save_filename)
+    if not _writer():
+        if engine._stage >= 3:
+            _walk_arrays(tree)
+        return path
     ckpt_engine = get_checkpoint_engine(engine._config)
     os.makedirs(save_dir, exist_ok=True)
     ckpt_engine.create(save_filename)
-    ckpt_engine.save(param_tree(engine, engine._masters, dtype),
-                     os.path.join(save_dir, save_filename))
+    ckpt_engine.save(tree, path)
     ckpt_engine.commit(save_filename)  # async engines: wait + surface errors
-    return os.path.join(save_dir, save_filename)
+    return path
 
 
 def load_params_for_inference(load_dir, tag=None, like=None, device=None,

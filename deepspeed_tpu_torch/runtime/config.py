@@ -5,7 +5,8 @@ Parsed as in the JAX package, with the same ``ConfigError`` texts: the
 batch triangle (``train_batch_size = micro × gradient_accumulation_steps ×
 dp``), ``fp16`` / ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``gradient_accumulation_dtype``, ``steps_per_print``,
-``seed``, ``zero_optimization``, ``activation_checkpointing``,
+``seed``, ``zero_optimization``, ``comms_logger``,
+``activation_checkpointing``,
 ``progressive_layer_drop``, ``data_efficiency.data_routing``
 (random-LTD), ``checkpoint``, ``nebula``, ``load_universal_checkpoint`` and
 the checkpoint keys of ``resilience``.
@@ -67,6 +68,16 @@ class SchedulerConfig(DeepSpeedConfigModel):
 
 
 @dataclasses.dataclass
+class CommsLoggerConfig(DeepSpeedConfigModel):
+    """The ``comms_logger`` block (reference utils/comms_logging.py)."""
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class ActivationCheckpointingConfig(DeepSpeedConfigModel):
     """The ``activation_checkpointing`` block (the JAX package's, and the
     reference's ``checkpointing.configure()``)."""
@@ -116,7 +127,7 @@ def _data_sampling(block):
 
 # key -> (ROADMAP.md row, what the port cannot run yet, "asks for it")
 UNPORTED = {
-    C.TENSOR_PARALLEL_SIZE: ("A8", "tensor parallelism", _above_one),
+    C.TENSOR_PARALLEL_SIZE: ("A8b", "tensor parallelism", _above_one),
     C.PIPELINE_PARALLEL_SIZE: ("A11", "pipeline parallelism", _above_one),
     C.SEQUENCE_PARALLEL_SIZE: ("A11", "sequence parallelism", _above_one),
     C.EXPERT_PARALLEL_SIZE: ("A11", "expert parallelism", _above_one),
@@ -136,9 +147,8 @@ UNPORTED = {
     C.WANDB: ("A12", "the wandb monitor", _enabled),
     C.CSV_MONITOR: ("A12", "the csv monitor", _enabled),
     C.PROMETHEUS: ("A12", "the prometheus monitor", _enabled),
-    C.COMMS_LOGGER: ("A8", "the comms logger", _enabled),
-    C.COMM_COMPRESSION: ("A8", "compressed collectives", _truthy),
-    C.OVERLAP_SCHEDULE: ("A8", "the ZeRO overlap schedule", _enabled),
+    C.COMM_COMPRESSION: ("A8c", "compressed collectives", _truthy),
+    C.OVERLAP_SCHEDULE: ("A8c", "the ZeRO overlap schedule", _enabled),
     C.COMPILE_PLANE: ("A13", "the compile plane", _enabled),
     C.PERF_PLANE: ("A13", "the perf plane", _enabled),
     C.RESILIENCE: ("A12", "preemption handling, autosave or the training "
@@ -157,7 +167,7 @@ class DeepSpeedConfig:
     """Parse and validate the training config, as the JAX package's
     ``DeepSpeedConfig`` does for the blocks this port runs."""
 
-    def __init__(self, config: Any):
+    def __init__(self, config: Any, world_size: Optional[int] = None):
         if isinstance(config, str):
             if not os.path.exists(config):
                 raise ConfigError(f"Config file not found: {config}")
@@ -178,13 +188,22 @@ class DeepSpeedConfig:
                     f"config '{key}' asks for {what}, which is not ported "
                     f"yet: ROADMAP.md row {row}")
 
-        # ---- parallel sizes: one device, no model parallelism yet ----
+        # ---- parallel sizes: data parallelism over the ranks; model
+        #      parallelism is refused above (rows A8b, A11)
         self.tensor_parallel_size = int(pd.get(C.TENSOR_PARALLEL_SIZE, 1))
         self.pipeline_parallel_size = int(pd.get(C.PIPELINE_PARALLEL_SIZE, 1))
         self.sequence_parallel_size = int(pd.get(C.SEQUENCE_PARALLEL_SIZE, 1))
         self.expert_parallel_size = int(pd.get(C.EXPERT_PARALLEL_SIZE, 1))
-        # one device until ZeRO and data parallelism land (row A8)
-        self.world_size = self.data_parallel_size = 1
+        # the world is the topology's ranks (1 without a process group)
+        self.world_size = 1 if world_size is None else int(world_size)
+        model_parallel = (self.tensor_parallel_size *
+                          self.pipeline_parallel_size *
+                          self.sequence_parallel_size)
+        if self.world_size % model_parallel != 0:
+            raise ConfigError(
+                f"world size {self.world_size} not divisible by "
+                f"tp*pp*sp={model_parallel}")
+        self.data_parallel_size = self.world_size // model_parallel
 
         # ---- batch triangle ----
         self.train_batch_size = pd.get(C.TRAIN_BATCH_SIZE)
@@ -203,6 +222,8 @@ class DeepSpeedConfig:
         if self.fp16.enabled and self.bf16.enabled:
             raise ConfigError("fp16 and bf16 cannot both be enabled")
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get(C.ZERO_OPTIMIZATION, {}))
+        self.comms_logger = CommsLoggerConfig.from_dict(
+            pd.get(C.COMMS_LOGGER, {}))
         # the engine turns remat on whenever the block is present
         self.activation_checkpointing = \
             ActivationCheckpointingConfig.from_dict(

@@ -3,6 +3,11 @@
 numpy trees (dict-of-arrays, sequence datasets with ``__getitem__`` /
 ``__len__``, or any iterable); the engine stacks ``gradient_accumulation_steps``
 of them into ``[gas, ...]`` leaves and moves them to its device.
+
+Under data parallelism the loader walks the JAX package's global batches
+(``batch_size`` = micro x dp) and yields rank ``dp_rank``'s rows of each,
+``[dp_rank micro, (dp_rank + 1) micro)``: the rows the JAX engine's
+``batch_spec`` puts on that rank's device.
 """
 
 import numpy as np
@@ -44,9 +49,13 @@ class DeepSpeedDataLoader:
 
     def __init__(self, dataset, batch_size, collate_fn=None, shuffle=False,
                  drop_last=True, seed=0, num_local_io_workers=None,
-                 data_sampler=None):
+                 data_sampler=None, dp_rank=0, dp_world=1):
+        if batch_size % dp_world:
+            raise ValueError(f"batch size {batch_size} does not divide over "
+                             f"{dp_world} data-parallel ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.dp_rank, self.dp_world = dp_rank, dp_world
         self.collate_fn = collate_fn or _default_collate
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -114,10 +123,17 @@ class DeepSpeedDataLoader:
         n_batches = (len(idx) // self.batch_size if self.drop_last
                      else (len(idx) + self.batch_size - 1) // self.batch_size)
         for b in range(n_batches):
-            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            sel = self._rows(idx[b * self.batch_size:(b + 1) * self.batch_size])
             samples = [self.dataset[int(i)] for i in sel]
             yield self.collate_fn(samples)
         self.epoch += 1
+
+    def _rows(self, sel):
+        """This rank's rows of a global batch's indices."""
+        if self.dp_world == 1:
+            return sel
+        micro = self.batch_size // self.dp_world
+        return sel[self.dp_rank * micro:(self.dp_rank + 1) * micro]
 
     def _iter_dict(self):
         keys = list(self.dataset.keys())
@@ -128,6 +144,6 @@ class DeepSpeedDataLoader:
         n_batches = (n // self.batch_size if self.drop_last
                      else (n + self.batch_size - 1) // self.batch_size)
         for b in range(n_batches):
-            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            sel = self._rows(idx[b * self.batch_size:(b + 1) * self.batch_size])
             yield {k: np.asarray(v)[sel] for k, v in self.dataset.items()}
         self.epoch += 1

@@ -1,5 +1,6 @@
 """DeepSpeedEngine: the training engine of the JAX package's
-``runtime/engine.py``, for the single-device ZeRO-0 path.
+``runtime/engine.py``, over ``torch.distributed`` ranks with ZeRO stages
+0-3.
 
 The JAX engine compiles one program per global step: the gas micro steps
 scanned, then the optimizer update. This engine runs the same steps
@@ -8,25 +9,55 @@ engine(batch); engine.backward(loss); engine.step()``), which share one
 accumulation and one update, and keeps the JAX engine's mixed-precision
 contract:
 
-- the model's ``Parameter``s are the float32 masters;
-- once per global step each master is cast to the compute dtype (bf16 or
-  f16, or kept f32) as a fresh leaf tensor with ``requires_grad``;
+- the float32 masters; once per global step each is cast to the compute
+  dtype (bf16 or f16, or kept f32) as a fresh leaf tensor with
+  ``requires_grad``;
 - each micro batch runs ``model.apply`` on those copies through
   ``torch.func.functional_call``, so its gradients come out in the compute
   dtype, as ``jax.grad`` of the cast tree gives them;
 - they accumulate into buffers of ``gradient_accumulation_dtype`` (f32 by
   default);
-- then the update: ``grads * 1/(gas * scale)``, clipping by
+- then the update: ``grads * 1/(gas * scale * dp)``, clipping by
   ``min(1, clip / (norm + 1e-6))``, a skipped step on non-finite gradients
   under fp16, the optimizer on the masters, and the loss-scale update.
+
+Data parallelism (the rank topology of ``parallel/topology.py``; the
+JAX engine's dp mesh): rank ``r`` trains on rows ``[r micro, (r + 1)
+micro)`` of the JAX engine's global micro batch (``train_batch`` and
+``forward`` take the global batch and keep those rows, or the rank's rows
+alone). Its loss is its mean times ``dp n_r / n`` (``n_r`` its valid
+targets, ``n`` the ranks' sum), and the gradients are summed over the
+ranks and divided by ``dp``: those of the global batch's mean, as the
+JAX engine takes it. ZeRO (``runtime/zero/partition.py``: the JAX
+planner's per-leaf rule):
+
+- stage 0: the model's ``Parameter``s are the masters; the accumulated
+  gradients (``gradient_accumulation_dtype``) are all-reduced at the step;
+- stage 1: each rank holds its shard of the masters and of ``mu`` /
+  ``nu``; the full gradients are all-reduced at the step, the rank updates
+  its shard, and the shards are all-gathered into the model's parameters;
+- stage 2: + each micro step's gradients are reduce-scattered, in the
+  compute dtype, into the rank's shard accumulator;
+- stage 3: + the parameters: the model keeps none, each layer's leaves are
+  gathered by the layer loop's hook and freed after the layer, and
+  gathered again in the backward, which reduce-scatters their gradients
+  (``runtime/zero/stage3.py``). Leaves under
+  ``stage3_param_persistence_threshold`` stay replicated.
+
+The gradient norm sums the shards' squares over the ranks and counts a
+replicated leaf once; the fp16 skip decision and the returned loss are
+all-reduced, so every rank takes the same step. Where the planner
+partitions nothing (one rank: the JAX planner shards nothing at dp 1) the
+engine runs stage 0 whatever the configured stage.
 
 Randomness is the JAX engine's, key for key (``inference/prng.py``): the
 base key is ``PRNGKey(seed + 1)``; ``train_batch`` keys micro step ``i``
 ``fold_in(fold_in(base, global_steps), i)``, ``forward`` keys
-``fold_in(base, micro_steps)``. Each step hands the model its modifiers:
-progressive layer drop's ``pld_theta`` and random-LTD's ``ltd_keep``. An
-``activation_checkpointing`` block turns the model's ``remat`` on under
-the configured policy (``runtime/activation_checkpointing``).
+``fold_in(base, micro_steps)``. A rank draws its rows of the global
+batch's masks (``ops/dropout.batch_rows``). Each step hands the model its
+modifiers: progressive layer drop's ``pld_theta`` and random-LTD's
+``ltd_keep``. An ``activation_checkpointing`` block turns the model's
+``remat`` on under the configured policy (``runtime/activation_checkpointing``).
 
 One deliberate difference from the JAX engine: its ``backward`` ignores
 its argument (the gradients were taken in ``forward``); this one
@@ -34,25 +65,31 @@ differentiates the loss it is given, ``forward``'s unless another is
 passed. The two agree when the loss is ``forward``'s.
 
 Checkpoints are the JAX package's (``runtime/checkpointing.py``): a tag
-either package writes loads in the other, and a resumed run continues the
-same stream (keys, layer-drop theta, LTD schedule, LR step, Adam count).
+either package writes loads in the other, at any stage and rank count, and
+a resumed run continues the same stream (keys, layer-drop theta, LTD
+schedule, LR step, Adam count).
 
 It runs on ``cuda`` unless it is given ``device=`` (the CPU tests pass
-``"cpu"``), and raises without a GPU. ZeRO stages above 0, offload,
-model/pipeline parallelism and client optimizers raise naming their
-ROADMAP.md rows.
+``"cpu"``), and raises without a GPU. ZeRO offload, model and pipeline
+parallelism and client optimizers raise naming their ROADMAP.md rows.
 """
 
 import dataclasses
 import inspect
+import math
 from collections import deque
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..comm import comm
+from ..comm.logging import configure_comms_logger
 from ..inference import prng
 from ..models.api import ModelSpec
+from ..ops import dropout
+from ..parallel.topology import DP_AXES, get_mesh_manager
 from ..telemetry.trace import get_tracer
 from ..utils.logging import log_dist, logger
 from .activation_checkpointing import checkpointing
@@ -65,6 +102,8 @@ from .fp16.loss_scaler import (grads_finite, init_loss_scale_state,
 from .lr_schedules import get_lr_scheduler
 from .optimizers import get_optimizer
 from .progressive_layer_drop import ProgressiveLayerDrop
+from .zero import stage3
+from .zero.partition import ZeroShardingPlanner, param_shards
 
 
 class _ApplyCall(torch.nn.Module):
@@ -79,10 +118,11 @@ class _ApplyCall(torch.nn.Module):
         return self.model.apply(batch, **kwargs)
 
 
-def _global_norm(grads):
-    """sqrt of the sum over leaves of sum(g^2), in float32."""
+def _leaf_squares(grads):
+    """Each leaf's sum(g^2) in float32 (as the squares of the leaves'
+    norms, a ``[n_leaves]`` tensor)."""
     norms = torch._foreach_norm([g.to(torch.float32) for g in grads])
-    return torch.stack(norms).square().sum().sqrt()
+    return torch.stack(norms).square()
 
 
 def _micro(batch, i):
@@ -113,6 +153,26 @@ def _not_ported(what, row):
                                f"{row}")
 
 
+def _rows(batch):
+    """The leading (batch) size of a micro batch's leaves."""
+    if isinstance(batch, dict):
+        batch = next(iter(batch.values()))
+    elif isinstance(batch, (tuple, list)):
+        batch = batch[0]
+    return int(batch.shape[0])
+
+
+def _slice_rows(batch, axis, start, n):
+    """Rows ``[start, start + n)`` along ``axis`` of every leaf."""
+    if isinstance(batch, dict):
+        return {k: _slice_rows(v, axis, start, n) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_slice_rows(v, axis, start, n) for v in batch)
+    if isinstance(batch, torch.Tensor):
+        return batch.narrow(axis, start, n)
+    return np.take(np.asarray(batch), range(start, start + n), axis=axis)
+
+
 class DeepSpeedEngine:
 
     def __init__(self, args=None, model: ModelSpec = None, optimizer=None,
@@ -125,28 +185,42 @@ class DeepSpeedEngine:
             raise NotImplementedError(
                 f"training a {type(model).__name__} is not ported yet: "
                 f"ROADMAP.md row A10; pass a deepspeed_tpu_torch model")
-        if mesh_manager is not None or mpu is not None:
-            raise _not_ported("a device mesh or model-parallel unit (mpu)",
-                              "A8")
-        import torch.distributed as tdist
-        if tdist.is_available() and tdist.is_initialized() and \
-                tdist.get_world_size() > 1:
-            raise _not_ported("data-parallel training over "
-                              f"{tdist.get_world_size()} ranks", "A8")
+        if mpu is not None:
+            raise _not_ported("a model-parallel unit (mpu)", "A8b")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "DeepSpeedEngine: no CUDA device is available; pass "
                 "device='cpu' to train on the CPU with the kernels' plain "
                 "PyTorch versions")
-        self._config = DeepSpeedConfig(config)
+        # a launcher's world of several ranks makes its process group here
+        # (nccl on the card, gloo on the CPU), as the JAX engine's
+        # init_distributed() does; one rank needs none
+        if not comm.is_initialized() and comm.env_world_size() > 1:
+            comm.init_distributed(device=self.device)
+        backend = comm.get_backend()
+        if backend is not None and (backend == "nccl") != (
+                self.device.type == "cuda"):
+            raise ValueError(
+                f"DeepSpeedEngine: the process group's backend is {backend} "
+                f"but the engine's device is {self.device}; use nccl with "
+                f"cuda and gloo with the CPU")
+        self.mesh_manager = mesh_manager if mesh_manager is not None \
+            else get_mesh_manager()
+        mm = self.mesh_manager
+        self._config = DeepSpeedConfig(config, world_size=mm.world_size)
         cfg = self._config
+        configure_comms_logger(cfg.comms_logger)
+        self._dp_world = mm.dp_world_size
+        self._dp_rank = mm.dp_rank
+        self._dp_group = DP_AXES
         if cfg.sparse_gradients_enabled:
             raise ConfigError(
                 "sparse_gradients is not supported on TPU; remove the key "
                 "(gradients of embedding gathers are dense under XLA)")
 
         self.module = model.to(device=self.device, dtype=torch.float32)
+        self.module._zero_hook = None
         self._apply_call = _ApplyCall(self.module)
         # the process tracer: checkpoint spans, retry and rollback counters
         self.tracer = get_tracer()
@@ -167,6 +241,7 @@ class DeepSpeedEngine:
         self._grad_acc_count = 0
         self._loss_acc = None
         self._pending = None
+        self._row0 = 0           # global batch row of this rank's first row
 
         # ---- precision (the JAX engine's dtype wiring) ----
         if cfg.fp16.enabled:
@@ -196,9 +271,7 @@ class DeepSpeedEngine:
             self.lr_scheduler = get_lr_scheduler(cfg.scheduler.type,
                                                  cfg.scheduler.params)
         self.zero_stage = int(cfg.zero_config.stage)
-
-        self._names = [n for n, _ in self.module.named_parameters()]
-        self._masters = [p for _, p in self.module.named_parameters()]
+        self._setup_zero(cfg.zero_config)
         self.opt_state = (self.optimizer.init(self._masters)
                           if self.optimizer is not None else None)
         self.scaler_state = init_loss_scale_state(
@@ -229,10 +302,11 @@ class DeepSpeedEngine:
             log_dist("load_universal_checkpoint: checkpoints here are "
                      "universal by construction (whole arrays, any layout "
                      "loads them); the flag is honored trivially", ranks=[0])
-        n_params = sum(p.numel() for p in self._masters)
+        n_params = sum(math.prod(s) for s in self._shapes)
         log_dist(
             f"DeepSpeedEngine initialized: params={n_params / 1e6:.1f}M "
-            f"zero_stage={self.zero_stage} device={self.device} "
+            f"zero_stage={self.zero_stage} dp={self._dp_world} "
+            f"device={self.device} "
             f"dtype={str(self._compute_dtype).replace('torch.', '')} "
             f"batch={cfg.train_batch_size} "
             f"(micro={cfg.train_micro_batch_size_per_gpu} "
@@ -249,6 +323,45 @@ class DeepSpeedEngine:
                 f"config enables {feature} but "
                 f"{type(self.module).__name__}.apply() does not accept "
                 f"'{name}' — this model cannot honor the setting")
+
+    def _setup_zero(self, zcfg):
+        """The ZeRO layout: the planner (the JAX engine's, on the JAX
+        tree's shapes), each parameter's ``ParamShard``, and the masters:
+        the model's ``Parameter``s at stage 0, else this rank's shards
+        (copies); at stage 3 the model's own tensors are freed."""
+        module = self.module
+        self.planner = ZeroShardingPlanner(
+            self.mesh_manager, self.zero_stage,
+            persistence_threshold=zcfg.stage3_param_persistence_threshold
+            if self.zero_stage >= 3 else 0)
+        self._layout = module.jax_layout()
+        self._names = [n for n, _ in module.named_parameters()]
+        self._params = [p for _, p in module.named_parameters()]
+        self._shapes = [tuple(p.shape) for p in self._params]
+        self._pshards = param_shards(module, self.planner, self._dp_rank,
+                                     self._dp_world)
+        self._layer_of = {id(blk): i for i, blk in
+                          enumerate(getattr(module, "blocks", []))}
+        self.zero_gather_stats = stage3.GatherStats()
+        # the stage the engine runs: the configured one, or stage 0's when
+        # the planner partitions nothing (one rank, where the JAX planner
+        # shards nothing), the masters then being the parameters themselves
+        self._stage = self.zero_stage if any(
+            ps.partitioned for ps in self._pshards) else 0
+        if self._stage == 0:
+            self._masters = self._params
+            return
+        with torch.no_grad():
+            self._masters = [ps.take(p.detach()).clone()
+                             for p, ps in zip(self._params, self._pshards)]
+            if self._stage >= 3:
+                for p in self._params:
+                    p.data = p.data.new_empty((0,))
+        # a replicated leaf's square enters the gradient norm once: from
+        # dp rank 0
+        self._norm_weights = torch.tensor(
+            [1.0 if ps.partitioned or self._dp_rank == 0 else 0.0
+             for ps in self._pshards], device=self.device)
 
     def _configure_remat(self):
         """The ``activation_checkpointing`` block -> the model's ``remat``
@@ -281,7 +394,22 @@ class DeepSpeedEngine:
         return DeepSpeedDataLoader(dataset, batch_size=batch_size,
                                    collate_fn=collate_fn or self.collate_fn,
                                    drop_last=cfg.dataloader_drop_last,
-                                   data_sampler=data_sampler, seed=cfg.seed)
+                                   data_sampler=data_sampler, seed=cfg.seed,
+                                   dp_rank=self._dp_rank,
+                                   dp_world=self._dp_world)
+
+    def _local(self, batch, axis):
+        """This rank's rows of a batch (along ``axis``): a global batch of
+        ``micro * dp`` rows gives rows ``[r micro, (r + 1) micro)``, a
+        batch of the rank's own rows is taken as it is."""
+        micro = self._config.train_micro_batch_size_per_gpu
+        if self._dp_world == 1:
+            return batch
+        leaf = next(iter(batch.values())) if isinstance(batch, dict) else \
+            batch[0] if isinstance(batch, (tuple, list)) else batch
+        if leaf.shape[axis] == micro * self._dp_world:
+            return _slice_rows(batch, axis, self._dp_rank * micro, micro)
+        return batch
 
     def _next_gas_batch(self, data_iter):
         """Stack gas micro batches from an iterator into [gas, ...] leaves."""
@@ -302,27 +430,103 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
+    def _compute_sources(self):
+        """What the compute-dtype copies are made from: the model's
+        (whole) parameters, or under stage 3 the master shards."""
+        return self._masters if self._stage >= 3 else self._params
+
     def _cast_params(self):
-        """The compute-dtype copy of every master: fresh leaves with
-        ``requires_grad``, made once per global step."""
+        """The compute-dtype copy of every master (of its shard, under
+        stage 3): fresh leaves with ``requires_grad``, made once per global
+        step."""
         return {n: p.detach().to(self._compute_dtype).requires_grad_()
-                for n, p in zip(self._names, self._masters)}
+                for n, p in zip(self._names, self._compute_sources())}
+
+    def _stage3_inputs(self, pc):
+        """Stage 3's ``functional_call`` name map and layer hook for one
+        micro step: replicated leaves by name; top-level partitioned
+        leaves gathered (on the graph of their shards) and passed by name;
+        each layer's partitioned leaves left to the hook, which hands the
+        layer loop a ``LayerLeaves`` handle."""
+        stats, group = self.zero_gather_stats, self._dp_group
+        names_map, top, layers = {}, [], {}
+        for i, (name, (leaf, layer)) in enumerate(zip(self._names,
+                                                      self._layout)):
+            if not self._pshards[i].partitioned:
+                names_map[name] = pc[name]
+            elif layer is None:
+                top.append(i)
+            else:
+                layers.setdefault(layer, []).append(i)
+        if top:
+            lg = stage3.LeafGroup([self._names[i] for i in top],
+                                  [pc[self._names[i]] for i in top],
+                                  [self._pshards[i] for i in top], group,
+                                  stats, layer=False)
+            names_map.update(zip(lg.names, stage3.gather_leaves(lg)))
+        groups = {}
+        for layer, idx in layers.items():
+            short = [self._layout[i][0].split("/", 1)[1] for i in idx]
+            groups[layer] = (short, [pc[self._names[i]] for i in idx],
+                             [self._pshards[i] for i in idx])
+
+        def hook(block, leaves):
+            layer = self._layer_of[id(block)]
+            if layer not in groups:
+                return SimpleNamespace(**leaves)
+            short, shards, pshards = groups[layer]
+            lg = stage3.LeafGroup(short, shards, pshards, group, stats,
+                                  layer=True)
+            kept = {n: v for n, v in leaves.items() if n not in short}
+            return stage3.LayerLeaves(kept, lg)
+
+        return names_map, hook
 
     def _micro_loss(self, pc, mb, rng=None, train=True, pld_theta=None,
                     ltd_keep=None):
         """Loss of one micro batch on the compute-dtype copies ``pc``, with
         the step's key and modifiers (passed only when set, as the JAX
-        engine passes them)."""
+        engine passes them), drawing as this rank's rows of the global
+        batch."""
         kwargs = {"rng": rng, "train": train}
         if pld_theta is not None:
             kwargs["pld_theta"] = pld_theta
         if ltd_keep is not None:
             kwargs["ltd_keep"] = ltd_keep
-        out = torch.func.functional_call(
-            self._apply_call, {"model." + n: t for n, t in pc.items()},
-            (mb,), kwargs)
+        self._row0 = self._dp_rank * _rows(mb)
+        hook = None
+        if self._stage >= 3:
+            pc, hook = self._stage3_inputs(pc)
+        self.module._zero_hook = hook
+        try:
+            with dropout.batch_rows(self._row0):
+                out = torch.func.functional_call(
+                    self._apply_call, {"model." + n: t for n, t in pc.items()},
+                    (mb,), kwargs)
+        finally:
+            self.module._zero_hook = None
         loss = out[0] if isinstance(out, tuple) else out
-        return loss.to(torch.float32)
+        loss = loss.to(torch.float32)
+        share = self._global_share(mb)
+        return loss if share is None else loss * share
+
+    def _global_share(self, mb):
+        """Over several ranks, ``dp * n_r / n``: what turns this rank's
+        mean loss into dp times its share of the global micro batch's mean
+        (``n_r`` this rank's valid targets, ``n`` the ranks' sum), so that
+        the gradients summed over the ranks and divided by dp are those of
+        the JAX engine's global mean also when the ranks hold different
+        counts of ``-100`` labels. None on one rank, or for a model whose
+        loss is not a mean over targets."""
+        if self._dp_world == 1:
+            return None
+        n_r = self.module.loss_count(mb)
+        if n_r is None:
+            return None
+        n_r = n_r.to(torch.float32).reshape(1)
+        n = n_r.clone()
+        comm.all_reduce(n, axis_name=self._dp_group)
+        return (self._dp_world * n_r.clamp_min(1) / n.clamp_min(1))[0]
 
     def _accumulate(self, scaled_loss, pc, dtype):
         """Gradients of ``scaled_loss`` (loss * scale) with respect to the
@@ -331,10 +535,14 @@ class DeepSpeedEngine:
         detached."""
         params = list(pc.values())
         # a layer progressive layer drop skipped has zero gradients, as
-        # under jax.grad
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            params, torch.autograd.grad(scaled_loss, params,
-                                        allow_unused=True))]
+        # under jax.grad; a recompute draws this micro batch's rows again
+        with dropout.batch_rows(self._row0):
+            grads = torch.autograd.grad(scaled_loss, params,
+                                        allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        if self._stage >= 2:
+            grads = self._reduce_micro_grads(grads)
         loss = scaled_loss.detach()
         if self._grad_acc is None:
             self._grad_acc = [g.to(dtype) for g in grads]
@@ -345,6 +553,20 @@ class DeepSpeedEngine:
             self._loss_acc = self._loss_acc + loss
         self._grad_acc_count += 1
         self.micro_steps += 1
+
+    def _reduce_micro_grads(self, grads):
+        """Stages 2-3: one micro step's gradients summed over the ranks
+        into this rank's shards (under stage 3 the partitioned leaves'
+        were reduce-scattered by the layers' backward already); replicated
+        leaves all-reduced whole."""
+        out = []
+        for g, ps in zip(grads, self._pshards):
+            if not ps.partitioned:
+                comm.all_reduce(g, axis_name=self._dp_group)
+            elif self._stage == 2:
+                g = ps.reduce(g, self._dp_group)
+            out.append(g)
+        return out
 
     def _step_modifiers(self):
         """This step's forward modifiers: ``(pld_theta, ltd_keep)``, each
@@ -360,9 +582,19 @@ class DeepSpeedEngine:
         self._last_modifiers = (theta, keep)
         return theta, keep
 
+    def _grad_norm(self, grads):
+        """The global gradient norm in float32. Under stages 2-3 each rank
+        holds shards: the leaves' squares are summed over the ranks, a
+        replicated leaf's taken from rank 0 only."""
+        sq = _leaf_squares(grads)
+        if self._stage >= 2:
+            sq = sq * self._norm_weights
+            comm.all_reduce(sq, axis_name=self._dp_group)
+        return sq.sum().sqrt()
+
     def _clip_grads(self, grads):
         clip = self._config.gradient_clipping
-        norm = _global_norm(grads)
+        norm = self._grad_norm(grads)
         if not clip or clip <= 0:
             return grads, norm
         factor = torch.clamp(clip / (norm + 1e-6), max=1.0)
@@ -374,18 +606,43 @@ class DeepSpeedEngine:
         loss-scale update. Returns ``(finite, grad_norm)``."""
         cfg = self._config
         grads = [g.to(torch.float32) for g in grads]
-        torch._foreach_mul_(grads, 1.0 / (denom * self.scaler_state.scale))
+        torch._foreach_mul_(grads, 1.0 / (denom * self.scaler_state.scale *
+                                          self._dp_world))
         grads, grad_norm = self._clip_grads(grads)
-        finite = bool(grads_finite(grads)) if cfg.fp16.enabled else True
+        finite = self._all_finite(grads) if cfg.fp16.enabled else True
         if finite:
+            if self._stage == 1:
+                grads = [ps.take(g) for g, ps in zip(grads, self._pshards)]
             _, self.opt_state = self.optimizer.update(
                 grads, self.opt_state, self._masters, lr)
+            if self._stage in (1, 2):
+                self._refresh_params()
         self.scaler_state = update_loss_scale(
             self.scaler_state, finite, dynamic=self._dynamic_scale,
             scale_window=cfg.fp16.loss_scale_window,
             min_scale=cfg.fp16.min_loss_scale,
             max_hysteresis=cfg.fp16.hysteresis)
         return finite, grad_norm
+
+    def _all_finite(self, grads) -> bool:
+        """Whether every rank's gradients are finite (one decision for all
+        ranks, so their loss scales and shards stay together)."""
+        bad = (~grads_finite(grads)).to(torch.float32).reshape(1)
+        comm.all_reduce(bad, op=comm.ReduceOp.MAX, axis_name=self._dp_group)
+        return not bool(bad.item())
+
+    @torch.no_grad()
+    def _refresh_params(self):
+        """Stages 1-2: the updated master shards all-gathered into the
+        model's whole parameters."""
+        for p, m, ps in zip(self._params, self._masters, self._pshards):
+            p.copy_(ps.gather(m, self._dp_group) if ps.partitioned else m)
+
+    def _allreduce_grads(self):
+        """Stages 0-1: the accumulated whole gradients summed over the
+        ranks, at the step."""
+        for g in self._grad_acc:
+            comm.all_reduce(g, axis_name=self._dp_group)
 
     def train_batch(self, data_iter=None, batch=None):
         """One global step: the gas micro batches of ``batch`` (leaves
@@ -400,7 +657,7 @@ class DeepSpeedEngine:
                                "gradients accumulated: call step() first")
         if batch is None:
             batch = self._next_gas_batch(data_iter)
-        batch = self._to_device_batch(batch)
+        batch = self._to_device_batch(self._local(batch, 1))
         leaves = [batch] if isinstance(batch, torch.Tensor) else \
             list(batch.values()) if isinstance(batch, dict) else list(batch)
         gas = leaves[0].shape[0]
@@ -426,13 +683,15 @@ class DeepSpeedEngine:
         """The loss of one micro batch (float32, unscaled, on the autograd
         graph of this step's compute-dtype copies), keyed
         ``fold_in(base, micro_steps)``; ``train`` gates the step's
-        modifiers, as in the JAX engine."""
-        mb = self._to_device_batch(batch)
+        modifiers, as in the JAX engine. Over several ranks it is this
+        rank's share of the global mean times dp (``_global_share``): its
+        mean over the ranks is the JAX engine's loss."""
+        mb = self._to_device_batch(self._local(batch, 0))
         rng = prng.fold_in_words(self._base_rng, self.micro_steps)
         theta, keep = self._step_modifiers() if train else (None, None)
         pc = self._cast_params()
         loss = self._micro_loss(pc, mb, rng, True, theta, keep)
-        self._pending = (pc, loss)
+        self._pending = (pc, loss, self._row0)
         return loss
 
     __call__ = forward
@@ -443,7 +702,7 @@ class DeepSpeedEngine:
         JAX engine's user loop accumulates)."""
         if self._pending is None:
             raise RuntimeError("backward() without forward()")
-        pc, pending = self._pending
+        pc, pending, self._row0 = self._pending
         loss = pending if loss is None else loss
         self._accumulate(loss * self.scaler_state.scale, pc, torch.float32)
         self._pending = None
@@ -468,9 +727,13 @@ class DeepSpeedEngine:
         mean loss among them)."""
         scale = self.scaler_state.scale
         count = self._grad_acc_count
+        if self._stage <= 1:
+            self._allreduce_grads()
         finite, grad_norm = self._apply_update(self._grad_acc, self.get_lr()[0],
                                                denom=float(count))
-        metrics = {"loss": self._loss_acc / (count * scale),
+        # the global mean: the ranks' sums over the ranks
+        comm.all_reduce(self._loss_acc, axis_name=self._dp_group)
+        metrics = {"loss": self._loss_acc / (count * scale * self._dp_world),
                    "grad_norm": grad_norm, "loss_scale": scale,
                    "overflow": not finite}
         self._grad_acc, self._loss_acc, self._grad_acc_count = None, None, 0
@@ -480,11 +743,16 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch):
-        """Loss of one ``[micro, ...]`` batch, no gradients."""
+        """Loss of one ``[micro, ...]`` batch, no gradients; over several
+        ranks the mean over the global micro batch, as in the JAX engine."""
         pc = {n: p.to(self._compute_dtype)
-              for n, p in zip(self._names, self._masters)}
-        return self._micro_loss(pc, self._to_device_batch(batch),
-                                train=False)
+              for n, p in zip(self._names, self._compute_sources())}
+        loss = self._micro_loss(pc, self._to_device_batch(
+            self._local(batch, 0)), train=False)
+        if self._dp_world > 1:
+            comm.all_reduce(loss, axis_name=self._dp_group)
+            loss = loss / self._dp_world
+        return loss
 
     def _post_step(self, metrics):
         self.global_steps += 1
@@ -533,10 +801,48 @@ class DeepSpeedEngine:
         return save_16bit_model(self, save_dir, save_filename)
 
     def get_fp32_params(self):
-        """The f32 masters as a JAX-layout tree (copies, on the engine's
-        device): the zero_to_fp32 path as a live call."""
-        return self.module.jax_tree([m.detach().clone()
-                                     for m in self._masters])
+        """The f32 masters as a JAX-layout tree (whole copies, on the
+        engine's device, at any stage; every rank calls it): the
+        zero_to_fp32 path as a live call."""
+        return self.module.jax_tree([self.whole_master(i).detach().clone()
+                                     for i in range(len(self._names))])
+
+    # ------------------------------------------------------------------
+    # whole tensors across the ranks (checkpoints, GatheredParameters,
+    # tensor_fragment); collectives: every rank calls them in one order
+    # ------------------------------------------------------------------
+    def whole_master(self, i):
+        """Parameter ``i``'s whole f32 master."""
+        if self._stage < 3:
+            return self._params[i]
+        return self.whole(i, self._masters[i])
+
+    def whole(self, i, part):
+        """Parameter ``i``'s whole tensor from this rank's ``part`` of it
+        (a master or moment shard; as it is for a replicated one)."""
+        ps = self._pshards[i]
+        return ps.gather(part, self._dp_group) if ps.partitioned else part
+
+    @torch.no_grad()
+    def set_whole_master(self, i, value):
+        """Set parameter ``i``'s master from its whole value (a tensor on
+        any device; every rank passes the same value): this rank's part of
+        it is what is copied to the engine's device."""
+        if self._stage < 3:
+            self._params[i].copy_(value)
+        if self._stage >= 1:
+            self._masters[i].copy_(self._pshards[i].take(value))
+
+    @torch.no_grad()
+    def set_master_parts(self, parts):
+        """Set every master from this rank's part of it (a list aligned
+        with the parameters, as ``ParamShard.take`` cuts them; tensors on
+        any device); under stages 1-2 the model's whole parameters are
+        then all-gathered from the masters."""
+        for master, part in zip(self._masters, parts):
+            master.copy_(part)
+        if self._stage in (1, 2):
+            self._refresh_params()
 
     @property
     def param_shapes(self):
@@ -579,7 +885,11 @@ class DeepSpeedEngine:
 
     @property
     def dp_world_size(self):
-        return 1
+        return self._dp_world
+
+    @property
+    def dp_rank(self):
+        return self._dp_rank
 
     @property
     def mp_world_size(self):

@@ -2,10 +2,12 @@
 (``runtime/zero/config.py``), with the same keys, aliases, legacy offload
 flags and ``ConfigError``s.
 
-This port trains without ZeRO partitioning so far: a stage above 0 raises
-``NotImplementedError`` naming ROADMAP.md row A8, and an active
-``offload_optimizer`` or ``offload_param`` raises naming row A11. The
-stage-1..3 bucket and prefetch knobs are parsed for config compatibility.
+Stages 0-3 run (``runtime/zero/partition.py``, ``runtime/engine.py``);
+``stage3_param_persistence_threshold`` keeps small leaves replicated at
+stage 3, as in the JAX package. An active ``offload_optimizer`` or
+``offload_param`` raises ``NotImplementedError`` naming ROADMAP.md row
+A11. The bucket and prefetch knobs are parsed for config compatibility:
+the bucketed overlap schedule is row A8c.
 """
 
 import dataclasses
@@ -156,7 +158,3 @@ class DeepSpeedZeroConfig(DeepSpeedConfigModel):
             raise NotImplementedError(
                 "ZeRO offload (offload_optimizer / offload_param) is not "
                 "ported yet: ROADMAP.md row A11")
-        if int(self.stage) > 0:
-            raise NotImplementedError(
-                f"zero_optimization.stage={self.stage} is not ported yet "
-                f"(ZeRO 1-3 partitioning): ROADMAP.md row A8")

@@ -741,3 +741,78 @@ def test_checkpoint_save_load_on_the_card_is_bitwise(cuda_device, tmp_path):
     for a, b in zip(resumed._masters + resumed.opt_state.mu,
                     whole._masters + whole.opt_state.mu):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# ------------------------------------------------- ZeRO on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_threefry_dropout_at_an_offset_bitwise_its_plain_version(
+        cuda_device, dtype):
+    """The kernel at a non-zero element offset (a data-parallel rank's rows
+    of the global mask, past 2**32 elements too) equals its plain version
+    at that offset bit for bit, and the tail of the draw without one."""
+    from deepspeed_tpu_torch.ops.kernels import threefry_dropout as tfd
+    key = (2024, 77)
+    x = _drop_input(cuda_device, dtype, (4, 96, 130))
+    rows = x[2:].contiguous()
+    off = 2 * 96 * 130
+    for offset in (off, (1 << 32) + 5):
+        assert torch.equal(tfd.threefry_dropout(rows, key, 0.1, offset),
+                           tfd.threefry_dropout_plain(rows, key, 0.1,
+                                                      offset))
+    assert torch.equal(tfd.threefry_dropout(rows, key, 0.1, off),
+                       tfd.threefry_dropout(x, key, 0.1)[2:])
+
+
+@pytest.mark.cuda
+def test_nccl_world1_zero_stages_bitwise_stage0(cuda_device, tmp_path):
+    """On an NCCL process group of one rank, stages 1-3 partitioned over
+    that rank (the test planner ``OneRankPlanner``: the real one shards
+    nothing there) take every gather and reduce-scatter, each an identity,
+    and AdamW is elementwise, so they give stage 0's losses, masters and
+    moments bit for bit (bf16 on fp32 masters, gas 2, clipping on)."""
+    import torch.distributed as dist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from torch_dist_worker import one_rank_planner
+    comm.init_distributed("nccl", init_method=f"file://{tmp_path}/store",
+                          rank=0, world_size=1)
+    try:
+        cfg = GPT2Config(vocab_size=250, n_positions=256, n_embd=128,
+                         n_layer=2, n_head=2)
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (3, 2, 2, 128))
+        runs = {}
+        for stage in (0, 1, 2, 3):
+            with one_rank_planner():
+                engine = deepspeed_tpu_torch.initialize(
+                    model=GPT2Model(cfg), config={
+                        "train_batch_size": 4,
+                        "train_micro_batch_size_per_gpu": 2,
+                        "gradient_accumulation_steps": 2,
+                        "optimizer": {"type": "adamw",
+                                      "params": {"lr": 1e-3}},
+                        "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                        "zero_optimization": {
+                            "stage": stage,
+                            "stage3_param_persistence_threshold": 1000},
+                        "steps_per_print": 0})[0]
+            assert engine._stage == stage
+            losses = [engine.train_batch(batch={"input_ids": b}).item()
+                      for b in ids]
+            n = len(engine._names)
+            runs[stage] = (losses,
+                           [engine.whole_master(i).clone() for i in range(n)],
+                           [engine.whole(i, m).clone() for i, m in
+                            enumerate(engine.opt_state.mu)],
+                           [engine.whole(i, v).clone() for i, v in
+                            enumerate(engine.opt_state.nu)])
+            del engine
+        for stage in (1, 2, 3):
+            assert runs[stage][0] == runs[0][0]
+            for part in (1, 2, 3):
+                assert all(torch.equal(a, b) for a, b in
+                           zip(runs[stage][part], runs[0][part]))
+    finally:
+        dist.destroy_process_group()

@@ -172,8 +172,8 @@ BAD_CONFIGS = [{"dtype": "int4"}, {"no_such_key": 1}, {"max_tokens": 0},
                {"tensor_parallel": {"tp_size": 0}},
                {"compiled_cache_size": -1},
                {"quant": {"enabled": True, "bits": 4}}]
-UNPORTED_CONFIGS = [({"tensor_parallel": {"tp_size": 2}}, "A8"),
-                    ({"mp_size": 2}, "A8"), ({"dtype": "int8"}, "A9"),
+UNPORTED_CONFIGS = [({"tensor_parallel": {"tp_size": 2}}, "A8b"),
+                    ({"mp_size": 2}, "A8b"), ({"dtype": "int8"}, "A9"),
                     ({"quant": {"enabled": True}}, "A9")]
 
 
@@ -247,7 +247,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "want = {'models.bert', 'ops.sparse_attention_ops', "
         "'ops.sparse_attention_utils', 'ops.kernels.block_sparse_attention', "
         "'serving', 'serving.engine', 'serving.scheduler', "
-        "'inference.prng', 'telemetry.trace'}\n"
+        "'inference.prng', 'telemetry.trace', 'comm', 'comm.comm', "
+        "'comm.logging', 'zero', 'parallel', 'parallel.topology', "
+        "'runtime.zero.partition', 'runtime.zero.stage3', "
+        "'runtime.zero.tiling', 'utils.tensor_fragment'}\n"
         "missing = sorted(w for w in want if pkg.__name__ + '.' + w "
         "not in mods)\n"
         "print(len(mods), bad, missing)\n"
