@@ -63,12 +63,12 @@ depth only remat makes fit (``llama train remat``); GPT-2-125M with
 dropout, progressive layer drop and random-LTD through the user loop
 (``gpt2 train loop``: the model's layer coins and kept-token indices
 against a plain draw on the card). Slice 8's checkpoint phases: LLaMA-7B's
-width at 4 layers trained, saved after two steps and resumed bit for bit
+width at 2 layers trained, saved after two steps and resumed bit for bit
 by a fresh engine on other weights (``ckpt train resume``: save and load
 seconds, GB/s, hashing share, the host memory each takes against the
 largest leaf and the tag); GPT-2-125M's keep-last-2 retention, a retried
 write and the fallback past a truncated tag (``ckpt fallback``);
-LLaMA-7B at 16 of its 32 layers saved by an optimizer-less engine and
+LLaMA-7B at 8 of its 32 layers saved by an optimizer-less engine and
 served from the tag through ``init_inference`` and a ``ServingEngine``,
 bitwise the saving model's logits and streams (``ckpt serve``); a tp 2 x pp 2
 Megatron-LM GPT-2-125M directory served bitwise as its single shard
@@ -82,7 +82,17 @@ width at 4 layers at stage 3 against stage 0 (``zero train llama``), each
 stage's tokens/s, device peak and launches a step, stages 1-3 bit for bit
 stage 0; GPT-2-125M saved at stage 3 and resumed bit for bit by a fresh
 stage-3 and a fresh stage-0 engine, with each load's device peak beside
-the engine's resident bytes (``ckpt zero resume``). Each profile names
+the engine's resident bytes (``ckpt zero resume``). Slice 10's phases,
+on two ranks of a gloo group over CUDA tensors spawned on the one card
+(``tp_phases``): LLaMA-7B at full depth scoring ``[4, 2048]`` at tp 2 (K3
+on 16 heads a rank) against the tp-1 engine's logits (``tp forward``),
+served at tp 2 to 16 requests of the serve traffic, each stream equal to
+tp 1's or parting at a near-tie (``tp serve``), GPT-2-125M at the main
+train cell at tp 2 (``tp train``: K1/K2 on 6 heads), and LLaMA-7B's width
+at 4 layers trained at tp 2, its loss and gathered gradients held to tp
+1's and a repeated batch converging (``tp train llama``); each with its
+tokens/s, peak GiB a rank and the ``model`` axis's collectives. Each
+profile names
 the flash and block-sparse attention kernel instances that ran; on these
 bf16 paths they must be the tensor-core ones (``mma_*``). Every check raises
 on failure, so the script exits
@@ -270,13 +280,13 @@ GPT2_LTD = {"enabled": True, "data_routing": {"enabled": True, "random_ltd": {
 REMAT_BYTES_PER_PARAM, REMAT_FILL, REMAT_TIMED = 20, 0.9, 2
 # Slice 8: checkpoints. Tags go under CKPT_DIR (build/ is ignored by git)
 # and each phase removes its own. ckpt train resume: the llama train cell
-# (LLaMA-7B's width at 4 layers, micro 4, T 2048, gas 2, bf16 on f32
-# masters, AdamW under WarmupLR) takes CKPT_STEPS steps, saving after
-# CKPT_SAVE_AT; a fresh engine on other weights loads the tag and takes
-# the rest, bitwise. ckpt serve: LLaMA-7B at CKPT_SERVE_LAYERS layers (16
-# of its 32 since the ZeRO phases joined the script, to keep it inside
-# its time limit: 13.5 GB of f32 masters, qkv_w 3.2 GB and gate_w 2.9 GB
-# chunked; the card machine's disk holds it, PERF.md) saved by an
+# cut to CKPT_RESUME_LAYERS layers of LLaMA-7B's width (micro 4, T 2048,
+# gas 2, bf16 on f32 masters, AdamW under WarmupLR) takes CKPT_STEPS
+# steps, saving after CKPT_SAVE_AT; a fresh engine on other weights loads
+# the tag and takes the rest, bitwise. ckpt serve: LLaMA-7B at
+# CKPT_SERVE_LAYERS layers (of its 32: 7.5 GB of f32 masters, each of
+# qkv_w, gate_w, up_w and down_w above the codec's 1 GiB chunk and so
+# chunked) saved by an
 # optimizer-less engine and served through init_inference's checkpoint
 # key, then CKPT_SERVE_REQUESTS requests through a ServingEngine of
 # SERVE_LLAMA's pool. ckpt megatron: GPT-2-125M (Megatron's padded vocab
@@ -285,15 +295,21 @@ REMAT_BYTES_PER_PARAM, REMAT_FILL, REMAT_TIMED = 20, 0.9, 2
 # every other version, so the port does too).
 CKPT_DIR = "build/ckpt"
 CKPT_STEPS, CKPT_SAVE_AT = 4, 2
-CKPT_SERVE_LAYERS, CKPT_SERVE_REQUESTS = 16, 8
+# Both depths were cut (from 4 and 16 layers) when the tensor-parallel
+# phases joined the script, to keep it inside its time limit: each
+# phase's save and load take ~4 s a GB on the card's machine (PERF.md)
+CKPT_RESUME_LAYERS, CKPT_SERVE_LAYERS, CKPT_SERVE_REQUESTS = 2, 8, 8
 CKPT_MEGATRON_VOCAB, CKPT_MEGATRON_TP, CKPT_MEGATRON_PP = 50304, 2, 2
 
 
 # numbers one phase hands to a later one (phases' own measurements)
 MEASURED = {}
+START = time.perf_counter()
 
 
 def phase(name, **fields):
+    """One phase's line; ``t_s``: seconds since this process started."""
+    fields["t_s"] = round(time.perf_counter() - START, 1)
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -1142,13 +1158,15 @@ def llama_f32_logits(torch, model, ids):
     return logits
 
 
-def llama_model(torch, cfg, seed, dtype, backend="auto"):
+def llama_model(torch, cfg, seed, dtype, backend="auto", tp=None):
     """A LLaMA model built on the card in ``dtype``, its weights drawn there
-    from ``seed`` (the same weights for every backend)."""
+    from ``seed`` (the same weights for every backend, and at every tp:
+    ``tp=None`` builds the rank's part on the rank mesh, 1 the whole
+    model)."""
     from deepspeed_tpu_torch.models.llama import LlamaModel
     return LlamaModel(dataclasses.replace(cfg, attn_backend=backend),
                       generator=torch.Generator("cuda").manual_seed(seed),
-                      device="cuda", dtype=dtype)
+                      device="cuda", dtype=dtype, tp=tp)
 
 
 def llama_serve(torch):
@@ -3606,18 +3624,19 @@ def state_of(engine):
 
 
 def ckpt_train_resume(torch):
-    """The llama train cell takes CKPT_STEPS steps (run A), saving after
-    CKPT_SAVE_AT; the engine is deleted and the card freed; a fresh engine
-    on weights from another seed loads the tag and takes the same last
-    steps. Losses, masters and moments, counters, LR and the resumed steps'
-    launches must equal run A's bit for bit (else no more than two
-    uninterrupted runs differ). Returns the launches of both runs."""
+    """The llama train cell at CKPT_RESUME_LAYERS layers takes CKPT_STEPS
+    steps (run A), saving after CKPT_SAVE_AT; the engine is deleted and
+    the card freed; a fresh engine on weights from another seed loads the
+    tag and takes the same last steps. Losses, masters and moments,
+    counters, LR and the resumed steps' launches must equal run A's bit
+    for bit (else no more than two uninterrupted runs differ). Returns
+    the launches of both runs."""
     import gc
     import shutil
     import numpy as np
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import LLAMA_7B
-    cfg = dataclasses.replace(LLAMA_7B, n_layer=LLAMA_TRAIN_LAYERS)
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=CKPT_RESUME_LAYERS)
     config = dict(llama_train_config(1e-4, LLAMA_GAS), scheduler={
         "type": "WarmupLR", "params": {"warmup_min_lr": 0.0,
                                        "warmup_max_lr": 1e-4,
@@ -4172,12 +4191,13 @@ def one_rank_planner(on=True):
     (where the planner as shipped partitions nothing and the engine runs
     stage 0): stages 1-3 then take every gather and reduce-scatter, each
     an identity. ``on=False``: the planner as shipped."""
+    from deepspeed_tpu_torch.parallel.tensor_parallel import rule_spec
     from deepspeed_tpu_torch.runtime import engine as engine_module
     from deepspeed_tpu_torch.runtime.zero import partition
 
     class OneRankPlanner(partition.ZeroShardingPlanner):
         def _leaf_spec(self, path, shape, dp_sharded):
-            spec = partition._tp_spec(path, self.rules, len(shape))
+            spec = rule_spec(path, self.rules, len(shape))
             if dp_sharded:
                 spec = partition._add_dp_axis(spec, tuple(shape),
                                               partition.DP_AXES, 1,
@@ -4411,6 +4431,500 @@ def zero_phases(torch):
         comm.destroy_process_group()
 
 
+# ---------------------------------------------------------------- slice 10
+# Tensor parallelism on the one card: TP_SIZE ranks of a gloo group over
+# CUDA tensors (NCCL refuses two ranks on one device), spawned once after
+# the parent has freed its models. Each rank holds its half of every
+# sharded leaf and launches the attention kernels on its own heads (K3 at
+# 16 of LLaMA-7B's 32 heads, K1/K2 at 6 of GPT-2's 12; the kernel checks
+# hold both at those shapes too). Two ranks share one H100 and every tp
+# collective is staged through host memory by gloo, so the times say
+# nothing of tensor-parallel speed across cards. Each phase is held
+# against tp 1 on the same seed's weights (the same draws at every tp),
+# rank 0 running the tp-1 side alone first: tp forward holds the logits
+# to LLAMA_LOGITS_TOL's bf16 bounds; tp serve teacher-forces the tp-1
+# streams (the first TP_SERVE_REQUESTS of the serve phase's traffic, new
+# tokens capped at TP_SERVE_NEW) and its own through the tp-2 forward,
+# every token either the tp-2 choice or a near-tie; tp train and tp train
+# llama hold the loss and the gathered gradients of one micro batch to
+# TRAIN_GRAD_TOL and LLAMA_GRAD_TOL, then a repeated LLaMA batch must
+# converge as in llama train. Timed: the median of TP_TIMED calls or
+# steps after one untimed warm-up. The serve requests stop at
+# TP_SERVE_NEW tokens: a tp-2 decode tick takes 200-300 ms through host
+# memory (an H100 80GB HBM3 at 700 W, PERF.md), and the mix's whole
+# streams (2,314 tokens) took 100 s.
+TP_SIZE = 2
+TP_STORE, TP_OUT = "build/tp_store", "build/tp_out"
+TP_TIMEOUT = 600                 # seconds the parent waits for the ranks
+TP_FWD_SHAPE, TP_TIMED = (4, 2048), 3
+TP_SERVE_REQUESTS, TP_SERVE_NEW = 16, 64
+
+
+def tp_axis_stats():
+    """The ``model`` axis's collectives since the last reset: ops, wire
+    bytes, and ops by kind."""
+    from deepspeed_tpu_torch import comm
+    st = comm.comm_axis_stats("model")
+    return json.dumps({"ops": st["ops"], "bytes": st["bytes"],
+                       "per_op": st["per_op"]})
+
+
+def tp_reset(torch):
+    """Counts and statistics to 0 before a phase's main path."""
+    from deepspeed_tpu_torch import comm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset_comm_stats()
+    reset_counts()
+
+
+def tp_vs_tp1(torch, rank, name, build, mb, tol):
+    """The loss and the gradients of one micro batch ``mb`` at tp 2,
+    gathered whole, against tp 1's on the same weights (``build(tp)``
+    makes the model: ``tp=1`` whole, ``tp=None`` the rank's part): each
+    leaf's rel. L2 and the loss difference within ``tol``, checked and
+    printed on rank 0."""
+    from deepspeed_tpu_torch import comm
+
+    def grads(tp):
+        m = build(tp)
+        loss = m.apply(mb)
+        loss.backward()
+        out = {}
+        for (n, p), split in zip(m.named_parameters(), m.tp_splits()):
+            g = p.grad if split is None else split.gather(p.grad, m.tp.group)
+            out[n] = g.float().cpu() if rank == 0 else None
+        del m
+        torch.cuda.empty_cache()
+        return loss.item(), out
+
+    ref = grads(1) if rank == 0 else None
+    comm.barrier()
+    loss2, got = grads(None)
+    if rank == 0:
+        loss1, want = ref
+        rel = {n: ((got[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+               for n, g in want.items()}
+        worst = max(rel, key=rel.get)
+        check(rel[worst] <= tol["rel_l2_per_leaf"] and
+              abs(loss2 - loss1) <= tol["loss_abs"],
+              f"{name} vs tp 1: worst leaf {worst} rel L2 {rel[worst]}, "
+              f"losses {loss2} vs {loss1} (tol {tol})")
+        phase(f"{name} vs tp 1", leaves=len(rel), loss_tp2=loss2,
+              loss_tp1=loss1, loss_abs_diff=abs(loss2 - loss1),
+              max_rel_l2=rel[worst], worst_leaf=worst,
+              median_rel_l2=statistics.median(rel.values()),
+              tol=json.dumps(tol))
+
+
+def tp_forward(torch, rank):
+    """LLaMA-7B at full depth scoring ``[4, 2048]`` at tp 2 (K3 32 a call
+    a rank, on 16 heads), against the tp-1 engine's logits."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    cfg = LLAMA_7B
+    b, t = TP_FWD_SHAPE
+    ids = torch.randint(0, cfg.vocab_size, (b, t),
+                        generator=torch.Generator().manual_seed(SEED + 11))
+    ref = None
+    if rank == 0:
+        one = deepspeed_tpu_torch.init_inference(
+            llama_model(torch, cfg, SEED + 10, torch.bfloat16, tp=1),
+            {"dtype": "bf16"})
+        ref = one(ids)
+        del one
+        torch.cuda.empty_cache()
+    comm.barrier()
+    engine = deepspeed_tpu_torch.init_inference(
+        llama_model(torch, cfg, SEED + 10, torch.bfloat16),
+        {"dtype": "bf16", "tensor_parallel": {"tp_size": TP_SIZE}})
+    tp_reset(torch)
+    fwd_s, per_call = [], []
+    for _ in range(1 + TP_TIMED):             # the first call warms
+        before = counts()["K3"]
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        logits = engine(ids)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - s0)
+        per_call.append(counts()["K3"] - before)
+    launches = counts()
+    check(per_call == [cfg.n_layer] * len(fwd_s) and launches["K1"] == 0,
+          f"tp forward rank {rank}: K3 launched {per_call} times per call, "
+          f"want {cfg.n_layer}; K1 {launches['K1']}, want 0")
+    check(tuple(logits.shape) == (b, t, cfg.padded_vocab) and
+          torch.isfinite(logits.float()).all().item(),
+          f"tp forward rank {rank}: logits {tuple(logits.shape)} or not "
+          f"finite")
+    med = statistics.median(fwd_s[1:])
+    phase("tp forward", rank=rank, model="LLAMA_7B", tp=TP_SIZE,
+          heads_per_rank=cfg.n_head // TP_SIZE,
+          params_per_rank=engine.module.num_params(), shape=list(logits.shape),
+          calls=len(fwd_s), timed=TP_TIMED,
+          seconds=json.dumps([round(x, 4) for x in fwd_s]),
+          median_s=round(med, 4), tokens_per_s=round(b * t / med, 1),
+          k3_launches_per_call=json.dumps(per_call),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+          model_axis=tp_axis_stats())
+    if rank == 0:
+        compare_logits(torch, "tp forward vs tp 1", logits, ref,
+                       LLAMA_LOGITS_TOL)
+    del engine, logits, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def forced_choices(torch, engine, prompt, kw, streams):
+    """Teacher forcing: ``engine``'s plain full forward (the model's
+    attention on the plain path) over ``prompt`` and each of ``streams``
+    (token lists of one length), in one batch. Returns the f32 logits at
+    each stream position ``[S, n, vocab]`` and the token the engine's own
+    sampler takes there ``[S, n]``: the argmax, or, sampled, the draw of
+    the request's key at the column the token is fed at."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.speculative import (row_keys,
+                                                           sample_rows)
+    model = engine.module
+    cfg = model.config
+    p, n = len(prompt), len(streams[0])
+    ids = torch.as_tensor(np.stack([np.concatenate([prompt, s[:-1]])
+                                    for s in streams]).astype("int64"))
+    model.config = dataclasses.replace(cfg, attn_backend="xla")
+    try:
+        logits = engine(ids)[:, p - 1:, :cfg.vocab_size].float()
+    finally:
+        model.config = cfg
+    rows = logits.reshape(-1, logits.shape[-1])
+    m = rows.shape[0]
+    keys = row_keys(torch.full((m,), kw.get("seed", 0)),
+                    torch.arange(p, p + n).repeat(len(streams)))
+    choice = sample_rows(rows, torch.full((m,), kw.get("temperature", 0.0)),
+                         torch.full((m,), kw.get("top_k", 0)),
+                         torch.full((m,), kw.get("top_p", 1.0)), keys,
+                         rows.shape[-1])
+    return logits, choice.reshape(len(streams), n)
+
+
+def forced_parts(torch, name, engine, traffic, runs, margin):
+    """Each stream of each run in ``runs`` (``{label: streams}``, streams
+    in traffic order) teacher-forced through ``engine``: wherever the
+    engine's choice is not the stream's token, the two must be within
+    ``margin`` of a tie (``tie_gap``). Returns, by label, the positions
+    compared and ``{request: [[position, gap], ...]}`` of those that
+    differ."""
+    out = {label: [0, {}] for label in runs}
+    for i, (prompt, kw) in enumerate(traffic):
+        streams = [runs[label][i] for label in runs]
+        logits, choice = forced_choices(torch, engine, prompt, kw, streams)
+        for s, label in enumerate(runs):
+            tokens = torch.as_tensor(streams[s], device=choice.device)
+            out[label][0] += len(streams[s])
+            for j in torch.nonzero(choice[s] != tokens).flatten().tolist():
+                gap = tie_gap(torch, logits[s, j], kw, len(prompt) + j,
+                              int(tokens[j]), int(choice[s, j]))
+                out[label][1].setdefault(i, []).append([j, round(gap, 4)])
+    bad = {label: {i: [x for x in v if x[1] > margin]
+                   for i, v in parts.items()
+                   if any(x[1] > margin for x in v)}
+           for label, (_, parts) in out.items()}
+    check(not any(bad.values()), f"{name}: teacher-forced streams hold "
+          f"tokens that are not the forward's choice nor a near-tie "
+          f"(request: [[position, gap]]): {bad}, margin {margin}")
+    return out
+
+
+def tp_serve(torch, rank):
+    """LLaMA-7B served at tp 2 (16 slots x 2048, the rank's kv heads in
+    its pool): the first TP_SERVE_REQUESTS requests of the serve phase's
+    traffic. The tp-1 engine's streams and the tp-2 ones, each fed whole
+    through the tp-2 forward, must hold its choice or a near-tie at every
+    position."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    from deepspeed_tpu_torch.serving.kv_slots import tree_nbytes
+    cfg, scfg = LLAMA_7B, SERVE_LLAMA["cfg"]
+    traffic = [(p, dict(kw, max_new_tokens=min(kw["max_new_tokens"],
+                                               TP_SERVE_NEW)))
+               for p, kw in serve_traffic(np, SERVE_LLAMA, cfg.vocab_size,
+                                          SEED + 71)[:TP_SERVE_REQUESTS]]
+    base = None
+    if rank == 0:
+        one = deepspeed_tpu_torch.init_inference(
+            llama_model(torch, cfg, SEED + 70, torch.bfloat16, tp=1),
+            {"dtype": "bf16"})
+        base, *_rest, srv = serve_run(torch, one, scfg, traffic)
+        srv.shutdown()
+        del one, srv, _rest
+        torch.cuda.empty_cache()
+    base = comm.broadcast_object(base, src=0)
+    engine = deepspeed_tpu_torch.init_inference(
+        llama_model(torch, cfg, SEED + 70, torch.bfloat16),
+        {"dtype": "bf16", "tensor_parallel": {"tp_size": TP_SIZE}})
+    tp_reset(torch)
+    streams, reqs, util, ticks, wall, srv = serve_run(torch, engine, scfg,
+                                                      traffic)
+    launches = counts()
+    axis = tp_axis_stats()
+    check({r.state.value for r in reqs} == {"finished"} and
+          all(len(r.tokens) == kw["max_new_tokens"]
+              for (_, kw), r in zip(traffic, reqs)),
+          f"tp serve rank {rank}: a request did not finish in full")
+    check(srv.decode_executables() == 1, f"tp serve rank {rank}: "
+          f"{srv.decode_executables()} decode shapes ran")
+    pool = srv.scheduler.pool.cache
+    check(all(c.device.type == "cuda" and
+              c.shape[2] == cfg.kv_head_count // TP_SIZE
+              for c in pool.values()),
+          f"tp serve rank {rank}: the pool is not the rank's heads on the "
+          f"card")
+    pool_gib = tree_nbytes(pool) / 2 ** 30
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    pct = srv.metrics.percentiles()
+    _, tpot = request_latency(reqs)
+    tokens = sum(len(x) for x in streams)
+    srv.shutdown()
+    del srv, pool
+    torch.cuda.empty_cache()
+    for i, (got, want) in enumerate(zip(streams, base)):
+        check(len(got) == len(want), f"tp serve: request {i} gave "
+              f"{len(got)} tokens, tp 1 {len(want)}")
+    parted = {i: j for i, (got, want) in enumerate(zip(streams, base))
+              if (j := parted_at(got, want)) is not None}
+    # every rank runs the same forwards (each is a tp-2 forward)
+    s0 = time.perf_counter()
+    forced = forced_parts(torch, "tp serve", engine, traffic,
+                          {"tp1": base, "tp2": streams},
+                          LLAMA_ARGMAX_MARGIN)
+    forced_s = time.perf_counter() - s0
+
+    def ties(label):
+        return sum(len(v) for v in forced[label][1].values())
+
+    phase("tp serve", rank=rank, model="LLAMA_7B", tp=TP_SIZE,
+          requests=len(traffic), slots=scfg["num_slots"],
+          max_model_len=scfg["max_model_len"], ticks=ticks,
+          seconds=round(wall, 3), output_tokens=tokens,
+          output_tokens_per_s=round(tokens / wall, 1),
+          ttft_ms_p50=pct["ttft_ms"]["p50"], ttft_ms_p99=pct["ttft_ms"]["p99"],
+          tpot_ms_p50=round(quantile(tpot, 0.5), 3),
+          tpot_ms_p99=round(quantile(tpot, 0.99), 3),
+          decode_tick_ms_p50=pct["tpot_ms"]["p50"],
+          mean_slot_utilization=round(util, 4), pool_gib=round(pool_gib, 3),
+          peak_mem_gib=round(peak_gib, 2),
+          streams_equal_tp1=len(traffic) - len(parted),
+          parted_at=json.dumps(parted), margin=LLAMA_ARGMAX_MARGIN,
+          forced_positions_tp1=forced["tp1"][0],
+          forced_ties_tp1=ties("tp1"),
+          forced_positions_tp2=forced["tp2"][0],
+          forced_ties_tp2=ties("tp2"), forced_seconds=round(forced_s, 2),
+          forced_tp1=json.dumps(forced["tp1"][1]),
+          forced_tp2=json.dumps(forced["tp2"][1]), model_axis=axis)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_steps(torch, engine, batches, name, rank, per_step_want):
+    """``train_batch`` over ``batches``: seconds, losses and the kernels'
+    launches a step, each step's checked against ``per_step_want``."""
+    import numpy as np
+    tp_reset(torch)
+    step_s, losses, per_step = [], [], []
+    for batch in batches:
+        before = counts()
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+        losses.append(loss.item())
+        per_step.append({k: v for k, v in counts_since(before).items() if v})
+    check(all(n == per_step_want for n in per_step) and
+          all(np.isfinite(losses)),
+          f"{name} rank {rank}: launches a step {per_step}, want "
+          f"{per_step_want}; losses {losses}")
+    return step_s, losses, counts()
+
+
+def tp_train(torch, rank):
+    """GPT-2-125M at the main train cell (micro 8, T 1024, gas 4) at tp 2:
+    the loss and the gathered gradients of one bf16 micro batch against
+    tp 1's, then the cell's train_batch (K1/K2 48 a step a rank, on 6
+    heads)."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, GPT2_125M
+    cfg, t = GPT2_125M, ZERO_T
+    rng = np.random.default_rng(SEED + 5)
+    batches = [{"input_ids": rng.integers(
+        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_MICRO, t), dtype=np.int64)}
+        for _ in range(1 + TP_TIMED)]
+    mb = {"input_ids": torch.as_tensor(batches[0]["input_ids"][0]).cuda()}
+    tp_vs_tp1(torch, rank, "tp train", lambda tp: GPT2Model(
+        cfg, generator=torch.Generator().manual_seed(SEED), device="cuda",
+        dtype=torch.bfloat16, tp=tp), mb, TRAIN_GRAD_TOL)
+
+    model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
+    engine = deepspeed_tpu_torch.initialize(model=model, config=dict(
+        train_config(1e-4, TRAIN_GAS), tensor_parallel_size=TP_SIZE))[0]
+    want = cfg.n_layer * TRAIN_GAS
+    step_s, losses, launches = tp_steps(torch, engine, batches, "tp train",
+                                        rank, {"K1": want, "K2": want})
+    med = statistics.median(step_s[1:])        # the first step warms
+    tokens = TRAIN_GAS * TRAIN_MICRO * t
+    phase("tp train", rank=rank, model="GPT2_125M", tp=TP_SIZE,
+          heads_per_rank=cfg.n_head // TP_SIZE, micro=TRAIN_MICRO,
+          gas=TRAIN_GAS, seq=t, steps=len(step_s), timed=TP_TIMED,
+          seconds=json.dumps([round(x, 4) for x in step_s]),
+          median_s=round(med, 4), tokens_per_s=round(tokens / med, 1),
+          losses=json.dumps([round(x, 4) for x in losses]),
+          launches=json.dumps(launches),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+          model_axis=tp_axis_stats())
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_train_llama(torch, rank):
+    """LLaMA-7B's width at 4 layers (micro 4, T 2048, gas 2) at tp 2: the
+    loss and the gathered gradients of one bf16 micro batch against tp 1's,
+    the cell's train_batch (K3 and K3b/K5 8 a step a rank, on 16 heads),
+    a repeated batch that must converge."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=LLAMA_TRAIN_LAYERS)
+    t, gas, micro = LLAMA_T, LLAMA_GAS, LLAMA_MICRO
+    rng = np.random.default_rng(SEED + 14)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                          (gas, micro, t), dtype=np.int64)}
+               for _ in range(1 + TP_TIMED)]
+    mb = {"input_ids": torch.as_tensor(batches[0]["input_ids"][0]).cuda()}
+    tp_vs_tp1(torch, rank, "tp train llama", lambda tp: llama_model(
+        torch, cfg, SEED + 13, torch.bfloat16, tp=tp), mb, LLAMA_GRAD_TOL)
+
+    conf = dict(llama_train_config(1e-4, gas), tensor_parallel_size=TP_SIZE)
+    engine = deepspeed_tpu_torch.initialize(
+        model=llama_model(torch, cfg, SEED + 13, torch.float32),
+        config=conf)[0]
+    want = cfg.n_layer * gas
+    step_s, losses, launches = tp_steps(torch, engine, batches,
+                                        "tp train llama", rank,
+                                        {"K3": want, "K3b/K5": want})
+    med = statistics.median(step_s[1:])        # the first step warms
+    phase("tp train llama", rank=rank,
+          model=f"LLAMA_7B width, {cfg.n_layer} layers", tp=TP_SIZE,
+          heads_per_rank=cfg.n_head // TP_SIZE, micro=micro, gas=gas, seq=t,
+          params_per_rank=engine.module.num_params(), steps=len(step_s),
+          timed=TP_TIMED, seconds=json.dumps([round(x, 4) for x in step_s]),
+          median_s=round(med, 4), tokens_per_s=round(gas * micro * t / med, 1),
+          losses=json.dumps([round(x, 4) for x in losses]),
+          launches=json.dumps(launches),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+          model_axis=tp_axis_stats())
+    del engine
+    torch.cuda.empty_cache()
+
+    engine = deepspeed_tpu_torch.initialize(
+        model=llama_model(torch, cfg, SEED + 13, torch.float32),
+        config=dict(llama_train_config(LLAMA_CONVERGE_LR, 1),
+                    tensor_parallel_size=TP_SIZE))[0]
+    batch = {"input_ids": rng.integers(0, 256, (1, micro, t))}
+    losses = [engine.train_batch(batch=batch).item()
+              for _ in range(CONVERGE_STEPS)]
+    check(losses[-1] < CONVERGE_FRACTION * losses[0],
+          f"tp train llama: loss on a repeated batch went {losses[0]} -> "
+          f"{losses[-1]}, want below {CONVERGE_FRACTION} x the first")
+    if rank == 0:
+        phase("tp train llama converges", steps=CONVERGE_STEPS,
+              lr=LLAMA_CONVERGE_LR,
+              losses=json.dumps([round(x, 4) for x in losses]),
+              threshold=f"last < {CONVERGE_FRACTION} x first")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+TP_PHASES = (("tp forward", tp_forward), ("tp serve", tp_serve),
+             ("tp train", tp_train), ("tp train llama", tp_train_llama))
+
+
+def tp_rank(rank, store, out_dir, names):
+    """One rank of the tensor-parallel phases: a gloo group over CUDA
+    tensors on the card, the rank mesh at tp TP_SIZE, the phases ``names``
+    in turn; their launch counts to ``out_dir/rank<r>.json``."""
+    import os
+    import torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.topology import initialize_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    comm.init_distributed("gloo", init_method=f"file://{store}", rank=rank,
+                          world_size=TP_SIZE, device="cuda", timeout=600,
+                          verbose=False)
+    try:
+        initialize_mesh(tp=TP_SIZE)
+        out = {name: fn(torch, rank) for name, fn in TP_PHASES
+               if name in names}
+    finally:
+        comm.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tp_phases(torch, names=tuple(name for name, _ in TP_PHASES)):
+    """The tensor-parallel phases on TP_SIZE ranks of the one card, spawned
+    once; a rank that fails fails the script, and every rank is stopped
+    before this returns. Returns each kernel's launches, summed over the
+    phases and the ranks."""
+    import os
+    import shutil
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    store = os.path.abspath(TP_STORE)
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    shutil.rmtree(TP_OUT, ignore_errors=True)
+    os.makedirs(TP_OUT)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank, args=(r, store, TP_OUT, names))
+             for r in range(TP_SIZE)]
+    s0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or \
+                    time.perf_counter() - s0 > TP_TIMEOUT:
+                break
+            time.sleep(1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * TP_SIZE, f"tensor-parallel ranks exited {codes} "
+          f"after {time.perf_counter() - s0:.1f} s (limit {TP_TIMEOUT})")
+    launches = {}
+    for r in range(TP_SIZE):
+        with open(os.path.join(TP_OUT, f"rank{r}.json")) as f:
+            for counted in json.load(f).values():
+                for k, v in counted.items():
+                    launches[k] = launches.get(k, 0) + v
+    phase("tp ranks", ranks=TP_SIZE, group="gloo over CUDA tensors, one card",
+          phases=json.dumps(list(names)),
+          seconds=round(time.perf_counter() - s0, 2),
+          launches=json.dumps(launches))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4465,6 +4979,10 @@ def main():
     check_k2(torch, b, t, h, d, torch.bfloat16, False, None)
     check_k2(torch, b, t, h, d, torch.float16, True, None)
     check_k2(torch, b, t, h, d, torch.float32, True, None)
+    # a tp-2 rank's heads (tp train): 6 of 12, q, k and v column thirds of
+    # a row of 3 * 6 * 64
+    check_k1(torch, b, t, h // TP_SIZE, d, torch.bfloat16, True, None)
+    check_k2(torch, b, t, h // TP_SIZE, d, torch.bfloat16, True, None)
     bf16 = torch.bfloat16
     k3_cases = [(K3_SHAPE, bf16, True, None, None),
                 (K3_SHAPE, bf16, True, 512, None),
@@ -4474,7 +4992,10 @@ def main():
                 (K3_SHAPE, bf16, True, None, 0.05),
                 (K3_SMALL + (80,), bf16, True, None, None),
                 (K3_SMALL + (256,), bf16, True, None, None),
-                (K3_SHAPE[:3] + (64,), bf16, True, None, None)]
+                (K3_SHAPE[:3] + (64,), bf16, True, None, None),
+                # a tp-2 rank's heads (tp forward, tp train llama)
+                ((K3_SHAPE[0], K3_SHAPE[1] // TP_SIZE) + K3_SHAPE[2:], bf16,
+                 True, None, None)]
     main_k3 = [check_k3(torch, *case) for case in k3_cases][0]
     main_k3b = [check_k3_bwd(torch, *case) for case in k3_cases][0]
     planted_faults(torch, K3_SHAPE, bf16, True, None)
@@ -4593,6 +5114,9 @@ def main():
     reset_counts()
     zero_gpt2, zero_llama, zero_ckpt = zero_phases(torch)
 
+    # ---- tensor parallelism: 2 ranks of a gloo group on the one card
+    tp = tp_phases(torch)
+
     def entry(name, source, replaces, launches, res, err):
         return {"name": name, "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{source}",
@@ -4610,24 +5134,28 @@ def main():
         entry("flash_attention_packed_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention_packed.py:65",
               launches + train_launches["K1"] + fallback_launches["K1"] +
-              megatron_launches + zero_gpt2["K1"] + zero_ckpt["K1"],
+              megatron_launches + zero_gpt2["K1"] + zero_ckpt["K1"] +
+              tp.get("K1", 0),
               main_case, main_case["err_out"]),
         entry("flash_attention_packed_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention_packed.py:148",
               train_launches["K2"] + fallback_launches["K2"] +
-              zero_gpt2["K2"] + zero_ckpt["K2"], main_k2, bwd_err(main_k2)),
+              zero_gpt2["K2"] + zero_ckpt["K2"] + tp.get("K2", 0), main_k2,
+              bwd_err(main_k2)),
         entry("flash_attention_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention.py:141",
               llama_fwd_launches + llama_train_launches["K3"] +
               llama_remat_launches["K3"] + resume_launches["K3"] +
-              ckpt_serve_launches + zero_llama["K3"], main_k3,
+              ckpt_serve_launches + zero_llama["K3"] + tp.get("K3", 0),
+              main_k3,
               main_k3["err_out"]),
         entry("flash_attention_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention.py:222 (K3b); "
               f"{pallas}/flash_attention.py:329,358 (K5)",
               llama_train_launches["K3b/K5"] +
               llama_remat_launches["K3b/K5"] + resume_launches["K3b/K5"] +
-              zero_llama["K3b/K5"], main_k3b, bwd_err(main_k3b)),
+              zero_llama["K3b/K5"] + tp.get("K3b/K5", 0), main_k3b,
+              bwd_err(main_k3b)),
         entry("flash_attention_streamed_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention.py:483",
               codellama_fwd_launches + codellama_train_launches["K4"],

@@ -40,6 +40,11 @@ def init_inference(model, config=None, device=None, **kwargs):
     if isinstance(config, dict):
         config = DeepSpeedInferenceConfig.from_dict({**config, **kwargs})
     if isinstance(model, str):
+        if config.tensor_parallel.tp_size > 1:
+            raise NotImplementedError(
+                f"serving a Megatron-LM directory shard per rank at tp="
+                f"{config.tensor_parallel.tp_size} is not ported yet: "
+                f"ROADMAP.md row A8b2 (at tp 1 its shards are merged)")
         from .checkpoint.megatron import load_megatron_checkpoint
         spec, params = load_megatron_checkpoint(model)
         return InferenceEngine(spec, config, params=params, device=device)
@@ -69,8 +74,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     rank of the process group). Returns ``(engine, optimizer, dataloader,
     lr_scheduler)``.
 
-    The hybrid engine, the pipeline engine and LoRA raise naming their
-    ROADMAP.md rows, as do a client optimizer object and an ``mpu``."""
+    ``tensor_parallel_size`` (or a ``mesh_manager`` with ``tp > 1``) trains
+    the model tensor-parallel; an ``mpu`` is accepted and kept, as in the
+    JAX package. The hybrid engine, the pipeline engine and LoRA raise
+    naming their ROADMAP.md rows, as does a client optimizer object."""
     from .runtime.engine import DeepSpeedEngine
     if config is None:
         config = config_params

@@ -13,6 +13,7 @@ from .comm import (ReduceOp, init_distributed, is_initialized, get_rank,
                    recv, has_all_gather_into_tensor,
                    has_reduce_scatter_tensor,
                    # accounting and the compression refusal (row A8c)
-                   comm_stats, comm_per_op_stats, reset_comm_stats,
+                   comm_stats, comm_per_op_stats, comm_axis_stats,
+                   reset_comm_stats,
                    configure_comm_compression)
 from .logging import CommsLogger, get_comms_logger, configure_comms_logger

@@ -9,7 +9,10 @@ Two planes, as in the JAX package:
    does; ``get_rank``, ``get_world_size``, ``barrier`` and
    ``broadcast_object``. The backend is ``nccl`` when the device is
    ``cuda`` (the default) and ``gloo`` when the caller asks for the CPU;
-   there is no fall-back from one to the other.
+   there is no fall-back from one to the other. A caller may also ask for
+   ``gloo`` on ``cuda``: gloo carries CUDA tensors through host memory,
+   which is how several ranks share one card (NCCL refuses two ranks on
+   one device).
 2. **Collectives** on process groups: ``all_reduce``, ``all_gather``,
    ``reduce_scatter``, their coalesced forms, ``all_to_all``,
    ``broadcast``, ``ppermute`` and the reference's names (``reduce``,
@@ -26,7 +29,8 @@ Without a process group the world is one rank and every collective is the
 identity. Every collective goes through one accounting point: the wire
 bytes a ring implementation puts on each member's links (the JAX
 package's ``_BASE_WIRE`` model), into ``comm_stats`` / ``comm_per_op_stats``,
-the comms logger and a tracer span. Compressed collectives
+the comms logger and a tracer span, and by mesh axis into
+``comm_axis_stats``. Compressed collectives
 (``comm_compression``) are ROADMAP.md row A8c; host-driven point-to-point
 (``isend`` / ``recv``) raises, as in the JAX package.
 """
@@ -260,6 +264,17 @@ _COMM_LOGICAL_BYTES = 0
 _COMM_INTER_BYTES = 0
 _COMM_INTRA_BYTES = 0
 _COMM_PER_OP: dict = {}
+_COMM_PER_AXIS: dict = {}
+# process groups made for mesh axes, by id: their axis label in the
+# per-axis accounting when a collective is handed the group itself
+_GROUP_NAMES: dict = {}
+
+
+def name_group(group, axis_name):
+    """Account the collectives issued on ``group`` under ``axis_name``
+    (the topology names each group it makes)."""
+    if group is not None and group is not SINGLE:
+        _GROUP_NAMES[id(group)] = str(axis_name)
 
 
 def comm_stats():
@@ -278,12 +293,30 @@ def comm_per_op_stats():
     return dict(_COMM_PER_OP)
 
 
+def comm_axis_stats(axis_name=None):
+    """The accounting by mesh axis: ``{axis: {"ops", "bytes",
+    "logical_bytes", "per_op": {op: count}}}`` (the axis as the
+    collective named it: ``"model"``, ``"('data', 'expert')"``,
+    ``"world"``), or one axis's record (zeros when none ran)."""
+    if axis_name is not None:
+        rec = _COMM_PER_AXIS.get(str(axis_name))
+        return _axis_record() if rec is None else \
+            dict(rec, per_op=dict(rec["per_op"]))
+    return {k: dict(v, per_op=dict(v["per_op"]))
+            for k, v in _COMM_PER_AXIS.items()}
+
+
+def _axis_record():
+    return {"ops": 0, "bytes": 0, "logical_bytes": 0, "per_op": {}}
+
+
 def reset_comm_stats():
     global _COMM_OPS, _COMM_WIRE_BYTES, _COMM_LOGICAL_BYTES
     global _COMM_INTER_BYTES, _COMM_INTRA_BYTES
     _COMM_OPS = _COMM_WIRE_BYTES = _COMM_LOGICAL_BYTES = 0
     _COMM_INTER_BYTES = _COMM_INTRA_BYTES = 0
     _COMM_PER_OP.clear()
+    _COMM_PER_AXIS.clear()
 
 
 def _split_inter(wire: int, n: int) -> int:
@@ -305,7 +338,7 @@ def _axis_label(axis_name) -> str:
         return "world"
     if isinstance(axis_name, (str, tuple, list)):
         return str(axis_name)
-    return "group"
+    return _GROUP_NAMES.get(id(axis_name), "group")
 
 
 def _account(op, logical, n, axis_name, wire=None):
@@ -322,6 +355,11 @@ def _account(op, logical, n, axis_name, wire=None):
     _COMM_INTRA_BYTES += wire - inter
     _COMM_PER_OP[op] = _COMM_PER_OP.get(op, 0) + 1
     label = _axis_label(axis_name)
+    rec = _COMM_PER_AXIS.setdefault(label, _axis_record())
+    rec["ops"] += 1
+    rec["bytes"] += wire
+    rec["logical_bytes"] += logical
+    rec["per_op"][op] = rec["per_op"].get(op, 0) + 1
     cl = get_comms_logger()
     if cl.enabled:
         cl.append(op, wire, label, n)

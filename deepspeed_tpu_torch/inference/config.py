@@ -127,11 +127,6 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         self._refuse_unported()
 
     def _refuse_unported(self):
-        if self.tensor_parallel.tp_size > 1:
-            raise NotImplementedError(
-                f"tensor-parallel serving (tp_size="
-                f"{self.tensor_parallel.tp_size}) is not ported yet: "
-                f"ROADMAP.md row A8b")
         if self.quant is not None and self.quant.enabled:
             raise NotImplementedError(
                 "weight-only quantized serving (quant / dtype int8) is not "

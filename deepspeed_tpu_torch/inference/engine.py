@@ -21,6 +21,18 @@ package donates it) and return it, so callers rebind it as they do there.
 Every sampled token's key derives only from ``(request seed, cache
 column)`` (``speculative.row_keys``), so a replayed request regenerates its
 stream bit for bit.
+
+Tensor parallelism (``tensor_parallel.tp_size``, or its alias
+``mp_size``): the engine runs on the rank mesh's ``model`` axis (the
+global mesh when it has that tp, else a new one over the process group,
+as the JAX package's engine builds its mesh), the model holds its rank's
+part of each sharded leaf (a whole model is sharded in place; a tag or a
+JAX tree loads whole and each rank keeps its part), the slot pool holds
+the rank's kv heads, and the logits every call returns are gathered whole
+over the vocab. Every tp rank samples the same token from the same keys,
+so the ranks never disagree; every rank makes every call, in one order.
+BERT, Megatron directories, lane extraction and insertion (``KVHandoff``)
+and ``mode: "model"`` drafts at tp > 1 raise naming ROADMAP.md row A8b2.
 """
 
 from typing import Optional
@@ -29,6 +41,7 @@ import numpy as np
 import torch
 
 from ..models.api import ModelSpec
+from ..parallel import tensor_parallel
 from ..utils.logging import log_dist, logger
 from . import prng
 from .config import DeepSpeedInferenceConfig
@@ -117,14 +130,15 @@ class InferenceEngine:
             raise RuntimeError(
                 "InferenceEngine: no CUDA device is available; pass "
                 "device='cpu' to run the plain PyTorch path on the CPU")
+        self.tp = self._tensor_parallel(model, config.tensor_parallel.tp_size)
         if params is not None:
             model.load_jax_params(params)
         self.module = model.to(device=self.device, dtype=self.dtype).eval()
         log_dist(f"InferenceEngine initialized: "
                  f"params={model.num_params() / 1e6:.1f}M "
                  f"dtype={str(self.dtype).replace('torch.', '')} "
-                 f"max_tokens={config.max_tokens} device={self.device}",
-                 ranks=[0])
+                 f"max_tokens={config.max_tokens} tp={self.tp.size} "
+                 f"device={self.device}", ranks=[0])
         # the decode, chunk-prefill, draft and verify shapes that ran: the
         # counterpart of the JAX package's compiled slot programs, whose
         # counts its serving tests read
@@ -136,6 +150,37 @@ class InferenceEngine:
         self._drafts = {}
         if config.checkpoint:
             self.load_checkpoint(config.checkpoint)
+
+    @staticmethod
+    def _tensor_parallel(model, tp_size):
+        """The engine's ``TPInfo``: the model's own when it was built at
+        tp > 1 (on the mesh it was built under) and the config asks for
+        no tp; else the mesh's ``model`` axis at ``tp_size``, the model
+        sharded in place onto it."""
+        from ..comm import comm
+        from ..parallel.topology import mesh_for_tp
+        if tp_size == 1:
+            return model.tp
+        if not model.tensor_parallel:
+            raise NotImplementedError(
+                f"serving {type(model).__name__} at tp={tp_size} (BERT and "
+                f"its sparse surgery would take the rank's heads) is not "
+                f"ported yet: ROADMAP.md row A8b2")
+        world = comm.get_world_size()
+        if world % tp_size:
+            raise ValueError(
+                f"tp_size={tp_size} needs a process group whose size "
+                f"divides by it (the world is {world} rank(s)); call "
+                f"deepspeed_tpu_torch.init_distributed first")
+        tp = tensor_parallel.from_mesh(mesh_for_tp(tp_size))
+        model.shard_tp(tp)
+        return tp
+
+    def _refuse_tp(self, what):
+        if self.tp.active:
+            raise NotImplementedError(
+                f"{what} at tp={self.tp.size} is not ported yet: "
+                f"ROADMAP.md row A8b2")
 
     # ------------------------------------------------------------ checkpoints
     def load_checkpoint(self, load_dir, tag=None):
@@ -152,14 +197,20 @@ class InferenceEngine:
         serving dtype, each leaf moved and cast as it is read; structure
         gated: a drifted leaf set raises with the per-leaf diff before
         anything is copied."""
-        from ..runtime.checkpointing import (load_params_for_inference,
+        from ..runtime.checkpointing import (ShapeDtype,
+                                             load_params_for_inference,
                                              shapes_tree)
-        like = shapes_tree(self.module, list(self.module.parameters()))
+        like = shapes_tree(self.module, [
+            ShapeDtype(s, p.dtype) for s, p in
+            zip(self.module.whole_shapes(), self.module.parameters())])
 
         def cast(t):
             return t.to(self.dtype) if t.is_floating_point() else t
-        return load_params_for_inference(load_dir, tag=tag, like=like,
-                                         device=self.device, cast=cast)
+        # at tp > 1 the whole leaves stay on the host, each rank keeping
+        # its part: no rank holds the whole model on the card
+        return load_params_for_inference(
+            load_dir, tag=tag, like=like,
+            device=None if self.tp.active else self.device, cast=cast)
 
     def with_params(self, params, weights_version=None):
         """A shallow engine view serving ``params`` (a JAX tree of tensors
@@ -171,8 +222,12 @@ class InferenceEngine:
         view = copy.copy(self)
         view.module = _clone_structure(self.module)
         with torch.no_grad():
-            for (name, _), value in zip(self.module.named_parameters(),
-                                        self.module.from_jax_tree(params)):
+            for (name, _), value, split in zip(
+                    self.module.named_parameters(),
+                    self.module.from_jax_tree(params),
+                    self.module.tp_splits()):
+                if split is not None:
+                    value = split.take(value)
                 owner, _, leaf = name.rpartition(".")
                 mod = view.module.get_submodule(owner) if owner else \
                     view.module
@@ -540,6 +595,7 @@ class InferenceEngine:
         """Slot ``slot``'s lane, ``{"k", "v": [L, 1, H_kv, max_len, hd]}``,
         copied to the host (never a view of the pool; ordinary tensors the
         caller may change)."""
+        self._refuse_tp("extracting a lane (KVHandoff)")
         return {n: c[:, slot:slot + 1].to("cpu", copy=True)
                 for n, c in pool.items()}
 
@@ -547,6 +603,7 @@ class InferenceEngine:
     def slot_insert_lane(self, pool, slot: int, lane):
         """Write a lane (``slot_extract_lane``'s, tensors or numpy arrays,
         possibly another pool's) into slot ``slot``. Returns the pool."""
+        self._refuse_tp("inserting a lane (KVHandoff)")
         for n, c in pool.items():
             src = lane[n]
             if not isinstance(src, torch.Tensor):

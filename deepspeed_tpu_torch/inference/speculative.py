@@ -72,6 +72,8 @@ def _self_draft(target, layers: int):
     model = type(target).__new__(type(target))
     nn.Module.__init__(model)
     model.config = dataclasses.replace(target.config, n_layer=layers)
+    if target.tp.active:      # the target's parts, on its tp ranks
+        model.tp, model._splits = target.tp, target._splits
     for name in model.top_leaves:
         setattr(model, name, getattr(target, name))
     model.blocks = nn.ModuleList(target.blocks[:layers])
@@ -96,6 +98,10 @@ def build_draft(engine, cfg) -> DraftRuntime:
     if mode != "model":
         raise ValueError(f"speculative.draft.mode must be self|model, "
                          f"got {mode!r}")
+    if target.tp.active:
+        raise NotImplementedError(
+            f"a draft model (mode 'model') at tp={target.tp.size} is not "
+            f"ported yet: ROADMAP.md row A8b2; self drafts run")
     over = {name: int(getattr(cfg, name, 0))
             for name in ("n_layer", "n_embd", "n_head")
             if int(getattr(cfg, name, 0))}

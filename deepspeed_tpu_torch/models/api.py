@@ -13,10 +13,15 @@ A family names its JAX parameter leaves in ``top_leaves`` and
 ``self.blocks``); ``jax_tree`` / ``from_jax_tree`` map any list of tensors
 aligned with ``named_parameters()`` (weights, optimizer moments) to the
 JAX tree and back, and ``load_jax_params`` / ``jax_params`` move the
-weights in and out through them. A layer loop takes each layer's leaves
-from ``_layer_leaves`` and runs the layer inside ``open_leaves``: under
-ZeRO stage 3 the engine's hook hands out a handle there that gathers the
-layer's partitioned leaves for that block (``runtime/zero/stage3.py``).
+weights in and out through them. Under tensor parallelism (``tp > 1``) a
+model holds its rank's part of each sharded leaf (``tp_splits``, one
+``parallel/tensor_parallel.TPSplit`` a parameter, None for a replicated
+one): ``load_jax_params`` takes the whole tree and keeps the rank's part,
+``jax_params`` gathers it back whole (every rank calls it). A layer loop
+takes each layer's leaves from ``_layer_leaves`` and runs the layer
+inside ``open_leaves``: under ZeRO stage 3 the engine's hook hands out a
+handle there that gathers the layer's partitioned leaves for that block
+(``runtime/zero/stage3.py``).
 """
 
 import contextlib
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.tensor_parallel import TPInfo
 from ..runtime.activation_checkpointing import checkpointing
 
 
@@ -38,6 +44,22 @@ class ModelSpec(nn.Module):
     # set by a ZeRO stage-3 engine for its micro steps: hands out the
     # gather handle of a layer's leaves (runtime/zero/stage3.py)
     _zero_hook = None
+    # the model's place on the 'model' axis; families that shard set their
+    # own (models/gpt2.py), the others run at tp 1 only
+    tp = TPInfo()
+    tensor_parallel = False
+
+    def tp_splits(self):
+        """A list aligned with ``named_parameters()``: each parameter's
+        ``TPSplit`` (of the per-layer tensor for a stacked leaf), or None
+        where the rank holds it whole."""
+        return [None] * len(list(self.parameters()))
+
+    def whole_shapes(self):
+        """The whole (tp 1) shape of every parameter, aligned with
+        ``named_parameters()``."""
+        return [tuple(p.shape) if sp is None else sp.whole_shape
+                for p, sp in zip(self.parameters(), self.tp_splits())]
 
     def jax_layout(self):
         """Where each tensor of ``named_parameters()`` lives in the JAX
@@ -112,9 +134,16 @@ class ModelSpec(nn.Module):
         ``blocks/<leaf> [L, ...]`` of ``block_leaves``) into this module,
         casting to each parameter's dtype."""
         values = self.from_jax_tree(tree)
-        for (name, p), value in zip(self.named_parameters(), values):
+        for (name, p), value, split in zip(self.named_parameters(), values,
+                                           self.tp_splits()):
             if not isinstance(value, torch.Tensor):
                 value = torch.from_numpy(np.ascontiguousarray(value))
+            if split is not None:
+                if tuple(value.shape) != split.whole_shape:
+                    raise ValueError(
+                        f"{name}: JAX leaf has shape {tuple(value.shape)}, "
+                        f"the model's whole leaf is {split.whole_shape}")
+                value = split.take(value)
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: JAX leaf has shape "
                                  f"{tuple(value.shape)}, the module wants "
@@ -124,10 +153,14 @@ class ModelSpec(nn.Module):
 
     def jax_params(self):
         """This module's weights as a JAX parameter tree of float32 numpy
-        arrays (the inverse of :meth:`load_jax_params`)."""
-        def arr(p):
+        arrays (the inverse of :meth:`load_jax_params`); at tp > 1 each
+        sharded leaf is gathered whole (every rank calls it)."""
+        def arr(p, split):
+            if split is not None:
+                p = split.gather(p.detach(), self.tp.group)
             return p.detach().to("cpu", torch.float32).numpy()
-        return self.jax_tree([arr(p) for p in self.parameters()],
+        return self.jax_tree([arr(p, sp) for p, sp in
+                              zip(self.parameters(), self.tp_splits())],
                              stack=np.stack)
 
     def init_weights(self, generator) -> None:

@@ -39,6 +39,22 @@ dropped layer is the identity) inside activation checkpointing
 ``runtime/activation_checkpointing``). Without a key there is no dropout
 and no wrapper. ``act_bits`` (the compression library's activation
 fake-quant) raises naming ROADMAP.md row A12.
+
+Tensor parallelism (``tp``: the rank mesh's ``model`` axis, or a
+``TPInfo`` passed in; ``parallel/tensor_parallel.py``): the model is built
+at its rank's shapes by the JAX package's ``partition_rules()``, and each
+layer runs Megatron's split. ``qkv`` and ``mlp_fc`` are column-parallel
+(the rank's ``H / tp`` heads of each of q, k and v, its block of MLP
+columns) behind ``copy_to_tp``; ``attn_proj`` and ``mlp_proj`` are
+row-parallel, their products summed by ``reduce_from_tp`` before the
+replicated bias is added once. ``wte`` is vocab-parallel, and so is the
+tied head: ``forward``'s and the cache paths' logits are gathered whole
+over the vocab, and the loss is the vocab-parallel NLL of
+``_ChunkedNLL``. The KV cache holds the rank's heads, and the packed
+kernels run on them. Embeddings, LayerNorms and the residual stream are
+whole on every rank. ``init_weights`` draws every leaf whole, a leaf at a
+time, and keeps the rank's part, so one seed gives the same weights at
+every tp.
 """
 
 import dataclasses
@@ -51,6 +67,8 @@ import torch
 from torch import nn
 
 from .api import ModelSpec, open_leaves
+from ..parallel import tensor_parallel as tpl
+from ..parallel.topology import MODEL_AXIS
 from ..inference import prng
 from ..ops import memory_efficient as me
 from ..ops.dropout import first_row, salted_dropout
@@ -127,11 +145,21 @@ class BlockParams(nn.Module):
             setattr(self, name, _param(shape, device, dtype))
 
 
-def normal_(p, std, generator):
+def normal_(p, std, generator, split=None):
     """Fill ``p`` with N(0, std) drawn in float32 by ``generator`` on the
-    generator's own device, then cast to p's dtype and device."""
-    p.copy_(torch.randn(p.shape, generator=generator,
-                        device=generator.device) * std)
+    generator's own device, then cast to p's dtype and device. With a
+    ``TPSplit`` the whole leaf is drawn and ``p`` keeps the rank's part,
+    so the stream is the same at every tp."""
+    shape = p.shape if split is None else split.whole_shape
+    x = torch.randn(shape, generator=generator, device=generator.device) * std
+    p.copy_(x if split is None else split.take(x))
+
+
+def _rule_dim(path, rules, ndim):
+    """The dim a partition rule puts ``model`` on (None when it does not),
+    the rule matched and padded as the planner does."""
+    spec = tpl.rule_spec(path, rules, ndim)
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
 
 
 class GPT2Model(ModelSpec):
@@ -148,19 +176,127 @@ class GPT2Model(ModelSpec):
                     "attn_proj_b", "ln2_scale", "ln2_bias", "mlp_fc_w",
                     "mlp_fc_b", "mlp_proj_w", "mlp_proj_b")
 
+    tensor_parallel = True
+
     def __init__(self, config: GPT2Config = GPT2_125M,
                  generator: Optional[torch.Generator] = None, device=None,
-                 dtype=None):
+                 dtype=None, tp=None):
         super().__init__()
         self.config = config
+        self.tp = tpl.resolve(tp)
+        self._check_tp()
+        self._splits = self._make_splits()
         top, block = self._leaf_shapes()
         for name in self.top_leaves:
-            setattr(self, name, _param(top[name], device, dtype))
+            setattr(self, name, _param(self._local(name, top[name]), device,
+                                       dtype))
         self.blocks = nn.ModuleList(
-            BlockParams({n: block[n] for n in self.block_leaves}, device,
-                        dtype) for _ in range(config.n_layer))
+            BlockParams({n: self._local(f"blocks.{i}.{n}", block[n])
+                         for n in self.block_leaves}, device, dtype)
+            for i in range(config.n_layer))
         self.init_weights(generator if generator is not None
                           else torch.Generator().manual_seed(0))
+
+    # ------------------------------------------------- tensor parallelism
+    def partition_rules(self):
+        """The JAX package's tensor- and pipeline-parallel rules, on the
+        JAX tree's (stacked) shapes; the planner drops size-1 axes."""
+        return [
+            (r"wte$", ("model", None)),
+            (r"wpe$", (None, None)),
+            (r"blocks/qkv_w$", ("pipe", None, "model")),
+            (r"blocks/qkv_b$", ("pipe", "model")),
+            (r"blocks/attn_proj_w$", ("pipe", "model", None)),
+            (r"blocks/mlp_fc_w$", ("pipe", None, "model")),
+            (r"blocks/mlp_fc_b$", ("pipe", "model")),
+            (r"blocks/mlp_proj_w$", ("pipe", "model", None)),
+            (r"blocks/", ("pipe",)),
+        ]
+
+    def _qkv_sections(self):
+        """The column spans of q, k and v in the fused projection."""
+        d = self.config.n_embd
+        return [d, d, d]
+
+    def _tp_counts(self):
+        """``{what: count}`` that must divide by tp."""
+        cfg = self.config
+        return {"n_head": cfg.n_head, "padded_vocab": cfg.padded_vocab}
+
+    def _check_tp(self):
+        """At tp > 1: the counts the rank's parts split divide by tp;
+        dropout waits for row A8b2."""
+        n = self.tp.size
+        if n == 1:
+            return
+        counts = self._tp_counts()
+        if any(v % n for v in counts.values()):
+            raise ValueError(
+                f"{type(self).__name__} at tp={n}: "
+                + ", ".join(f"{k}={v}" for k, v in counts.items())
+                + f" must each divide by tp={n}")
+        if self.config.dropout > 0:
+            raise NotImplementedError(
+                f"dropout={self.config.dropout} at tp={n} (the attention "
+                f"probabilities' mask on a rank's heads is a strided slice "
+                f"of the JAX draw) is not ported yet: ROADMAP.md row A8b2")
+
+    def _make_splits(self):
+        """``{parameter name: TPSplit}`` of the leaves the rules shard
+        (empty at tp 1)."""
+        if not self.tp.active:
+            return {}
+        rules = self.partition_rules()
+        top, block = self._leaf_shapes()
+        out = {}
+        for name in self.top_leaves:
+            dim = _rule_dim(name, rules, len(top[name]))
+            if dim is not None:
+                out[name] = tpl.TPSplit(top[name], dim, self.tp.rank,
+                                        self.tp.size)
+        for name in self.block_leaves:
+            dim = _rule_dim(f"blocks/{name}", rules, len(block[name]) + 1)
+            if dim is None:
+                continue
+            sections = self._qkv_sections() if name.startswith("qkv_") \
+                else None
+            for i in range(self.config.n_layer):
+                out[f"blocks.{i}.{name}"] = tpl.TPSplit(
+                    block[name], dim - 1, self.tp.rank, self.tp.size,
+                    sections)
+        return out
+
+    def _local(self, name, shape):
+        split = self._splits.get(name)
+        return shape if split is None else split.local_shape
+
+    def tp_splits(self):
+        return [self._splits.get(n) for n, _ in self.named_parameters()]
+
+    @torch.no_grad()
+    def shard_tp(self, tp):
+        """Keep, in place, ``tp``'s rank part of each sharded leaf of this
+        whole (tp 1) model: what the engines do with a model built before
+        the mesh. Returns the model."""
+        tp = tpl.resolve(tp)
+        if self.tp.active:
+            if (self.tp.size, self.tp.rank) != (tp.size, tp.rank):
+                raise ValueError(f"the model was built at {self.tp}, the "
+                                 f"engine runs {tp}")
+            return self
+        self.tp = tp
+        self._check_tp()
+        self._splits = self._make_splits()
+        for name, p in self.named_parameters():
+            split = self._splits.get(name)
+            if split is not None:
+                p.data = split.take(p.data)
+        return self
+
+    @property
+    def _heads(self) -> int:
+        """The query heads this rank computes."""
+        return self.config.n_head // self.tp.size
 
     def _leaf_shapes(self):
         """``(top, block)``: the shape of every JAX leaf by name."""
@@ -186,9 +322,10 @@ class GPT2Model(ModelSpec):
         cfg = self.config
         std = cfg.initializer_range
         proj_std = std / math.sqrt(2 * cfg.n_layer)
+        splits = self._split_by_id()
 
         def normal(p, s):
-            normal_(p, s, generator)
+            normal_(p, s, generator, splits.get(id(p)))
 
         normal(self.wte, std)
         normal(self.wpe, std)
@@ -204,6 +341,10 @@ class GPT2Model(ModelSpec):
                 getattr(blk, name).zero_()
         self.ln_f_scale.fill_(1.0)
         self.ln_f_bias.zero_()
+
+    def _split_by_id(self):
+        return {id(p): self._splits.get(n)
+                for n, p in self.named_parameters()}
 
     # ------------------------------------------------------------- pieces
     def _compute_dtype(self):
@@ -231,15 +372,29 @@ class GPT2Model(ModelSpec):
                     f"positions [{start_pos}, {start_pos + t}) exceed the "
                     f"model's n_positions={cfg.n_positions}")
             wpe = self.wpe[first:first + t].to(dt)
-        return self.wte.to(dt)[input_ids] + wpe
+        return tpl.vocab_parallel_embedding(input_ids, self.wte.to(dt),
+                                            self.tp) + wpe
 
     def _final_norm(self, x):
         return me.layer_norm(x, self.ln_f_scale, self.ln_f_bias,
                              self.config.layer_norm_epsilon)
 
     def _unembed_weight(self, dtype):
-        """[V, D] weight of the LM head (tied to wte)."""
+        """[V, D] weight of the LM head (tied to wte; the rank's vocab rows
+        at tp > 1)."""
         return self.wte.to(dtype)
+
+    def _head_logits(self, x):
+        """``[..., padded_vocab]`` logits of the hidden states ``x``: the
+        rank's vocab block, gathered whole at tp > 1."""
+        logits = tpl.copy_to_tp(x, self.tp) @ self._unembed_weight(x.dtype).T
+        return tpl.gather_from_tp(logits, self.tp)
+
+    def _row_out(self, a, w, bias=None):
+        """A row-parallel projection: ``a @ w`` summed over the tp ranks,
+        then the replicated bias added once."""
+        out = tpl.reduce_from_tp(a @ w.to(a.dtype), self.tp)
+        return out if bias is None else out + bias.to(a.dtype)
 
     def _attn_sublayer(self, x, p, attn_fn=None, start_pos=0,
                        positions=None, rng=None, train=False):
@@ -249,9 +404,11 @@ class GPT2Model(ModelSpec):
         tokens' positions, which GPT-2 reads in ``_embed`` and rotary
         families here. ``rng`` is the layer's key."""
         cfg = self.config
-        b, t, d = x.shape
-        h, hd = cfg.n_head, cfg.head_dim
-        ln1 = me.layer_norm(x, p.ln1_scale, p.ln1_bias, cfg.layer_norm_epsilon)
+        b, t, _ = x.shape
+        h, hd = self._heads, cfg.head_dim
+        d = h * hd                      # the rank's heads' width
+        ln1 = tpl.copy_to_tp(me.layer_norm(x, p.ln1_scale, p.ln1_bias,
+                                           cfg.layer_norm_epsilon), self.tp)
         qkv = ln1 @ p.qkv_w.to(ln1.dtype) + p.qkv_b.to(ln1.dtype)
         dropping = train and cfg.dropout > 0 and rng is not None
         if (attn_fn is None and not dropping and self.causal_attention and
@@ -260,8 +417,7 @@ class GPT2Model(ModelSpec):
             # projection through its strides (no head transpose, no copy);
             # the backward writes dq/dk/dv into one [B, T, 3D] gradient
             attn = k1.packed_flash_attention_qkv(qkv, h)
-            attn = attn @ p.attn_proj_w.to(attn.dtype) + \
-                p.attn_proj_b.to(attn.dtype)
+            attn = self._row_out(attn, p.attn_proj_w, p.attn_proj_b)
             return x + self._dropout(attn, rng, train, 0)
         q, k, v = qkv.split(d, dim=-1)
         q = q.reshape(b, t, h, hd).transpose(1, 2)
@@ -276,7 +432,7 @@ class GPT2Model(ModelSpec):
                 dropout_rng=prng.fold_in_words(rng, 3) if dropping else None,
                 backend=cfg.attn_backend)
         attn = attn.transpose(1, 2).reshape(b, t, d)
-        attn = attn @ p.attn_proj_w.to(attn.dtype) + p.attn_proj_b.to(attn.dtype)
+        attn = self._row_out(attn, p.attn_proj_w, p.attn_proj_b)
         return x + self._dropout(attn, rng, train, 0)
 
     def _packed_attn_ok(self, x, t: int, hd: int, h: int) -> bool:
@@ -296,10 +452,11 @@ class GPT2Model(ModelSpec):
     def _mlp_sublayer(self, x, p, rng=None, train=False):
         """ln2 -> fc -> activation -> proj -> residual (+dropout)."""
         cfg = self.config
-        ln2 = me.layer_norm(x, p.ln2_scale, p.ln2_bias, cfg.layer_norm_epsilon)
+        ln2 = tpl.copy_to_tp(me.layer_norm(x, p.ln2_scale, p.ln2_bias,
+                                           cfg.layer_norm_epsilon), self.tp)
         hmid = ln2 @ p.mlp_fc_w.to(ln2.dtype) + p.mlp_fc_b.to(ln2.dtype)
         hmid = _activation(hmid, cfg.activation)
-        out = hmid @ p.mlp_proj_w.to(hmid.dtype) + p.mlp_proj_b.to(hmid.dtype)
+        out = self._row_out(hmid, p.mlp_proj_w, p.mlp_proj_b)
         return x + self._dropout(out, rng, train, 1)
 
     def _block(self, x, p, attn_fn=None, start_pos=0, positions=None,
@@ -368,7 +525,7 @@ class GPT2Model(ModelSpec):
         """``[B, T, padded_vocab]`` logits in the compute dtype (inference:
         ``train=False``, as the JAX inference engine calls its model)."""
         x = self.hidden_states(input_ids, train=False)
-        return x @ self._unembed_weight(x.dtype).T
+        return self._head_logits(x)
 
     forward = logits
 
@@ -434,16 +591,21 @@ class GPT2Model(ModelSpec):
                 break  # largest divisor is tiny: use a ragged tail instead
         return min(target, v)
 
-    def _chunked_lm_loss(self, h, wte, batch, head_b=None):
+    def _chunked_lm_loss(self, h, wte, batch, head_b=None, chunk=None):
         """Shifted next-token NLL without ``[B, T, V]`` logits: an online
-        logsumexp over vocab chunks (:class:`_ChunkedNLL`), divided by the
-        valid count."""
+        logsumexp over vocab chunks (:class:`_ChunkedNLL`; ``chunk`` rows
+        of ``wte`` at a time, by default ``_loss_chunk``'s), divided by the
+        valid count. At tp > 1 ``wte`` is the rank's vocab block and the
+        statistics are combined over the ranks."""
         labels, valid = self._shifted_labels(batch, self.config.vocab_size)
         h = h[:, :-1]
         n = h.shape[0] * h.shape[1]
-        chunk = self._loss_chunk(wte.shape[0], self.config.loss_chunk_target)
+        if chunk is None:
+            chunk = self._loss_chunk(wte.shape[0],
+                                     self.config.loss_chunk_target)
         total = _ChunkedNLL.apply(h.reshape(n, h.shape[-1]), wte, head_b,
-                                  labels.reshape(n), valid.reshape(n), chunk)
+                                  labels.reshape(n), valid.reshape(n), chunk,
+                                  self.tp)
         return total / torch.clamp_min(valid.sum(), 1)
 
     # dense-logits path above this many logit elements would cost multiple
@@ -453,10 +615,21 @@ class GPT2Model(ModelSpec):
     def _head_loss_from_hidden(self, x, wte, batch, head_b=None):
         """Dense-vs-chunked loss dispatch, as in the JAX package."""
         cfg = self.config
-        n_logits = x.shape[0] * max(1, x.shape[1] - 1) * wte.shape[0]
+        n_logits = x.shape[0] * max(1, x.shape[1] - 1) * wte.shape[0] * \
+            self.tp.size
         use_chunked = (cfg.loss_chunking == "always" or
                        (cfg.loss_chunking == "auto" and
                         n_logits > self._DENSE_LOSS_MAX_ELEMS))
+        if self.tp.active:
+            # vocab-parallel: the dense loss is one chunk of the rank's
+            # block; no rank builds the whole logits
+            if head_b is not None:
+                raise NotImplementedError(
+                    "a vocab-parallel LM-head bias is not ported yet: "
+                    "ROADMAP.md row A8b2")
+            return self._chunked_lm_loss(
+                tpl.copy_to_tp(x, self.tp), wte, batch,
+                chunk=None if use_chunked else wte.shape[0])
         if use_chunked:
             return self._chunked_lm_loss(x, wte, batch, head_b=head_b)
         logits = x @ wte.T
@@ -480,7 +653,8 @@ class GPT2Model(ModelSpec):
     # ------------------------------------------------------- decode protocol
     @property
     def kv_heads(self) -> int:
-        return self.config.n_head
+        """The kv heads of this rank's cache."""
+        return self.config.n_head // self.tp.size
 
     def init_kv_cache(self, batch_size: int, max_len: int,
                       dtype=torch.bfloat16, device=None):
@@ -562,7 +736,7 @@ class GPT2Model(ModelSpec):
                 v_cache=cache["v"][layer], start_pos=start_pos, mask=mask)
             x = self._block(x, p, attn_fn, start_pos, positions)
         x = self._final_norm(x)
-        return x @ self._unembed_weight(x.dtype).T, cache
+        return self._head_logits(x), cache
 
     def chunk_prefill_with_cache(self, input_ids, cache, start_pos: int):
         """One chunk of a long prompt through the stack, its K/V written to
@@ -635,7 +809,7 @@ class GPT2Model(ModelSpec):
                 v_cache=cache["v"][layer], write=write, mask=mask)
             x = self._block(x, p, attn_fn, 0, pos2d)
         x = self._final_norm(x)
-        return x @ self._unembed_weight(x.dtype).T, cache
+        return self._head_logits(x), cache
 
 def _chunk_logits(hf, wte, head_b, lo, hi):
     """float32 logits of vocab rows ``[lo, hi)``, computed in hf's dtype
@@ -655,11 +829,19 @@ class _ChunkedNLL(torch.autograd.Function):
     ``dwte`` and ``dhead_b``. ``dh`` accumulates in h's dtype across chunks,
     as the scan's cotangent of a loop constant does. The ragged last chunk
     is just narrower: the columns the JAX scan pads and masks to -inf add
-    nothing to ``m``, ``s`` or the gradients, so they are not computed."""
+    nothing to ``m``, ``s`` or the gradients, so they are not computed.
+
+    Vocab-parallel (``tp`` active): ``wte`` is the rank's block of vocab
+    rows, the labels are taken relative to its first row, and ``(m, s,
+    tgt)`` are combined over the ranks (``vocab_parallel_lse``) before the
+    NLL; the backward's ``dh`` is the rank's share, summed over the ranks
+    by the ``copy_to_tp`` in front of ``hf``."""
 
     @staticmethod
-    def forward(ctx, hf, wte, head_b, labels, valid, chunk):
+    def forward(ctx, hf, wte, head_b, labels, valid, chunk, tp=None):
         n, v = hf.shape[0], wte.shape[0]
+        if tp is not None and tp.active:
+            labels = labels - tp.rank * v
         f32 = torch.float32
         m = torch.full((n,), -torch.inf, dtype=f32, device=hf.device)
         s = torch.zeros((n,), dtype=f32, device=hf.device)
@@ -674,6 +856,8 @@ class _ChunkedNLL(torch.autograd.Function):
             tl = torch.gather(logits, 1, idx[:, None])[:, 0]
             tgt = torch.where(inb, tl, tgt)
             m = nm
+        if tp is not None:
+            m, s, tgt = tpl.vocab_parallel_lse(m, s, tgt, tp)
         nll = torch.where(valid, (m + torch.log(s)) - tgt, 0.0)
         ctx.chunk = chunk
         ctx.has_bias = head_b is not None
@@ -702,4 +886,4 @@ class _ChunkedNLL(torch.autograd.Function):
             dwte[lo:hi] = dl.T @ hf
             if dhead_b is not None:
                 dhead_b[lo:hi] = dl.sum(0)
-        return dh, dwte, dhead_b, None, None, None
+        return dh, dwte, dhead_b, None, None, None, None

@@ -16,7 +16,13 @@ attention; ``_decode_attn_mask`` applies the window there. Training
 drops as the JAX family does (salt 3 on the attention probabilities, which
 then take the plain attention; 0 and 1 on the two sublayer outputs); the
 layer wrappers (progressive layer drop, random-LTD, remat) come from the
-GPT-2 base.
+GPT-2 base, and so does tensor parallelism: at tp > 1 a rank holds ``H /
+tp`` query heads and ``H_kv / tp`` kv heads of ``qkv_w``, its block of
+``gate_w`` / ``up_w`` columns and of ``attn_proj_w`` / ``down_w`` rows, and
+its vocab rows of ``wte`` and ``lm_head`` (the JAX package's
+``partition_rules()``); ``n_head``, ``n_kv_head``, the padded vocab and
+the MLP width must divide by tp, and fewer kv heads than tp ranks (which
+Megatron serves by replicating kv heads) waits for ROADMAP.md row A8b2.
 """
 
 import dataclasses
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 
 from .gpt2 import GPT2Config, GPT2Model, normal_
 from ..inference import prng
+from ..parallel import tensor_parallel as tpl
 from ..ops.seq_parallel import sp_attention
 
 
@@ -105,14 +112,42 @@ class LlamaModel(GPT2Model):
 
     def __init__(self, config: LlamaConfig = LLAMA_7B,
                  generator: Optional[torch.Generator] = None, device=None,
-                 dtype=None):
+                 dtype=None, tp=None):
         if config.n_embd != config.n_head * config.head_dim:
             raise ValueError(f"n_embd={config.n_embd} is not n_head="
                              f"{config.n_head} x head_dim")
         if config.n_head % config.kv_head_count:
             raise ValueError(f"n_head={config.n_head} must be a multiple of "
                              f"n_kv_head={config.kv_head_count}")
-        super().__init__(config, generator, device, dtype)
+        super().__init__(config, generator, device, dtype, tp)
+
+    def partition_rules(self):
+        return [
+            (r"wte$", ("model", None)),
+            (r"lm_head$", ("model", None)),
+            (r"blocks/qkv_w$", ("pipe", None, "model")),
+            (r"blocks/attn_proj_w$", ("pipe", "model", None)),
+            (r"blocks/(gate_w|up_w)$", ("pipe", None, "model")),
+            (r"blocks/down_w$", ("pipe", "model", None)),
+            (r"blocks/", ("pipe",)),
+        ]
+
+    def _qkv_sections(self):
+        cfg = self.config
+        hd = cfg.head_dim
+        return [cfg.n_head * hd, cfg.kv_head_count * hd,
+                cfg.kv_head_count * hd]
+
+    def _tp_counts(self):
+        cfg = self.config
+        if self.tp.size > cfg.kv_head_count:
+            raise NotImplementedError(
+                f"n_kv_head={cfg.kv_head_count} < tp={self.tp.size} (kv "
+                f"heads replicated over the ranks, as Megatron serves them) "
+                f"is not ported yet: ROADMAP.md row A8b2")
+        return {"n_head": cfg.n_head, "n_kv_head": cfg.kv_head_count,
+                "padded_vocab": cfg.padded_vocab,
+                "mlp_hidden": cfg.intermediate}
 
     @property
     def top_leaves(self):
@@ -121,7 +156,7 @@ class LlamaModel(GPT2Model):
 
     @property
     def kv_heads(self) -> int:
-        return self.config.kv_head_count
+        return self.config.kv_head_count // self.tp.size
 
     def _leaf_shapes(self):
         cfg = self.config
@@ -143,15 +178,20 @@ class LlamaModel(GPT2Model):
         cfg = self.config
         std = cfg.initializer_range
         proj_std = std / math.sqrt(2 * cfg.n_layer)
-        normal_(self.wte, std, generator)
+        splits = self._split_by_id()
+
+        def normal(p, s):
+            normal_(p, s, generator, splits.get(id(p)))
+
+        normal(self.wte, std)
         if not cfg.tie_word_embeddings:
-            normal_(self.lm_head, std, generator)
+            normal(self.lm_head, std)
         for blk in self.blocks:
-            normal_(blk.qkv_w, std, generator)
-            normal_(blk.attn_proj_w, proj_std, generator)
-            normal_(blk.gate_w, std, generator)
-            normal_(blk.up_w, std, generator)
-            normal_(blk.down_w, proj_std, generator)
+            normal(blk.qkv_w, std)
+            normal(blk.attn_proj_w, proj_std)
+            normal(blk.gate_w, std)
+            normal(blk.up_w, std)
+            normal(blk.down_w, proj_std)
             blk.ln1_scale.fill_(1.0)
             blk.ln2_scale.fill_(1.0)
         self.ln_f_scale.fill_(1.0)
@@ -159,7 +199,8 @@ class LlamaModel(GPT2Model):
     # ------------------------------------------------- family hook overrides
     def _embed(self, input_ids, start_pos=0, positions=None):
         # rotary: positions enter through attention, not the embedding
-        return self.wte.to(self._compute_dtype())[input_ids]
+        return tpl.vocab_parallel_embedding(
+            input_ids, self.wte.to(self._compute_dtype()), self.tp)
 
     def _final_norm(self, x):
         return _rms_norm(x, self.ln_f_scale, self.config.layer_norm_epsilon)
@@ -178,9 +219,10 @@ class LlamaModel(GPT2Model):
     def _attn_sublayer(self, x, p, attn_fn=None, start_pos=0,
                        positions=None, rng=None, train=False):
         cfg = self.config
-        b, t, d = x.shape
-        h, hk, hd = cfg.n_head, cfg.kv_head_count, cfg.head_dim
-        ln1 = _rms_norm(x, p.ln1_scale, cfg.layer_norm_epsilon)
+        b, t, _ = x.shape
+        h, hk, hd = self._heads, self.kv_heads, cfg.head_dim
+        ln1 = tpl.copy_to_tp(_rms_norm(x, p.ln1_scale, cfg.layer_norm_epsilon),
+                             self.tp)
         qkv = ln1 @ p.qkv_w.to(ln1.dtype)
         q, k, v = qkv.split([h * hd, hk * hd, hk * hd], dim=-1)
         q = q.reshape(b, t, h, hd).transpose(1, 2)
@@ -204,16 +246,17 @@ class LlamaModel(GPT2Model):
                 dropout_rng=prng.fold_in_words(rng, 3) if dropping else None,
                 impl=cfg.sp_attention, backend=cfg.attn_backend,
                 window=cfg.sliding_window)
-        attn = attn.transpose(1, 2).reshape(b, t, d)
-        attn = attn @ p.attn_proj_w.to(attn.dtype)
+        attn = attn.transpose(1, 2).reshape(b, t, h * hd)
+        attn = self._row_out(attn, p.attn_proj_w)
         return x + self._dropout(attn, rng, train, 0)
 
     def _mlp_sublayer(self, x, p, rng=None, train=False):
         cfg = self.config
-        ln2 = _rms_norm(x, p.ln2_scale, cfg.layer_norm_epsilon)
+        ln2 = tpl.copy_to_tp(_rms_norm(x, p.ln2_scale, cfg.layer_norm_epsilon),
+                             self.tp)
         g = ln2 @ p.gate_w.to(ln2.dtype)
         u = ln2 @ p.up_w.to(ln2.dtype)
-        out = (F.silu(g) * u) @ p.down_w.to(ln2.dtype)
+        out = self._row_out(F.silu(g) * u, p.down_w)
         return x + self._dropout(out, rng, train, 1)
 
     def flops_per_token(self, seq_len: Optional[int] = None):

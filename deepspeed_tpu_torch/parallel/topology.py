@@ -8,16 +8,21 @@ The axis order is the JAX package's, outer to inner:
 Rank ``r`` sits at ``ProcessTopology``'s grid coordinate of ``r`` (the same
 numpy grid), so a rank's data-parallel index is the JAX mesh's device index
 along ``data``. ``data`` x ``expert`` form the data-parallel world that
-ZeRO shards over (``DP_AXES``); ``dp_world_size`` is ``dp * ep``. The
-manager makes one process group for each slice of each axis of more than
+ZeRO shards over (``DP_AXES``); ``dp_world_size`` is ``dp * ep``.
+``model`` is the innermost axis: rank ``r``'s tensor-parallel index is its
+coordinate there, so a tp group is ``tp`` consecutive ranks, and the tp
+ranks of one dp index read the same rows of a batch. The manager makes
+one process group for each slice of each axis of more than
 one rank (every rank calls ``new_group`` for every slice, in the same
 order, as torch requires); an axis slice that is the whole world uses the
-default group, and a one-rank axis needs no group: its collectives are the
-identity.
+default group (but for ``model``, which always has its own group, so
+that ``comm_axis_stats("model")`` counts the tensor-parallel collectives),
+and a one-rank axis needs no group: its collectives are the identity.
 
-What runs here: the ``data`` axis. ``tp > 1`` raises naming ROADMAP.md row
-A8b, and ``pp``, ``sp`` or ``ep`` above 1 name row A11, as the config
-does. The hierarchical (host, local) split of an axis waits for the
+What runs here: the ``data`` and ``model`` axes (the models' tensor
+parallelism: ``parallel/tensor_parallel.py``); ``pp``, ``sp`` or ``ep``
+above 1 name ROADMAP.md row A11, as the config does. The hierarchical
+(host, local) split of an axis waits for the
 compressed collectives (row A8c).
 """
 
@@ -82,11 +87,7 @@ class ProcessTopology:
                 if all(self.get_coord(r)[k] == v for k, v in coords.items())]
 
 
-def _refuse(pp, ep, sp, tp):
-    if tp > 1:
-        raise NotImplementedError(
-            f"tensor parallelism (tp={tp}) is not ported yet: ROADMAP.md "
-            f"row A8b")
+def _refuse(pp, ep, sp):
     for name, size in (("pipeline", pp), ("expert", ep), ("sequence", sp)):
         if size > 1:
             raise NotImplementedError(
@@ -103,7 +104,7 @@ class DeviceMeshManager:
                  sp: int = 1, tp: int = 1, world_size: Optional[int] = None,
                  rank: Optional[int] = None):
         from ..comm import comm
-        _refuse(pp, ep, sp, tp)
+        _refuse(pp, ep, sp)
         n = comm.get_world_size() if world_size is None else int(world_size)
         fixed = pp * ep * sp * tp
         if dp is None:
@@ -133,13 +134,16 @@ class DeviceMeshManager:
             if size == 1 or not comm.is_initialized():
                 self._groups[axes] = comm.SINGLE
                 continue
-            if size == self.world_size:
-                self._groups[axes] = None          # the default group
+            if size == self.world_size and axes != (MODEL_AXIS,):
+                # the default group; the model axis keeps a group of its
+                # own, so its collectives are accounted under its name
+                self._groups[axes] = None
                 continue
             for ranks in lists:
                 g = comm.new_group(ranks)
                 if self.rank in ranks:
                     self._groups[axes] = g
+                    comm.name_group(g, axes[0] if len(axes) == 1 else axes)
 
     # ---- sizes ----
     @property
@@ -151,6 +155,11 @@ class DeviceMeshManager:
     def dp_rank(self) -> int:
         """This rank's index in the data-parallel world."""
         return self.coords[DATA_AXIS] * self.ep + self.coords[EXPERT_AXIS]
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's index on the ``model`` axis."""
+        return self.coords[MODEL_AXIS]
 
     def axis_size(self, axis: str) -> int:
         return self.topology.get_dim(axis)
@@ -195,6 +204,26 @@ def get_mesh_manager() -> DeviceMeshManager:
     return _MESH_MANAGER
 
 
+def current_mesh() -> Optional[DeviceMeshManager]:
+    """The global rank mesh when one was made for this world, else None
+    (nothing is made)."""
+    from ..comm import comm
+    if _MESH_MANAGER is None or (
+            _MESH_MANAGER.world_size != comm.get_world_size()):
+        return None
+    return _MESH_MANAGER
+
+
 def reset_mesh():
     global _MESH_MANAGER
     _MESH_MANAGER = None
+
+
+def mesh_for_tp(tp: int) -> DeviceMeshManager:
+    """The global rank mesh when one was made for this world with ``tp``
+    on its ``model`` axis, else a new global one at ``tp`` (every rank
+    calls it)."""
+    mm = current_mesh()
+    if mm is None or mm.tp != tp:
+        mm = initialize_mesh(tp=tp)
+    return mm

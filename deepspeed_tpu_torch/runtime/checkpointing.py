@@ -26,9 +26,11 @@ count that wrote it, so any tag loads under any stage and rank count.
 Save: the files are written in flax's msgpack format by the port's codec
 (``checkpoint_engine/msgpack_codec.py``) one leaf at a time — a stacked
 leaf one layer at a time — each gathered whole across the ranks when it
-is partitioned (a collective: every rank walks the same leaves in the same
-order, and only rank 0 writes), straight from the device to the file,
-hashed on the fly. Only rank 0 writes the tag's other files; the ranks
+is partitioned (over the dp ranks, then over the tp ranks for a leaf the
+model shards: a collective, so every rank walks the same leaves in the
+same order, and only rank 0 writes), straight from the device to the
+file, hashed on the fly. A tag's bytes are the same at every tp and dp.
+Only rank 0 writes the tag's other files; the ranks
 meet at a barrier before ``save_checkpoint`` returns.
 
 Load: every rank reads the files one leaf at a time into host memory,
@@ -354,18 +356,25 @@ def _tag_bytes(ckpt_dir) -> int:
                if os.path.isfile(os.path.join(ckpt_dir, n)))
 
 
+def _gathers(engine, stage_min=1) -> bool:
+    """Whether writing the engine's state gathers across the ranks: dp
+    shards from ``stage_min`` on, or tp parts."""
+    return (engine.dp_world_size > 1 and engine._stage >= stage_min) or \
+        engine.mp_world_size > 1
+
+
 def _save_state_file(engine, ckpt_engine, _save, path, tree, is_writer,
                      label):
     """Rank 0 writes ``tree`` to ``path``; another rank walks its arrays
     when any of them is gathered (so the gathers match), else does
     nothing. Returns the seconds spent hashing."""
     if not is_writer:
-        if engine.dp_world_size > 1 and engine._stage >= 1:
+        if _gathers(engine):
             _walk_arrays(tree)
         return 0.0
     # over several ranks a retried write would issue its gathers again on
     # rank 0 alone: one attempt
-    if engine.dp_world_size > 1 and engine._stage >= 1:
+    if _gathers(engine):
         ckpt_engine.save(tree, path)
     else:
         _save(ckpt_engine.save, tree, path, label=label)
@@ -542,8 +551,9 @@ class _Parts:
 def _stage_parts(engine):
     """``on_leaf`` for the codec: each array read is cut, while only it is
     in host memory, to this rank's parts of the engine's parameters it
-    holds (rows of a stacked leaf by layer), and the whole buffer is
-    dropped, so that a rank stages about the tag over dp plus one leaf;
+    holds (rows of a stacked leaf by layer; its tp part, then the dp part
+    of that), and the whole buffer is dropped, so that a rank stages about
+    the tag over tp x dp plus one leaf;
     0-d leaves stay numpy. Pageable memory: pinned staging was no faster
     on a cold load, as PERF.md records, and torch's caching host allocator
     would keep the pinned tag for the process's life."""
@@ -564,11 +574,11 @@ def _stage_parts(engine):
             return _Parts(t.shape, [])
         idx = homes[leaf]
         if idx[0][1] is None:
-            parts = [engine._pshards[idx[0][0]].take(t)]
+            parts = [engine._pshards[idx[0][0]].take_whole(t)]
         else:
             parts = [None] * len(idx)
             for i, layer in idx:
-                parts[layer] = engine._pshards[i].take(t[layer])
+                parts[layer] = engine._pshards[i].take_whole(t[layer])
         if sum(p.numel() for p in parts) < t.numel():
             parts = [p.clone() for p in parts]   # let the whole leaf go
         return _Parts(t.shape, parts)
@@ -598,10 +608,10 @@ def _all_read(engine, ok: bool) -> bool:
     """Whether every rank read the tag (one decision for all ranks, so
     none restores a tag another falls back past)."""
     from ..comm import comm
-    if engine.dp_world_size == 1:
+    if comm.get_world_size() == 1:
         return ok
     flag = torch.tensor([0.0 if ok else 1.0], device=engine.device)
-    comm.all_reduce(flag, op=comm.ReduceOp.MAX, axis_name=engine._dp_group)
+    comm.all_reduce(flag, op=comm.ReduceOp.MAX, axis_name=None)
     return not bool(flag.item())
 
 
@@ -699,7 +709,7 @@ def save_16bit_model(engine, save_dir, save_filename="pytorch_model.msgpack"):
                                       masters=True))
     path = os.path.join(save_dir, save_filename)
     if not _writer():
-        if engine._stage >= 3:
+        if _gathers(engine, stage_min=3):
             _walk_arrays(tree)
         return path
     ckpt_engine = get_checkpoint_engine(engine._config)

@@ -127,7 +127,6 @@ def _data_sampling(block):
 
 # key -> (ROADMAP.md row, what the port cannot run yet, "asks for it")
 UNPORTED = {
-    C.TENSOR_PARALLEL_SIZE: ("A8b", "tensor parallelism", _above_one),
     C.PIPELINE_PARALLEL_SIZE: ("A11", "pipeline parallelism", _above_one),
     C.SEQUENCE_PARALLEL_SIZE: ("A11", "sequence parallelism", _above_one),
     C.EXPERT_PARALLEL_SIZE: ("A11", "expert parallelism", _above_one),
@@ -167,7 +166,8 @@ class DeepSpeedConfig:
     """Parse and validate the training config, as the JAX package's
     ``DeepSpeedConfig`` does for the blocks this port runs."""
 
-    def __init__(self, config: Any, world_size: Optional[int] = None):
+    def __init__(self, config: Any, world_size: Optional[int] = None,
+                 mpu=None):
         if isinstance(config, str):
             if not os.path.exists(config):
                 raise ConfigError(f"Config file not found: {config}")
@@ -182,14 +182,18 @@ class DeepSpeedConfig:
                 f"Expected a dict or json path for config, got {type(config)}")
 
         pd = self._param_dict
+        # kept as the JAX package keeps it: nothing reads it, the rank
+        # mesh's 'model' axis is the tensor parallelism
+        self.mpu = mpu
         for key, (row, what, asks) in UNPORTED.items():
             if key in pd and asks(pd[key]):
                 raise NotImplementedError(
                     f"config '{key}' asks for {what}, which is not ported "
                     f"yet: ROADMAP.md row {row}")
 
-        # ---- parallel sizes: data parallelism over the ranks; model
-        #      parallelism is refused above (rows A8b, A11)
+        # ---- parallel sizes: data and tensor parallelism over the ranks;
+        #      pipeline, sequence and expert parallelism are refused above
+        #      (row A11). The batch triangle is over the dp world.
         self.tensor_parallel_size = int(pd.get(C.TENSOR_PARALLEL_SIZE, 1))
         self.pipeline_parallel_size = int(pd.get(C.PIPELINE_PARALLEL_SIZE, 1))
         self.sequence_parallel_size = int(pd.get(C.SEQUENCE_PARALLEL_SIZE, 1))

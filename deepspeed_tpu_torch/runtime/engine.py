@@ -46,9 +46,20 @@ planner's per-leaf rule):
 
 The gradient norm sums the shards' squares over the ranks and counts a
 replicated leaf once; the fp16 skip decision and the returned loss are
-all-reduced, so every rank takes the same step. Where the planner
-partitions nothing (one rank: the JAX planner shards nothing at dp 1) the
-engine runs stage 0 whatever the configured stage.
+all-reduced, so every rank takes the same step.
+
+Tensor parallelism (the rank mesh's ``model`` axis: ``tensor_parallel_size``
+in the config, or the mesh handed in; ``parallel/tensor_parallel.py``):
+the model holds its rank's part of each sharded leaf (a whole model is
+sharded in place), and its layers run the tp collectives, so a rank's
+gradients are its part's. They are reduced over the dp group only; the
+tp ranks of one dp index read the same rows. The gradient norm sums a
+tp-sharded leaf's squares over the tp group and counts a replicated leaf
+once; ZeRO shards the rank's tp part over the dp ranks. An ``mpu`` is
+accepted and kept on the config, as the JAX package keeps it.
+
+Where the planner partitions nothing (one rank: the JAX planner shards
+nothing at dp 1) the engine runs stage 0 whatever the configured stage.
 
 Randomness is the JAX engine's, key for key (``inference/prng.py``): the
 base key is ``PRNGKey(seed + 1)``; ``train_batch`` keys micro step ``i``
@@ -70,8 +81,9 @@ a resumed run continues the same stream (keys, layer-drop theta, LTD
 schedule, LR step, Adam count).
 
 It runs on ``cuda`` unless it is given ``device=`` (the CPU tests pass
-``"cpu"``), and raises without a GPU. ZeRO offload, model and pipeline
-parallelism and client optimizers raise naming their ROADMAP.md rows.
+``"cpu"``), and raises without a GPU. ZeRO offload, pipeline, sequence and
+expert parallelism and client optimizers raise naming their ROADMAP.md
+rows.
 """
 
 import dataclasses
@@ -89,9 +101,11 @@ from ..comm.logging import configure_comms_logger
 from ..inference import prng
 from ..models.api import ModelSpec
 from ..ops import dropout
-from ..parallel.topology import DP_AXES, get_mesh_manager
+from ..parallel import tensor_parallel
+from ..parallel.topology import DP_AXES, current_mesh, mesh_for_tp
 from ..telemetry.trace import get_tracer
 from ..utils.logging import log_dist, logger
+from . import constants as C
 from .activation_checkpointing import checkpointing
 from .config import DeepSpeedConfig
 from .config_utils import ConfigError
@@ -185,8 +199,6 @@ class DeepSpeedEngine:
             raise NotImplementedError(
                 f"training a {type(model).__name__} is not ported yet: "
                 f"ROADMAP.md row A10; pass a deepspeed_tpu_torch model")
-        if mpu is not None:
-            raise _not_ported("a model-parallel unit (mpu)", "A8b")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -198,18 +210,29 @@ class DeepSpeedEngine:
         # init_distributed() does; one rank needs none
         if not comm.is_initialized() and comm.env_world_size() > 1:
             comm.init_distributed(device=self.device)
+        # nccl carries CUDA tensors only; gloo carries both (several ranks
+        # on one card run a gloo group over CUDA tensors)
         backend = comm.get_backend()
-        if backend is not None and (backend == "nccl") != (
-                self.device.type == "cuda"):
+        if backend == "nccl" and self.device.type != "cuda":
             raise ValueError(
-                f"DeepSpeedEngine: the process group's backend is {backend} "
-                f"but the engine's device is {self.device}; use nccl with "
-                f"cuda and gloo with the CPU")
-        self.mesh_manager = mesh_manager if mesh_manager is not None \
-            else get_mesh_manager()
-        mm = self.mesh_manager
-        self._config = DeepSpeedConfig(config, world_size=mm.world_size)
+                f"DeepSpeedEngine: the process group's backend is nccl but "
+                f"the engine's device is {self.device}; use gloo with the "
+                f"CPU")
+        from .. import _config_dict
+        pd = _config_dict(config)
+        self.mesh_manager = mm = self._mesh(pd) if mesh_manager is None \
+            else mesh_manager
+        # the mesh's tp is the config's: a config without the key takes it
+        if int(pd.get(C.TENSOR_PARALLEL_SIZE, mm.tp)) != mm.tp:
+            raise ConfigError(
+                f"tensor_parallel_size={pd[C.TENSOR_PARALLEL_SIZE]} but the "
+                f"rank mesh handed in has tp={mm.tp}")
+        if mm.tp > 1 and C.TENSOR_PARALLEL_SIZE not in pd:
+            config = dict(pd, **{C.TENSOR_PARALLEL_SIZE: mm.tp})
+        self._config = DeepSpeedConfig(config, world_size=mm.world_size,
+                                       mpu=mpu)
         cfg = self._config
+        self._tp = tensor_parallel.from_mesh(mm)
         configure_comms_logger(cfg.comms_logger)
         self._dp_world = mm.dp_world_size
         self._dp_rank = mm.dp_rank
@@ -219,6 +242,15 @@ class DeepSpeedEngine:
                 "sparse_gradients is not supported on TPU; remove the key "
                 "(gradients of embedding gathers are dense under XLA)")
 
+        if self._tp.active:
+            if not model.tensor_parallel:
+                raise NotImplementedError(
+                    f"{type(model).__name__} at tp={mm.tp} is not ported "
+                    f"yet: ROADMAP.md row A8b2")
+            model.shard_tp(self._tp)      # in place, for a whole model
+        elif model.tp.active:
+            raise ValueError(f"the model was built at {model.tp}; the rank "
+                             f"mesh has tp=1")
         self.module = model.to(device=self.device, dtype=torch.float32)
         self.module._zero_hook = None
         self._apply_call = _ApplyCall(self.module)
@@ -305,12 +337,21 @@ class DeepSpeedEngine:
         n_params = sum(math.prod(s) for s in self._shapes)
         log_dist(
             f"DeepSpeedEngine initialized: params={n_params / 1e6:.1f}M "
-            f"zero_stage={self.zero_stage} dp={self._dp_world} "
+            f"zero_stage={self.zero_stage} dp={self._dp_world} tp={mm.tp} "
             f"device={self.device} "
             f"dtype={str(self._compute_dtype).replace('torch.', '')} "
             f"batch={cfg.train_batch_size} "
             f"(micro={cfg.train_micro_batch_size_per_gpu} "
             f"gas={cfg.gradient_accumulation_steps})", ranks=[0])
+
+    @staticmethod
+    def _mesh(pd):
+        """The global rank mesh at the tp of the config ``pd`` (at the
+        global mesh's when the config names none)."""
+        mm = current_mesh()
+        key = pd.get(C.TENSOR_PARALLEL_SIZE)
+        return mesh_for_tp(int(key) if key is not None else
+                           (mm.tp if mm else 1))
 
     def _require_fwd_kwarg(self, name: str, feature: str):
         """A feature that needs the model's cooperation raises when the
@@ -330,16 +371,25 @@ class DeepSpeedEngine:
         the model's ``Parameter``s at stage 0, else this rank's shards
         (copies); at stage 3 the model's own tensors are freed."""
         module = self.module
+        rules = module.partition_rules() \
+            if hasattr(module, "partition_rules") else None
         self.planner = ZeroShardingPlanner(
-            self.mesh_manager, self.zero_stage,
+            self.mesh_manager, self.zero_stage, rules=rules,
             persistence_threshold=zcfg.stage3_param_persistence_threshold
             if self.zero_stage >= 3 else 0)
         self._layout = module.jax_layout()
         self._names = [n for n, _ in module.named_parameters()]
         self._params = [p for _, p in module.named_parameters()]
-        self._shapes = [tuple(p.shape) for p in self._params]
         self._pshards = param_shards(module, self.planner, self._dp_rank,
                                      self._dp_world)
+        # the whole (JAX) shapes: what checkpoints and the tensor-fragment
+        # API see at any tp
+        self._shapes = [ps.whole_shape for ps in self._pshards]
+        # a leaf the tp ranks hold whole enters the gradient norm once:
+        # from tp rank 0
+        self._tp_norm_weights = torch.tensor(
+            [1.0 if ps.tp is not None or self._tp.rank == 0 else 0.0
+             for ps in self._pshards], device=self.device)
         self._layer_of = {id(blk): i for i, blk in
                           enumerate(getattr(module, "blocks", []))}
         self.zero_gather_stats = stage3.GatherStats()
@@ -590,6 +640,9 @@ class DeepSpeedEngine:
         if self._stage >= 2:
             sq = sq * self._norm_weights
             comm.all_reduce(sq, axis_name=self._dp_group)
+        if self._tp.active:
+            sq = sq * self._tp_norm_weights
+            comm.all_reduce(sq, axis_name=self._tp.group)
         return sq.sum().sqrt()
 
     def _clip_grads(self, grads):
@@ -629,6 +682,9 @@ class DeepSpeedEngine:
         ranks, so their loss scales and shards stay together)."""
         bad = (~grads_finite(grads)).to(torch.float32).reshape(1)
         comm.all_reduce(bad, op=comm.ReduceOp.MAX, axis_name=self._dp_group)
+        if self._tp.active:
+            comm.all_reduce(bad, op=comm.ReduceOp.MAX,
+                            axis_name=self._tp.group)
         return not bool(bad.item())
 
     @torch.no_grad()
@@ -814,24 +870,31 @@ class DeepSpeedEngine:
     def whole_master(self, i):
         """Parameter ``i``'s whole f32 master."""
         if self._stage < 3:
-            return self._params[i]
+            return self.tp_whole(i, self._params[i])
         return self.whole(i, self._masters[i])
 
     def whole(self, i, part):
         """Parameter ``i``'s whole tensor from this rank's ``part`` of it
         (a master or moment shard; as it is for a replicated one)."""
+        return self._pshards[i].gather_whole(part, self._dp_group,
+                                             self._tp.group)
+
+    def tp_whole(self, i, part):
+        """Parameter ``i``'s whole tensor from this rank's tensor-parallel
+        part of it (the model's tensor)."""
         ps = self._pshards[i]
-        return ps.gather(part, self._dp_group) if ps.partitioned else part
+        return part if ps.tp is None else ps.tp.gather(part, self._tp.group)
 
     @torch.no_grad()
     def set_whole_master(self, i, value):
         """Set parameter ``i``'s master from its whole value (a tensor on
         any device; every rank passes the same value): this rank's part of
         it is what is copied to the engine's device."""
+        ps = self._pshards[i]
         if self._stage < 3:
-            self._params[i].copy_(value)
+            self._params[i].copy_(ps.take_tp(value))
         if self._stage >= 1:
-            self._masters[i].copy_(self._pshards[i].take(value))
+            self._masters[i].copy_(ps.take_whole(value))
 
     @torch.no_grad()
     def set_master_parts(self, parts):
@@ -893,7 +956,7 @@ class DeepSpeedEngine:
 
     @property
     def mp_world_size(self):
-        return 1
+        return self.mesh_manager.tp
 
     @property
     def train_batch_size(self):

@@ -17,34 +17,22 @@ world (``_add_dp_axis``). The engine then holds each of the port's
 per-layer parameters as a ``ParamShard``: a spec on a stacked leaf's dim
 ``k + 1`` shards the per-layer tensor's dim ``k``; a spec on the layer dim
 gives whole layers to ranks (rank ``r`` owns layers ``[r L/dp, (r + 1)
-L/dp)``), as the JAX mesh lays them out. Model parallelism is refused
-before a planner is made (rows A8b, A11), so every rule axis other than
-the dp axes has size 1 and drops out, as the JAX planner drops it.
+L/dp)``), as the JAX mesh lays them out. The rules are the model's
+``partition_rules()``: at tp > 1 their ``model`` entries stay (the
+planner drops the entries of size-1 axes, as the JAX one does), so a leaf
+can be sharded on ``model`` and on the dp axes at once, on two dims.
+``ParamShard`` then composes the two: a rank's part is its tensor-parallel
+part (the model's ``TPSplit``, which for the fused ``qkv`` leaves is the
+rank's heads of each of q, k and v, not the rule's block of columns)
+first, and the dp part of that second.
 """
 
-import re
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from ...parallel.topology import DATA_AXIS, DP_AXES, EXPERT_AXIS
-
-
-def _match_rule(path: str, rules):
-    for pattern, spec in rules:
-        if re.search(pattern, path):
-            return spec
-    return None
-
-
-def _tp_spec(path: str, rules, ndim: int) -> list:
-    """A rule's spec for the leaf, padded with None on the right."""
-    spec = _match_rule(path, rules or [])
-    if spec is None:
-        return [None] * ndim
-    spec = list(spec)
-    assert len(spec) <= ndim, f"rule for {path} has rank {len(spec)} > {ndim}"
-    return spec + [None] * (ndim - len(spec))
+from ...parallel.tensor_parallel import rule_spec
+from ...parallel.topology import DATA_AXIS, DP_AXES, EXPERT_AXIS, MODEL_AXIS
 
 
 def _uses_axis(spec: list, axis: str) -> bool:
@@ -96,7 +84,7 @@ class ZeroShardingPlanner:
                       for pat, spec in (rules or [])]
 
     def _leaf_spec(self, path: str, shape, dp_sharded: bool) -> tuple:
-        spec = _tp_spec(path, self.rules, len(shape))
+        spec = rule_spec(path, self.rules, len(shape))
         if dp_sharded:
             if _uses_axis(spec, EXPERT_AXIS):
                 dp_axes, dp_world = DATA_AXIS, self.mm.dp
@@ -124,20 +112,33 @@ class ZeroShardingPlanner:
 
 
 class ParamShard:
-    """Where one of the port's parameters lives across the dp ranks:
+    """Where one of the port's parameters lives across the ranks. Over the
+    dp ranks, of the model's tensor ``shape`` (the rank's tensor-parallel
+    part at tp > 1):
 
     - ``replicated``: every rank holds it whole;
     - ``dim``: rank ``r`` holds slice ``[r n, (r + 1) n)`` of ``dim``;
     - ``layer``: one rank (``owner``) holds it whole, the others an empty
       tensor (a spec on a stacked leaf's layer dim).
+
+    ``tp``: the parameter's ``TPSplit`` (None when the tp ranks hold it
+    whole). ``take``, ``gather`` and ``reduce`` act over the dp ranks on
+    the model's tensor; ``take_whole`` and ``gather_whole`` map the whole
+    (JAX) tensor, the tp part first and the dp part of it second.
     """
 
-    __slots__ = ("kind", "dim", "owner", "shape", "rank", "world")
+    __slots__ = ("kind", "dim", "owner", "shape", "rank", "world", "tp")
 
-    def __init__(self, kind, shape, rank, world, dim=None, owner=None):
+    def __init__(self, kind, shape, rank, world, dim=None, owner=None,
+                 tp=None):
         self.kind, self.shape, self.rank, self.world = kind, tuple(shape), \
             rank, world
-        self.dim, self.owner = dim, owner
+        self.dim, self.owner, self.tp = dim, owner, tp
+
+    @property
+    def whole_shape(self) -> tuple:
+        """The JAX leaf's (per-layer) shape."""
+        return self.shape if self.tp is None else self.tp.whole_shape
 
     @property
     def partitioned(self) -> bool:
@@ -182,44 +183,65 @@ class ParamShard:
         comm.all_reduce(full, axis_name=group)
         return self.take(full)
 
+    def take_tp(self, whole):
+        """The rank's tensor-parallel part of the whole tensor (the model's
+        tensor)."""
+        return whole if self.tp is None else self.tp.take(whole)
+
+    def take_whole(self, whole):
+        """The rank's part of the whole (JAX) tensor: the tensor-parallel
+        part first, then the dp part of that."""
+        return self.take(self.take_tp(whole))
+
+    def gather_whole(self, part, dp_group, tp_group):
+        """The whole (JAX) tensor from every rank's ``part``: gathered over
+        the dp ranks, then over the tp ranks (collectives)."""
+        x = self.gather(part, dp_group) if self.partitioned else part
+        return x if self.tp is None else self.tp.gather(x, tp_group)
+
 
 def param_shards(module, planner, rank: int, world: int, stage_min: int = 1):
     """A ``ParamShard`` for each of ``module``'s parameters (aligned with
     ``named_parameters()``), from the planner's partition spec of its JAX
     leaf (``opt_spec``: the layout of the masters and moments; stage 3's
     parameters and stage 2's gradients share it); all replicated below
-    stage ``stage_min``."""
+    stage ``stage_min``. Each carries the parameter's ``TPSplit``; the dp
+    dim is the spec's dp entry (the ``model`` entry is the split's)."""
     shapes = leaf_shapes(module)
     n_layers = len(getattr(module, "blocks", []))
     out = []
-    for (leaf, layer), (_, p) in zip(module.jax_layout(),
-                                     module.named_parameters()):
+    for (leaf, layer), (_, p), split in zip(module.jax_layout(),
+                                            module.named_parameters(),
+                                            module.tp_splits()):
         shape = tuple(p.shape)
         spec = planner.opt_spec(leaf, shapes[leaf]) \
             if planner.stage >= stage_min else (None,) * len(shapes[leaf])
-        dims = [i for i, e in enumerate(spec) if e is not None]
+        dims = [i for i, e in enumerate(spec)
+                if e is not None and e != MODEL_AXIS]
         if not dims:
-            out.append(ParamShard("replicated", shape, rank, world))
+            ps = ParamShard("replicated", shape, rank, world, tp=split)
         elif layer is None:
-            out.append(ParamShard("dim", shape, rank, world, dim=dims[0]))
+            ps = ParamShard("dim", shape, rank, world, dim=dims[0], tp=split)
         elif dims[0] == 0:
             per = n_layers // world
-            out.append(ParamShard("layer", shape, rank, world,
-                                  owner=layer // per))
+            ps = ParamShard("layer", shape, rank, world, owner=layer // per,
+                            tp=split)
         else:
-            out.append(ParamShard("dim", shape, rank, world,
-                                  dim=dims[0] - 1))
+            ps = ParamShard("dim", shape, rank, world, dim=dims[0] - 1,
+                            tp=split)
+        out.append(ps)
     return out
 
 
 def leaf_shapes(module):
     """``{JAX leaf path: shape}`` of a port model (stacked leaves
-    ``[L, ...]``), from its parameters' layout."""
+    ``[L, ...]``), from its parameters' layout: whole shapes, also at
+    tp > 1."""
     shapes = {}
-    for (leaf, layer), (_, p) in zip(module.jax_layout(),
-                                     module.named_parameters()):
+    for (leaf, layer), shape in zip(module.jax_layout(),
+                                    module.whole_shapes()):
         if layer is None:
-            shapes[leaf] = tuple(p.shape)
+            shapes[leaf] = tuple(shape)
         else:
-            shapes[leaf] = (len(module.blocks),) + tuple(p.shape)
+            shapes[leaf] = (len(module.blocks),) + tuple(shape)
     return shapes

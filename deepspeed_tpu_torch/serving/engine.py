@@ -57,6 +57,19 @@ class ServingEngine:
             config.validate()
         self.config = config
         self.engine = engine
+        tp = engine.tp
+        if tp.active:
+            # every tp rank runs this scheduler on the same requests: a
+            # decision read off a clock could differ between them
+            for what, on in (("the prefill/decode roles (KVHandoff)",
+                              config.role != "unified" or
+                              handoff_sink is not None),
+                             ("request deadlines (request_timeout_s)",
+                              config.request_timeout_s is not None)):
+                if on:
+                    raise NotImplementedError(
+                        f"{what} at tp={tp.size} is not ported yet: "
+                        f"ROADMAP.md row A8b2")
         n_pos = getattr(getattr(engine.module, "config", None),
                         "n_positions", None)
         if n_pos is not None and config.max_model_len > n_pos:
@@ -90,6 +103,11 @@ class ServingEngine:
             raise RuntimeError("ServingEngine is draining; submit rejected")
         sampling = sampling or SamplingParams()
         sampling.validate()
+        if sampling.timeout_s is not None and self.engine.tp.active:
+            raise NotImplementedError(
+                f"a request deadline (timeout_s) at tp="
+                f"{self.engine.tp.size} is not ported yet: ROADMAP.md row "
+                f"A8b2")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")

@@ -79,7 +79,8 @@ def safe_get_full_grad(engine, path: str) -> Optional[np.ndarray]:
         g = acc[i].to(torch.float32).clone()
         if partitioned:
             return engine.whole(i, g)
-        return comm.all_reduce(g, axis_name=engine._dp_group)
+        return engine.tp_whole(i, comm.all_reduce(
+            g, axis_name=engine._dp_group))
 
     g = _stacked(engine, path, whole_of)
     denom = float(engine.scaler_state.scale) * max(

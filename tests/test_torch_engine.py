@@ -271,7 +271,6 @@ def test_unported_config_values_raise_naming_their_row(key):
 
 
 @pytest.mark.parametrize("change,row", [
-    ({"tensor_parallel_size": 2}, "A8b"),
     ({"comm_compression": {"policy": "int8"}}, "A8c"),
     ({"zero_optimization": {"stage": 3, "offload_optimizer": {
         "device": "cpu"}, "offload_param": {"device": "cpu"}}}, "A11"),

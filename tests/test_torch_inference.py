@@ -163,6 +163,7 @@ def test_generate_refusals_match_jax(engines):
 GOOD_CONFIGS = [
     {}, {"dtype": "fp16"}, {"dtype": "torch.bfloat16"}, {"dtype": "float32"},
     {"max_out_tokens": 2048}, {"tensor_parallel": {"tp_size": 1}},
+    {"tensor_parallel": {"tp_size": 2}}, {"mp_size": 2},
     {"replace_with_kernel_inject": True, "enable_cuda_graph": True},
     {"moe": True, "quant": {"enabled": False, "bits": 8}, "seed": 3,
      "compiled_cache_size": 0, "max_batch_size": 4},
@@ -172,8 +173,7 @@ BAD_CONFIGS = [{"dtype": "int4"}, {"no_such_key": 1}, {"max_tokens": 0},
                {"tensor_parallel": {"tp_size": 0}},
                {"compiled_cache_size": -1},
                {"quant": {"enabled": True, "bits": 4}}]
-UNPORTED_CONFIGS = [({"tensor_parallel": {"tp_size": 2}}, "A8b"),
-                    ({"mp_size": 2}, "A8b"), ({"dtype": "int8"}, "A9"),
+UNPORTED_CONFIGS = [({"dtype": "int8"}, "A9"),
                     ({"quant": {"enabled": True}}, "A9")]
 
 
@@ -249,6 +249,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'serving', 'serving.engine', 'serving.scheduler', "
         "'inference.prng', 'telemetry.trace', 'comm', 'comm.comm', "
         "'comm.logging', 'zero', 'parallel', 'parallel.topology', "
+        "'parallel.tensor_parallel', "
         "'runtime.zero.partition', 'runtime.zero.stage3', "
         "'runtime.zero.tiling', 'utils.tensor_fragment'}\n"
         "missing = sorted(w for w in want if pkg.__name__ + '.' + w "

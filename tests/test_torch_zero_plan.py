@@ -103,8 +103,13 @@ def test_a_layer_dim_spec_gives_whole_layers_to_ranks():
 
 
 def test_topology_refuses_model_parallel_axes():
-    with pytest.raises(NotImplementedError, match="row A8b"):
-        topology.DeviceMeshManager(tp=2, world_size=2, rank=0)
+    # tensor parallelism runs: 'model' is the innermost axis, so a tp group
+    # is consecutive ranks and the dp world excludes it
+    mm = topology.DeviceMeshManager(dp=2, tp=2, world_size=4, rank=3)
+    assert (mm.tp_rank, mm.dp_rank, mm.dp_world_size) == (1, 1, 2)
+    assert mm.topology.get_axis_comm_lists("model") == [[0, 1], [2, 3]]
+    assert mm.topology.get_axes_comm_lists(("data", "expert")) == \
+        [[0, 2], [1, 3]]
     for axis in ("pp", "sp", "ep"):
         with pytest.raises(NotImplementedError, match="row A11"):
             topology.DeviceMeshManager(world_size=2, rank=0, **{axis: 2})

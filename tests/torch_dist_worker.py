@@ -3,9 +3,10 @@
 This module imports no JAX and nothing of the JAX package: a rank process
 unpickles its target by module, and a test module would bring JAX in
 without the conftest's CPU setup. ``spawn(fn, world, tmp_path, payload)``
-runs ``fn(rank, world, payload)`` on ``world`` gloo ranks: processes
-forked from a forkserver that has imported this module (and with it torch
-and the port) once, so a spawn after the first costs little; the ranks
+runs ``fn(rank, world, payload)`` (a function of this module or of another
+module that imports no JAX, such as ``torch_tp_worker``) on ``world`` gloo
+ranks: processes forked from a forkserver that has imported this module
+and ``fn``'s (and with them torch and the port) once, so a spawn after the first costs little; the ranks
 meet through a file store under ``tmp_path`` (no port is taken). Each
 rank's return value comes back pickled; a rank's exception is raised in
 the parent with its traceback.
@@ -16,6 +17,7 @@ process) and return numpy results.
 """
 
 import contextlib
+import importlib
 import multiprocessing
 import os
 import pickle
@@ -30,6 +32,7 @@ from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models.bert import BertConfig, BertModel
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from deepspeed_tpu_torch.parallel.tensor_parallel import rule_spec
 from deepspeed_tpu_torch.runtime import engine as engine_module
 from deepspeed_tpu_torch.runtime.zero import partition
 from deepspeed_tpu_torch.utils import tensor_fragment
@@ -45,7 +48,7 @@ class OneRankPlanner(partition.ZeroShardingPlanner):
     of several ranks, each an identity."""
 
     def _leaf_spec(self, path, shape, dp_sharded):
-        spec = partition._tp_spec(path, self.rules, len(shape))
+        spec = rule_spec(path, self.rules, len(shape))
         if dp_sharded:
             spec = partition._add_dp_axis(spec, tuple(shape),
                                           partition.DP_AXES, 1,
@@ -69,16 +72,28 @@ def one_rank_planner():
 def spawn(fn, world, tmp_path, payload, timeout=240):
     """``[fn(rank, world, payload) for each rank]``, each on its own gloo
     rank."""
+    return join(start(fn, world, tmp_path, payload), timeout)
+
+
+def start(fn, world, tmp_path, payload):
+    """Start ``spawn``'s ranks and return at once (the caller may work
+    meanwhile); ``join`` waits for them and returns their results."""
     ctx = multiprocessing.get_context("forkserver")
-    ctx.set_forkserver_preload([__name__])
+    ctx.set_forkserver_preload(sorted({__name__, fn.__module__}))
     run_dir = os.path.join(str(tmp_path), f"ranks_{fn.__name__}")
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
-    procs = [ctx.Process(target=_entry, args=(fn.__name__, rank, world,
-                                              run_dir, payload))
-             for rank in range(world)]
+    procs = [ctx.Process(target=_entry, args=(
+        fn.__module__, fn.__name__, rank, world, run_dir, payload))
+        for rank in range(world)]
     for p in procs:
         p.start()
+    return procs, run_dir
+
+
+def join(started, timeout=240):
+    procs, run_dir = started
+    world = len(procs)
     for p in procs:
         p.join(timeout)
     for p in procs:
@@ -103,13 +118,14 @@ def spawn(fn, world, tmp_path, payload, timeout=240):
     return out
 
 
-def _entry(name, rank, world, run_dir, payload):
+def _entry(module, name, rank, world, run_dir, payload):
     try:
         torch.set_num_threads(1)
         comm.init_distributed(dist_backend="gloo", device="cpu",
                               init_method=f"file://{run_dir}/store",
                               rank=rank, world_size=world, verbose=False)
-        result = globals()[name](rank, world, payload)
+        fn = getattr(importlib.import_module(module), name)
+        result = fn(rank, world, payload)
         with open(os.path.join(run_dir, f"result{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
     except BaseException:
