@@ -38,12 +38,12 @@ against the path on the kernels' plain versions, and BERT-large with
 and trained (15% masked positions), held against the dense-masked plain
 path, with a repeated batch at 4 layers and profiles. Last, the serve
 path: ``ServingEngine(init_inference(model, {"dtype": "bf16"}), ...)``
-over LLaMA-7B at full depth (16 slots x 2048, 48 requests; phase
+over LLaMA-7B at 16 of its 32 layers (16 slots x 2048, 48 requests; phase
 ``serve``: TTFT, TPOT, output tokens/s, decode-tick ms, slot utilization,
 pool and peak memory, with the stream checks of ``SERVE_LLAMA``'s comment)
 and GPT-2-125M (8 x 1024, 24 requests; ``serve gpt2``), each with a
 profiled decode tick (``profile serve``); on the LLaMA-7B engine,
-speculative decoding off and with self drafts of 32 and 8 layers
+speculative decoding off and with self drafts of 16 and 4 layers
 (``serve spec``, a profiled speculative tick), the radix prefix cache on
 and off over cohorts sharing 1024-token prefixes (``serve prefix``) and a
 prefill engine handing bf16 lanes through ``KVHandoff`` frames to a
@@ -86,12 +86,23 @@ the engine's resident bytes (``ckpt zero resume``). Slice 10's phases,
 on two ranks of a gloo group over CUDA tensors spawned on the one card
 (``tp_phases``): LLaMA-7B at full depth scoring ``[4, 2048]`` at tp 2 (K3
 on 16 heads a rank) against the tp-1 engine's logits (``tp forward``),
-served at tp 2 to 16 requests of the serve traffic, each stream equal to
+served at tp 2 to 8 requests of the serve traffic, each stream equal to
 tp 1's or parting at a near-tie (``tp serve``), GPT-2-125M at the main
 train cell at tp 2 (``tp train``: K1/K2 on 6 heads), and LLaMA-7B's width
 at 4 layers trained at tp 2, its loss and gathered gradients held to tp
 1's and a repeated batch converging (``tp train llama``); each with its
-tokens/s, peak GiB a rank and the ``model`` axis's collectives. Each
+tokens/s, peak GiB a rank and the ``model`` axis's collectives. Slice
+11's, on the same ranks: BERT-large with the Fixed surgery scored at tp 2
+(``tp bert forward``) and trained through the user loop with dropout
+(``tp bert train loop``), GPT-2-125M's dropout, layer-drop and random-LTD
+loop (``tp gpt2 train loop``: the probabilities dropped on the rank's
+heads under the dropout kernel's head map), lanes handed across engines
+(``tp serve handoff``), a ``mode: "model"`` draft (``tp serve spec
+model``), deadlines under skewed clocks (``tp serve deadlines``), a
+Megatron directory (``tp ckpt megatron``) and a synthetic one-kv-head
+variant of LLaMA-2-70B's width (``tp llama kv replicated``), each against
+tp 1; before them, the dropout kernel and K6/K7 at a rank's heads
+(``kernel-check dropout heads``, ``K6 heads``, ``K7 heads``). Each
 profile names
 the flash and block-sparse attention kernel instances that ran; on these
 bf16 paths they must be the tensor-core ones (``mma_*``). Every check raises
@@ -198,9 +209,10 @@ BERT_GRAD_TOL = LLAMA_GRAD_TOL
 # 1024-wide layers about as GPT-2-125M's
 BERT_CONVERGE_LR = 1e-3
 # Continuous-batching serving (ServingEngine over init_inference): LLaMA-7B
-# at full depth, 16 slots x 2048 columns (a 17.2 GB bf16 KV pool), two
-# prefills a tick; 48 requests submitted at tick 0, prompts lognormal
-# (median 384, 128-1024 tokens), new tokens lognormal (median 128,
+# at SERVE_LAYERS of its 32 layers (cut from full depth to keep the script
+# inside its time limit, PERF.md), 16 slots x 2048 columns (an
+# 8.6 GB bf16 KV pool), two prefills a tick; 48 requests submitted at
+# tick 0, prompts lognormal (median 384, 128-1024 tokens), new tokens lognormal (median 128,
 # 64-256), every fourth one sampled (temperature 0.8, top-p 0.95, its own
 # seed), and one whose prompt and new tokens fill the 2048 columns.
 # GPT-2-125M: 8 slots x 1024, 24 requests at half the lengths. Checks:
@@ -214,36 +226,39 @@ BERT_CONVERGE_LR = 1e-3
 SERVE_LLAMA = dict(cfg={"num_slots": 16, "max_model_len": 2048,
                         "max_prefills_per_tick": 2},
                    requests=48, prompt=(384, 128, 1024), new=(128, 64, 256))
+SERVE_LAYERS = 16
 SERVE_GPT2 = dict(cfg={"num_slots": 8, "max_model_len": 1024,
                        "max_prefills_per_tick": 2},
                   requests=24, prompt=(192, 64, 512), new=(64, 32, 128))
 SERVE_SIGMA, SERVE_CHUNK, SERVE_CHUNKED_NEW = 0.5, 256, 64
 # Speculation, the prefix cache and disaggregation on the same engines
 # (phases serve spec, serve spec gpt2, serve prefix, serve disagg). serve
-# spec: SERVE_LLAMA's traffic drawn for 16 requests (16 slots x 2048, the
-# last request filling all 2048 columns), served three times on one
-# engine: speculation off, then k 4 with a self draft of all 32 layers
+# spec: SERVE_LLAMA's traffic drawn for 8 requests at half its new tokens
+# (16 slots x 2048, the last request filling all 2048 columns; cut from
+# 16 at the whole lengths, PERF.md), served three times on one
+# engine: speculation off, then k 4 with a self draft of all its layers
 # (the draft is the target, so only near-ties between the decode step's
 # GEMM shapes and the verify's may reject: every rejected proposal inside
 # a stream must sit within SPEC_REJECT_TIE times the margin of the
 # target's token under the plain forward, since the draft's own lane
 # drifts from the plain forward as the verify's does; acceptance is
-# reported), then of 8 layers (what a user runs). Every stream must equal
+# reported), then of a quarter of them (what a user runs). Every stream must equal
 # the off stream or part from it only at a near-tie (``tie_gap``: the two
 # tokens' logit gap when greedy; when sampled, their Gumbel-perturbed
 # score gap times the temperature, or the logit change that moves either
 # across the top-k / top-p edge) under the plain forward, within the
 # margin. serve spec gpt2: 8 requests at 8 x 1024 == n_positions, one
 # filling all 1024 columns, a self draft of 6 layers. serve prefix: 4
-# cohorts of 8 requests, each cohort sharing a PREFIX_LEN-token prefix
-# with its own lognormal suffix, PREFIX_NEW new tokens, a quarter sampled;
-# the 4 leaders first, then the 28 followers; with the cache and without.
+# cohorts of 4 requests (cut from 8, PERF.md), each cohort sharing a
+# PREFIX_LEN-token prefix with its own lognormal suffix, PREFIX_NEW new
+# tokens, a quarter sampled; the 4 leaders first, then the 12 followers;
+# with the cache and without.
 # serve disagg: a prefill engine (4 x 2048) handing each lane through the
 # wire codec to a decode engine (16 x 2048) over serve spec's traffic.
 SPEC_K, SPEC_REJECT_TIE = 4, 2
-SERVE_SPEC = dict(SERVE_LLAMA, requests=16)
+SERVE_SPEC = dict(SERVE_LLAMA, requests=8, new=(64, 32, 128))
 SERVE_SPEC_GPT2 = dict(SERVE_GPT2, requests=8)
-PREFIX_COHORTS, PREFIX_PER_COHORT, PREFIX_LEN = 4, 8, 1024
+PREFIX_COHORTS, PREFIX_PER_COHORT, PREFIX_LEN = 4, 4, 1024
 PREFIX_SUFFIX, PREFIX_NEW = (96, 32, 256), 64
 DISAGG_PREFILL_SLOTS = 4
 # Slice 7: dropout on the JAX package's keys (the threefry dropout
@@ -284,9 +299,9 @@ REMAT_BYTES_PER_PARAM, REMAT_FILL, REMAT_TIMED = 20, 0.9, 2
 # gas 2, bf16 on f32 masters, AdamW under WarmupLR) takes CKPT_STEPS
 # steps, saving after CKPT_SAVE_AT; a fresh engine on other weights loads
 # the tag and takes the rest, bitwise. ckpt serve: LLaMA-7B at
-# CKPT_SERVE_LAYERS layers (of its 32: 7.5 GB of f32 masters, each of
+# CKPT_SERVE_LAYERS layers (of its 32: 5.6 GB of f32 masters, each of
 # qkv_w, gate_w, up_w and down_w above the codec's 1 GiB chunk and so
-# chunked) saved by an
+# chunked; 6 is the fewest that keeps them so) saved by an
 # optimizer-less engine and served through init_inference's checkpoint
 # key, then CKPT_SERVE_REQUESTS requests through a ServingEngine of
 # SERVE_LLAMA's pool. ckpt megatron: GPT-2-125M (Megatron's padded vocab
@@ -295,10 +310,11 @@ REMAT_BYTES_PER_PARAM, REMAT_FILL, REMAT_TIMED = 20, 0.9, 2
 # every other version, so the port does too).
 CKPT_DIR = "build/ckpt"
 CKPT_STEPS, CKPT_SAVE_AT = 4, 2
-# Both depths were cut (from 4 and 16 layers) when the tensor-parallel
-# phases joined the script, to keep it inside its time limit: each
+# Both depths were cut (from 4 and 16 layers, then ckpt serve from 8 to
+# 6) when the tensor-parallel phases joined the script, to keep it
+# inside its time limit: each
 # phase's save and load take ~4 s a GB on the card's machine (PERF.md)
-CKPT_RESUME_LAYERS, CKPT_SERVE_LAYERS, CKPT_SERVE_REQUESTS = 2, 8, 8
+CKPT_RESUME_LAYERS, CKPT_SERVE_LAYERS, CKPT_SERVE_REQUESTS = 2, 6, 8
 CKPT_MEGATRON_VOCAB, CKPT_MEGATRON_TP, CKPT_MEGATRON_PP = 50304, 2, 2
 
 
@@ -1452,16 +1468,28 @@ def computed_pairs(layout, coarse, fb):
     return int((visited & (layout | ~rows_live)).sum()) * fb * fb
 
 
-def sparse_case(torch, kind, shape, dtype, seed):
+def sparse_case(torch, kind, shape, dtype, seed, heads=None):
     """Inputs of one K6/K7 check: q, k, v as views of [B, T, H, D] buffers
     (the BERT block's layout), the layout, its device plan and densities:
     the live (q, k) pairs (the function's work), the pairs of the visited
     coarse tiles (the scalar kernels' work) and the pairs the tensor-core
-    kernels compute after their skips."""
+    kernels compute after their skips. ``heads = (h0, H)``: q holds heads
+    ``[h0, h0 + h)`` of ``H`` (a tensor-parallel rank's), the layout the
+    rows of the one made for all ``H``, as ``SparseSelfAttention`` takes
+    them."""
+    import numpy as np
     from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
     b, h, t, d = shape
-    layout = sparsity_config(ops, kind, h).make_layout(t)
+    if heads is None:
+        layout = sparsity_config(ops, kind, h).make_layout(t)
+    else:
+        h0, total = heads
+        layout = np.ascontiguousarray(sparsity_config(
+            ops, kind, total).make_layout(t)[h0:h0 + h])
+    check(bsa.supported(torch.empty((b, h, t, d), device="cuda"), layout, 16),
+          f"K6/K7 {kind}: {shape} with a layout of {layout.shape[0]} heads "
+          f"is not supported")
     tile = bsa.default_tile(t, 16)
     plan = bsa.get_plan(layout, 16, tile, "cuda")
     coarse = bsa.build_plan(layout, 16, tile).coarse
@@ -1478,18 +1506,19 @@ def sparse_case(torch, kind, shape, dtype, seed):
     return q, k, v, layout, plan, dens
 
 
-def check_k6(torch, kind, shape, dtype):
+def check_k6(torch, kind, shape, dtype, heads=None, name="kernel-check K6"):
     """K6 against its plain version on the card, summing as the kernel's
     route does (``tensor_core_path``; ``indep_*``: against the
     ``torch.matmul`` plain version); its bound counts the live fine pairs
     (the function's work), the visited and computed pairs beside it; the
-    library call is SDPA with the layout expanded to a boolean mask."""
+    library call is SDPA with the layout expanded to a boolean mask.
+    ``heads``: a rank's heads (``sparse_case``)."""
     from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
     import torch.nn.functional as F
     b, h, t, d = shape
     q, k, v, layout, plan, dens = sparse_case(torch, kind, shape, dtype,
-                                              SEED + 20)
+                                              SEED + 20, heads)
     scale = d ** -0.5
     tc = bsa.tensor_core_path(dtype, d)
 
@@ -1532,22 +1561,24 @@ def check_k6(torch, kind, shape, dtype):
            PEAK_FLOPS[dname] * 1e3,
            "computed_bound_ms": 4 * d * dens["computed_pairs"] /
            PEAK_FLOPS[dname] * 1e3}
-    phase("kernel-check K6", **res)
+    if heads is not None:
+        res["heads"] = json.dumps([heads[0], heads[0] + h, heads[1]])
+    phase(name, **res)
     return res
 
 
-def check_k7(torch, kind, shape, dtype):
+def check_k7(torch, kind, shape, dtype, heads=None, name="kernel-check K7"):
     """K7 against its plain version on the card (summing as the kernel's
     route does; ``indep_*`` as in K6's): K6's output and lse, a random
     output gradient; the library's backward is SDPA with the layout mask,
-    forward + backward minus forward."""
+    forward + backward minus forward. ``heads``: a rank's heads."""
     from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     import torch.nn.functional as F
     b, h, t, d = shape
     q, k, v, layout, plan, dens = sparse_case(torch, kind, shape, dtype,
-                                              SEED + 21)
+                                              SEED + 21, heads)
     scale = d ** -0.5
     out, lse = bsa.block_sparse_attention_fwd(q, k, v, plan, scale)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
@@ -1607,7 +1638,9 @@ def check_k7(torch, kind, shape, dtype):
            PEAK_FLOPS[dname] * 1e3,
            "computed_bound_ms": 10 * d * dens["computed_pairs"] /
            PEAK_FLOPS[dname] * 1e3}
-    phase("kernel-check K7", **res)
+    if heads is not None:
+        res["heads"] = json.dumps([heads[0], heads[0] + h, heads[1]])
+    phase(name, **res)
     return res
 
 
@@ -1886,11 +1919,12 @@ def grad_phase(torch, name, kernel, plain, tol):
 
 # --------------------------------- BERT-large with sparse attention, T 4096
 
-def bert_model(torch, dtype, seed, layers=None):
+def bert_model(torch, dtype, seed, layers=None, tp=None):
     """BERT-large (``n_layer`` cut to ``layers`` if given) drawn on the card
     from ``seed``, then ``SparseAttentionUtils`` surgery: positions
     extended 512 -> 4096 and DeepSpeed's Fixed sparse_attention example
-    installed. Returns the model and the surgery's layout at T 4096."""
+    installed. Returns the model and the surgery's layout at T 4096 (for
+    all heads). ``tp``: as ``llama_model``'s."""
     from deepspeed_tpu_torch.models.bert import BERT_LARGE, BertModel
     from deepspeed_tpu_torch.ops import sparse_attention_ops as ops
     from deepspeed_tpu_torch.ops.sparse_attention_utils import \
@@ -1898,7 +1932,7 @@ def bert_model(torch, dtype, seed, layers=None):
     cfg = BERT_LARGE if layers is None else \
         dataclasses.replace(BERT_LARGE, n_layer=layers)
     model = BertModel(cfg, generator=torch.Generator("cuda").manual_seed(seed),
-                      device="cuda", dtype=dtype)
+                      device="cuda", dtype=dtype, tp=tp)
     sparsity = sparsity_config(ops, "fixed", cfg.n_head)
     SparseAttentionUtils.\
         replace_model_self_attention_with_sparse_self_attention(
@@ -2225,6 +2259,7 @@ def reset_counts():
         fn.launches = 0
     for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd):
         fn.streamed_launches = 0
+    tfd.threefry_dropout.mapped_launches = 0
 
 
 def counts():
@@ -2239,7 +2274,8 @@ def counts():
             "K3b/K5": fa.flash_attention_bwd.launches,
             "K6": bsa.block_sparse_attention_fwd.launches,
             "K7": bsa.block_sparse_attention_bwd.launches,
-            "dropout": tfd.threefry_dropout.launches}
+            "dropout": tfd.threefry_dropout.launches,
+            "dropout heads": tfd.threefry_dropout.mapped_launches}
 
 
 def counts_since(before):
@@ -3413,15 +3449,16 @@ def prefix_phase(torch, name, engine, cfg, margin, seed):
           parted=json.dumps(parted), margin=margin, pool_device="cuda")
 
 
-def disagg_phase(torch, name, engine, traffic, base, margin):
+def disagg_phase(torch, name, engine, traffic, base, margin, cfg=None):
     """A prefill engine (``DISAGG_PREFILL_SLOTS`` slots) whose sink sends
     each handoff through the wire codec (``to_bytes`` / ``from_bytes``) to
-    a decode engine over the same InferenceEngine, on ``traffic``; each
-    inserted lane is held to the extracted one and each stream to the
-    unified ``base``."""
+    a decode engine (``cfg``, by default ``serve spec``'s) over the same
+    InferenceEngine, on ``traffic``; each inserted lane is held to the
+    extracted one (at tp > 1 the rank's heads of it) and each stream to
+    the unified ``base``."""
     from deepspeed_tpu_torch.serving import SamplingParams, ServingEngine
     from deepspeed_tpu_torch.serving.fleet import KVHandoff
-    cfg = SERVE_SPEC["cfg"]
+    cfg = SERVE_SPEC["cfg"] if cfg is None else cfg
     ms = {"out": [], "codec": [], "in": []}
     sent, equal, nbytes = {}, [], []
     extract, insert = engine.slot_extract_lane, engine.slot_insert_lane
@@ -3440,6 +3477,9 @@ def disagg_phase(torch, name, engine, traffic, base, margin):
         torch.cuda.synchronize()
         ms["in"].append((time.perf_counter() - s0) * 1e3)
         orig, kv_len = sent.pop(id(lane))
+        if engine.tp.active:            # the rank's heads of the lane
+            orig = {n: engine.module.kv_split(t.shape).take(t)
+                    for n, t in orig.items()}
         equal.append(all(torch.equal(
             c[:, slot, :, :kv_len],
             orig[n][:, 0, :, :kv_len].to(c.device)) for n, c in pool.items()))
@@ -3504,11 +3544,12 @@ def disagg_phase(torch, name, engine, traffic, base, margin):
 
 
 def serve_llama(torch, cfg=None):
-    """LLaMA-7B at full depth and width, bf16, served through
+    """LLaMA-7B at full width and SERVE_LAYERS layers, bf16, served through
     ``ServingEngine(init_inference(model, {"dtype": "bf16"}), ...)``."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import LLAMA_7B
-    cfg = LLAMA_7B if cfg is None else cfg
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=SERVE_LAYERS) \
+        if cfg is None else cfg
     engine = deepspeed_tpu_torch.init_inference(
         llama_model(torch, cfg, SEED + 70, torch.bfloat16), {"dtype": "bf16"})
     serve_phase(torch, "serve", engine, SERVE_LLAMA, LLAMA_ARGMAX_MARGIN,
@@ -4180,6 +4221,87 @@ def check_dropout_offset(torch):
     return res
 
 
+# a tp-2 rank's heads of GPT-2's attention probabilities (tp gpt2 train
+# loop): 6 of 12 heads of [8, 12, 1024, 1024]; and a data-parallel rank's
+# rows (its batch starting at row 8 of 16)
+DROPOUT_HEADS = {"whole": (8, 12, 1024, 1024), "heads": 6, "dp_first": 8}
+
+
+def check_dropout_heads(torch):
+    """The dropout kernel under the head-strided counter map at a tp-2
+    rank's heads of GPT-2's probabilities (bf16): for ranks 0 and 1, and
+    rank 1 of a data-parallel rank whose rows start at row 8, bit for bit
+    its plain version under the same map and the heads' slice of the
+    kernel's contiguous draw over the whole ``[B, 12, T, T]`` (from those
+    rows' counter); a flipped key word must be caught. Then the same
+    number of elements through the contiguous launch (``inner ==
+    stride``, which takes today's kernel instance): its bits the draw
+    without a map, both launches timed."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.dropout import counter_map
+    from deepspeed_tpu_torch.ops.kernels import threefry_dropout as tfd
+    key, rate = DROPOUT_KEY, DROPOUT_RATE
+    whole_shape, h = DROPOUT_HEADS["whole"], DROPOUT_HEADS["heads"]
+    total = whole_shape[1]
+    gen = torch.Generator("cuda").manual_seed(SEED + 62)
+    xw = torch.randn(whole_shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    row = xw[0].numel()
+    res = None
+    for rank, first in ((0, 0), (1, 0), (1, DROPOUT_HEADS["dp_first"])):
+        x = xw[:, rank * h:(rank + 1) * h].contiguous()
+        where = counter_map(tuple(x.shape), first, (rank * h, total))
+        got = tfd.threefry_dropout(x, key, rate, *where)
+        want, plain_ms = timed_call(
+            torch, lambda: tfd.threefry_dropout_plain(x, key, rate, *where))
+        equal = torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        sliced = torch.equal(got, tfd.threefry_dropout(
+            xw, key, rate, first * row)[:, rank * h:(rank + 1) * h])
+        bad = tfd.threefry_dropout(x, (key[0] ^ 1, key[1]), rate, *where)
+        caught = not torch.equal(bad, got)
+        check(equal and sliced and caught,
+              f"dropout heads rank {rank} rows from {first}: plain bits "
+              f"{equal} (max abs {err}), the whole draw's slice {sliced}, "
+              f"a flipped key caught {caught}")
+        kernel_ms = median_ms(
+            torch, lambda: tfd.threefry_dropout(x, key, rate, *where),
+            reps=7, inner=5, warmup=2)
+        # the same elements through the contiguous launch: inner == stride
+        contiguous = tfd.threefry_dropout(x, key, rate, first * row,
+                                          where[1], where[1])
+        today = torch.equal(contiguous, tfd.threefry_dropout(
+            x, key, rate, first * row))
+        check(today, "dropout: the inner == stride launch is not the "
+              "launch without a map")
+        contiguous_ms = median_ms(
+            torch, lambda: tfd.threefry_dropout(x, key, rate, first * row,
+                                                where[1], where[1]),
+            reps=7, inner=5, warmup=2)
+        library_ms = median_ms(
+            torch, lambda: F.dropout(x, rate, training=True), reps=7,
+            inner=5, warmup=2)
+        bound_ms, bound_by, ops, nbytes = dropout_bound(x.numel(), 2)
+        res = res or {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms, "err": err}
+        phase("kernel-check dropout heads", shape=list(x.shape),
+              whole=list(whole_shape), heads=json.dumps(
+                  [rank * h, (rank + 1) * h, total]), first_row=first,
+              map=json.dumps(list(where)), dtype="bfloat16", rate=rate,
+              bitwise=equal, whole_draw_slice_bitwise=sliced,
+              fault_caught=caught, max_abs_err=err,
+              kernel_ms=round(kernel_ms, 4),
+              contiguous_launch_bitwise=today,
+              contiguous_ms=round(contiguous_ms, 4),
+              plain_ms=round(plain_ms, 2), bound_ms=round(bound_ms, 4),
+              bound_by=bound_by, library_ms=round(library_ms, 4))
+        del x, got, want, bad, contiguous
+    del xw
+    torch.cuda.empty_cache()
+    return res
+
+
 def zero_config(config, stage):
     return dict(config, zero_optimization={"stage": stage})
 
@@ -4457,7 +4579,10 @@ TP_SIZE = 2
 TP_STORE, TP_OUT = "build/tp_store", "build/tp_out"
 TP_TIMEOUT = 600                 # seconds the parent waits for the ranks
 TP_FWD_SHAPE, TP_TIMED = (4, 2048), 3
-TP_SERVE_REQUESTS, TP_SERVE_NEW = 16, 64
+TP_SERVE_REQUESTS, TP_SERVE_NEW = 8, 32
+# the tp-2 LLaMA run falls below 0.8 x its first loss by its second step
+# (PERF.md): 4 steps of llama train's 10 check it
+TP_CONVERGE_STEPS = 4
 
 
 def tp_axis_stats():
@@ -4478,7 +4603,7 @@ def tp_reset(torch):
     reset_counts()
 
 
-def tp_vs_tp1(torch, rank, name, build, mb, tol):
+def tp_vs_tp1(torch, rank, name, build, mb, tol, kwargs=None):
     """The loss and the gradients of one micro batch ``mb`` at tp 2,
     gathered whole, against tp 1's on the same weights (``build(tp)``
     makes the model: ``tp=1`` whole, ``tp=None`` the rank's part): each
@@ -4488,11 +4613,12 @@ def tp_vs_tp1(torch, rank, name, build, mb, tol):
 
     def grads(tp):
         m = build(tp)
-        loss = m.apply(mb)
+        loss = m.apply(mb, **(kwargs or {}))
         loss.backward()
         out = {}
         for (n, p), split in zip(m.named_parameters(), m.tp_splits()):
-            g = p.grad if split is None else split.gather(p.grad, m.tp.group)
+            g = torch.zeros_like(p) if p.grad is None else p.grad  # dropped
+            g = g if split is None else split.gather(g, m.tp.group)
             out[n] = g.float().cpu() if rank == 0 else None
         del m
         torch.cuda.empty_cache()
@@ -4835,12 +4961,12 @@ def tp_train_llama(torch, rank):
                     tensor_parallel_size=TP_SIZE))[0]
     batch = {"input_ids": rng.integers(0, 256, (1, micro, t))}
     losses = [engine.train_batch(batch=batch).item()
-              for _ in range(CONVERGE_STEPS)]
+              for _ in range(TP_CONVERGE_STEPS)]
     check(losses[-1] < CONVERGE_FRACTION * losses[0],
           f"tp train llama: loss on a repeated batch went {losses[0]} -> "
           f"{losses[-1]}, want below {CONVERGE_FRACTION} x the first")
     if rank == 0:
-        phase("tp train llama converges", steps=CONVERGE_STEPS,
+        phase("tp train llama converges", steps=TP_CONVERGE_STEPS,
               lr=LLAMA_CONVERGE_LR,
               losses=json.dumps([round(x, 4) for x in losses]),
               threshold=f"last < {CONVERGE_FRACTION} x first")
@@ -4849,8 +4975,533 @@ def tp_train_llama(torch, rank):
     return launches
 
 
+# Slice 11 (row A8b2): the tensor-parallel cases A8b left, on the same 2
+# ranks. tp bert forward: BERT-large + Fixed at full depth on [4, 4096]
+# (K6 24 a call a rank on its 8 heads' rows of the layout), a warm-up and
+# TP_BERT_TIMED calls, against tp 1; tp bert train loop: 4 layers, the
+# user loop with dropout 0.1 (its masks, the loss and the gathered
+# gradients of one micro batch against tp 1 on the same keys), then
+# TP_LOOP_STEPS steps; tp gpt2 train loop: the gpt2 train loop's model
+# and config (dropout on the rank's heads of the probabilities: the
+# dropout kernel under its head map), the same checks, TP_LOOP_STEPS
+# steps; tp serve handoff: lanes of tp serve's engine extracted whole and
+# put back, then GPT-2-125M prefill (4 slots) -> decode (8 x 1024) at tp
+# 2 on TP_GPT2_SERVE; tp serve spec model: a 2-layer mode "model" draft
+# at k 4; tp serve deadlines: rank 1's clock 10 s ahead of rank 0's, one
+# request's timeout_s expiring mid-run; tp ckpt megatron: ckpt
+# megatron's tp 2 x pp 2 directory at tp 2 against the merged one at tp
+# 1; tp llama kv replicated: LLaMA-2-70B's width, 1 layer, one kv head
+# (a synthetic MQA variant: no LLaMA configuration has fewer kv heads
+# than two ranks, and one card runs two ranks) against tp 1.
+TP_BERT_TIMED, TP_LOOP_STEPS = 2, 2
+TP_GPT2_SERVE = dict(SERVE_GPT2, requests=8, new=(24, 16, 32))
+TP_DEADLINE_TICK, TP_CLOCK_SKEW = 6, 10.0
+TP_KV_SHAPE = (2, 1024)
+
+
+def tp_bert_forward(torch, rank):
+    """BERT-large with the Fixed surgery scoring ``[4, 4096]`` at full
+    depth at tp 2, against the tp-1 engine's logits."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.bert import BERT_LARGE
+    cfg = BERT_LARGE
+    ids = torch.randint(1000, cfg.vocab_size, (BERT_MICRO, BERT_T),
+                        generator=torch.Generator().manual_seed(SEED + 31))
+    ref = None
+    if rank == 0:
+        one = deepspeed_tpu_torch.init_inference(
+            bert_model(torch, torch.bfloat16, SEED + 30, tp=1)[0],
+            {"dtype": "bf16"})
+        ref = one(ids)
+        del one
+        torch.cuda.empty_cache()
+    comm.barrier()
+    engine = deepspeed_tpu_torch.init_inference(
+        bert_model(torch, torch.bfloat16, SEED + 30)[0],
+        {"dtype": "bf16", "tensor_parallel": {"tp_size": TP_SIZE}})
+    tp_reset(torch)
+    fwd_s, per_call = [], []
+    for _ in range(1 + TP_BERT_TIMED):          # the first call warms
+        before = counts()["K6"]
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        logits = engine(ids)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - s0)
+        per_call.append(counts()["K6"] - before)
+    launches = counts()
+    check(per_call == [cfg.n_layer] * len(fwd_s) and launches["K3"] == 0,
+          f"tp bert forward rank {rank}: K6 launched {per_call} times a "
+          f"call, want {cfg.n_layer}; K3 {launches['K3']}")
+    med = statistics.median(fwd_s[1:])
+    phase("tp bert forward", rank=rank, model="BERT_LARGE + Fixed sparse",
+          tp=TP_SIZE, heads_per_rank=cfg.n_head // TP_SIZE,
+          shape=list(logits.shape), calls=len(fwd_s), timed=TP_BERT_TIMED,
+          seconds=json.dumps([round(x, 4) for x in fwd_s]),
+          median_s=round(med, 4),
+          tokens_per_s=round(ids.numel() / med, 1),
+          k6_launches_per_call=json.dumps(per_call),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+          model_axis=tp_axis_stats())
+    if rank == 0:
+        compare_logits(torch, "tp bert forward vs tp 1", logits, ref,
+                       BERT_LOGITS_TOL)
+    del engine, logits, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+class DropoutMasks:
+    """Inside the block, a digest of every forward dropout's mask (the
+    kernel on ones under the call's key and map): the tensor's shape, its
+    counter map, the count and index sum of the elements it zeroes, and,
+    for probabilities ``[B, H, T, T]`` drawn whole (tp 1), the same digest
+    of each tp rank's heads of that mask (``None`` otherwise). Comparable
+    between runs: the order of the calls and their bits."""
+
+    def __enter__(self):
+        import torch
+        from deepspeed_tpu_torch.ops import dropout as drop
+        self.fn, self.seen = drop._TokenDropout, []
+        real = self.fn.apply
+
+        def digest(zeroed):
+            zeroed = zeroed.flatten()
+            idx = torch.arange(zeroed.numel(), device=zeroed.device)
+            return int(zeroed.sum()), int((idx * zeroed).sum())
+
+        def recorded(x, k0, k1, rate, where):
+            from deepspeed_tpu_torch.ops.kernels import threefry_dropout
+            with torch.no_grad():       # the mask alone: dropout of ones
+                zeroed = (threefry_dropout.threefry_dropout(
+                    torch.ones_like(x), (k0, k1), rate, *where) == 0)
+                heads = None
+                if x.dim() == 4 and where[1] == where[2]:
+                    heads = tuple(digest(part) for part in
+                                  zeroed.chunk(TP_SIZE, dim=1))
+                self.seen.append((tuple(x.shape), tuple(where)) +
+                                 digest(zeroed) + (heads,))
+            return real(x, k0, k1, rate, where)
+        self.fn.apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        del self.fn.apply
+
+
+def tp_loop_vs_tp1(torch, rank, name, build, mb, tol, kwargs):
+    """``tp_vs_tp1`` with a training key and modifiers (``kwargs`` of
+    ``apply``), each forward dropout's mask digested (``DropoutMasks``):
+    where the tensor is whole on every rank (the embeddings and the
+    sublayer outputs, the contiguous map) the digests must be tp 1's, in
+    order; the rest take the head map (the probabilities), and each must
+    be the digest of the rank's heads of tp 1's whole mask of the same
+    call, in order. Returns the counts of each."""
+    from deepspeed_tpu_torch import comm
+    with DropoutMasks() as seen:
+        tp_vs_tp1(torch, rank, name, build, mb, tol, kwargs)
+    ref = None
+    if rank == 0:            # tp 1's run came first, then tp 2's
+        n = len(seen.seen) // 2
+        ref = seen.seen[:n]
+    ref = comm.broadcast_object(ref, src=0)
+    mine = seen.seen[len(seen.seen) - len([d for d in ref]):] \
+        if rank == 0 else seen.seen
+    whole = [d[:4] for d in mine if d[1][1] == d[1][2]]
+    heads = [d[2:4] for d in mine if d[1][1] != d[1][2]]
+    want = [d[:4] for d in ref if len(d[0]) == 3]
+    want_heads = [d[4][rank] for d in ref if d[4] is not None]
+    check(whole == want,
+          f"{name} rank {rank}: the whole tensors' dropout masks differ "
+          f"from tp 1's ({len(whole)} calls, tp 1 {len(want)}; "
+          f"{sum(a != b for a, b in zip(whole, want))} differ)")
+    check(heads == want_heads,
+          f"{name} rank {rank}: the head-mapped dropout masks differ from "
+          f"the rank's heads of tp 1's masks ({len(heads)} calls, tp 1 "
+          f"{len(want_heads)}; {sum(a != b for a, b in zip(heads, want_heads))}"
+          f" differ)")
+    return len(whole), len(heads)
+
+
+def tp_bert_train_loop(torch, rank):
+    """BERT-large + Fixed at 4 layers with dropout 0.1 at tp 2: one micro
+    batch's masks, loss and gathered gradients against tp 1's on the same
+    key, then the user loop (micro 4, T 4096, gas 2) for TP_LOOP_STEPS
+    steps (K6 and K7 4 a micro step a rank, the dropout kernel on every
+    dropout)."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import BERT_LARGE
+    layers, micro, gas, t = BERT_SMALL_LAYERS, BERT_MICRO, BERT_GAS, BERT_T
+    rng = np.random.default_rng(SEED + 32)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in bert_batch(
+        np, rng, gas, micro, t, 1000, BERT_LARGE.vocab_size).items()}
+        for _ in range(TP_LOOP_STEPS)]
+    mb = {k: v[0] for k, v in batches[0].items()}
+    key = (SEED, 0x5BD1E995)
+
+    def build(tp):
+        return with_dropout(bert_model(torch, torch.bfloat16, SEED + 33,
+                                       layers, tp=tp)[0], DROPOUT_RATE)
+
+    whole, heads = tp_loop_vs_tp1(torch, rank, "tp bert train loop", build,
+                                  mb, BERT_GRAD_TOL,
+                                  {"rng": key, "train": True})
+    model = with_dropout(bert_model(torch, torch.float32, SEED + 33,
+                                    layers, tp=1)[0], DROPOUT_RATE)
+    engine = deepspeed_tpu_torch.initialize(model=model, config=dict(
+        bert_train_config(1e-4, gas, micro), tensor_parallel_size=TP_SIZE))[0]
+    tp_reset(torch)
+    step_s, per_step, losses = run_steps(
+        torch, lambda b: user_loop_step(engine, b)["loss"], batches)
+    want = layers * gas
+    check(all(n["K6"] == want and n["K7"] == want and n["dropout"] > 0
+              for n in per_step),
+          f"tp bert train loop rank {rank}: launches a step {per_step}")
+    med = statistics.median(step_s)
+    phase("tp bert train loop", rank=rank,
+          model=f"BERT_LARGE + Fixed, {layers} layers, dropout "
+          f"{DROPOUT_RATE}", tp=TP_SIZE, micro=micro, gas=gas, seq=t,
+          steps=len(step_s), seconds=json.dumps([round(x, 4)
+                                                 for x in step_s]),
+          median_s=round(med, 4), tokens_per_s=round(gas * micro * t / med, 1),
+          losses=json.dumps([round(x, 4) for x in losses]),
+          launches=json.dumps(counts()), masks_whole_bitwise=whole,
+          masks_heads=heads,
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+          model_axis=tp_axis_stats())
+    launches = counts()
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_gpt2_train_loop(torch, rank):
+    """GPT-2-125M with dropout 0.1, progressive layer drop and random-LTD
+    (``gpt2 train loop``'s config) at tp 2: one micro batch's masks, loss
+    and gathered gradients against tp 1's on the same key and modifiers
+    (the probabilities dropped on the rank's heads, under the kernel's
+    head map), then the user loop for TP_LOOP_STEPS steps."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, GPT2_125M
+    cfg = dataclasses.replace(GPT2_125M, dropout=DROPOUT_RATE)
+    t, gas, micro = ZERO_T, TRAIN_GAS, TRAIN_MICRO
+    rng = np.random.default_rng(SEED + 34)
+    batches = [{"input_ids": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (gas, micro, t), dtype=np.int64)).cuda()}
+        for _ in range(TP_LOOP_STEPS)]
+    mb = {"input_ids": batches[0]["input_ids"][0]}
+    kwargs = {"rng": (SEED, 0x27D4EB2F), "train": True,
+              "pld_theta": np.float32(0.75), "ltd_keep": 512}
+    whole, heads = tp_loop_vs_tp1(torch, rank, "tp gpt2 train loop",
+                                  lambda tp: GPT2Model(
+                                      cfg, generator=torch.Generator()
+                                      .manual_seed(SEED), device="cuda",
+                                      dtype=torch.bfloat16, tp=tp),
+                                  mb, TRAIN_GRAD_TOL, kwargs)
+    check(heads > 0, f"tp gpt2 train loop rank {rank}: no dropout took "
+          f"the head map")
+    config = dict(train_config(1e-4, gas), progressive_layer_drop=GPT2_PLD,
+                  data_efficiency=GPT2_LTD, tensor_parallel_size=TP_SIZE)
+    model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
+    engine = deepspeed_tpu_torch.initialize(model=model, config=config)[0]
+    tp_reset(torch)
+    step_s, per_step, losses = run_steps(
+        torch, lambda b: user_loop_step(engine, b)["loss"], batches)
+    check(all(n["dropout heads"] > 0 for n in per_step) and
+          all(np.isfinite(losses)),
+          f"tp gpt2 train loop rank {rank}: launches a step {per_step}, "
+          f"losses {losses}")
+    med = statistics.median(step_s)
+    phase("tp gpt2 train loop", rank=rank,
+          model=f"GPT2_125M, dropout {DROPOUT_RATE}, PLD, random-LTD",
+          tp=TP_SIZE, micro=micro, gas=gas, seq=t, steps=len(step_s),
+          seconds=json.dumps([round(x, 4) for x in step_s]),
+          median_s=round(med, 4), tokens_per_s=round(gas * micro * t / med, 1),
+          losses=json.dumps([round(x, 4) for x in losses]),
+          modifiers=json.dumps([float(engine._last_modifiers[0]),
+                                engine._last_modifiers[1]]),
+          launches=json.dumps(counts()), masks_whole_bitwise=whole,
+          masks_heads=heads,
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+          model_axis=tp_axis_stats())
+    launches = counts()
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+_TP_GPT2 = {}
+
+
+def tp_gpt2_served(torch):
+    """GPT-2-125M (``serve gpt2``'s seed) served bf16 at tp 2, its traffic
+    (TP_GPT2_SERVE's requests) and the unified tp-2 streams: made once for
+    the GPT-2 serving phases (handoff, spec model, deadlines; the last
+    frees them)."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, GPT2_125M
+    if not _TP_GPT2:
+        model = GPT2Model(GPT2_125M, generator=torch.Generator().manual_seed(
+            SEED + 72))
+        engine = deepspeed_tpu_torch.init_inference(
+            model, {"dtype": "bf16", "tensor_parallel": {"tp_size": TP_SIZE}})
+        traffic = serve_traffic(np, TP_GPT2_SERVE, GPT2_125M.vocab_size,
+                                SEED + 73)
+        base, *_rest, srv = serve_run(torch, engine, TP_GPT2_SERVE["cfg"],
+                                      traffic)
+        srv.shutdown()
+        _TP_GPT2.update(engine=engine, traffic=traffic, base=base)
+    return _TP_GPT2["engine"], _TP_GPT2["traffic"], _TP_GPT2["base"]
+
+
+def tp_serve_handoff(torch, rank):
+    """At tp 2: lanes of a LLaMA-7B engine extracted whole (its ranks'
+    kv heads gathered: the frame tp 1 writes) and inserted back, each rank
+    keeping its heads; then GPT-2-125M's prefill role feeding its decode
+    role (``disagg_phase``) against the unified tp-2 streams."""
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B
+    from deepspeed_tpu_torch.serving import KVHandoff
+    import numpy as np
+    import deepspeed_tpu_torch
+    cfg = LLAMA_7B
+    engine = deepspeed_tpu_torch.init_inference(
+        llama_model(torch, cfg, SEED + 70, torch.bfloat16),
+        {"dtype": "bf16", "tensor_parallel": {"tp_size": TP_SIZE}})
+    max_len = SERVE_LLAMA["cfg"]["max_model_len"]
+    prompt = np.random.default_rng(SEED + 76).integers(0, cfg.vocab_size,
+                                                       max_len // 4)
+    tp_reset(torch)
+    pool = engine.init_slot_pool(2, max_len)
+    pool, first = engine.slot_prefill(pool, 0, prompt)
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    lane = engine.slot_extract_lane(pool, 0)
+    out_ms = (time.perf_counter() - s0) * 1e3
+    frame = KVHandoff(prompt=prompt.astype(np.int32), first_token=int(first),
+                      kv_len=len(prompt), lane=lane).to_bytes()
+    whole = 2 * cfg.n_layer * cfg.kv_head_count * max_len * cfg.head_dim * 2
+    back = KVHandoff.from_bytes(frame)
+    s0 = time.perf_counter()
+    pool = engine.slot_insert_lane(pool, 1, back.lane)
+    torch.cuda.synchronize()
+    in_ms = (time.perf_counter() - s0) * 1e3
+    n = len(prompt)
+    equal = all(torch.equal(c[:, 1, :, :n], c[:, 0, :, :n])
+                for c in pool.values())
+    heads = {int(c.shape[2]) for c in pool.values()}
+    header = 10 + int.from_bytes(frame[6:10], "little")
+    check(equal and len(frame) - header == whole and
+          tuple(lane["k"].shape[2:3]) == (cfg.kv_head_count,) and
+          heads == {cfg.kv_head_count // TP_SIZE},
+          f"tp serve handoff rank {rank}: lane equal {equal}, frame "
+          f"{len(frame)} bytes for {whole} of lanes, heads {heads}")
+    phase("tp serve handoff llama", rank=rank, model="LLAMA_7B", tp=TP_SIZE,
+          kv_len=n, frame_bytes=len(frame), lane_bytes_tp1=whole,
+          frame_mib=round(len(frame) / 2 ** 20, 1), lanes_equal=equal,
+          pool_heads=json.dumps(sorted(heads)), out_ms=round(out_ms, 2),
+          in_ms=round(in_ms, 2), model_axis=tp_axis_stats())
+    del engine, pool, lane, back
+    torch.cuda.empty_cache()
+
+    engine, traffic, base = tp_gpt2_served(torch)
+    disagg_phase(torch, "tp serve handoff gpt2", engine, traffic, base,
+                 ARGMAX_MARGIN, cfg=TP_GPT2_SERVE["cfg"])
+    return counts()
+
+
+def tp_serve_spec_model(torch, rank):
+    """GPT-2-125M at tp 2 with a ``mode: "model"`` draft of 2 layers
+    (built at tp 2, its 6 heads a rank) at k 4: each stream equals the
+    speculation-off stream or parts at a near-tie; acceptance reported."""
+    engine, traffic, off = tp_gpt2_served(torch)
+    spec = dict(TP_GPT2_SERVE["cfg"], speculative={"enabled": True, "k": 4, "draft": {
+        "mode": "model", "n_layer": 2, "seed": SEED + 77}})
+    tp_reset(torch)
+    on, reqs, _, ticks, wall, srv = serve_run(torch, engine, spec, traffic)
+    summary = srv.metrics.summary().get("speculative", {})
+    draft = engine.init_draft(srv.config.speculative.draft)
+    dheads = draft.model._heads
+    srv.shutdown()
+    del srv
+    check({r.state.value for r in reqs} == {"finished"} and
+          dheads == engine.module.config.n_head // TP_SIZE,
+          f"tp serve spec model rank {rank}: states or draft heads "
+          f"{dheads}")
+    parted = stream_parts(torch, "tp serve spec model", engine, traffic,
+                          on, off, ARGMAX_MARGIN)
+    tokens = sum(len(x) for x in on)
+    phase("tp serve spec model", rank=rank, model="GPT2_125M", tp=TP_SIZE,
+          draft="model, 2 layers", draft_heads_per_rank=dheads, k=4,
+          requests=len(traffic), ticks=ticks, seconds=round(wall, 3),
+          output_tokens_per_s=round(tokens / wall, 1),
+          acceptance=json.dumps(summary), streams_equal_off=len(traffic) -
+          len(parted), parted=json.dumps(parted), margin=ARGMAX_MARGIN,
+          model_axis=tp_axis_stats())
+    return counts()
+
+
+def tp_serve_deadlines(torch, rank):
+    """GPT-2-125M at tp 2 under clocks that disagree (rank 1's
+    TP_CLOCK_SKEW s ahead, each a tick counter in seconds), one request's
+    ``timeout_s`` set to expire at tick TP_DEADLINE_TICK: both ranks
+    expire it at the same tick and serve identical streams."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.serving import SamplingParams, ServingEngine
+    engine, traffic, _ = tp_gpt2_served(torch)
+    ticks = [0]
+    srv = ServingEngine(engine, TP_GPT2_SERVE["cfg"],
+                        clock=lambda: ticks[0] + TP_CLOCK_SKEW * rank)
+    late = len(traffic) - 1              # the longest: still running
+    rids = [srv.submit(p, SamplingParams(**dict(
+        kw, timeout_s=float(TP_DEADLINE_TICK) if i == late else None)))
+        for i, (p, kw) in enumerate(traffic)]
+    expired = {}
+    s0 = time.perf_counter()
+    while srv.step():
+        ticks[0] += 1
+        for i, r in enumerate(rids):
+            if srv.result(r).state.value == "timeout":
+                expired.setdefault(i, ticks[0])
+    wall = time.perf_counter() - s0
+    streams = [list(srv.result(r).tokens) for r in rids]
+    states = [srv.result(r).state.value for r in rids]
+    timeouts = srv.metrics.timeouts
+    srv.shutdown()
+    mine = (expired, streams, states)
+    rank0 = comm.broadcast_object(mine, src=0)
+    check(mine == rank0 and list(expired) == [late] and timeouts == 1,
+          f"tp serve deadlines rank {rank}: expired {expired} (rank 0 "
+          f"{rank0[0]}), streams equal {streams == rank0[1]}")
+    phase("tp serve deadlines", rank=rank, model="GPT2_125M", tp=TP_SIZE,
+          clock_skew_s=TP_CLOCK_SKEW * rank, requests=len(traffic),
+          ticks=ticks[0], seconds=round(wall, 3),
+          expired=json.dumps(expired), streams_equal_rank0=True,
+          states=json.dumps(states), model_axis=tp_axis_stats())
+    launches = counts()
+    del engine
+    _TP_GPT2.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_ckpt_megatron(torch, rank):
+    """``ckpt megatron``'s tp 2 x pp 2 directory served at tp 2 (merged on
+    each rank, which keeps its part): its logits against the merged
+    directory served at tp 1; each rank's host peak while loading."""
+    import shutil
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_125M
+    cfg = GPT2_125M
+    root = f"{CKPT_DIR}/megatron_tp"
+    ids = torch.randint(0, cfg.vocab_size, (8, cfg.n_positions),
+                        generator=torch.Generator().manual_seed(SEED + 96))
+    ref = None
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+        full = megatron_tensors(np, cfg, CKPT_MEGATRON_VOCAB, SEED + 95)
+        write_megatron(torch, f"{root}/grid", full, CKPT_MEGATRON_TP,
+                       CKPT_MEGATRON_PP, 0, cfg.n_head, cfg.n_layer)
+        del full
+        one = deepspeed_tpu_torch.init_inference(f"{root}/grid",
+                                                 {"dtype": "bfloat16"})
+        ref = one(ids)
+        del one
+        torch.cuda.empty_cache()
+    comm.barrier()
+    tp_reset(torch)
+    with RssPeak() as peak:
+        engine = deepspeed_tpu_torch.init_inference(
+            f"{root}/grid", {"dtype": "bfloat16",
+                             "tensor_parallel": {"tp_size": TP_SIZE}})
+    logits = engine(ids)
+    launches = counts()
+    check(engine.tp.size == TP_SIZE and launches["K1"] == cfg.n_layer,
+          f"tp ckpt megatron rank {rank}: tp {engine.tp.size}, K1 "
+          f"{launches['K1']}")
+    phase("tp ckpt megatron", rank=rank,
+          model=f"GPT2_125M (vocab {CKPT_MEGATRON_VOCAB})",
+          layout=f"tp{CKPT_MEGATRON_TP} x pp{CKPT_MEGATRON_PP} v0 at tp "
+          f"{TP_SIZE}", load_s=round(peak.seconds, 2),
+          host_peak_gib=round(peak.gib, 3), k1_launches=launches["K1"],
+          params_per_rank=engine.module.num_params())
+    if rank == 0:
+        compare_logits(torch, "tp ckpt megatron vs tp 1", logits, ref,
+                       LLAMA_LOGITS_TOL)
+    comm.barrier()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    del engine, logits, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_llama_kv_replicated(torch, rank):
+    """LLaMA-2-70B's width (8192, 64 heads), 1 layer, n_kv_head 1 (a
+    synthetic MQA variant) at tp 2: each rank holds 32 query heads and the
+    one kv head; logits against tp 1; each rank's pool one kv head."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import LLAMA2_70B
+    cfg = dataclasses.replace(LLAMA2_70B, n_layer=1, n_kv_head=1)
+    ids = torch.randint(0, cfg.vocab_size, TP_KV_SHAPE,
+                        generator=torch.Generator().manual_seed(SEED + 81))
+    ref = None
+    if rank == 0:
+        one = deepspeed_tpu_torch.init_inference(
+            llama_model(torch, cfg, SEED + 80, torch.bfloat16, tp=1),
+            {"dtype": "bf16"})
+        ref = one(ids)
+        del one
+        torch.cuda.empty_cache()
+    comm.barrier()
+    engine = deepspeed_tpu_torch.init_inference(
+        llama_model(torch, cfg, SEED + 80, torch.bfloat16),
+        {"dtype": "bf16", "tensor_parallel": {"tp_size": TP_SIZE}})
+    tp_reset(torch)
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    logits = engine(ids)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - s0
+    launches = counts()
+    pool = engine.init_slot_pool(2, 256)
+    heads = {int(c.shape[2]) for c in pool.values()}
+    check(heads == {1} and engine.module.kv_heads == 1 and
+          launches["K3"] == cfg.n_layer,
+          f"tp llama kv replicated rank {rank}: pool heads {heads}, K3 "
+          f"{launches['K3']}")
+    phase("tp llama kv replicated", rank=rank,
+          model="LLAMA2_70B width, 1 layer, n_kv_head 1 (synthetic MQA "
+          "variant)", tp=TP_SIZE, q_heads_per_rank=engine.module._heads,
+          kv_heads_per_rank=1, shape=list(logits.shape),
+          seconds=round(fwd_s, 4), pool_heads=1,
+          params_per_rank=engine.module.num_params(),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+          model_axis=tp_axis_stats())
+    if rank == 0:
+        compare_logits(torch, "tp llama kv replicated vs tp 1", logits, ref,
+                       LLAMA_LOGITS_TOL)
+    del engine, logits, ref, pool
+    torch.cuda.empty_cache()
+    return launches
+
+
 TP_PHASES = (("tp forward", tp_forward), ("tp serve", tp_serve),
-             ("tp train", tp_train), ("tp train llama", tp_train_llama))
+             ("tp train", tp_train), ("tp train llama", tp_train_llama),
+             ("tp bert forward", tp_bert_forward),
+             ("tp bert train loop", tp_bert_train_loop),
+             ("tp gpt2 train loop", tp_gpt2_train_loop),
+             ("tp serve handoff", tp_serve_handoff),
+             ("tp serve spec model", tp_serve_spec_model),
+             ("tp serve deadlines", tp_serve_deadlines),
+             ("tp ckpt megatron", tp_ckpt_megatron),
+             ("tp llama kv replicated", tp_llama_kv_replicated))
 
 
 def tp_rank(rank, store, out_dir, names):
@@ -5012,6 +5663,16 @@ def main():
     sparse_planted_faults(torch, "fixed", K6_SHAPE, bf16)
     main_drop = check_dropout(torch)
     check_dropout_offset(torch)
+    # a tp-2 rank's heads: the dropout map; K6/K7 on rank 1's rows 8-15
+    # of the Fixed layout (tp bert forward, tp bert train loop)
+    main_drop_heads = check_dropout_heads(torch)
+    heads = K6_SHAPE[1] // TP_SIZE
+    for fn, name in ((check_k6, "K6"), (check_k7, "K7")):
+        res = fn(torch, "fixed", (K6_SHAPE[0], heads) + K6_SHAPE[2:], bf16,
+                 (heads, K6_SHAPE[1]), f"kernel-check {name} heads")
+        check(res["computed_pairs"] == res["live_pairs"],
+              f"{name} at heads {res['heads']}: computed pairs "
+              f"{res['computed_pairs']}, live {res['live_pairs']}")
 
     # ---- main path: init_inference -> engine(ids) and generate
     model = GPT2Model(cfg, generator=torch.Generator().manual_seed(SEED))
@@ -5130,6 +5791,7 @@ def main():
         return max(res[k] for k in ("err_dq", "err_dk", "err_dv"))
 
     pallas = "deepspeed_tpu/ops/pallas"
+    tp_drop = {k: tp.get(k, 0) for k in ("dropout", "dropout heads")}
     kernels = [
         entry("flash_attention_packed_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention_packed.py:65",
@@ -5166,18 +5828,31 @@ def main():
         entry("block_sparse_attention_fwd", "block_sparse_attention_fwd.cu",
               f"{pallas}/block_sparse_attention.py:114",
               bert_fwd_launches + bert_train_launches["K6"] +
-              bert_loop_launches["K6"], main_k6, main_k6["err_out"]),
+              bert_loop_launches["K6"] + tp.get("K6", 0), main_k6,
+              main_k6["err_out"]),
         entry("block_sparse_attention_bwd", "block_sparse_attention_bwd.cu",
               f"{pallas}/block_sparse_attention.py:205,239",
-              bert_train_launches["K7"] + bert_loop_launches["K7"], main_k7,
-              bwd_err(main_k7)),
-        # no Pallas kernel: the counterpart of the JAX package's dropout
+              bert_train_launches["K7"] + bert_loop_launches["K7"] +
+              tp.get("K7", 0), main_k7, bwd_err(main_k7)),
+        # no Pallas kernel: the counterpart of the JAX package's dropout;
+        # its launches under the head map are the next entry's
         entry("threefry_dropout", "threefry_dropout.cu",
               "deepspeed_tpu/models/gpt2.py:97 (_token_dropout); "
               "deepspeed_tpu/ops/flash_attention.py:45 (probability "
               "dropout); no Pallas kernel",
-              bert_loop_launches["dropout"] + gpt2_loop_launches["dropout"],
-              main_drop, main_drop["err"])]
+              sum(n["dropout"] - n["dropout heads"]
+                  for n in (bert_loop_launches, gpt2_loop_launches, tp_drop)),
+              main_drop, main_drop["err"]),
+        # threefry_dropout_mapped_kernel: a tp rank's heads
+        entry("threefry_dropout_mapped", "threefry_dropout.cu",
+              "deepspeed_tpu/ops/flash_attention.py:45 (probability "
+              "dropout, on a tensor-parallel rank's heads); no Pallas "
+              "kernel",
+              sum(n["dropout heads"]
+                  for n in (bert_loop_launches, gpt2_loop_launches, tp_drop)),
+              main_drop_heads, main_drop_heads["err"])]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    check(not idle, f"kernels the main paths never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,9 @@ def init_inference(model, config=None, device=None, **kwargs):
     ``model`` is a deepspeed_tpu_torch model (``GPT2Model``,
     ``LlamaModel``, ``BertModel``: ``engine(ids)`` scores each, and
     ``generate`` serves the decoders) or the path of a Megatron-LM GPT
-    checkpoint directory (``checkpoint/megatron.py``); ``config`` a dict (merged with ``kwargs``) or a
+    checkpoint directory (``checkpoint/megatron.py``: its tp x pp shards
+    merged whole on every rank, then, at ``tensor_parallel.tp_size`` > 1,
+    each rank keeping its part, as a JAX tree loads); ``config`` a dict (merged with ``kwargs``) or a
     ``DeepSpeedInferenceConfig``. The engine runs on ``cuda`` unless
     ``device`` says otherwise, and raises when no GPU is present."""
     from .inference.config import DeepSpeedInferenceConfig
@@ -40,11 +42,6 @@ def init_inference(model, config=None, device=None, **kwargs):
     if isinstance(config, dict):
         config = DeepSpeedInferenceConfig.from_dict({**config, **kwargs})
     if isinstance(model, str):
-        if config.tensor_parallel.tp_size > 1:
-            raise NotImplementedError(
-                f"serving a Megatron-LM directory shard per rank at tp="
-                f"{config.tensor_parallel.tp_size} is not ported yet: "
-                f"ROADMAP.md row A8b2 (at tp 1 its shards are merged)")
         from .checkpoint.megatron import load_megatron_checkpoint
         spec, params = load_megatron_checkpoint(model)
         return InferenceEngine(spec, config, params=params, device=device)

@@ -285,7 +285,8 @@ def load_megatron_checkpoint(ckpt_dir: str, tag: Optional[str] = None,
     cfg = GPT2Config(vocab_size=v, n_positions=merged["wpe"].shape[0],
                      n_embd=d, n_layer=n_layer, n_head=n_head,
                      mlp_ratio=inner // d, pad_vocab_to_multiple=1)
-    spec = GPT2Model(cfg)
+    # whole: an engine at tp > 1 keeps each rank's part, as of a JAX tree
+    spec = GPT2Model(cfg, tp=1)
 
     def layer(i, name):
         return merged[f"layers.{i}.{name}"]

@@ -12,7 +12,10 @@
 // c = offset + i (a 64-bit element offset: the tensor is then elements
 // [offset, offset + n) of a larger draw, as a data-parallel rank's rows of
 // the global batch are; jax_threefry_partitionable gives element c of a
-// draw the bits of counter c) and
+// draw the bits of counter c), or, under the two-level map (inner > 0),
+// c = offset + (i / inner) * stride + i % inner: segments of `inner`
+// elements `stride` apart, as a tensor-parallel rank's heads of each row
+// of the attention probabilities lie in the whole [B, H, T, T] draw. Then
 //   bits = o0 ^ o1, (o0, o1) = Threefry-2x32(key, counter (c >> 32, c))
 //   u    = bitcast<float>((bits >> 9) | 0x3F800000) - 1       (jax uniform)
 //   keep = u < threshold                  (threshold = float32(1 - rate))
@@ -36,7 +39,14 @@
 // counter, and walks the tensor in a grid-stride loop; a ragged tail (n
 // not a multiple of the vector) is done element by element. The key words
 // are launch arguments: no device memory is read for them, so a dropout
-// needs no host-device sync.
+// needs no host-device sync. The two-level map is a kernel of its own (the
+// contiguous map keeps its instance, and its bits and time): a 64-bit
+// division an element could cost as much as the hash, so each thread
+// divides once, for its first index, and then carries (segment,
+// remainder) across its grid stride with adds and one compare. Vectors
+// stay 16 bytes where `inner` is a multiple of the vector width, so a
+// vector never straddles two segments; elsewhere every element goes one
+// by one under the same carried map.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -114,19 +124,47 @@ __device__ __forceinline__ __half from_float<__half>(float v) {
 
 struct DropArgs {
   unsigned long long offset;  // the first element's counter
+  unsigned long long inner;   // two-level map: segment length (0: contiguous)
+  unsigned long long stride;  // and the counters between segment starts
   uint32_t k0, k1;
   float threshold;  // float32(1 - rate)
   float divisor;    // 1 - rate rounded to the element type
 };
 
+// x dropped at counter c.
 template <typename T>
-__device__ __forceinline__ T drop_one(T x, unsigned long long i, const DropArgs& a) {
-  const unsigned long long c = a.offset + i;
+__device__ __forceinline__ T drop_at(T x, unsigned long long c, const DropArgs& a) {
   const uint32_t bits = threefry_bits(a.k0, a.k1, (uint32_t)(c >> 32), (uint32_t)c);
   const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
   const float keep = u < a.threshold ? 1.0f : 0.0f;
   return from_float<T>(__fdiv_rn(__fmul_rn(to_float(x), keep), a.divisor));
 }
+
+template <typename T>
+__device__ __forceinline__ T drop_one(T x, unsigned long long i, const DropArgs& a) {
+  return drop_at(x, a.offset + i, a);
+}
+
+// (segment, remainder) of an element index under the map, advanced by a
+// fixed step with the step's own quotient and remainder: no division in
+// the loop.
+struct MapWalker {
+  unsigned long long seg, rem, dq, dr, inner;
+  __device__ __forceinline__ MapWalker(unsigned long long i, unsigned long long step,
+                                       unsigned long long inner_)
+      : seg(i / inner_), rem(i % inner_), dq(step / inner_), dr(step % inner_), inner(inner_) {}
+  __device__ __forceinline__ unsigned long long counter(const DropArgs& a) const {
+    return a.offset + seg * a.stride + rem;
+  }
+  __device__ __forceinline__ void advance() {
+    seg += dq;
+    rem += dr;
+    if (rem >= inner) {
+      rem -= inner;
+      ++seg;
+    }
+  }
+};
 
 // VEC elements (16 bytes) a step of each thread; `vec` is 0 when x or out
 // is not 16-byte aligned, and then every element goes one by one.
@@ -154,19 +192,53 @@ __global__ void threefry_dropout_kernel(const T* __restrict__ x, T* __restrict__
   }
 }
 
+// The two-level map (a.inner > 0). `vec` as above; 16-byte vectors only
+// where a.inner is a multiple of the vector width.
+template <typename T>
+__global__ void threefry_dropout_mapped_kernel(const T* __restrict__ x, T* __restrict__ out,
+                                               unsigned long long n, DropArgs a, int vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+  const unsigned long long first = (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec && a.inner % VEC == 0) {
+    const unsigned long long chunks = n / VEC;
+    MapWalker w(first * VEC, stride * VEC, a.inner);
+    for (unsigned long long c = first; c < chunks; c += stride, w.advance()) {
+      const unsigned long long base = w.counter(a);
+      alignas(16) T in[VEC];
+      alignas(16) T res[VEC];
+      *reinterpret_cast<uint4*>(in) = reinterpret_cast<const uint4*>(x)[c];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) res[j] = drop_at(in[j], base + j, a);
+      reinterpret_cast<uint4*>(out)[c] = *reinterpret_cast<const uint4*>(res);
+    }
+    for (unsigned long long i = chunks * VEC + first; i < n; i += stride)
+      out[i] = drop_at(x[i], a.offset + (i / a.inner) * a.stride + i % a.inner, a);
+  } else {
+    MapWalker w(first, stride, a.inner);
+    for (unsigned long long i = first; i < n; i += stride, w.advance())
+      out[i] = drop_at(x[i], w.counter(a), a);
+  }
+}
+
 template <typename T>
 int launch(const void* x, void* out, unsigned long long n, const DropArgs& a, int vec,
            cudaStream_t s) {
   constexpr int kThreads = 256;
   constexpr int VEC = 16 / sizeof(T);
-  const unsigned long long work = vec ? (n + VEC - 1) / VEC : n;
+  const bool vectors = vec && (a.inner == 0 || a.inner % VEC == 0);
+  const unsigned long long work = vectors ? (n + VEC - 1) / VEC : n;
   // enough blocks to fill 132 SMs many times over; the grid-stride loop
   // takes the rest
   unsigned long long blocks = (work + kThreads - 1) / kThreads;
   if (blocks > 132ull * 64) blocks = 132ull * 64;
   if (blocks < 1) blocks = 1;
-  threefry_dropout_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), n, a, vec);
+  if (a.inner == 0)
+    threefry_dropout_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), n, a, vec);
+  else
+    threefry_dropout_mapped_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), n, a, vec);
   return (int)cudaGetLastError();
 }
 
@@ -174,17 +246,20 @@ int launch(const void* x, void* out, unsigned long long n, const DropArgs& a, in
 
 // Dropout of n contiguous elements of x into out (dtype 0 = float32, 1 =
 // bfloat16, 2 = float16) under the key words (k0, k1), element i drawn at
-// counter offset + i: keep where the element's uniform is below
-// `threshold`, then divide by `divisor`. `vec`
-// = 1 when both pointers are 16-byte aligned. Returns the CUDA error of
-// the launch (0 on success). The wrapper has checked types and layout.
+// counter offset + i, or with inner > 0 at offset + (i / inner) * stride +
+// i % inner: keep where the element's uniform is below `threshold`, then
+// divide by `divisor`. `vec` = 1 when both pointers are 16-byte aligned.
+// Returns the CUDA error of the launch (0 on success). The wrapper has
+// checked types, layout and the map (inner 0 wherever it is contiguous).
 extern "C" int dstorch_threefry_dropout(const void* x, void* out, long long n,
-                                        unsigned long long offset, unsigned k0, unsigned k1,
+                                        unsigned long long offset, unsigned long long inner,
+                                        unsigned long long stride, unsigned k0, unsigned k1,
                                         float threshold, float divisor, int dtype, int vec,
                                         void* stream) {
-  if (n < 0 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
+  if (n < 0 || dtype < 0 || dtype > 2 || (inner && stride < inner))
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const DropArgs a{offset, k0, k1, threshold, divisor};
+  const DropArgs a{offset, inner, stride, k0, k1, threshold, divisor};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned long long count = (unsigned long long)n;
   switch (dtype) {

@@ -31,8 +31,11 @@ JAX tree loads whole and each rank keeps its part), the slot pool holds
 the rank's kv heads, and the logits every call returns are gathered whole
 over the vocab. Every tp rank samples the same token from the same keys,
 so the ranks never disagree; every rank makes every call, in one order.
-BERT, Megatron directories, lane extraction and insertion (``KVHandoff``)
-and ``mode: "model"`` drafts at tp > 1 raise naming ROADMAP.md row A8b2.
+BERT (dense or after the sparse surgery) scores at any tp; a lane is
+extracted whole (the ranks' kv heads gathered: the ``KVHandoff`` frame is
+the one tp 1 writes) and inserted whole, each rank keeping its heads, so
+engines at different tp hand lanes to each other; ``mode: "model"`` drafts
+are built at the target's tp.
 """
 
 from typing import Optional
@@ -162,10 +165,8 @@ class InferenceEngine:
         if tp_size == 1:
             return model.tp
         if not model.tensor_parallel:
-            raise NotImplementedError(
-                f"serving {type(model).__name__} at tp={tp_size} (BERT and "
-                f"its sparse surgery would take the rank's heads) is not "
-                f"ported yet: ROADMAP.md row A8b2")
+            raise ValueError(f"{type(model).__name__} has no tensor-parallel "
+                             f"layers: it serves at tp 1 only")
         world = comm.get_world_size()
         if world % tp_size:
             raise ValueError(
@@ -175,12 +176,6 @@ class InferenceEngine:
         tp = tensor_parallel.from_mesh(mesh_for_tp(tp_size))
         model.shard_tp(tp)
         return tp
-
-    def _refuse_tp(self, what):
-        if self.tp.active:
-            raise NotImplementedError(
-                f"{what} at tp={self.tp.size} is not ported yet: "
-                f"ROADMAP.md row A8b2")
 
     # ------------------------------------------------------------ checkpoints
     def load_checkpoint(self, load_dir, tag=None):
@@ -594,20 +589,29 @@ class InferenceEngine:
     def slot_extract_lane(self, pool, slot: int):
         """Slot ``slot``'s lane, ``{"k", "v": [L, 1, H_kv, max_len, hd]}``,
         copied to the host (never a view of the pool; ordinary tensors the
-        caller may change)."""
-        self._refuse_tp("extracting a lane (KVHandoff)")
-        return {n: c[:, slot:slot + 1].to("cpu", copy=True)
-                for n, c in pool.items()}
+        caller may change). At tp > 1 every kv head of it: the ranks'
+        heads gathered (a collective), a shared head taken once."""
+        out = {}
+        for n, c in pool.items():
+            lane = c[:, slot:slot + 1]
+            split = self.module.kv_split(lane.shape) if self.tp.active \
+                else None
+            if split is not None:
+                lane = split.gather(lane.contiguous(), self.tp.group)
+            out[n] = lane.to("cpu", copy=True)
+        return out
 
     @torch.inference_mode()
     def slot_insert_lane(self, pool, slot: int, lane):
         """Write a lane (``slot_extract_lane``'s, tensors or numpy arrays,
-        possibly another pool's) into slot ``slot``. Returns the pool."""
-        self._refuse_tp("inserting a lane (KVHandoff)")
+        possibly another pool's) into slot ``slot``. At tp > 1 the lane is
+        whole and each rank keeps its kv heads. Returns the pool."""
         for n, c in pool.items():
             src = lane[n]
             if not isinstance(src, torch.Tensor):
                 src = torch.from_numpy(np.asarray(src))
+            if self.tp.active:
+                src = self.module.kv_split(src.shape).take(src)
             c[:, slot:slot + 1] = src.to(device=c.device, dtype=c.dtype)
         return pool
 

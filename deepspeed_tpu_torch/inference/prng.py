@@ -80,7 +80,8 @@ def split(key, num: int = 2):
     return torch.stack([o0, o1], dim=-1)
 
 
-def random_bits(key, shape, offset: int = 0):
+def random_bits(key, shape, offset: int = 0, inner: int = 0,
+                stride: int = 0):
     """32 random bits per element of ``shape`` for each key of ``key
     [..., 2]``: int64 ``key.shape[:-1] + shape`` of uint32 values (one
     ``jax.random.bits`` call per key, as under ``vmap``). With ``offset``
@@ -88,12 +89,17 @@ def random_bits(key, shape, offset: int = 0):
     indices ``[offset, offset + n)`` of a larger array drawn under the
     same key (a rank's rows of a global draw: with
     ``jax_threefry_partitionable`` an element's bits depend only on its
-    flat index)."""
+    flat index). With ``inner`` (0 < ``inner`` <= ``stride``) element
+    ``i`` takes flat index ``offset + (i // inner) * stride + i %
+    inner``: segments of ``inner`` elements ``stride`` apart (a rank's
+    heads of every row)."""
     n = 1
     for s in shape:
         n *= s
-    idx = torch.arange(offset, offset + n, dtype=torch.int64,
-                       device=key.device).reshape(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    if 0 < inner < n and inner != stride:
+        idx = (idx // inner) * stride + idx % inner
+    idx = (idx + offset).reshape(shape)
     lead = key.shape[:-1]
     k1 = key[..., 0].reshape(lead + (1,) * len(shape))
     k2 = key[..., 1].reshape(lead + (1,) * len(shape))
@@ -102,11 +108,11 @@ def random_bits(key, shape, offset: int = 0):
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
-            offset: int = 0):
+            offset: int = 0, inner: int = 0, stride: int = 0):
     """``jax.random.uniform`` in float32: the top 23 bits become the
     mantissa of a float in [1, 2), less 1, scaled to [minval, maxval)
-    (``offset``: see :func:`random_bits`)."""
-    bits = random_bits(key, shape, offset)
+    (``offset``, ``inner``, ``stride``: see :func:`random_bits`)."""
+    bits = random_bits(key, shape, offset, inner, stride)
     one = 0x3F800000                       # float32 1.0
     floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
@@ -180,13 +186,15 @@ def key_tensor(key, device=None):
     return torch.tensor(as_key(key), dtype=torch.int64, device=device)
 
 
-def bernoulli(key, p, shape, device=None, offset: int = 0):
+def bernoulli(key, p, shape, device=None, offset: int = 0, inner: int = 0,
+              stride: int = 0):
     """``jax.random.bernoulli(key, p, shape)`` (mode ``"low"``) for one key:
-    a bool tensor, ``uniform(key, shape) < float32(p)`` (``offset``: the
-    draw's elements start at that flat index of a larger draw, see
-    :func:`random_bits`)."""
+    a bool tensor, ``uniform(key, shape) < float32(p)`` (``offset``,
+    ``inner``, ``stride``: where the draw's elements lie in a larger
+    draw, see :func:`random_bits`)."""
     key = key_tensor(key, device)
-    return uniform(key, tuple(shape), offset=offset) < torch.tensor(
+    return uniform(key, tuple(shape), offset=offset, inner=inner,
+                   stride=stride) < torch.tensor(
         float(np.float32(p)), dtype=torch.float32, device=key.device)
 
 

@@ -72,8 +72,8 @@ def _self_draft(target, layers: int):
     model = type(target).__new__(type(target))
     nn.Module.__init__(model)
     model.config = dataclasses.replace(target.config, n_layer=layers)
-    if target.tp.active:      # the target's parts, on its tp ranks
-        model.tp, model._splits = target.tp, target._splits
+    # the target's parts, on its tp ranks (none at tp 1)
+    model.tp, model._splits = target.tp, target._splits
     for name in model.top_leaves:
         setattr(model, name, getattr(target, name))
     model.blocks = nn.ModuleList(target.blocks[:layers])
@@ -98,10 +98,6 @@ def build_draft(engine, cfg) -> DraftRuntime:
     if mode != "model":
         raise ValueError(f"speculative.draft.mode must be self|model, "
                          f"got {mode!r}")
-    if target.tp.active:
-        raise NotImplementedError(
-            f"a draft model (mode 'model') at tp={target.tp.size} is not "
-            f"ported yet: ROADMAP.md row A8b2; self drafts run")
     over = {name: int(getattr(cfg, name, 0))
             for name in ("n_layer", "n_embd", "n_head")
             if int(getattr(cfg, name, 0))}
@@ -110,9 +106,11 @@ def build_draft(engine, cfg) -> DraftRuntime:
         raise ValueError(
             f"draft n_embd={dcfg.n_embd} not divisible by "
             f"n_head={dcfg.n_head}")
+    # at the target's tp on its mesh: each leaf drawn whole, the rank
+    # keeping its part, so one seed gives one draft at every tp
     gen = torch.Generator().manual_seed(int(getattr(cfg, "seed", 0)))
     model = type(target)(dcfg, generator=gen, device=engine.device,
-                         dtype=engine.dtype).eval()
+                         dtype=engine.dtype, tp=target.tp).eval()
     return DraftRuntime(model=model, mode="model", layers=dcfg.n_layer,
                         key=draft_key(cfg))
 

@@ -28,6 +28,19 @@ forgoes that dropout: its hook takes no key). ``config.remat`` checkpoints
 each layer (``runtime/activation_checkpointing``). There is no progressive
 layer drop or random-LTD: ``apply`` takes no ``pld_theta`` or
 ``ltd_keep``, so the engine refuses both for BERT, as the JAX engine does.
+
+Tensor parallelism (``tp``, as for GPT-2: the GPT-2 base's
+``TensorParallelLayers`` over the JAX package's ``partition_rules()``):
+``qkv_w`` / ``qkv_b`` hold the rank's heads of each of q, k and v,
+``attn_out_w`` and ``out_w`` are row-parallel (their biases added once
+after the all-reduce), ``inter_w`` / ``inter_b`` column-parallel, ``wte``
+and the MLM bias vocab-parallel: the logits are gathered whole over the
+vocab, and the MLM loss is the vocab-parallel NLL (``_ChunkedNLL``), no
+rank building whole logits. ``wpe``, ``tte``, the LayerNorms and the MLM
+transform are whole on every rank. The sparse surgery's attention takes
+the rank's rows of the whole layout (``SparseSelfAttention`` reads the
+model's ``_head_range()``), and the dropout of the dense path's
+probabilities draws the rank's heads of the whole mask.
 """
 
 import dataclasses
@@ -36,8 +49,10 @@ from typing import Optional
 import torch
 
 from .api import ModelSpec, open_leaves
-from .gpt2 import GPT2Config, BlockParams, _activation, _param, normal_
+from .gpt2 import (GPT2Config, BlockParams, TensorParallelLayers, _ChunkedNLL,
+                   _activation, _param, normal_)
 from ..inference import prng
+from ..parallel import tensor_parallel as tpl
 from ..ops import memory_efficient as me
 from ..ops.dropout import salted_dropout
 from ..ops.flash_attention import flash_attention
@@ -56,10 +71,12 @@ BERT_BASE = BertConfig(n_embd=768, n_layer=12, n_head=12)
 BERT_LARGE = BertConfig(n_embd=1024, n_layer=24, n_head=16)
 
 
-class BertModel(ModelSpec):
+class BertModel(TensorParallelLayers, ModelSpec):
     """BERT with the JAX package's parameter layout, built on ``device`` in
     ``dtype`` and drawn from ``generator`` (default: seed 0 on the CPU) on
-    the generator's own device."""
+    the generator's own device; at ``tp`` (default: the rank mesh's
+    ``model`` axis) each sharded leaf drawn whole and the rank's part
+    kept."""
 
     causal_attention = False
     top_leaves = ("wte", "wpe", "tte", "emb_ln_scale", "emb_ln_bias",
@@ -71,7 +88,7 @@ class BertModel(ModelSpec):
 
     def __init__(self, config: BertConfig = BERT_BASE,
                  generator: Optional[torch.Generator] = None, device=None,
-                 dtype=None):
+                 dtype=None, tp=None):
         super().__init__()
         self.config = config
         # attention override hook: attn_override(q, k, v, mask) -> attn,
@@ -79,10 +96,41 @@ class BertModel(ModelSpec):
         # (reference sparse_attention_utils.py:81 replaces the torch
         # BertSelfAttention module; here the function is the module)
         self.attn_override = None
-        d, v, m = config.n_embd, config.padded_vocab, \
-            config.mlp_ratio * config.n_embd
-        top = {"wte": (v, d), "wpe": (config.n_positions, d),
-               "tte": (config.type_vocab_size, d), "emb_ln_scale": (d,),
+        self.tp = tpl.resolve(tp)
+        self._check_tp()
+        self._splits = self._make_splits()
+        top, block = self._leaf_shapes()
+        for name in self.top_leaves:
+            setattr(self, name, _param(self._local(name, top[name]), device,
+                                       dtype))
+        self.blocks = torch.nn.ModuleList(
+            BlockParams({n: self._local(f"blocks.{i}.{n}", block[n])
+                         for n in self.block_leaves}, device, dtype)
+            for i in range(config.n_layer))
+        self.init_weights(generator if generator is not None
+                          else torch.Generator().manual_seed(0))
+
+    def partition_rules(self):
+        """The JAX package's rules (``deepspeed_tpu/models/bert.py``)."""
+        return [
+            (r"wte$", ("model", None)),
+            (r"(wpe|tte)$", (None, None)),
+            (r"mlm_bias$", ("model",)),
+            (r"blocks/qkv_w$", ("pipe", None, "model")),
+            (r"blocks/qkv_b$", ("pipe", "model")),
+            (r"blocks/attn_out_w$", ("pipe", "model", None)),
+            (r"blocks/inter_w$", ("pipe", None, "model")),
+            (r"blocks/inter_b$", ("pipe", "model")),
+            (r"blocks/out_w$", ("pipe", "model", None)),
+            (r"blocks/", ("pipe",)),
+        ]
+
+    def _leaf_shapes(self):
+        """``(top, block)``: the shape of every JAX leaf by name."""
+        cfg = self.config
+        d, v, m = cfg.n_embd, cfg.padded_vocab, cfg.mlp_ratio * cfg.n_embd
+        top = {"wte": (v, d), "wpe": (cfg.n_positions, d),
+               "tte": (cfg.type_vocab_size, d), "emb_ln_scale": (d,),
                "emb_ln_bias": (d,), "mlm_dense_w": (d, d),
                "mlm_dense_b": (d,), "mlm_ln_scale": (d,),
                "mlm_ln_bias": (d,), "mlm_bias": (v,)}
@@ -91,25 +139,30 @@ class BertModel(ModelSpec):
                  "attn_ln_scale": (d,), "attn_ln_bias": (d,),
                  "inter_w": (d, m), "inter_b": (m,), "out_w": (m, d),
                  "out_b": (d,), "out_ln_scale": (d,), "out_ln_bias": (d,)}
-        for name in self.top_leaves:
-            setattr(self, name, _param(top[name], device, dtype))
-        self.blocks = torch.nn.ModuleList(
-            BlockParams(block, device, dtype) for _ in range(config.n_layer))
-        self.init_weights(generator if generator is not None
-                          else torch.Generator().manual_seed(0))
+        return top, block
+
+    def _tp_counts(self):
+        cfg = self.config
+        return {"n_head": cfg.n_head, "padded_vocab": cfg.padded_vocab,
+                "intermediate": cfg.mlp_ratio * cfg.n_embd}
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()
     def init_weights(self, generator):
         """The JAX init's shapes and stds: N(0, 0.02) for every weight
         matrix and embedding, LN scales 1, every bias 0. Drawn from
-        ``generator`` on its device."""
+        ``generator`` on its device, each leaf whole."""
         std = self.config.initializer_range
+        splits = self._split_by_id()
+
+        def normal(p):
+            normal_(p, std, generator, splits.get(id(p)))
+
         for name in ("wte", "wpe", "tte", "mlm_dense_w"):
-            normal_(getattr(self, name), std, generator)
+            normal(getattr(self, name))
         for blk in self.blocks:
             for name in ("qkv_w", "attn_out_w", "inter_w", "out_w"):
-                normal_(getattr(blk, name), std, generator)
+                normal(getattr(blk, name))
         for owner, names in ((self, self.top_leaves),
                              *((blk, self.block_leaves)
                                for blk in self.blocks)):
@@ -131,29 +184,33 @@ class BertModel(ModelSpec):
         return salted_dropout(x, rng, train, salt, self.config.dropout)
 
     def _block(self, x, p, mask, rng=None, train=False):
-        """Post-LN encoder block (HF BertLayer semantics)."""
+        """Post-LN encoder block (HF BertLayer semantics); at tp > 1 on the
+        rank's heads and MLP columns."""
         cfg = self.config
-        b, t, d = x.shape
-        h, hd = cfg.n_head, cfg.head_dim
-        qkv = x @ p.qkv_w.to(x.dtype) + p.qkv_b.to(x.dtype)
+        b, t, _ = x.shape
+        h, hd = self._heads, cfg.head_dim
+        xin = tpl.copy_to_tp(x, self.tp)
+        qkv = xin @ p.qkv_w.to(x.dtype) + p.qkv_b.to(x.dtype)
         q, k, v = (y.reshape(b, t, h, hd).transpose(1, 2)
-                   for y in qkv.split(d, dim=-1))
+                   for y in qkv.split(h * hd, dim=-1))
         if self.attn_override is not None:
             attn = self.attn_override(q, k, v, mask)
         else:
             dropping = train and cfg.dropout > 0 and rng is not None
-            attn = flash_attention(
-                q, k, v, causal=False, mask=mask,
-                dropout_rate=cfg.dropout if train else 0.0,
-                dropout_rng=prng.fold_in_words(rng, 3) if dropping else None,
-                backend=cfg.attn_backend)
-        attn = attn.transpose(1, 2).reshape(b, t, d)
-        attn = attn @ p.attn_out_w.to(x.dtype) + p.attn_out_b.to(x.dtype)
+            with self._probs_heads():
+                attn = flash_attention(
+                    q, k, v, causal=False, mask=mask,
+                    dropout_rate=cfg.dropout if train else 0.0,
+                    dropout_rng=prng.fold_in_words(rng, 3) if dropping
+                    else None, backend=cfg.attn_backend)
+        attn = attn.transpose(1, 2).reshape(b, t, h * hd)
+        attn = self._row_out(attn, p.attn_out_w, p.attn_out_b)
         x = self._ln(x + self._dropout(attn, rng, train, 0), p.attn_ln_scale,
                      p.attn_ln_bias)
-        mid = _activation(x @ p.inter_w.to(x.dtype) + p.inter_b.to(x.dtype),
-                          cfg.activation)
-        out = mid @ p.out_w.to(x.dtype) + p.out_b.to(x.dtype)
+        xin = tpl.copy_to_tp(x, self.tp)
+        mid = _activation(xin @ p.inter_w.to(x.dtype) +
+                          p.inter_b.to(x.dtype), cfg.activation)
+        out = self._row_out(mid, p.out_w, p.out_b)
         return self._ln(x + self._dropout(out, rng, train, 1),
                         p.out_ln_scale, p.out_ln_bias)
 
@@ -166,7 +223,8 @@ class BertModel(ModelSpec):
         if t > self.wpe.shape[0]:
             raise ValueError(f"{t} tokens exceed the model's n_positions="
                              f"{self.wpe.shape[0]}")
-        x = self.wte.to(dt)[input_ids] + self.wpe[:t].to(dt)
+        x = tpl.vocab_parallel_embedding(input_ids, self.wte.to(dt),
+                                         self.tp) + self.wpe[:t].to(dt)
         if token_type_ids is not None:
             x = x + self.tte.to(dt)[token_type_ids]
         else:
@@ -190,13 +248,20 @@ class BertModel(ModelSpec):
                 checkpointing.run(policy, run, x)
         return x
 
-    def _mlm_head(self, x):
-        """Transform + tied decoder + vocab bias on hidden states x."""
+    def _mlm_transform(self, x):
+        """The MLM head's dense + activation + LN (whole on every rank)."""
         cfg = self.config
         x = x @ self.mlm_dense_w.to(x.dtype) + self.mlm_dense_b.to(x.dtype)
-        x = self._ln(_activation(x, cfg.activation), self.mlm_ln_scale,
-                     self.mlm_ln_bias)
-        return x @ self.wte.to(x.dtype).T + self.mlm_bias.to(x.dtype)
+        return self._ln(_activation(x, cfg.activation), self.mlm_ln_scale,
+                        self.mlm_ln_bias)
+
+    def _mlm_head(self, x):
+        """Transform + tied decoder + vocab bias on hidden states x: the
+        whole ``[..., padded_vocab]`` logits (gathered at tp > 1)."""
+        x = self._mlm_transform(x)
+        logits = tpl.copy_to_tp(x, self.tp) @ self.wte.to(x.dtype).T + \
+            self.mlm_bias.to(x.dtype)
+        return tpl.gather_from_tp(logits, self.tp)
 
     def mlm_logits(self, input_ids, token_type_ids=None,
                    attention_mask=None):
@@ -230,9 +295,18 @@ class BertModel(ModelSpec):
             x = torch.gather(x, 1, mpos[..., None].expand(-1, -1,
                                                           x.shape[-1]))
         labels, valid = self._mlm_labels(fields)
-        logits = self._mlm_head(x)
-        total = me.dense_xent_sum(logits, torch.where(valid, labels, 0).long(),
-                                  valid)
+        safe = torch.where(valid, labels, 0).long()
+        if self.tp.active:
+            # vocab-parallel: the rank's block of logits and bias, the
+            # NLL's statistics combined over the ranks
+            h = tpl.copy_to_tp(self._mlm_transform(x), self.tp)
+            n = h.shape[0] * h.shape[1]
+            wte = self.wte.to(h.dtype)
+            total = _ChunkedNLL.apply(
+                h.reshape(n, h.shape[-1]), wte, self.mlm_bias.to(h.dtype),
+                safe.reshape(n), valid.reshape(n), wte.shape[0], self.tp)
+        else:
+            total = me.dense_xent_sum(self._mlm_head(x), safe, valid)
         return total / torch.clamp_min(valid.sum(), 1)
 
     def _mlm_labels(self, fields):

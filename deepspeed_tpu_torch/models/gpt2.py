@@ -57,6 +57,7 @@ time, and keeps the rank's part, so one seed gives the same weights at
 every tp.
 """
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -71,7 +72,7 @@ from ..parallel import tensor_parallel as tpl
 from ..parallel.topology import MODEL_AXIS
 from ..inference import prng
 from ..ops import memory_efficient as me
-from ..ops.dropout import first_row, salted_dropout
+from ..ops.dropout import first_row, rank_heads, salted_dropout
 from ..ops.flash_attention import flash_attention, reference_attention
 from ..ops.kernels import flash_attention_packed as k1
 from ..ops.random_ltd_ops import (sample_token_indices, token_gather,
@@ -162,7 +163,126 @@ def _rule_dim(path, rules, ndim):
     return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
 
 
-class GPT2Model(ModelSpec):
+class TensorParallelLayers:
+    """Megatron's split of a family's leaves over the ``model`` axis, for a
+    ``ModelSpec`` whose class names its ``partition_rules()`` (the JAX
+    package's), ``_leaf_shapes()`` and the column spans of its fused
+    ``qkv`` (``_qkv_sections``) and sets ``self.tp``: the ``TPSplit`` of
+    each leaf a rule puts ``model`` on (``_make_splits``), the rank's
+    query heads, a whole model's in-place sharding and the row-parallel
+    projection. GPT-2, LLaMA and BERT take it."""
+
+    tensor_parallel = True
+
+    def _qkv_sections(self):
+        """The column spans of q, k and v in the fused projection."""
+        d = self.config.n_embd
+        return [d, d, d]
+
+    def _qkv_parts(self):
+        """The blocks each of q, k and v splits into (one a rank)."""
+        return [self.tp.size] * 3
+
+    def _tp_counts(self):
+        """``{what: count}`` that must divide by tp."""
+        cfg = self.config
+        return {"n_head": cfg.n_head, "padded_vocab": cfg.padded_vocab}
+
+    def _check_tp(self):
+        """At tp > 1: the counts the rank's parts split divide by tp
+        (dropout draws each rank's heads of the whole mask: ``ops/
+        dropout.py``)."""
+        n = self.tp.size
+        if n == 1:
+            return
+        counts = self._tp_counts()
+        if any(v % n for v in counts.values()):
+            raise ValueError(
+                f"{type(self).__name__} at tp={n}: "
+                + ", ".join(f"{k}={v}" for k, v in counts.items())
+                + f" must each divide by tp={n}")
+
+    def _make_splits(self):
+        """``{parameter name: TPSplit}`` of the leaves the rules shard
+        (empty at tp 1)."""
+        if not self.tp.active:
+            return {}
+        rules = self.partition_rules()
+        top, block = self._leaf_shapes()
+        out = {}
+        for name in self.top_leaves:
+            dim = _rule_dim(name, rules, len(top[name]))
+            if dim is not None:
+                out[name] = tpl.TPSplit(top[name], dim, self.tp.rank,
+                                        self.tp.size)
+        for name in self.block_leaves:
+            dim = _rule_dim(f"blocks/{name}", rules, len(block[name]) + 1)
+            if dim is None:
+                continue
+            qkv = name.startswith("qkv_")
+            for i in range(self.config.n_layer):
+                out[f"blocks.{i}.{name}"] = tpl.TPSplit(
+                    block[name], dim - 1, self.tp.rank, self.tp.size,
+                    self._qkv_sections() if qkv else None,
+                    self._qkv_parts() if qkv else None)
+        return out
+
+    def _local(self, name, shape):
+        split = self._splits.get(name)
+        return shape if split is None else split.local_shape
+
+    def tp_splits(self):
+        return [self._splits.get(n) for n, _ in self.named_parameters()]
+
+    @torch.no_grad()
+    def shard_tp(self, tp):
+        """Keep, in place, ``tp``'s rank part of each sharded leaf of this
+        whole (tp 1) model: what the engines do with a model built before
+        the mesh. Returns the model."""
+        tp = tpl.resolve(tp)
+        if self.tp.active:
+            if (self.tp.size, self.tp.rank) != (tp.size, tp.rank):
+                raise ValueError(f"the model was built at {self.tp}, the "
+                                 f"engine runs {tp}")
+            return self
+        self.tp = tp
+        self._check_tp()
+        self._splits = self._make_splits()
+        for name, p in self.named_parameters():
+            split = self._splits.get(name)
+            if split is not None:
+                p.data = split.take(p.data)
+        return self
+
+    @property
+    def _heads(self) -> int:
+        """The query heads this rank computes."""
+        return self.config.n_head // self.tp.size
+
+    def _split_by_id(self):
+        return {id(p): self._splits.get(n)
+                for n, p in self.named_parameters()}
+
+    def _head_range(self):
+        """``(first query head of this rank, n_head)``: where the rank's
+        heads lie among all of them."""
+        return self.tp.rank * self._heads, self.config.n_head
+
+    def _probs_heads(self):
+        """Where the attention probabilities a rank drops lie in the JAX
+        draw: its heads of ``n_head`` (:func:`ops.dropout.rank_heads`) at
+        tp > 1; the contiguous map at tp 1."""
+        return rank_heads(*self._head_range()) if self.tp.active else \
+            contextlib.nullcontext()
+
+    def _row_out(self, a, w, bias=None):
+        """A row-parallel projection: ``a @ w`` summed over the tp ranks,
+        then the replicated bias added once."""
+        out = tpl.reduce_from_tp(a @ w.to(a.dtype), self.tp)
+        return out if bias is None else out + bias.to(a.dtype)
+
+
+class GPT2Model(TensorParallelLayers, ModelSpec):
     """GPT-2 with the JAX package's parameter layout. The weights are made
     on ``device`` in ``dtype`` (default: the CPU, float32) and drawn from
     ``generator`` (default: seed 0 on the CPU) on the generator's device, so
@@ -175,8 +295,6 @@ class GPT2Model(ModelSpec):
     block_leaves = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "attn_proj_w",
                     "attn_proj_b", "ln2_scale", "ln2_bias", "mlp_fc_w",
                     "mlp_fc_b", "mlp_proj_w", "mlp_proj_b")
-
-    tensor_parallel = True
 
     def __init__(self, config: GPT2Config = GPT2_125M,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -212,91 +330,6 @@ class GPT2Model(ModelSpec):
             (r"blocks/mlp_proj_w$", ("pipe", "model", None)),
             (r"blocks/", ("pipe",)),
         ]
-
-    def _qkv_sections(self):
-        """The column spans of q, k and v in the fused projection."""
-        d = self.config.n_embd
-        return [d, d, d]
-
-    def _tp_counts(self):
-        """``{what: count}`` that must divide by tp."""
-        cfg = self.config
-        return {"n_head": cfg.n_head, "padded_vocab": cfg.padded_vocab}
-
-    def _check_tp(self):
-        """At tp > 1: the counts the rank's parts split divide by tp;
-        dropout waits for row A8b2."""
-        n = self.tp.size
-        if n == 1:
-            return
-        counts = self._tp_counts()
-        if any(v % n for v in counts.values()):
-            raise ValueError(
-                f"{type(self).__name__} at tp={n}: "
-                + ", ".join(f"{k}={v}" for k, v in counts.items())
-                + f" must each divide by tp={n}")
-        if self.config.dropout > 0:
-            raise NotImplementedError(
-                f"dropout={self.config.dropout} at tp={n} (the attention "
-                f"probabilities' mask on a rank's heads is a strided slice "
-                f"of the JAX draw) is not ported yet: ROADMAP.md row A8b2")
-
-    def _make_splits(self):
-        """``{parameter name: TPSplit}`` of the leaves the rules shard
-        (empty at tp 1)."""
-        if not self.tp.active:
-            return {}
-        rules = self.partition_rules()
-        top, block = self._leaf_shapes()
-        out = {}
-        for name in self.top_leaves:
-            dim = _rule_dim(name, rules, len(top[name]))
-            if dim is not None:
-                out[name] = tpl.TPSplit(top[name], dim, self.tp.rank,
-                                        self.tp.size)
-        for name in self.block_leaves:
-            dim = _rule_dim(f"blocks/{name}", rules, len(block[name]) + 1)
-            if dim is None:
-                continue
-            sections = self._qkv_sections() if name.startswith("qkv_") \
-                else None
-            for i in range(self.config.n_layer):
-                out[f"blocks.{i}.{name}"] = tpl.TPSplit(
-                    block[name], dim - 1, self.tp.rank, self.tp.size,
-                    sections)
-        return out
-
-    def _local(self, name, shape):
-        split = self._splits.get(name)
-        return shape if split is None else split.local_shape
-
-    def tp_splits(self):
-        return [self._splits.get(n) for n, _ in self.named_parameters()]
-
-    @torch.no_grad()
-    def shard_tp(self, tp):
-        """Keep, in place, ``tp``'s rank part of each sharded leaf of this
-        whole (tp 1) model: what the engines do with a model built before
-        the mesh. Returns the model."""
-        tp = tpl.resolve(tp)
-        if self.tp.active:
-            if (self.tp.size, self.tp.rank) != (tp.size, tp.rank):
-                raise ValueError(f"the model was built at {self.tp}, the "
-                                 f"engine runs {tp}")
-            return self
-        self.tp = tp
-        self._check_tp()
-        self._splits = self._make_splits()
-        for name, p in self.named_parameters():
-            split = self._splits.get(name)
-            if split is not None:
-                p.data = split.take(p.data)
-        return self
-
-    @property
-    def _heads(self) -> int:
-        """The query heads this rank computes."""
-        return self.config.n_head // self.tp.size
 
     def _leaf_shapes(self):
         """``(top, block)``: the shape of every JAX leaf by name."""
@@ -342,10 +375,6 @@ class GPT2Model(ModelSpec):
         self.ln_f_scale.fill_(1.0)
         self.ln_f_bias.zero_()
 
-    def _split_by_id(self):
-        return {id(p): self._splits.get(n)
-                for n, p in self.named_parameters()}
-
     # ------------------------------------------------------------- pieces
     def _compute_dtype(self):
         dt = self.wte.dtype
@@ -390,12 +419,6 @@ class GPT2Model(ModelSpec):
         logits = tpl.copy_to_tp(x, self.tp) @ self._unembed_weight(x.dtype).T
         return tpl.gather_from_tp(logits, self.tp)
 
-    def _row_out(self, a, w, bias=None):
-        """A row-parallel projection: ``a @ w`` summed over the tp ranks,
-        then the replicated bias added once."""
-        out = tpl.reduce_from_tp(a @ w.to(a.dtype), self.tp)
-        return out if bias is None else out + bias.to(a.dtype)
-
     def _attn_sublayer(self, x, p, attn_fn=None, start_pos=0,
                        positions=None, rng=None, train=False):
         """ln1 -> qkv -> attention -> proj -> residual (+dropout).
@@ -426,11 +449,12 @@ class GPT2Model(ModelSpec):
         if attn_fn is not None:
             attn = attn_fn(q, k, v)
         else:
-            attn = flash_attention(
-                q, k, v, causal=self.causal_attention,
-                dropout_rate=cfg.dropout if train else 0.0,
-                dropout_rng=prng.fold_in_words(rng, 3) if dropping else None,
-                backend=cfg.attn_backend)
+            with self._probs_heads():
+                attn = flash_attention(
+                    q, k, v, causal=self.causal_attention,
+                    dropout_rate=cfg.dropout if train else 0.0,
+                    dropout_rng=prng.fold_in_words(rng, 3) if dropping
+                    else None, backend=cfg.attn_backend)
         attn = attn.transpose(1, 2).reshape(b, t, d)
         attn = self._row_out(attn, p.attn_proj_w, p.attn_proj_b)
         return x + self._dropout(attn, rng, train, 0)
@@ -625,8 +649,8 @@ class GPT2Model(ModelSpec):
             # block; no rank builds the whole logits
             if head_b is not None:
                 raise NotImplementedError(
-                    "a vocab-parallel LM-head bias is not ported yet: "
-                    "ROADMAP.md row A8b2")
+                    "a vocab-parallel LM-head bias (the GPT-NeoX / GPT-J "
+                    "families') is not ported yet: ROADMAP.md row A10")
             return self._chunked_lm_loss(
                 tpl.copy_to_tp(x, self.tp), wte, batch,
                 chunk=None if use_chunked else wte.shape[0])
@@ -655,6 +679,21 @@ class GPT2Model(ModelSpec):
     def kv_heads(self) -> int:
         """The kv heads of this rank's cache."""
         return self.config.n_head // self.tp.size
+
+    @property
+    def _kv_total(self) -> int:
+        """The kv heads of the whole model."""
+        return self.config.n_head
+
+    def kv_split(self, shape):
+        """The ``TPSplit`` of a cache tensor of ``shape`` (``[L, S,
+        kv heads, T, hd]``, the rank's heads or the whole) over its kv
+        heads: the rank's block, or its one head when ranks share them."""
+        whole = list(shape)
+        whole[2] = self._kv_total
+        n = self.tp.size
+        return tpl.TPSplit(whole, 2, self.tp.rank, n,
+                           parts=[min(n, self._kv_total)])
 
     def init_kv_cache(self, batch_size: int, max_len: int,
                       dtype=torch.bfloat16, device=None):

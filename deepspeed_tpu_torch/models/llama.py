@@ -21,8 +21,12 @@ tp`` query heads and ``H_kv / tp`` kv heads of ``qkv_w``, its block of
 ``gate_w`` / ``up_w`` columns and of ``attn_proj_w`` / ``down_w`` rows, and
 its vocab rows of ``wte`` and ``lm_head`` (the JAX package's
 ``partition_rules()``); ``n_head``, ``n_kv_head``, the padded vocab and
-the MLP width must divide by tp, and fewer kv heads than tp ranks (which
-Megatron serves by replicating kv heads) waits for ROADMAP.md row A8b2.
+the MLP width must divide by tp. With fewer kv heads than ranks the kv
+heads are replicated, as Megatron does (``tp`` must be a multiple of
+``n_kv_head``): rank ``r`` holds kv head ``r n_kv_head / tp`` beside its
+query heads, its cache holds that one head, and in training the shared
+kv columns' gradients are summed over the ranks that hold them
+(``tensor_parallel.sum_shared_grads``), the norm counting them once.
 """
 
 import dataclasses
@@ -138,16 +142,27 @@ class LlamaModel(GPT2Model):
         return [cfg.n_head * hd, cfg.kv_head_count * hd,
                 cfg.kv_head_count * hd]
 
+    def _qkv_parts(self):
+        """Blocks of q, k and v: the kv sections split into ``n_kv_head``
+        blocks when there are fewer kv heads than ranks (each shared by
+        ``tp / n_kv_head`` ranks)."""
+        n, hk = self.tp.size, self.config.kv_head_count
+        return [n, min(n, hk), min(n, hk)]
+
     def _tp_counts(self):
         cfg = self.config
-        if self.tp.size > cfg.kv_head_count:
-            raise NotImplementedError(
-                f"n_kv_head={cfg.kv_head_count} < tp={self.tp.size} (kv "
-                f"heads replicated over the ranks, as Megatron serves them) "
-                f"is not ported yet: ROADMAP.md row A8b2")
-        return {"n_head": cfg.n_head, "n_kv_head": cfg.kv_head_count,
-                "padded_vocab": cfg.padded_vocab,
-                "mlp_hidden": cfg.intermediate}
+        n, hk = self.tp.size, cfg.kv_head_count
+        counts = {"n_head": cfg.n_head, "n_kv_head": hk,
+                  "padded_vocab": cfg.padded_vocab,
+                  "mlp_hidden": cfg.intermediate}
+        if n > hk:
+            if n % hk:
+                raise ValueError(
+                    f"{type(self).__name__} at tp={n}: n_kv_head={hk} kv "
+                    f"heads are replicated over the ranks only when tp is a "
+                    f"multiple of n_kv_head")
+            del counts["n_kv_head"]
+        return counts
 
     @property
     def top_leaves(self):
@@ -156,7 +171,11 @@ class LlamaModel(GPT2Model):
 
     @property
     def kv_heads(self) -> int:
-        return self.config.kv_head_count // self.tp.size
+        return max(1, self.config.kv_head_count // self.tp.size)
+
+    @property
+    def _kv_total(self) -> int:
+        return self.config.kv_head_count
 
     def _leaf_shapes(self):
         cfg = self.config
@@ -223,7 +242,9 @@ class LlamaModel(GPT2Model):
         h, hk, hd = self._heads, self.kv_heads, cfg.head_dim
         ln1 = tpl.copy_to_tp(_rms_norm(x, p.ln1_scale, cfg.layer_norm_epsilon),
                              self.tp)
-        qkv = ln1 @ p.qkv_w.to(ln1.dtype)
+        w = tpl.sum_shared_grads(p.qkv_w, self._splits.get("blocks.0.qkv_w"),
+                                 self.tp)
+        qkv = ln1 @ w.to(ln1.dtype)
         q, k, v = qkv.split([h * hd, hk * hd, hk * hd], dim=-1)
         q = q.reshape(b, t, h, hd).transpose(1, 2)
         k = k.reshape(b, t, hk, hd).transpose(1, 2)
@@ -240,12 +261,13 @@ class LlamaModel(GPT2Model):
                 k = torch.repeat_interleave(k, h // hk, dim=1)
                 v = torch.repeat_interleave(v, h // hk, dim=1)
             dropping = train and cfg.dropout > 0 and rng is not None
-            attn = sp_attention(
-                q, k, v, causal=True,
-                dropout_rate=cfg.dropout if train else 0.0,
-                dropout_rng=prng.fold_in_words(rng, 3) if dropping else None,
-                impl=cfg.sp_attention, backend=cfg.attn_backend,
-                window=cfg.sliding_window)
+            with self._probs_heads():
+                attn = sp_attention(
+                    q, k, v, causal=True,
+                    dropout_rate=cfg.dropout if train else 0.0,
+                    dropout_rng=prng.fold_in_words(rng, 3) if dropping
+                    else None, impl=cfg.sp_attention,
+                    backend=cfg.attn_backend, window=cfg.sliding_window)
         attn = attn.transpose(1, 2).reshape(b, t, h * hd)
         attn = self._row_out(attn, p.attn_proj_w)
         return x + self._dropout(attn, rng, train, 0)

@@ -117,7 +117,9 @@ def supported(q, layout, fine_block: int, tile: int = 0) -> bool:
     """The JAX kernel's envelope; for CUDA tensors also a coarse tile that
     is a multiple of the Hopper kernels' 64-row sub-tiles (every tile of a
     fine block of 16, 32, 64, 128 or 256; only a fine block >= 128 that is
-    not a multiple of 64 is its own tile and is left out)."""
+    not a multiple of 64 is its own tile and is left out). The layout has
+    a row a head of ``q`` (a tensor-parallel rank's rows of the whole
+    layout at its heads)."""
     t, d = q.shape[-2], q.shape[-1]
     tile = tile or default_tile(t, fine_block)
     if tile < 128:
@@ -126,8 +128,10 @@ def supported(q, layout, fine_block: int, tile: int = 0) -> bool:
         return False
     if q.device.type == "cuda" and tile % SUB:
         return False
-    nb = np.asarray(layout).shape[-1]
-    return (q.ndim == 4 and t % tile == 0 and d % 8 == 0 and d <= 256 and
+    lay = np.asarray(layout)
+    nb = lay.shape[-1]
+    return (q.ndim == 4 and (lay.ndim != 3 or lay.shape[0] == q.shape[1])
+            and t % tile == 0 and d % 8 == 0 and d <= 256 and
             nb * fine_block == t)
 
 

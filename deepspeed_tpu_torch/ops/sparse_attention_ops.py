@@ -270,14 +270,22 @@ class SparseSelfAttention:
     ``key_padding_mask`` ([B,1,1,T] or [B,T] bool/int, 1 = keep) merges
     with the block layout on the dense-masked path: the block-sparse kernel
     takes no per-batch mask, so padded batches pay the dense path, as in the
-    JAX package."""
+    JAX package.
+
+    ``heads = (h0, H)``: ``q`` holds heads ``[h0, h0 + h)`` of ``H`` (a
+    tensor-parallel rank's). The layout is always made for the config's
+    ``num_heads`` (the whole ``H``) and the rank takes its rows: Fixed's
+    global patterns and BigBird's random blocks are drawn a head at a time,
+    so a layout made for ``h`` heads would be another one."""
 
     def __init__(self, sparsity_config, softmax_scale=None):
         self.config = sparsity_config
         self.softmax_scale = softmax_scale
         self._layouts = {}
 
-    def layout(self, seq_len):
+    def layout(self, seq_len, heads=None):
+        """The ``[H, nb, nb]`` layout at ``seq_len``, or its rows ``h0:h0 +
+        h`` for ``heads = (h0, h, H)`` (cached either way)."""
         if seq_len % self.config.block:
             raise ValueError(
                 f"seq {seq_len} not a multiple of block "
@@ -285,10 +293,22 @@ class SparseSelfAttention:
                 f"SparseAttentionUtils.pad_to_block_size")
         if seq_len not in self._layouts:
             self._layouts[seq_len] = self.config.make_layout(seq_len)
-        return self._layouts[seq_len]
+        whole = self._layouts[seq_len]
+        if heads is None:
+            return whole
+        h0, h, total = heads
+        if whole.shape[0] != total or not 0 <= h0 < h0 + h <= total:
+            raise ValueError(
+                f"heads [{h0}, {h0 + h}) of {total}: the sparsity config "
+                f"makes a layout of {whole.shape[0]} heads")
+        key = (seq_len, h0, h)
+        if key not in self._layouts:
+            self._layouts[key] = np.ascontiguousarray(whole[h0:h0 + h])
+        return self._layouts[key]
 
-    def __call__(self, q, k, v, key_padding_mask=None):
-        lay = self.layout(q.shape[-2])
+    def __call__(self, q, k, v, key_padding_mask=None, heads=None):
+        lay = self.layout(q.shape[-2], None if heads is None else
+                          (heads[0], q.shape[1], heads[1]))
         if key_padding_mask is None:
             return sparse_attention(q, k, v, lay, self.config.block,
                                     self.softmax_scale)

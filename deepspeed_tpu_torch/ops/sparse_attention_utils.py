@@ -17,7 +17,9 @@ models own their weights, so the pair maps onto the model alone:
   passed); it returns the model.
 
 Like the JAX package, surgery supports bidirectional encoders exposing the
-``attn_override`` hook (the BERT family) and refuses decoders (GPT-2).
+``attn_override`` hook (the BERT family) and refuses decoders (GPT-2). On
+a tensor-parallel model the installed attention takes the rank's rows of
+the layout made for every head.
 """
 
 import dataclasses
@@ -87,7 +89,10 @@ class SparseAttentionUtils:
         #                                             padding-mask merge
 
         def sparse_attn(q, k, v, mask):
-            return sa(q, k, v, key_padding_mask=mask)
+            # at tp > 1 the rank's rows of the whole layout (the model may
+            # be sharded after the surgery: read where it runs)
+            heads = model._head_range() if model.tp.active else None
+            return sa(q, k, v, key_padding_mask=mask, heads=heads)
 
         model.attn_override = sparse_attn
         log_dist(f"sparse attention installed: "

@@ -33,7 +33,14 @@ v_r]``, its own heads of each of q, k and v in that order (``H / tp``
 query heads and ``H_kv / tp`` kv heads), so the attention kernels read q,
 k and v as column sections of the rank's projection, as at tp 1. ``take``
 and ``gather`` go through that map; checkpoints, ``load_jax_params`` and
-``jax_params`` see the JAX leaf whole.
+``jax_params`` see the JAX leaf whole. With fewer kv heads than ranks
+(Megatron's rule: ``tp`` a multiple of ``H_kv``) a section splits into
+fewer ``parts`` than ranks: rank ``r`` holds block ``r parts / tp``, so
+``tp / H_kv`` ranks share each kv head; ``gather`` takes each block once,
+from the first rank that holds it, ``owned_mask`` says which of a rank's
+elements count in a gradient norm, and ``sum_shared_grads`` sums a shared
+block's gradient over the ranks that hold it (GSPMD's transpose of the
+replicated columns).
 """
 
 import re
@@ -114,57 +121,89 @@ class TPSplit:
     """A parameter's tensor-parallel part: of its whole shape
     ``whole_shape``, rank ``rank`` of ``world`` holds along ``dim`` one
     contiguous block (``sections`` None) or, for each of ``sections``
-    (consecutive spans of ``dim``: q, k and v of a fused projection), that
-    span's ``rank``-th block, the blocks concatenated in section order."""
+    (consecutive spans of ``dim``: q, k and v of a fused projection), one
+    block of that span, the blocks concatenated in section order. Span
+    ``j`` splits into ``parts[j]`` blocks (default ``world``; fewer, and
+    ``world`` a multiple of it, for kv heads shared by several ranks) and
+    rank ``r`` holds block ``r parts[j] / world``."""
 
-    __slots__ = ("whole_shape", "dim", "rank", "world", "sections")
+    __slots__ = ("whole_shape", "dim", "rank", "world", "sections", "parts")
 
     def __init__(self, whole_shape, dim: int, rank: int, world: int,
-                 sections: Optional[Sequence[int]] = None):
+                 sections: Optional[Sequence[int]] = None,
+                 parts: Optional[Sequence[int]] = None):
         self.whole_shape = tuple(int(s) for s in whole_shape)
         self.dim, self.rank, self.world = int(dim), int(rank), int(world)
         self.sections = None if sections is None else \
             [int(s) for s in sections]
         spans = self.sections or [self.whole_shape[self.dim]]
+        self.parts = [self.world] * len(spans) if parts is None else \
+            [int(p) for p in parts]
         if sum(spans) != self.whole_shape[self.dim] or \
-                any(s % self.world for s in spans):
+                len(self.parts) != len(spans) or \
+                any(s % p or self.world % p
+                    for s, p in zip(spans, self.parts)):
             raise ValueError(f"dim {self.dim} of {self.whole_shape} "
-                             f"(sections {spans}) does not split into "
-                             f"{self.world} equal parts")
+                             f"(sections {spans}, parts {self.parts}) does "
+                             f"not split over {self.world} ranks")
+
+    @property
+    def shared(self) -> bool:
+        """Whether some block is held by more than one rank."""
+        return any(p != self.world for p in self.parts)
+
+    def _spans(self):
+        return self.sections or [self.whole_shape[self.dim]]
+
+    def _block(self, p: int) -> int:
+        return self.rank * p // self.world
 
     @property
     def local_shape(self) -> tuple:
         shape = list(self.whole_shape)
-        shape[self.dim] //= self.world
+        shape[self.dim] = sum(s // p for s, p in zip(self._spans(),
+                                                     self.parts))
         return tuple(shape)
 
     def take(self, whole):
         """This rank's part of ``whole`` (contiguous)."""
-        if self.sections is None:
+        if self.sections is None and not self.shared:
             n = whole.shape[self.dim] // self.world
             return whole.narrow(self.dim, self.rank * n, n).contiguous()
-        parts = [sec.narrow(self.dim, self.rank * (s // self.world),
-                            s // self.world)
-                 for s, sec in zip(self.sections,
-                                   whole.split(self.sections, self.dim))]
-        return torch.cat(parts, dim=self.dim)
+        spans = self._spans()
+        out = [sec.narrow(self.dim, self._block(p) * (s // p), s // p)
+               for s, p, sec in zip(spans, self.parts,
+                                    whole.split(spans, self.dim))]
+        return torch.cat(out, dim=self.dim)
 
     def gather(self, part, group):
         """The whole tensor from every rank's ``part`` (an all-gather over
         ``group``, the ``model`` axis)."""
         full = comm.all_gather(part.detach(), group, axis=self.dim)
-        if self.sections is None:
+        if self.sections is None and not self.shared:
             return full
         return self.assemble(full.chunk(self.world, self.dim))
 
     def assemble(self, parts):
-        """The whole tensor from every rank's part, in rank order."""
-        if self.sections is None:
+        """The whole tensor from every rank's part, in rank order (a shared
+        block from the first rank that holds it)."""
+        if self.sections is None and not self.shared:
             return torch.cat(list(parts), dim=self.dim)
-        local = [s // self.world for s in self.sections]
-        per_rank = [p.split(local, self.dim) for p in parts]
-        return torch.cat([per_rank[r][j] for j in range(len(local))
-                          for r in range(self.world)], dim=self.dim)
+        local = [s // p for s, p in zip(self._spans(), self.parts)]
+        per_rank = [x.split(local, self.dim) for x in parts]
+        return torch.cat([per_rank[b * self.world // p][j]
+                          for j, p in enumerate(self.parts)
+                          for b in range(p)], dim=self.dim)
+
+    def owned_mask(self):
+        """A bool ``[local dim]`` mask of the rank's elements along ``dim``
+        that it alone counts (a shared block counts on its first rank),
+        or None when the rank holds no shared block."""
+        if not self.shared:
+            return None
+        return torch.cat([torch.full((s // p,), self.rank %
+                                     (self.world // p) == 0)
+                          for s, p in zip(self._spans(), self.parts)])
 
 
 # --------------------------------------------------------------------------
@@ -252,3 +291,38 @@ def vocab_parallel_lse(m, s, tgt, tp: TPInfo):
     stats = torch.stack([s * torch.exp(m - big), tgt])
     comm.all_reduce(stats, axis_name=tp.group)
     return big, stats[0], stats[1]
+
+
+class _SumSharedGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, split, tp):
+        ctx.split, ctx.tp = split, tp
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        split = ctx.split
+        local = [s // p for s, p in zip(split._spans(), split.parts)]
+        out = []
+        for sec, p in zip(g.split(local, split.dim), split.parts):
+            if p == split.world:
+                out.append(sec)
+                continue
+            # each block's slot holds its ranks' gradients, zero elsewhere:
+            # the sum over every rank is the sum over the block's ranks
+            slots = sec.new_zeros((p,) + tuple(sec.shape))
+            slots[split._block(p)] = sec
+            comm.all_reduce(slots, axis_name=ctx.tp.group)
+            out.append(slots[split._block(p)])
+        return torch.cat(out, dim=split.dim), None, None
+
+
+def sum_shared_grads(w, split: Optional[TPSplit], tp: TPInfo):
+    """Identity forward; backward, the gradient of each block ``split``
+    shares between ranks summed over those ranks (the kv heads of
+    ``qkv_w`` when ``H_kv < tp``), so that every rank holding it steps
+    alike."""
+    if split is None or not split.shared or not torch.is_grad_enabled() \
+            or not w.requires_grad:
+        return w
+    return _SumSharedGrads.apply(w, split, tp)

@@ -244,9 +244,9 @@ class DeepSpeedEngine:
 
         if self._tp.active:
             if not model.tensor_parallel:
-                raise NotImplementedError(
-                    f"{type(model).__name__} at tp={mm.tp} is not ported "
-                    f"yet: ROADMAP.md row A8b2")
+                raise ValueError(f"{type(model).__name__} has no "
+                                 f"tensor-parallel layers: it trains at tp "
+                                 f"1 only (the mesh has tp={mm.tp})")
             model.shard_tp(self._tp)      # in place, for a whole model
         elif model.tp.active:
             raise ValueError(f"the model was built at {model.tp}; the rank "
@@ -390,6 +390,11 @@ class DeepSpeedEngine:
         self._tp_norm_weights = torch.tensor(
             [1.0 if ps.tp is not None or self._tp.rank == 0 else 0.0
              for ps in self._pshards], device=self.device)
+        # a block shared by several tp ranks (kv heads below tp) enters
+        # it once too: {leaf index: the mask of the rank's own elements}
+        self._tp_owned = {i: self._owned_mask(ps)
+                          for i, ps in enumerate(self._pshards)
+                          if ps.tp is not None and ps.tp.shared}
         self._layer_of = {id(blk): i for i, blk in
                           enumerate(getattr(module, "blocks", []))}
         self.zero_gather_stats = stage3.GatherStats()
@@ -632,11 +637,23 @@ class DeepSpeedEngine:
         self._last_modifiers = (theta, keep)
         return theta, keep
 
+    def _owned_mask(self, ps):
+        """``ps.tp.owned_mask()`` shaped to broadcast over this rank's part
+        of the leaf (its dp part too, when that splits the same dim)."""
+        mask = ps.tp.owned_mask().to(self.device, torch.float32)
+        if ps.kind == "dim" and ps.dim == ps.tp.dim:
+            n = mask.shape[0] // ps.world
+            mask = mask[ps.rank * n:(ps.rank + 1) * n]
+        return mask.reshape((-1,) + (1,) * (len(ps.shape) - 1 - ps.tp.dim))
+
     def _grad_norm(self, grads):
         """The global gradient norm in float32. Under stages 2-3 each rank
         holds shards: the leaves' squares are summed over the ranks, a
         replicated leaf's taken from rank 0 only."""
         sq = _leaf_squares(grads)
+        for i, mask in self._tp_owned.items():
+            if grads[i].numel():
+                sq[i] = (grads[i].to(torch.float32).square() * mask).sum()
         if self._stage >= 2:
             sq = sq * self._norm_weights
             comm.all_reduce(sq, axis_name=self._dp_group)

@@ -32,6 +32,7 @@ import time
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
+import torch
 
 from ..telemetry.trace import get_tracer
 from ..utils.logging import log_dist
@@ -41,6 +42,20 @@ from .scheduler import (ContinuousBatchingScheduler, QueueFull, Request,
                         RequestState, SamplingParams)
 
 __all__ = ["ServingEngine", "SamplingParams", "QueueFull", "RequestState"]
+
+
+def tp_agree(engine):
+    """``agree(value)``: tp rank 0's ``value``, broadcast over ``engine``'s
+    ``model`` group in a tensor on the engine's device (an NCCL group
+    carries CUDA tensors only). Every rank runs the scheduler and makes
+    every call in one order, so the ranks call it in lock-step."""
+    from ..comm import comm
+
+    def agree(value):
+        box = torch.tensor([float(value)], dtype=torch.float64,
+                           device=engine.device)
+        return float(comm.broadcast(box, 0, engine.tp.group).item())
+    return agree
 
 
 class ServingEngine:
@@ -57,19 +72,6 @@ class ServingEngine:
             config.validate()
         self.config = config
         self.engine = engine
-        tp = engine.tp
-        if tp.active:
-            # every tp rank runs this scheduler on the same requests: a
-            # decision read off a clock could differ between them
-            for what, on in (("the prefill/decode roles (KVHandoff)",
-                              config.role != "unified" or
-                              handoff_sink is not None),
-                             ("request deadlines (request_timeout_s)",
-                              config.request_timeout_s is not None)):
-                if on:
-                    raise NotImplementedError(
-                        f"{what} at tp={tp.size} is not ported yet: "
-                        f"ROADMAP.md row A8b2")
         n_pos = getattr(getattr(engine.module, "config", None),
                         "n_positions", None)
         if n_pos is not None and config.max_model_len > n_pos:
@@ -82,7 +84,10 @@ class ServingEngine:
                                       tenants=config.tenants)
         self.scheduler = ContinuousBatchingScheduler(
             engine, config, metrics=self.metrics, clock=clock,
-            handoff_sink=handoff_sink)
+            handoff_sink=handoff_sink,
+            # every tp rank runs this scheduler on the same requests, so
+            # every decision read off the clock must read one value
+            agree=tp_agree(engine) if engine.tp.active else None)
         self._requests: Dict[int, Request] = {}
         self._next_id = 0
         self._draining = False
@@ -103,11 +108,6 @@ class ServingEngine:
             raise RuntimeError("ServingEngine is draining; submit rejected")
         sampling = sampling or SamplingParams()
         sampling.validate()
-        if sampling.timeout_s is not None and self.engine.tp.active:
-            raise NotImplementedError(
-                f"a request deadline (timeout_s) at tp="
-                f"{self.engine.tp.size} is not ported yet: ROADMAP.md row "
-                f"A8b2")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")

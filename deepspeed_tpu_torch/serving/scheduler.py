@@ -290,10 +290,19 @@ class ContinuousBatchingScheduler:
 
     def __init__(self, engine, config, metrics: ServingMetrics = None,
                  clock: Callable[[], float] = time.monotonic,
-                 handoff_sink: Optional[Callable] = None):
+                 handoff_sink: Optional[Callable] = None,
+                 agree: Optional[Callable[[float], float]] = None):
         self.engine = engine
         self.config = config
         self.clock = clock
+        #: a clock reading on this rank -> the one every rank of a tensor-
+        #: parallel group uses (``serving/engine.py``'s ``tp_agree``);
+        #: None on one rank
+        self.agree = agree
+        #: whether any deadline is in play: until then no decision reads
+        #: the clock, and ``_decision_time`` makes no collective. Set from
+        #: the config and the requests, the same on every rank.
+        self._deadlines = config.request_timeout_s is not None
         self.role = getattr(config, "role", "unified")
         self.handoff_sink = handoff_sink
         self.metrics = metrics or ServingMetrics()
@@ -344,11 +353,12 @@ class ContinuousBatchingScheduler:
             raise QueueFull(
                 f"serving queue at capacity ({self.config.max_queue}); "
                 f"retry with backoff")
-        now = self.clock()
-        request.submit_time = now
         timeout = (request.sampling.timeout_s
                    if request.sampling.timeout_s is not None
                    else self.config.request_timeout_s)
+        self._deadlines |= timeout is not None
+        now = self._decision_time()
+        request.submit_time = now
         if timeout is not None:
             request.deadline = now + timeout
             if self._queue_min_deadline is None or \
@@ -372,6 +382,7 @@ class ContinuousBatchingScheduler:
             raise QueueFull(
                 f"serving handoff queue at capacity "
                 f"({self.config.max_queue}); retry with backoff")
+        self._deadlines |= request.deadline is not None
         self.handoff_queue.append((handoff, request))
         self.tracer.async_begin(
             "request/handoff_queued", request.request_id, cat="serving",
@@ -386,7 +397,7 @@ class ContinuousBatchingScheduler:
         budget, then the OLDEST in-flight chunked prefill always advances
         one chunk, and every active slot still decodes every tick."""
         self._tick_no += 1
-        now = self.clock()
+        now = self._decision_time()
         self._expire(now)
         self._admit_handoffs(now)
         budget = (self.chunked.chunk_tokens if self.chunked is not None
@@ -399,6 +410,18 @@ class ContinuousBatchingScheduler:
             self.metrics.record_prefix_cache(self.prefix_cache)
         return (len(self.queue) + len(self.handoff_queue) +
                 len(self.pool.active_slots) + len(self.prefilling))
+
+    def _decision_time(self) -> float:
+        """The clock where a decision reads it: a deadline set at submit,
+        and each tick's expiries and admissions. Under tensor parallelism
+        every rank runs this scheduler on the same requests, so the
+        reading is the one ``agree`` gives every rank; with no deadline in
+        play no decision depends on it, and no collective is made. The
+        other reads (timings, TTFT) stay this rank's own."""
+        now = self.clock()
+        if self.agree is not None and self._deadlines:
+            now = self.agree(now)
+        return now
 
     def _alloc_slot(self) -> Optional[int]:
         """Claim a slot, evicting the LRU prefix-cache entry when the

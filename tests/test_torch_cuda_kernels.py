@@ -496,12 +496,16 @@ def _sparse_layout(kind, h, t, fb):
 
 
 def _sparse_case(device, dtype, shape, kind, fb=16, layout_kind="bthd",
-                 tile=None):
+                 tile=None, heads=None):
     """K6 and K7 against their plain versions on the same inputs (summing
     as the kernels' route does, ``bsa.tensor_core_path``): the forward's
     out and lse ratios, and dq, dk, dv ratios."""
     b, h, t, d = shape
-    layout = _sparse_layout(kind, h, t, fb)
+    if heads is None:
+        layout = _sparse_layout(kind, h, t, fb)
+    else:           # a tensor-parallel rank's rows of the whole layout
+        layout = np.ascontiguousarray(
+            _sparse_layout(kind, heads[1], t, fb)[heads[0]:heads[0] + h])
     tile = tile or bsa.default_tile(t, fb)
     plan = bsa.get_plan(layout, fb, tile, device)
     q, k, v = _bhtd(device, dtype, shape, 13, layout_kind)
@@ -590,6 +594,19 @@ def test_block_sparse_tensor_cores_fine_block_24(cuda_device, dtype):
                                            tile=192)
         assert r_out <= 1 and e_lse <= LSE_TOL, (kind, r_out, e_lse)
         assert max(bwd) <= 1, (kind, bwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fixed", "bigbird"])
+@pytest.mark.parametrize("h0", [0, 2])
+def test_block_sparse_on_a_rank_rows_of_the_layout(cuda_device, kind, h0):
+    """K6/K7 at a tp-2 rank's 2 of 4 heads, on its rows of the layout made
+    for all 4 (each head its own pattern), against the plain versions."""
+    (r_out, e_lse), bwd = _sparse_case(cuda_device, torch.bfloat16,
+                                       (2, 2, 1024, 64), kind,
+                                       heads=(h0, 4))
+    assert r_out <= 1 and e_lse <= LSE_TOL, (r_out, e_lse)
+    assert max(bwd) <= 1, bwd
 
 
 TINY_BERT = BertConfig(vocab_size=256, n_positions=128, n_embd=128,
@@ -763,6 +780,34 @@ def test_threefry_dropout_at_an_offset_bitwise_its_plain_version(
                                                       offset))
     assert torch.equal(tfd.threefry_dropout(rows, key, 0.1, off),
                        tfd.threefry_dropout(x, key, 0.1)[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,h0,total", [
+    ((2, 3, 7, 11), 3, 6),          # inner 231: not a multiple of a vector
+    ((2, 4, 64, 64), 4, 8)])        # inner a multiple of every vector
+def test_threefry_dropout_head_map_bitwise_its_plain_version(
+        cuda_device, dtype, shape, h0, total):
+    """Under the head-strided map (a tp rank's heads ``[h0, h0 + h)`` of
+    ``total``, rows from 1 of the global batch): the kernel equals its
+    plain version bit for bit and the heads' slice of the contiguous draw
+    over the whole tensor; ``inner == stride`` is the contiguous launch."""
+    from deepspeed_tpu_torch.ops.dropout import counter_map
+    from deepspeed_tpu_torch.ops.kernels import threefry_dropout as tfd
+    key = (2024, 78)
+    h = shape[1]
+    whole = _drop_input(cuda_device, dtype, (shape[0] + 1, total) +
+                        shape[2:])
+    x = whole[1:, h0:h0 + h].contiguous()
+    where = counter_map(tuple(x.shape), 1, (h0, total))
+    got = tfd.threefry_dropout(x, key, 0.1, *where)
+    assert torch.equal(got, tfd.threefry_dropout_plain(x, key, 0.1, *where))
+    assert torch.equal(got, tfd.threefry_dropout(whole, key, 0.1)[
+        1:, h0:h0 + h])
+    row = x[0].numel()
+    assert torch.equal(tfd.threefry_dropout(x, key, 0.1, 5, row, row),
+                       tfd.threefry_dropout(x, key, 0.1, 5))
 
 
 @pytest.mark.cuda

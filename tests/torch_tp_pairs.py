@@ -139,3 +139,130 @@ def train_case(family, stage, dp, seed):
     want = (zp.jax_run(engine, data), zp.jax_state(engine))
     return want, {"family": family, "kw": kw, "tree": tree, "config": cfg,
                   "batches": data}
+
+
+# ---------------------------------------------- the cases of row A8b2
+
+# BERT: the tiny decoders' width and depth, 128 positions (a Fixed or
+# BigBird layout of 8 blocks of 16); the layouts differ between heads
+BERT = dict(vocab_size=tp.VOCAB, n_positions=128, n_embd=64, n_layer=2,
+            n_head=4, pad_vocab_to_multiple=8)
+BERT_T = 128
+SPARSE = {"fixed": dict(num_heads=4, block=16, num_local_blocks=4,
+                        num_global_blocks=1, different_layout_per_head=True,
+                        num_different_global_patterns=4),
+          "bigbird": dict(num_heads=4, block=16,
+                          different_layout_per_head=True,
+                          num_random_blocks=2, num_sliding_window_blocks=3,
+                          num_global_blocks=1, seed=3)}
+
+
+def family(name):
+    """``(config kwargs, JAX config class, JAX model class)`` of a family,
+    BERT included."""
+    if name == "bert":
+        from deepspeed_tpu.models.bert import BertConfig, BertModel
+        return dict(BERT), BertConfig, BertModel
+    kw, jcfg, jcls = tp.FAMILIES[name][:3]
+    return {k: v for k, v in kw.items() if k != "dtype"}, jcfg, jcls
+
+
+def jax_sparse(jmodel, kind):
+    """The JAX package's sparse surgery of ``kind`` on ``jmodel``."""
+    from deepspeed_tpu.ops import sparse_attention_ops as jops
+    from deepspeed_tpu.ops.sparse_attention_utils import \
+        SparseAttentionUtils as JaxUtils
+    cls = {"fixed": jops.FixedSparsityConfig,
+           "bigbird": jops.BigBirdSparsityConfig}[kind]
+    return JaxUtils.replace_model_self_attention_with_sparse_self_attention(
+        jmodel, sparsity_config=cls(**SPARSE[kind]))
+
+
+def bert_batches(dp, seed, steps=STEPS):
+    """BERT's ``[gas, micro * dp, T]`` batches, 15% of the labels set."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        ids = rng.integers(0, tp.VOCAB, (GAS, MICRO * dp, BERT_T))
+        labels = np.where(rng.random(ids.shape) < 0.15, ids, -100)
+        out.append({"input_ids": ids.astype(np.int32),
+                    "labels": labels.astype(np.int32)})
+    return out
+
+
+def tp_train_case(name, stage, dp, seed, tp_size=TP, sparse=None,
+                  tag_dir=None, **over):
+    """``train_case`` for any family at any tp: ``over`` changes the
+    config (``dropout``, ``n_kv_head``), ``sparse`` installs that
+    surgery on both sides, ``tag_dir`` has the JAX engine save a tag
+    there after its steps (the workers load it and save it again)."""
+    kw, jcfg, jcls = family(name)
+    kw = dict(kw, **over)
+    cfg = dict(train_config(stage, dp), tensor_parallel_size=tp_size,
+               train_batch_size=MICRO * GAS * dp)
+    jmodel = jcls(jcfg(**dict(kw, attn_backend="xla")))
+    if sparse:
+        jmodel = jax_sparse(jmodel, sparse)
+    engine = deepspeed_tpu.initialize(model=jmodel, config=cfg,
+                                      mesh_manager=jax_mesh(dp, tp_size))[0]
+    tree = jax.tree.map(np.asarray, engine.params)
+    data = bert_batches(dp, seed) if name == "bert" else \
+        train_batches(dp, seed)
+    want = (zp.jax_run(engine, data), zp.jax_state(engine))
+    case = {"family": name, "kw": kw, "tree": tree, "config": cfg,
+            "batches": data,
+            "sparse": (sparse, SPARSE[sparse]) if sparse else None}
+    if tag_dir is not None:
+        engine.save_checkpoint(str(tag_dir))
+        case.update(jax_tag=str(tag_dir), resaved=str(tag_dir) + "_port")
+    return want, case
+
+
+def jax_infer(name, tree, tp_size=TP, sparse=None, **over):
+    """The JAX package's inference engine of a family at ``tp_size``
+    (dp 1) on ``tree``, and the config kwargs of the case."""
+    kw, jcfg, jcls = family(name)
+    kw = dict(kw, **over)
+    jmodel = jcls(jcfg(**kw))
+    if sparse:
+        jmodel = jax_sparse(jmodel, sparse)
+    cfg = jconfig.DeepSpeedInferenceConfig.from_dict(
+        {"dtype": "float32", "tensor_parallel": {"tp_size": tp_size}})
+    return JaxEngine(jmodel, cfg, params=tree,
+                     mesh_manager=jax_mesh(1, tp_size)), kw
+
+
+def infer_case(name, tree, kw, ids, tp_size=TP, sparse=None, generate=(),
+               serve=None):
+    """A case of ``torch_tp_worker.tp_infer_case``."""
+    return {"family": name, "kw": kw, "tree": tree, "ids": ids,
+            "tp": tp_size, "generate": list(generate), "serve": serve,
+            "sparse": (sparse, SPARSE[sparse]) if sparse else None}
+
+
+def tag_bytes(d):
+    """The state files of the latest tag under ``d``, by name."""
+    import os
+    with open(os.path.join(d, "latest")) as f:
+        tag = os.path.join(d, f.read().strip())
+    out = {}
+    for name in ("model_states.msgpack", "optim_states.msgpack"):
+        with open(os.path.join(tag, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def tp1_resave(case, src, dst):
+    """A tp-1 engine of the port (this process) loading the tag under
+    ``src`` and saving it under ``dst``."""
+    import deepspeed_tpu_torch
+    import torch_tp_worker
+    cfg = {k: v for k, v in case["config"].items()
+           if k != "tensor_parallel_size"}
+    cfg["train_batch_size"] = MICRO * GAS
+    m = torch_tp_worker.model(case["family"], case["kw"], case["tree"],
+                              tp=1)
+    engine = deepspeed_tpu_torch.initialize(model=m, config=cfg,
+                                            device="cpu")[0]
+    engine.load_checkpoint(src)
+    engine.save_checkpoint(dst)
