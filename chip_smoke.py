@@ -84,7 +84,7 @@ stage 0; GPT-2-125M saved at stage 3 and resumed bit for bit by a fresh
 stage-3 and a fresh stage-0 engine, with each load's device peak beside
 the engine's resident bytes (``ckpt zero resume``). Slice 10's phases,
 on two ranks of a gloo group over CUDA tensors spawned on the one card
-(``tp_phases``): LLaMA-7B at full depth scoring ``[4, 2048]`` at tp 2 (K3
+(``tp_phases``): LLaMA-7B at SERVE_LAYERS scoring ``[4, 2048]`` at tp 2 (K3
 on 16 heads a rank) against the tp-1 engine's logits (``tp forward``),
 served at tp 2 to 8 requests of the serve traffic, each stream equal to
 tp 1's or parting at a near-tie (``tp serve``), GPT-2-125M at the main
@@ -209,9 +209,10 @@ BERT_GRAD_TOL = LLAMA_GRAD_TOL
 # 1024-wide layers about as GPT-2-125M's
 BERT_CONVERGE_LR = 1e-3
 # Continuous-batching serving (ServingEngine over init_inference): LLaMA-7B
-# at SERVE_LAYERS of its 32 layers (cut from full depth to keep the script
-# inside its time limit, PERF.md), 16 slots x 2048 columns (an
-# 8.6 GB bf16 KV pool), two prefills a tick; 48 requests submitted at
+# at SERVE_LAYERS of its 32 layers (cut from full depth to 16, then to 8
+# when the quantization phases joined, to keep the script inside its time
+# limit, PERF.md), 16 slots x 2048 columns (a 4.3 GB bf16 KV pool at 8
+# layers), two prefills a tick; 48 requests submitted at
 # tick 0, prompts lognormal (median 384, 128-1024 tokens), new tokens lognormal (median 128,
 # 64-256), every fourth one sampled (temperature 0.8, top-p 0.95, its own
 # seed), and one whose prompt and new tokens fill the 2048 columns.
@@ -226,7 +227,7 @@ BERT_CONVERGE_LR = 1e-3
 SERVE_LLAMA = dict(cfg={"num_slots": 16, "max_model_len": 2048,
                         "max_prefills_per_tick": 2},
                    requests=48, prompt=(384, 128, 1024), new=(128, 64, 256))
-SERVE_LAYERS = 16
+SERVE_LAYERS = 8
 SERVE_GPT2 = dict(cfg={"num_slots": 8, "max_model_len": 1024,
                        "max_prefills_per_tick": 2},
                   requests=24, prompt=(192, 64, 512), new=(64, 32, 128))
@@ -311,10 +312,11 @@ REMAT_BYTES_PER_PARAM, REMAT_FILL, REMAT_TIMED = 20, 0.9, 2
 CKPT_DIR = "build/ckpt"
 CKPT_STEPS, CKPT_SAVE_AT = 4, 2
 # Both depths were cut (from 4 and 16 layers, then ckpt serve from 8 to
-# 6) when the tensor-parallel phases joined the script, to keep it
-# inside its time limit: each
+# 6) when the tensor-parallel phases joined the script, and ckpt train
+# resume from 2 to 1 when the quantization phases did, to keep it inside
+# its time limit: each
 # phase's save and load take ~4 s a GB on the card's machine (PERF.md)
-CKPT_RESUME_LAYERS, CKPT_SERVE_LAYERS, CKPT_SERVE_REQUESTS = 2, 6, 8
+CKPT_RESUME_LAYERS, CKPT_SERVE_LAYERS, CKPT_SERVE_REQUESTS = 1, 6, 8
 CKPT_MEGATRON_VOCAB, CKPT_MEGATRON_TP, CKPT_MEGATRON_PP = 50304, 2, 2
 
 
@@ -4578,7 +4580,7 @@ def zero_phases(torch):
 TP_SIZE = 2
 TP_STORE, TP_OUT = "build/tp_store", "build/tp_out"
 TP_TIMEOUT = 600                 # seconds the parent waits for the ranks
-TP_FWD_SHAPE, TP_TIMED = (4, 2048), 3
+TP_FWD_SHAPE, TP_TIMED = (4, 2048), 2
 TP_SERVE_REQUESTS, TP_SERVE_NEW = 8, 32
 # the tp-2 LLaMA run falls below 0.8 x its first loss by its second step
 # (PERF.md): 4 steps of llama train's 10 check it
@@ -4644,12 +4646,13 @@ def tp_vs_tp1(torch, rank, name, build, mb, tol, kwargs=None):
 
 
 def tp_forward(torch, rank):
-    """LLaMA-7B at full depth scoring ``[4, 2048]`` at tp 2 (K3 32 a call
-    a rank, on 16 heads), against the tp-1 engine's logits."""
+    """LLaMA-7B's width at SERVE_LAYERS layers scoring ``[4, 2048]`` at tp 2
+    (K3 a layer a call a rank, on 16 heads), against the tp-1 engine's
+    logits."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.models.llama import LLAMA_7B
-    cfg = LLAMA_7B
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=SERVE_LAYERS)
     b, t = TP_FWD_SHAPE
     ids = torch.randint(0, cfg.vocab_size, (b, t),
                         generator=torch.Generator().manual_seed(SEED + 11))
@@ -4771,7 +4774,8 @@ def tp_serve(torch, rank):
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.models.llama import LLAMA_7B
     from deepspeed_tpu_torch.serving.kv_slots import tree_nbytes
-    cfg, scfg = LLAMA_7B, SERVE_LLAMA["cfg"]
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=SERVE_LAYERS)
+    scfg = SERVE_LLAMA["cfg"]
     traffic = [(p, dict(kw, max_new_tokens=min(kw["max_new_tokens"],
                                                TP_SERVE_NEW)))
                for p, kw in serve_traffic(np, SERVE_LLAMA, cfg.vocab_size,
@@ -5267,7 +5271,7 @@ def tp_serve_handoff(torch, rank):
     from deepspeed_tpu_torch.serving import KVHandoff
     import numpy as np
     import deepspeed_tpu_torch
-    cfg = LLAMA_7B
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=SERVE_LAYERS)
     engine = deepspeed_tpu_torch.init_inference(
         llama_model(torch, cfg, SEED + 70, torch.bfloat16),
         {"dtype": "bf16", "tensor_parallel": {"tp_size": TP_SIZE}})
@@ -5576,6 +5580,666 @@ def tp_phases(torch, names=tuple(name for name, _ in TP_PHASES)):
     return launches
 
 
+# ---------------------------------------------------------------- slice 12
+# The quantization core and its three users. ZeRO under comm_compression:
+# GPT-2-125M on ZQ ranks of a gloo group over CUDA tensors on the one card
+# (gloo stages every collective through host memory: the times show that
+# the paths run, not what they cost across cards), the JAX package's
+# explicit exchange (runtime/zero/compressed_step.py): zero compressed at
+# stage 3 with int8 on the all-gather, reduce-scatter and all-reduce, then
+# fp8_block on the same batch, each micro step's gradients and loss held
+# to the fp32 policy's on the same weights (TRAIN_GRAD_TOL), each micro
+# step's accounted wire bytes to the models of comm/quantized.py, a
+# repeated batch converging within ZQ_CONVERGE_STEPS, K1/K2 12 a step a
+# rank; zero overlap: the bucketed schedule at ZQ_BUCKET bytes against the
+# per-leaf exchange, bitwise under fp32, the bucket count and issue order,
+# a step's time with overlap on and off; zero hierarchical: 4 ranks as 2
+# hosts of 2 (devices_per_host), stage 2, the intra- and inter-host bytes
+# against the models, the gradients as above. Int8 serving (LLaMA-7B's
+# width at SERVE_LAYERS layers, bf16 compute): serve int8, weight-only
+# int8 (inference/quantization.py), resident bytes beside bf16, scoring
+# [4, 2048] (K3 a layer a call) held to llama vs plain path's bounds
+# against the same int8 weights on the plain attention path and an f32
+# copy of them, ZQ_SERVE_REQUESTS of the serve traffic (new tokens capped
+# at ZQ_SERVE_NEW) teacher-forced through the plain forward as in tp
+# serve; serve kv int8, the int8 slot pool (inference/kv_quant.py) at the
+# serve config's 16 x 2048: pool bytes beside bf16, one decode tick's
+# logits against an f32 decode from the same pool, each written column's
+# payload and scales bitwise quantize_kv of the K/V a bf16 pool from the
+# same pool computes, and an int8 lane through the KVHandoff frame into
+# another slot, the same bytes.
+ZQ_STORE, ZQ_OUT = "build/zq_store", "build/zq_out"
+ZQ_MICRO, ZQ_T, ZQ_LR = 2, 1024, 3e-3
+ZQ_CONVERGE_STEPS, ZQ_TIMED, ZQ_BUCKET = 4, 2, 4 << 20
+ZQ_SERVE_REQUESTS, ZQ_SERVE_NEW = 8, 64
+ZQ_KV_PROMPTS = (300, 700, 1200, 150)
+# against the fp32 policy: int8 within the train cell's bounds; fp8 e4m3
+# keeps 3 mantissa bits, a relative rounding error up to 2^-4 an element
+# each time a value is quantized, and a replicated leaf's gradient is
+# quantized three times on its way (the gathered weights it is taken at,
+# the all-reduce's two legs): 3 x 2^-4 ~ 0.19 a leaf (0.115 measured at
+# blocks.0.ln1_scale on an H100 80GB HBM3 at 700 W, PERF.md)
+ZQ_GRAD_TOL = {"int8": TRAIN_GRAD_TOL,
+               "fp8_block": {"rel_l2_per_leaf": 0.2, "loss_abs": 2e-2}}
+
+
+def zq_config(world, stage, cc=None, sched=None):
+    cfg = {"train_batch_size": ZQ_MICRO * world,
+           "train_micro_batch_size_per_gpu": ZQ_MICRO,
+           "gradient_accumulation_steps": 1,
+           "optimizer": {"type": "adamw", "params": {"lr": ZQ_LR}},
+           "bf16": {"enabled": True},
+           "zero_optimization": {"stage": stage}, "steps_per_print": 0}
+    if cc is not None:
+        cfg["comm_compression"] = cc
+    if sched is not None:
+        cfg["overlap_schedule"] = dict(sched, enabled=True)
+    return cfg
+
+
+def zq_policy(policy, **extra):
+    return dict({"enabled": True, "all_gather": policy,
+                 "reduce_scatter": policy, "all_reduce": policy}, **extra)
+
+
+def zq_engine(torch, world, stage, cc=None, sched=None):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, GPT2_125M
+    model = GPT2Model(GPT2_125M, generator=torch.Generator().manual_seed(SEED))
+    return deepspeed_tpu_torch.initialize(
+        model=model, config=zq_config(world, stage, cc, sched))[0]
+
+
+def zq_batch(world, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {"input_ids": rng.integers(0, 256, (1, ZQ_MICRO * world, ZQ_T),
+                                      dtype=np.int64)}
+
+
+def zq_wire_model(engine):
+    """``(wire, inter)`` bytes one micro step of the explicit exchange puts
+    on a member's links under the engine's policy: the models of
+    comm/quantized.py (and the plain ring's where the dispatch keeps full
+    precision), leaf by leaf as the dispatch decides, and the loss's
+    all-reduce."""
+    from deepspeed_tpu_torch.comm import compression, quantized as qz
+    cc = compression.get_comm_compression()
+    n = engine.dp_world_size
+    itemsize = torch_itemsize(engine._compute_dtype)
+    local = cc.local_members(n) if cc.hierarchical else 0
+    wire = inter = 0
+
+    def flat(w):
+        return w * (n // local) // n if local else 0
+
+    for leaf in engine._compressed_micro_grad(None).leaves:
+        size = math.prod(leaf.shape)
+        if leaf.gdim >= 0:
+            shard = size // n
+            pol = cc.policy_for("all_gather", "data", shard * itemsize)
+            w = qz.quantized_all_gather_wire_bytes(shard, n, cc.block_size) \
+                if pol in ("int8", "fp8_block") else \
+                (n - 1) * shard * itemsize
+            wire, inter = wire + w, inter + flat(w)
+        nbytes = size * itemsize
+        if leaf.sdim >= 0:
+            pol = cc.policy_for("reduce_scatter", "data", nbytes)
+            if pol in ("int8", "fp8_block") and local:
+                i, e = qz.hierarchical_reduce_scatter_wire_bytes(
+                    size, n, local, cc.block_size, itemsize)
+                wire, inter = wire + i + e, inter + e
+                continue
+            w = qz.quantized_reduce_scatter_wire_bytes(
+                size, n, cc.block_size) if pol in ("int8", "fp8_block") \
+                else (n - 1) * nbytes // n
+        else:
+            pol = cc.policy_for("all_reduce", "data", nbytes)
+            w = qz.quantized_all_reduce_wire_bytes(size, n, cc.block_size) \
+                if pol in ("int8", "fp8_block") and size % n == 0 else \
+                2 * (n - 1) * nbytes // n
+        wire, inter = wire + w, inter + flat(w)
+    w = 2 * (n - 1) * 4 // n                  # the loss, f32, below min_bytes
+    return wire + w, inter + flat(w)
+
+
+def torch_itemsize(dtype):
+    import torch
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def zq_micro(torch, engine, batch):
+    """One micro step (forward + backward) of ``batch``'s first micro
+    batch: the averaged loss, the whole f32 gradients (on rank 0, else
+    None; gathered at full precision) and the step's wire bytes, inter-host
+    bytes and ops."""
+    from deepspeed_tpu_torch import comm
+    mb = {k: torch.as_tensor(v[0]) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    comm.reset_comm_stats()
+    engine.backward(engine(mb))
+    torch.cuda.synchronize()
+    st = comm.comm_stats()
+    loss = float(engine._loss_acc) / engine.cur_scale
+    grads = {}
+    for i, (name, g) in enumerate(zip(engine._names, engine._grad_acc)):
+        ps = engine._pshards[i]
+        whole = engine.whole(i, g) if ps.partitioned and \
+            engine._stage >= 2 else g
+        grads[name] = whole.float().cpu()
+    engine._drop_step_state()
+    return loss, grads, st
+
+
+def zq_rel(got, want):
+    rel = {n: ((got[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in want.items()}
+    worst = max(rel, key=rel.get)
+    return rel, worst
+
+
+def zq_check_grads(name, rank, loss, grads, ref_loss, ref_grads,
+                   tol=TRAIN_GRAD_TOL):
+    rel, worst = zq_rel(grads, ref_grads)
+    check(rel[worst] <= tol["rel_l2_per_leaf"] and
+          abs(loss - ref_loss) <= tol["loss_abs"],
+          f"{name} rank {rank}: worst leaf {worst} rel L2 {rel[worst]}, "
+          f"loss {loss} vs the fp32 policy's {ref_loss} (tol {tol})")
+    return {"loss": loss, "loss_fp32_policy": ref_loss,
+            "loss_abs_diff": abs(loss - ref_loss),
+            "max_rel_l2": rel[worst], "worst_leaf": worst,
+            "median_rel_l2": statistics.median(rel.values())}
+
+
+def zq_check_wire(name, rank, engine, st):
+    want, want_inter = zq_wire_model(engine)
+    check(st["bytes"] == want and st["inter_host_bytes"] == want_inter,
+          f"{name} rank {rank}: a micro step accounted {st['bytes']} wire "
+          f"bytes ({st['inter_host_bytes']} inter-host), the models "
+          f"{want} ({want_inter})")
+    return {"wire_bytes": st["bytes"], "inter_host_bytes":
+            st["inter_host_bytes"], "ops": st["ops"], "model_bytes": want}
+
+
+def zero_compressed(torch, rank, world):
+    """GPT-2-125M at stage 3 on ``world`` ranks: the fp32 policy's micro
+    step, int8's and fp8_block's on the same weights and batch (gradients
+    and wire bytes checked), then int8 train_batch on a repeated batch
+    (K1/K2 12 a step a rank, the loss falling)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm import compression
+    batch = zq_batch(world, SEED + 90)
+    out, launches = {}, {"K1": 0, "K2": 0}
+    ref = None
+    for policy in ("fp32", "int8", "fp8_block"):
+        engine = zq_engine(torch, world, 3, zq_policy(policy))
+        check(engine._explicit and engine._stage == 3,
+              f"zero compressed: the {policy} engine is not on the explicit "
+              f"stage-3 exchange")
+        tp_reset(torch)
+        s0 = time.perf_counter()
+        loss, grads, st = zq_micro(torch, engine, batch)
+        secs = time.perf_counter() - s0
+        wire = zq_check_wire("zero compressed", rank, engine, st)
+        out[policy] = dict(wire, seconds=round(secs, 3), loss=loss)
+        if policy == "fp32":
+            ref = (loss, grads)
+        elif rank == 0:
+            out[policy].update(zq_check_grads(
+                f"zero compressed {policy}", rank, loss, grads, *ref,
+                tol=ZQ_GRAD_TOL[policy]))
+        if policy == "int8":
+            # a repeated batch: the loss falls, K1/K2 a layer a step
+            losses, per_step, step_s = [], [], []
+            for _ in range(ZQ_CONVERGE_STEPS):
+                before = counts()
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                losses.append(float(engine.train_batch(batch=batch)))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - s0)
+                per_step.append(counts_since(before))
+            n_layer = engine.module.config.n_layer
+            check(all(p["K1"] == n_layer and p["K2"] == n_layer
+                      for p in per_step),
+                  f"zero compressed rank {rank}: K1/K2 launches a step "
+                  f"{[(p['K1'], p['K2']) for p in per_step]}, want "
+                  f"{n_layer} each")
+            check(min(losses[1:]) < CONVERGE_FRACTION * losses[0],
+                  f"zero compressed rank {rank}: int8 losses on a repeated "
+                  f"batch {losses}, want below {CONVERGE_FRACTION} x the "
+                  f"first within {ZQ_CONVERGE_STEPS} steps")
+            for p in per_step:
+                launches["K1"] += p["K1"]
+                launches["K2"] += p["K2"]
+            out["converge"] = {"losses": [round(x, 4) for x in losses],
+                               "step_s": [round(x, 3) for x in step_s]}
+        del engine
+        torch.cuda.empty_cache()
+        compression.reset_comm_compression()
+    ratio = {p: round(out[p]["wire_bytes"] / out["fp32"]["wire_bytes"], 6)
+             for p in ("int8", "fp8_block")}
+    phase("zero compressed", rank=rank, ranks=world, model="GPT2_125M",
+          stage=3, micro=ZQ_MICRO, seq=ZQ_T,
+          group="gloo over CUDA tensors, one card",
+          wire_ratio_vs_fp32=json.dumps(ratio), runs=json.dumps(out),
+          launches=json.dumps(launches), tol=json.dumps(ZQ_GRAD_TOL))
+    comm.barrier()
+    return launches
+
+
+def zero_overlap(torch, rank, world):
+    """The bucketed schedule (ZQ_BUCKET bytes) against the per-leaf
+    explicit exchange at stage 3 under the fp32 policy: one micro step's
+    gradients and loss bitwise; the plan, the issue order, and a step's
+    time with overlap on and off."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm import compression
+    batch = zq_batch(world, SEED + 91)
+    cc = zq_policy("fp32")
+    res, times, launches = {}, {}, {"K1": 0, "K2": 0}
+    for label, sched in (("per_leaf", None),
+                         ("bucketed", {"bucket_bytes": ZQ_BUCKET}),
+                         ("fused", {"overlap": False})):
+        engine = zq_engine(torch, world, 3, cc, sched)
+        before = counts()
+        loss, grads, st = zq_micro(torch, engine, batch)
+        xfn = engine._compressed_micro_grad(None)
+        res[label] = (loss, grads, list(getattr(xfn, "issue_log", [])),
+                      engine._sched_info, st)
+        step_s = []
+        for _ in range(1 + ZQ_TIMED):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            engine.train_batch(batch=batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - s0)
+        got = counts_since(before)
+        launches["K1"] += got["K1"]
+        launches["K2"] += got["K2"]
+        times[label] = statistics.median(step_s[1:])
+        del engine
+        torch.cuda.empty_cache()
+    compression.reset_comm_compression()
+    base_loss, base = res["per_leaf"][:2]
+    for label in ("bucketed", "fused"):
+        loss, grads, issue, info, st = res[label]
+        same = loss == base_loss and all(
+            torch.equal(grads[n], g) for n, g in base.items())
+        check(same, f"zero overlap rank {rank}: the {label} exchange's "
+              f"gradients are not bitwise the per-leaf exchange's")
+        gathers = [k for kind, k in issue if kind == "gather"]
+        scatters = [k for kind, k in issue if kind == "reduce_scatter"]
+        check(gathers == list(range(info["gather_buckets"])) and
+              scatters == list(range(info["rs_buckets"]))[::-1],
+              f"zero overlap rank {rank}: {label} issue order {issue}")
+    info = res["bucketed"][3]
+    phase("zero overlap", rank=rank, ranks=world, model="GPT2_125M",
+          stage=3, policy="fp32", bucket_bytes=ZQ_BUCKET,
+          gather_buckets=info["gather_buckets"],
+          rs_buckets=info["rs_buckets"],
+          layer_chunks=len(info["layer_chunks"]),
+          issue_order=json.dumps(res["bucketed"][2]),
+          fused_buckets=json.dumps([res["fused"][3]["gather_buckets"],
+                                    res["fused"][3]["rs_buckets"]]),
+          grads_bitwise_per_leaf=True,
+          ops_per_micro=json.dumps({k: v[4]["ops"] for k, v in res.items()}),
+          wire_bytes_per_micro=json.dumps(
+              {k: v[4]["bytes"] for k, v in res.items()}),
+          step_s=json.dumps({k: round(v, 4) for k, v in times.items()}),
+          launches=json.dumps(launches))
+    comm.barrier()
+    return launches
+
+
+def zero_hierarchical(torch, rank, world):
+    """Stage 2 on ``world`` ranks as hosts of 2 (devices_per_host 2): the
+    int8 two-level reduce-scatter's micro step against the fp32 policy's
+    (gradients), and its intra- and inter-host bytes against the
+    models."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm import compression
+    batch = zq_batch(world, SEED + 92)
+    out, ref = {}, None
+    for policy in ("fp32", "int8"):
+        engine = zq_engine(torch, world, 2, zq_policy(
+            policy, devices_per_host=2))
+        tp_reset(torch)
+        loss, grads, st = zq_micro(torch, engine, batch)
+        out[policy] = zq_check_wire("zero hierarchical", rank, engine, st)
+        out[policy]["intra_host_bytes"] = st["intra_host_bytes"]
+        if policy == "fp32":
+            ref = (loss, grads)
+        elif rank == 0:
+            out[policy].update(zq_check_grads(
+                "zero hierarchical", rank, loss, grads, *ref))
+        del engine
+        torch.cuda.empty_cache()
+        compression.reset_comm_compression()
+    check(0 < out["int8"]["inter_host_bytes"] <
+          out["fp32"]["inter_host_bytes"],
+          f"zero hierarchical rank {rank}: inter-host bytes "
+          f"{out['int8']['inter_host_bytes']} under int8, "
+          f"{out['fp32']['inter_host_bytes']} under fp32")
+    phase("zero hierarchical", rank=rank, ranks=world, hosts=world // 2,
+          devices_per_host=2, model="GPT2_125M", stage=2, policy="int8",
+          runs=json.dumps(out), tol=json.dumps(TRAIN_GRAD_TOL))
+    comm.barrier()
+    return {"K1": 0, "K2": 0}
+
+
+ZQ_PHASES = (("zero compressed", zero_compressed),
+             ("zero overlap", zero_overlap),
+             ("zero hierarchical", zero_hierarchical))
+
+
+def zq_rank(rank, world, store, out_dir, names):
+    """One rank of the quantized ZeRO phases: a gloo group of ``world``
+    ranks over CUDA tensors on the card, the rank mesh at dp ``world``;
+    its launch counts to ``out_dir/rank<r>.json``."""
+    import os
+    import torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.topology import initialize_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    comm.init_distributed("gloo", init_method=f"file://{store}", rank=rank,
+                          world_size=world, device="cuda", timeout=600,
+                          verbose=False)
+    try:
+        initialize_mesh(dp=world)
+        out = {name: fn(torch, rank, world) for name, fn in ZQ_PHASES
+               if name in names}
+    finally:
+        comm.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def zq_phases(torch, world, names):
+    """The quantized ZeRO phases ``names`` on ``world`` ranks of the one
+    card, spawned once; a rank that fails fails the script, and every rank
+    is stopped before this returns. Returns K1/K2's launches summed over
+    the phases and the ranks."""
+    import os
+    import shutil
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    store = os.path.abspath(f"{ZQ_STORE}{world}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    shutil.rmtree(ZQ_OUT, ignore_errors=True)
+    os.makedirs(ZQ_OUT)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=zq_rank, args=(r, world, store, ZQ_OUT,
+                                               names))
+             for r in range(world)]
+    s0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or \
+                    time.perf_counter() - s0 > TP_TIMEOUT:
+                break
+            time.sleep(1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"quantized ZeRO ranks exited {codes} "
+          f"after {time.perf_counter() - s0:.1f} s (limit {TP_TIMEOUT})")
+    launches = {"K1": 0, "K2": 0}
+    for r in range(world):
+        with open(os.path.join(ZQ_OUT, f"rank{r}.json")) as f:
+            for counted in json.load(f).values():
+                for k, v in counted.items():
+                    launches[k] = launches.get(k, 0) + v
+    phase("zero quantized ranks", ranks=world,
+          group="gloo over CUDA tensors, one card",
+          phases=json.dumps(list(names)),
+          seconds=round(time.perf_counter() - s0, 2),
+          launches=json.dumps(launches))
+    return launches
+
+
+def serve_int8(torch):
+    """LLaMA-7B's width at SERVE_LAYERS layers with int8 weights (``dtype:
+    int8``: bf16 compute): resident bytes beside bf16, scoring ``[4,
+    2048]`` against the plain path and an f32 copy of the same int8
+    weights, then ZQ_SERVE_REQUESTS requests of the serve traffic
+    teacher-forced through the plain forward. Returns K3's launches in
+    the scoring calls."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import quantization as tq
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B, LlamaModel
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=SERVE_LAYERS)
+    model = llama_model(torch, cfg, SEED + 80, torch.bfloat16)
+    bf16_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    s0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(model, {"dtype": "int8"})
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - s0
+    resident = tq.tree_nbytes(engine.module)
+    qw = [p for p in engine.module.parameters() if tq.is_quantized(p)]
+    q_bytes = sum(p.nbytes for p in qw)
+    q_bf16 = sum(p.numel() * 2 for p in qw)
+    check(engine.dtype == torch.bfloat16 and qw and
+          all(p.q.device.type == "cuda" for p in qw),
+          "serve int8: no int8 weights on the card")
+    b, t = 4, 2048
+    ids = torch.randint(0, cfg.vocab_size, (b, t),
+                        generator=torch.Generator().manual_seed(SEED + 81))
+    fa.flash_attention_fwd.launches = 0
+    per_call, fwd_s = [], []
+    for _ in range(2):
+        before = fa.flash_attention_fwd.launches
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        logits = engine(ids)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - s0)
+        per_call.append(fa.flash_attention_fwd.launches - before)
+    launches = fa.flash_attention_fwd.launches
+    check(per_call == [cfg.n_layer] * 2, f"serve int8: K3 launched "
+          f"{per_call} times a scoring call, want {cfg.n_layer}")
+    check(torch.isfinite(logits.float()).all().item(),
+          "serve int8: logits not finite")
+    # the same int8 weights on the plain attention path, and in f32
+    mcfg = engine.module.config
+    engine.module.config = dataclasses.replace(mcfg, attn_backend="xla")
+    try:
+        logits_x = engine(ids)
+    finally:
+        engine.module.config = mcfg
+    ref = LlamaModel(dataclasses.replace(cfg, attn_backend="xla"),
+                     generator=torch.Generator("cuda").manual_seed(0),
+                     device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        for r, p in zip(ref.parameters(), engine.module.parameters()):
+            r.copy_(p.dequantize(torch.float32) if tq.is_quantized(p)
+                    else p.float())
+        logits_f32 = ref.logits(ids.cuda())
+    del ref
+    torch.cuda.empty_cache()
+    compare_logits(torch, "serve int8 vs plain path", logits, logits_x,
+                   LLAMA_LOGITS_TOL, logits_f32)
+    del logits, logits_x, logits_f32
+    torch.cuda.empty_cache()
+    traffic = [(p, dict(kw, max_new_tokens=min(kw["max_new_tokens"],
+                                               ZQ_SERVE_NEW)))
+               for p, kw in serve_traffic(np, SERVE_LLAMA, cfg.vocab_size,
+                                          SEED + 82)[:ZQ_SERVE_REQUESTS]]
+    torch.cuda.reset_peak_memory_stats()
+    streams, reqs, util, ticks, wall, srv = serve_run(
+        torch, engine, SERVE_LLAMA["cfg"], traffic)
+    check({r.state.value for r in reqs} == {"finished"} and
+          all(len(r.tokens) == kw["max_new_tokens"]
+              for (_, kw), r in zip(traffic, reqs)),
+          "serve int8: a request did not finish in full")
+    pct = srv.metrics.percentiles()
+    ttft, tpot = request_latency(reqs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = sum(len(x) for x in streams)
+    srv.shutdown()
+    del srv
+    torch.cuda.empty_cache()
+    forced = forced_parts(torch, "serve int8", engine, traffic,
+                          {"int8": streams}, LLAMA_ARGMAX_MARGIN)
+    phase("serve int8", model=f"LLAMA_7B width, {cfg.n_layer} layers",
+          dtype="int8 weights, bf16 compute", group_size=64,
+          quantize_seconds=round(quant_s, 2),
+          resident_gib=round(resident / 2 ** 30, 4),
+          bf16_gib=round(bf16_bytes / 2 ** 30, 4),
+          quantized_leaves_gib=round(q_bytes / 2 ** 30, 4),
+          quantized_leaves_bf16_gib=round(q_bf16 / 2 ** 30, 4),
+          quantized_ratio=round(q_bytes / q_bf16, 6),
+          score_seconds=json.dumps([round(x, 4) for x in fwd_s]),
+          score_tokens_per_s=round(b * t / min(fwd_s), 1),
+          k3_launches_per_call=per_call, requests=len(traffic),
+          ticks=ticks, seconds=round(wall, 3), output_tokens=tokens,
+          output_tokens_per_s=round(tokens / wall, 1),
+          ttft_ms_p50=round(quantile(ttft, 0.5), 3),
+          ttft_ms_p99=round(quantile(ttft, 0.99), 3),
+          tpot_ms_p50=round(quantile(tpot, 0.5), 3),
+          tpot_ms_p99=round(quantile(tpot, 0.99), 3),
+          decode_tick_ms_p50=pct["tpot_ms"]["p50"],
+          peak_mem_gib=round(peak, 2),
+          forced_positions=forced["int8"][0],
+          forced_ties=sum(len(v) for v in forced["int8"][1].values()),
+          forced=json.dumps(forced["int8"][1]), margin=LLAMA_ARGMAX_MARGIN)
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_kv_int8(torch):
+    """LLaMA-7B's width at SERVE_LAYERS layers (bf16) on an int8 slot pool
+    of the serve config (16 x 2048): pool bytes beside bf16; prefills of
+    ZQ_KV_PROMPTS; one decode tick's logits against an f32 decode from the
+    same pool; each written column's bytes against ``quantize_kv`` of the
+    K/V a bf16 pool from the same pool computes; an int8 lane through the
+    KVHandoff frame into another slot."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.kv_quant import (dequantize_pool,
+                                                         pool_nbytes,
+                                                         quantize_kv)
+    from deepspeed_tpu_torch.models.llama import LLAMA_7B, LlamaModel
+    from deepspeed_tpu_torch.serving.fleet import KVHandoff
+    cfg = dataclasses.replace(LLAMA_7B, n_layer=SERVE_LAYERS)
+    engine = deepspeed_tpu_torch.init_inference(
+        llama_model(torch, cfg, SEED + 84, torch.bfloat16), {"dtype": "bf16"})
+    model = engine.module
+    scfg = SERVE_LLAMA["cfg"]
+    slots, max_len = scfg["num_slots"], scfg["max_model_len"]
+    torch.cuda.reset_peak_memory_stats()
+    pool = engine.init_slot_pool(slots, max_len, quantize=True)
+    pool_gib = pool_nbytes(pool) / 2 ** 30
+    bf16_gib = 2 * cfg.n_layer * slots * model.kv_heads * max_len * \
+        cfg.head_dim * 2 / 2 ** 30
+    rng = np.random.default_rng(SEED + 85)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in ZQ_KV_PROMPTS]
+    s0 = time.perf_counter()
+    firsts = []
+    for s, p in enumerate(prompts):
+        pool, tok = engine.slot_prefill(pool, s, p)
+        firsts.append(tok)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - s0
+    pos = np.zeros((slots,), np.int64)
+    toks = np.zeros((slots,), np.int64)
+    for s, p in enumerate(prompts):
+        pos[s], toks[s] = len(p), firsts[s]
+    before = {n: (pool.q[n].clone(), pool.scales[n].clone()) for n in pool.q}
+    ids = torch.as_tensor(toks, device="cuda")[:, None]
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, _ = model.decode_with_slots(ids, pool, torch.as_tensor(pos))
+    torch.cuda.synchronize()
+    tick_s = time.perf_counter() - s0
+    # the plain path in bf16 and in f32 from the same (pre-tick) pool
+    from deepspeed_tpu_torch.inference.kv_quant import QuantizedSlotPool
+    old = QuantizedSlotPool({n: v[0] for n, v in before.items()},
+                            {n: v[1] for n, v in before.items()},
+                            torch.bfloat16)
+    fp = dequantize_pool(old, torch.bfloat16)
+    with torch.inference_mode():
+        model.decode_with_slots(ids, fp, torch.as_tensor(pos))
+    bad = []
+    for n in ("k", "v"):
+        for s in range(slots):
+            col = fp[n][:, s, :, int(pos[s])]
+            q, sc = quantize_kv(col)
+            if not (torch.equal(pool.q[n][:, s, :, int(pos[s])], q) and
+                    torch.equal(pool.scales[n][:, s, :, int(pos[s])], sc)):
+                bad.append((n, s))
+    check(not bad, f"serve kv int8: written columns (name, slot) {bad} are "
+          f"not quantize_kv of the plain path's K/V")
+    del fp
+    torch.cuda.empty_cache()
+    ref = LlamaModel(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                     device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        for r, p in zip(ref.parameters(), model.parameters()):
+            r.copy_(p.float())
+    fp32 = dequantize_pool(old, torch.float32)
+    with torch.inference_mode():
+        logits_f32, _ = ref.decode_with_slots(ids, fp32, torch.as_tensor(pos))
+    del ref, fp32, old, before
+    torch.cuda.empty_cache()
+    live = slice(0, len(prompts))
+    diff = (logits[live].float() - logits_f32[live]).abs()
+    agree = (logits[live].argmax(-1) == logits_f32[live].argmax(-1)) \
+        .float().mean().item()
+    check(diff.mean().item() <= LLAMA_LOGITS_TOL["mean_abs"] and
+          diff.max().item() <= LLAMA_LOGITS_TOL["max_abs"],
+          f"serve kv int8: the tick's logits vs the f32 decode from the same "
+          f"pool: mean {diff.mean().item()} max {diff.max().item()}")
+    # an int8 lane through the frame into another slot
+    meta = dict(prompt=prompts[0], first_token=firsts[0],
+                kv_len=len(prompts[0]), temperature=0.0, seed=0,
+                max_new_tokens=4)
+    s0 = time.perf_counter()
+    lane = engine.slot_extract_lane(pool, 0)
+    blob = KVHandoff(lane=lane, **meta).to_bytes()
+    got = KVHandoff.from_bytes(blob)
+    pool = engine.slot_insert_lane(pool, slots - 1, got.lane)
+    torch.cuda.synchronize()
+    hand_s = time.perf_counter() - s0
+    same = all(torch.equal(pool.q[n][:, slots - 1], pool.q[n][:, 0]) and
+               torch.equal(pool.scales[n][:, slots - 1], pool.scales[n][:, 0])
+               for n in pool.q)
+    check(same and b'"quantized": true' in blob,
+          "serve kv int8: the lane inserted from its frame is not the "
+          "extracted one")
+    phase("serve kv int8", model=f"LLAMA_7B width, {cfg.n_layer} layers",
+          slots=slots, max_model_len=max_len, pool_gib=round(pool_gib, 4),
+          bf16_pool_gib=round(bf16_gib, 4),
+          pool_ratio=round(pool_gib / bf16_gib, 6),
+          prompts=json.dumps(list(ZQ_KV_PROMPTS)),
+          prefill_seconds=round(prefill_s, 3),
+          tick_ms=round(tick_s * 1e3, 3),
+          vs_f32_mean_abs=diff.mean().item(),
+          vs_f32_max_abs=diff.max().item(), argmax_agree=agree,
+          written_columns_bitwise=2 * slots,
+          lane_mib=round(got.nbytes() / 2 ** 20, 3),
+          frame_bytes=len(blob), handoff_seconds=round(hand_s, 3),
+          lane_equal=True, peak_mem_gib=round(
+              torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+          tol=json.dumps({k: LLAMA_LOGITS_TOL[k]
+                          for k in ("mean_abs", "max_abs")}))
+    del engine, model, pool, logits, logits_f32
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5660,7 +6324,9 @@ def main():
                for kind, dt in K6_CASES][0]
     main_k7 = [check_k7(torch, kind, K6_SHAPE, getattr(torch, dt))
                for kind, dt in K6_CASES][0]
-    sparse_planted_faults(torch, "fixed", K6_SHAPE, bf16)
+    # one sequence of the check's four: the plain versions take ~10 s a
+    # sequence (a cut, PERF.md section 4)
+    sparse_planted_faults(torch, "fixed", (1,) + K6_SHAPE[1:], bf16)
     main_drop = check_dropout(torch)
     check_dropout_offset(torch)
     # a tp-2 rank's heads: the dropout map; K6/K7 on rank 1's rows 8-15
@@ -5778,6 +6444,13 @@ def main():
     # ---- tensor parallelism: 2 ranks of a gloo group on the one card
     tp = tp_phases(torch)
 
+    # ---- slice 12: ZeRO under comm_compression on 2 and 4 gloo ranks of
+    #      the one card; int8 weights and the int8 slot pool
+    zq2 = zq_phases(torch, 2, ("zero compressed", "zero overlap"))
+    zq4 = zq_phases(torch, 4, ("zero hierarchical",))
+    int8_k3 = serve_int8(torch)
+    serve_kv_int8(torch)
+
     def entry(name, source, replaces, launches, res, err):
         return {"name": name, "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{source}",
@@ -5797,18 +6470,20 @@ def main():
               f"{pallas}/flash_attention_packed.py:65",
               launches + train_launches["K1"] + fallback_launches["K1"] +
               megatron_launches + zero_gpt2["K1"] + zero_ckpt["K1"] +
-              tp.get("K1", 0),
+              tp.get("K1", 0) + zq2["K1"] + zq4["K1"],
               main_case, main_case["err_out"]),
         entry("flash_attention_packed_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention_packed.py:148",
               train_launches["K2"] + fallback_launches["K2"] +
-              zero_gpt2["K2"] + zero_ckpt["K2"] + tp.get("K2", 0), main_k2,
+              zero_gpt2["K2"] + zero_ckpt["K2"] + tp.get("K2", 0) +
+              zq2["K2"] + zq4["K2"], main_k2,
               bwd_err(main_k2)),
         entry("flash_attention_fwd", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention.py:141",
               llama_fwd_launches + llama_train_launches["K3"] +
               llama_remat_launches["K3"] + resume_launches["K3"] +
-              ckpt_serve_launches + zero_llama["K3"] + tp.get("K3", 0),
+              ckpt_serve_launches + zero_llama["K3"] + tp.get("K3", 0) +
+              int8_k3,
               main_k3,
               main_k3["err_out"]),
         entry("flash_attention_bwd", "flash_attention_bwd.cu",

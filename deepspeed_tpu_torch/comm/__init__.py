@@ -4,7 +4,7 @@ from .comm import (ReduceOp, init_distributed, is_initialized, get_rank,
                    all_gather, all_gather_coalesced, reduce_scatter_coalesced,
                    reduce_scatter, all_to_all, broadcast, ppermute,
                    send_recv_next, send_recv_prev, axis_index, axis_size,
-                   log_summary,
+                   log_summary, full_precision,
                    # the reference's names
                    all_gather_into_tensor, allgather_fn,
                    reduce_scatter_tensor, reduce_scatter_fn,
@@ -12,8 +12,9 @@ from .comm import (ReduceOp, init_distributed, is_initialized, get_rank,
                    get_global_rank, monitored_barrier, isend, irecv, send,
                    recv, has_all_gather_into_tensor,
                    has_reduce_scatter_tensor,
-                   # accounting and the compression refusal (row A8c)
+                   # accounting
                    comm_stats, comm_per_op_stats, comm_axis_stats,
-                   reset_comm_stats,
-                   configure_comm_compression)
+                   reset_comm_stats)
+from .compression import (CommCompressionConfig, configure_comm_compression,
+                          get_comm_compression, reset_comm_compression)
 from .logging import CommsLogger, get_comms_logger, configure_comms_logger

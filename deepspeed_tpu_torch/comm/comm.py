@@ -30,20 +30,33 @@ identity. Every collective goes through one accounting point: the wire
 bytes a ring implementation puts on each member's links (the JAX
 package's ``_BASE_WIRE`` model), into ``comm_stats`` / ``comm_per_op_stats``,
 the comms logger and a tracer span, and by mesh axis into
-``comm_axis_stats``. Compressed collectives
-(``comm_compression``) are ROADMAP.md row A8c; host-driven point-to-point
-(``isend`` / ``recv``) raises, as in the JAX package.
+``comm_axis_stats``; the wire bytes are split into intra-host and
+inter-host bytes where a (host, local) split is known.
+
+Compression (``comm_compression``, ``comm/compression.py``): each call
+makes one dispatch decision from the process-global policy. Under
+``int8`` / ``fp8_block`` the collective runs its quantized form
+(``comm/quantized.py``: blockwise payloads + f32 scales, the
+reduce-scatter two-level when ``hierarchical``) and accounts the JAX
+package's wire-byte model of it; ``off`` and ``fp32`` run the plain
+``torch.distributed`` call. Host-driven point-to-point (``isend`` /
+``recv``) raises, as in the JAX package.
 """
 
+import contextlib
 import datetime
 import os
+import threading
 from typing import Optional, Sequence
 
 import torch
 
 from ..telemetry.trace import get_tracer
 from ..utils.logging import logger
+from .compression import (configure_comm_compression,  # noqa: F401
+                          get_comm_compression, reset_comm_compression)
 from .logging import get_comms_logger
+from .quantized import Pending
 
 
 class ReduceOp:
@@ -320,11 +333,15 @@ def reset_comm_stats():
 
 
 def _split_inter(wire: int, n: int) -> int:
-    """Inter-host share of a flat ring's wire bytes: with L members a host,
-    n / L of the n ring links cross hosts (0 when the group fits on one
-    host, or the layout is unknown)."""
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", 0) or 0)
-    if n <= 1 or local <= 0 or local >= n or n % local:
+    """Inter-host share of a flat ring's wire bytes: with L members a host
+    laid out host-major, n / L of the n ring links cross hosts (0 when the
+    group fits on one host, or the layout is unknown). L is the
+    ``comm_compression`` block's ``devices_per_host``, else the launcher's
+    ``LOCAL_WORLD_SIZE``."""
+    if n <= 1:
+        return 0
+    local = get_comm_compression().local_members(n)
+    if not local:
         return 0
     return wire * (n // local) // n
 
@@ -341,13 +358,18 @@ def _axis_label(axis_name) -> str:
     return _GROUP_NAMES.get(id(axis_name), "group")
 
 
-def _account(op, logical, n, axis_name, wire=None):
+def _account(op, logical, n, axis_name, wire=None, inter=None,
+             policy="off"):
     """Record one collective: counters, the comms logger and a span (the
-    span is a no-op while the tracer is off)."""
+    span is a no-op while the tracer is off). ``inter``: the inter-host
+    wire bytes when the collective knows its legs (the hierarchical
+    reduce-scatter), else the flat ring's share; the span carries the
+    policy when it is not ``off``."""
     global _COMM_OPS, _COMM_WIRE_BYTES, _COMM_LOGICAL_BYTES
     global _COMM_INTER_BYTES, _COMM_INTRA_BYTES
     wire = _base_wire(op, logical, n) if wire is None else wire
-    inter = _split_inter(wire, n)
+    if inter is None:
+        inter = _split_inter(wire, n)
     _COMM_OPS += 1
     _COMM_WIRE_BYTES += wire
     _COMM_LOGICAL_BYTES += logical
@@ -366,9 +388,11 @@ def _account(op, logical, n, axis_name, wire=None):
     tracer = get_tracer()
     if not tracer.enabled:
         return tracer.span(op)
-    return tracer.span(op, cat="comm", args={
-        "op": op, "bytes": logical, "wire_bytes": wire, "axis": label,
-        "participants": n})
+    args = {"op": op, "bytes": logical, "wire_bytes": wire, "axis": label,
+            "participants": n}
+    if policy != "off":
+        args["policy"] = policy
+    return tracer.span(op, cat="comm", args=args)
 
 
 # --------------------------------------------------------------------------
@@ -377,6 +401,8 @@ def _account(op, logical, n, axis_name, wire=None):
 
 _TORCH_OPS = {ReduceOp.SUM: "SUM", ReduceOp.AVG: "SUM", ReduceOp.MAX: "MAX",
               ReduceOp.MIN: "MIN", ReduceOp.PRODUCT: "PRODUCT"}
+_SUMLIKE = (ReduceOp.SUM, ReduceOp.AVG)
+_QUANTIZED = ("int8", "fp8_block")
 
 
 def _torch_op(op):
@@ -385,12 +411,64 @@ def _torch_op(op):
     return getattr(_dist().ReduceOp, _TORCH_OPS[op])
 
 
+_EXACT = threading.local()
+
+
+@contextlib.contextmanager
+def full_precision():
+    """Collectives issued inside the block ignore the ``comm_compression``
+    policy: the engines' own exchanges (the parameter refresh, the
+    gradient norm, checkpoints, the stage path's gathers) are the ones XLA
+    inserts in the JAX package, which no policy reaches there either."""
+    _EXACT.depth = getattr(_EXACT, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _EXACT.depth -= 1
+
+
+def _dispatch(op, logical, axis_name, n, quantizable=True):
+    """The single dispatch decision of a call: ``(config, policy)``.
+    Policy ``off`` (and ``fp32``) runs the plain ``torch.distributed``
+    call."""
+    cc = get_comm_compression()
+    exact = getattr(_EXACT, "depth", 0) > 0
+    policy = cc.policy_for(op, axis_name, logical) \
+        if (quantizable and n > 1 and not exact) else "off"
+    return cc, policy
+
+
+def _host_split(cc, axis_name, n):
+    """``(local, intra group, inter group)`` of a hierarchical exchange on
+    ``axis_name``, or ``(0, None, None)`` when none applies."""
+    local = cc.local_members(n) if cc.hierarchical else 0
+    if not local:
+        return 0, None, None
+    from ..parallel.topology import get_mesh_manager
+    intra, inter = get_mesh_manager().host_process_groups(axis_name, local)
+    return local, intra, inter
+
+
 def all_reduce(x, op: str = ReduceOp.SUM, axis_name="data"):
-    """Reduce ``x`` over the group, in place; returns it."""
+    """Reduce ``x`` over the group, in place; returns it. Policy
+    int8 / fp8_block (a sum or an average whose size divides by the group)
+    moves it as a quantized reduce-scatter plus all-gather."""
     _torch_op(op)
     group = _group_of(axis_name)
     n = _members(group)
-    with _account("all_reduce", _size_bytes(x), n, axis_name):
+    logical = _size_bytes(x)
+    cc, policy = _dispatch("all_reduce", logical, axis_name, n,
+                           quantizable=op in _SUMLIKE)
+    if policy in _QUANTIZED and x.numel() % n == 0:
+        from .quantized import (quantized_all_reduce,
+                                quantized_all_reduce_wire_bytes)
+        wire = quantized_all_reduce_wire_bytes(x.numel(), n, cc.block_size)
+        with _account("all_reduce", logical, n, axis_name, wire=wire,
+                      policy=policy):
+            x.copy_(quantized_all_reduce(x, group, n, cc.block_size, policy,
+                                         avg=op == ReduceOp.AVG))
+        return x
+    with _account("all_reduce", logical, n, axis_name):
         if group is not SINGLE:
             _dist().all_reduce(x, op=_torch_op(op), group=group)
         if op == ReduceOp.AVG and n > 1:
@@ -398,20 +476,34 @@ def all_reduce(x, op: str = ReduceOp.SUM, axis_name="data"):
     return x
 
 
-def _gather_flat(x, group, n):
+def _gather_flat(x, group, n, async_op=False):
     """``[n * x.numel()]``: every member's ``x`` (contiguous), in member
-    order."""
+    order (with ``async_op``: ``(buffer, work)``)."""
     out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
-    _dist().all_gather_into_tensor(out, x.contiguous().view(-1), group=group)
-    return out
+    work = _dist().all_gather_into_tensor(out, x.contiguous().view(-1),
+                                          group=group, async_op=async_op)
+    return (out, work) if async_op else out
 
 
 def all_gather(x, axis_name="data", axis: int = 0, tiled: bool = True):
     """Every member's ``x``, concatenated along ``axis`` (``tiled``) or
-    stacked on a new leading axis."""
+    stacked on a new leading axis. Policy int8 / fp8_block ships the
+    shard blockwise-quantized (the ZeRO-3 parameter gather, ZeRO++
+    qwZ)."""
     group = _group_of(axis_name)
     n = _members(group)
-    with _account("all_gather", _size_bytes(x), n, axis_name):
+    logical = _size_bytes(x)
+    cc, policy = _dispatch("all_gather", logical, axis_name, n,
+                           quantizable=tiled)
+    if policy in _QUANTIZED:
+        from .quantized import (quantized_all_gather,
+                                quantized_all_gather_wire_bytes)
+        wire = quantized_all_gather_wire_bytes(x.numel(), n, cc.block_size)
+        with _account("all_gather", logical, n, axis_name, wire=wire,
+                      policy=policy):
+            return quantized_all_gather(x, group, axis, n, cc.block_size,
+                                        policy)
+    with _account("all_gather", logical, n, axis_name):
         if group is SINGLE:
             return x.clone() if tiled else x.unsqueeze(0).clone()
         flat = _gather_flat(x, group, n).view((n,) + tuple(x.shape))
@@ -422,14 +514,39 @@ def all_gather(x, axis_name="data", axis: int = 0, tiled: bool = True):
 
 def reduce_scatter(x, axis_name="data", axis: int = 0, op: str = ReduceOp.SUM):
     """Member i's part of the reduced ``x``: the i-th of n equal slices
-    along ``axis``."""
+    along ``axis``. Policy int8 / fp8_block quantizes the exchange; with
+    ``comm_compression.hierarchical`` and a (host, local) split it is the
+    two-level ZeRO++ qgZ exchange (full precision within a host,
+    quantized across hosts)."""
     _torch_op(op)
     group = _group_of(axis_name)
     n = _members(group)
     if x.shape[axis] % n:
         raise ValueError(f"reduce_scatter: dim {axis} ({x.shape[axis]}) "
                          f"must divide by the group size {n}")
-    with _account("reduce_scatter", _size_bytes(x), n, axis_name):
+    logical = _size_bytes(x)
+    cc, policy = _dispatch("reduce_scatter", logical, axis_name, n,
+                           quantizable=op in _SUMLIKE)
+    if policy in _QUANTIZED:
+        from . import quantized as qz
+        avg = op == ReduceOp.AVG
+        local, intra_g, inter_g = _host_split(cc, axis_name, n)
+        if local:
+            intra_b, inter_b = qz.hierarchical_reduce_scatter_wire_bytes(
+                x.numel(), n, local, cc.block_size, x.element_size())
+            with _account("reduce_scatter", logical, n, axis_name,
+                          wire=intra_b + inter_b, inter=inter_b,
+                          policy=policy):
+                return qz.hierarchical_reduce_scatter(
+                    x, axis, n, local, intra_g, inter_g, cc.block_size,
+                    policy, avg)
+        wire = qz.quantized_reduce_scatter_wire_bytes(x.numel(), n,
+                                                      cc.block_size)
+        with _account("reduce_scatter", logical, n, axis_name, wire=wire,
+                      policy=policy):
+            return qz.quantized_reduce_scatter(x, group, axis, n,
+                                               cc.block_size, policy, avg)
+    with _account("reduce_scatter", logical, n, axis_name):
         if group is SINGLE:
             return x.clone()
         rows = x.movedim(axis, 0).contiguous()
@@ -442,8 +559,18 @@ def reduce_scatter(x, axis_name="data", axis: int = 0, op: str = ReduceOp.SUM):
         return out.movedim(0, axis)
 
 
+# ---------------------------------------------------------------- coalesced
+# Bucketed forms for the overlap schedule (runtime/zero/overlap_schedule.py):
+# a bucket of leaves moves in one collective. One op is accounted, whose
+# logical and wire bytes are the sums of the per-leaf models, so N buckets
+# and N leaves account the same bytes and differ only in the op count.
+# Under a quantized policy each leaf keeps its per-leaf codec (same blocks,
+# same scales), so the values are bitwise the per-leaf collectives'. With
+# ``async_op`` they return a handle whose ``wait()`` gives the leaves.
+
 def all_gather_coalesced(xs: Sequence, axis_name="data",
-                         axes: Optional[Sequence[int]] = None):
+                         axes: Optional[Sequence[int]] = None,
+                         async_op: bool = False):
     """A bucket of shards gathered in one collective; returns each leaf as
     ``all_gather(x, axis_name, axis)`` would."""
     xs = list(xs)
@@ -451,23 +578,40 @@ def all_gather_coalesced(xs: Sequence, axis_name="data",
     group = _group_of(axis_name)
     n = _members(group)
     logical = sum(_size_bytes(x) for x in xs)
+    cc, policy = _dispatch("all_gather", logical, axis_name, n)
+    if policy in _QUANTIZED:
+        from .quantized import (quantized_all_gather_coalesced,
+                                quantized_all_gather_coalesced_wire_bytes)
+        wire = quantized_all_gather_coalesced_wire_bytes(
+            [x.numel() for x in xs], n, cc.block_size)
+        with _account("all_gather", logical, n, axis_name, wire=wire,
+                      policy=policy):
+            return quantized_all_gather_coalesced(
+                xs, group, axes, n, cc.block_size, policy, async_op=async_op)
     wire = sum(_base_wire("all_gather", _size_bytes(x), n) for x in xs)
     with _account("all_gather", logical, n, axis_name, wire=wire):
         if group is SINGLE:
-            return [x.clone() for x in xs]
+            outs = [x.clone() for x in xs]
+            return Pending([], lambda: outs) if async_op else outs
         flat = torch.cat([x.contiguous().view(-1) for x in xs])
-        g = _gather_flat(flat, group, n).view(n, -1)
-    outs, off = [], 0
-    for x, a in zip(xs, axes):
-        seg = g[:, off:off + x.numel()].reshape((n,) + tuple(x.shape))
-        off += x.numel()
-        outs.append(torch.cat(seg.unbind(0), dim=a))
-    return outs
+        g, work = _gather_flat(flat, group, n, async_op=True)
+
+    def finish():
+        work.wait()
+        rows = g.view(n, -1)
+        outs, off = [], 0
+        for x, a in zip(xs, axes):
+            seg = rows[:, off:off + x.numel()].reshape((n,) + tuple(x.shape))
+            off += x.numel()
+            outs.append(torch.cat(seg.unbind(0), dim=a))
+        return outs
+    pending = Pending([], finish)
+    return pending if async_op else pending.wait()
 
 
 def reduce_scatter_coalesced(xs: Sequence, axis_name="data",
                              axes: Optional[Sequence[int]] = None,
-                             op: str = ReduceOp.SUM):
+                             op: str = ReduceOp.SUM, async_op: bool = False):
     """A bucket of full tensors reduce-scattered in one collective;
     returns each leaf's part as ``reduce_scatter(x, axis_name, axis,
     op)`` would."""
@@ -477,39 +621,82 @@ def reduce_scatter_coalesced(xs: Sequence, axis_name="data",
     group = _group_of(axis_name)
     n = _members(group)
     logical = sum(_size_bytes(x) for x in xs)
+    cc, policy = _dispatch("reduce_scatter", logical, axis_name, n,
+                           quantizable=op in _SUMLIKE)
+    if policy in _QUANTIZED and \
+            all(x.shape[a] % n == 0 for x, a in zip(xs, axes)):
+        from . import quantized as qz
+        avg = op == ReduceOp.AVG
+        sizes = [x.numel() for x in xs]
+        local, intra_g, inter_g = _host_split(cc, axis_name, n)
+        if local:
+            intra_b, inter_b = \
+                qz.hierarchical_reduce_scatter_coalesced_wire_bytes(
+                    sizes, n, local, cc.block_size, xs[0].element_size())
+            with _account("reduce_scatter", logical, n, axis_name,
+                          wire=intra_b + inter_b, inter=inter_b,
+                          policy=policy):
+                return qz.hierarchical_reduce_scatter_coalesced(
+                    xs, axes, n, local, intra_g, inter_g, cc.block_size,
+                    policy, avg, async_op=async_op)
+        wire = qz.quantized_reduce_scatter_coalesced_wire_bytes(
+            sizes, n, cc.block_size)
+        with _account("reduce_scatter", logical, n, axis_name, wire=wire,
+                      policy=policy):
+            return qz.quantized_reduce_scatter_coalesced(
+                xs, group, axes, n, cc.block_size, policy, avg,
+                async_op=async_op)
     wire = sum(_base_wire("reduce_scatter", _size_bytes(x), n) for x in xs)
     with _account("reduce_scatter", logical, n, axis_name, wire=wire):
         if group is SINGLE:
-            return [x.clone() for x in xs]
+            outs = [x.clone() for x in xs]
+            return Pending([], lambda: outs) if async_op else outs
         rows = torch.cat([x.movedim(a, 0).reshape(n, -1)
                           for x, a in zip(xs, axes)], dim=1)
         red = torch.empty(rows.shape[1], dtype=rows.dtype, device=rows.device)
-        _dist().reduce_scatter_tensor(red, rows.reshape(-1),
-                                      op=_torch_op(op), group=group)
+        work = _dist().reduce_scatter_tensor(red, rows.reshape(-1),
+                                             op=_torch_op(op), group=group,
+                                             async_op=True)
+
+    def finish():
+        work.wait()
         if op == ReduceOp.AVG:
             red.div_(n)
-    outs, off = [], 0
-    for x, a in zip(xs, axes):
-        moved = x.movedim(a, 0)
-        size = x.numel() // n
-        seg = red[off:off + size].reshape((moved.shape[0] // n,) +
-                                          tuple(moved.shape[1:]))
-        off += size
-        outs.append(seg.movedim(0, a))
-    return outs
+        outs, off = [], 0
+        for x, a in zip(xs, axes):
+            moved = x.movedim(a, 0)
+            size = x.numel() // n
+            seg = red[off:off + size].reshape((moved.shape[0] // n,) +
+                                              tuple(moved.shape[1:]))
+            off += size
+            outs.append(seg.movedim(0, a))
+        return outs
+    pending = Pending([], finish)
+    return pending if async_op else pending.wait()
 
 
 def all_to_all(x, axis_name="expert", split_axis: int = 0,
                concat_axis: int = 0):
     """Member i's ``split_axis`` slice j goes to member j, which
-    concatenates what it receives along ``concat_axis``."""
+    concatenates what it receives along ``concat_axis`` (the MoE dispatch
+    and combine). Policy int8 / fp8_block quantizes each slice."""
     group = _group_of(axis_name)
     n = _members(group)
     if x.shape[split_axis] % n:
         raise ValueError(f"all_to_all: dim {split_axis} "
                          f"({x.shape[split_axis]}) must divide by the "
                          f"group size {n}")
-    with _account("all_to_all", _size_bytes(x), n, axis_name):
+    logical = _size_bytes(x)
+    cc, policy = _dispatch("all_to_all", logical, axis_name, n)
+    if policy in _QUANTIZED:
+        from .quantized import (quantized_all_to_all,
+                                quantized_all_to_all_wire_bytes)
+        wire = quantized_all_to_all_wire_bytes(x.numel(), n, cc.block_size)
+        with _account("all_to_all", logical, n, axis_name, wire=wire,
+                      policy=policy):
+            return quantized_all_to_all(x, group, split_axis, concat_axis, n,
+                                        cc.block_size, policy)
+    with _account("all_to_all", logical, n, axis_name):
         if group is SINGLE:
             return x.clone()
         send = x.movedim(split_axis, 0).contiguous()
@@ -520,10 +707,23 @@ def all_to_all(x, axis_name="expert", split_axis: int = 0,
 
 
 def _broadcast_impl(x, src, axis_name, op_label):
+    """The shared broadcast (``broadcast`` and ``scatter`` account under
+    their own names and put the same bytes on the wire), in place."""
     group = _group_of(axis_name)
     n = _members(group)
-    with _account(op_label, _size_bytes(x), n, axis_name,
-                  wire=_base_wire("broadcast", _size_bytes(x), n)):
+    logical = _size_bytes(x)
+    cc, policy = _dispatch("broadcast", logical, axis_name, n)
+    if policy in _QUANTIZED:
+        from .quantized import (quantized_broadcast,
+                                quantized_broadcast_wire_bytes)
+        wire = quantized_broadcast_wire_bytes(x.numel(), n, cc.block_size)
+        with _account(op_label, logical, n, axis_name, wire=wire,
+                      policy=policy):
+            x.copy_(quantized_broadcast(x, _global_rank(group, src), group,
+                                        n, cc.block_size, policy))
+        return x
+    with _account(op_label, logical, n, axis_name,
+                  wire=_base_wire("broadcast", logical, n)):
         if group is not SINGLE:
             _dist().broadcast(x, src=_global_rank(group, src), group=group)
     return x
@@ -687,22 +887,6 @@ def axis_index(axis_name) -> int:
 
 def axis_size(axis_name) -> int:
     return _members(_group_of(axis_name))
-
-
-def configure_comm_compression(config=None):
-    """The ``comm_compression`` block: only the policy ``off`` runs here;
-    the quantized and hierarchical wire formats are ROADMAP.md row A8c."""
-    policy = "off"
-    if isinstance(config, dict):
-        policy = str(config.get("policy", "off")) if config.get(
-            "enabled", True) else "off"
-    elif config is not None:
-        policy = str(getattr(config, "policy", "off"))
-    if policy != "off":
-        raise NotImplementedError(
-            f"comm_compression policy {policy!r} (compressed collectives) "
-            f"is not ported yet: ROADMAP.md row A8c")
-    return policy
 
 
 def log_summary():

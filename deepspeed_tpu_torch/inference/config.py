@@ -4,10 +4,10 @@ max_out_tokens, replace_with_kernel_inject, ...), with the same keys,
 aliases and ``ConfigError``s. Dtype names map to ``torch`` dtypes.
 
 ``checkpoint`` names a training checkpoint directory (either package's)
-that the engine loads at start. Keys whose values this port cannot serve
-yet are parsed and then refused with ``NotImplementedError`` naming their
-ROADMAP.md row: tensor-parallel serving (``tp_size`` or ``mp_size`` > 1)
-and weight-only quantization (``quant`` or ``dtype: int8``).
+that the engine loads at start. ``tensor_parallel.tp_size`` (or
+``mp_size``) serves over the rank mesh's ``model`` axis; ``quant`` (or
+``dtype: int8``, which means int8 weights with bf16 compute) serves int8
+weight-only (``inference/quantization.py``).
 """
 
 import dataclasses
@@ -124,10 +124,4 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         if self.compiled_cache_size < 0:
             raise ConfigError("compiled_cache_size must be >= 0 "
                               "(0 disables eviction)")
-        self._refuse_unported()
 
-    def _refuse_unported(self):
-        if self.quant is not None and self.quant.enabled:
-            raise NotImplementedError(
-                "weight-only quantized serving (quant / dtype int8) is not "
-                "ported yet: ROADMAP.md row A9")

@@ -36,6 +36,17 @@ extracted whole (the ranks' kv heads gathered: the ``KVHandoff`` frame is
 the one tp 1 writes) and inserted whole, each rank keeping its heads, so
 engines at different tp hand lanes to each other; ``mode: "model"`` drafts
 are built at the target's tp.
+
+Int8 serving (``quant`` or ``dtype: int8``): the block weights become
+``QuantizedWeight``s (``inference/quantization.py``) at init, after a
+checkpoint load (loaded in the serving dtype, then quantized) and in a
+``with_params`` view. ``init_slot_pool(quantize=True)`` makes an int8
+pool (``inference/kv_quant.py``) that every slot entry point takes: the
+cache loops dequantize a layer's K/V, write the step's columns and
+quantize the layer again, as the JAX package's slot programs do; a
+verify keeps the old bytes of every column it does not keep; lanes copy,
+extract and insert their payload and scales (a float lane is quantized
+into an int8 pool, an int8 lane dequantized into a float one).
 """
 
 from typing import Optional
@@ -48,6 +59,7 @@ from ..parallel import tensor_parallel
 from ..utils.logging import log_dist, logger
 from . import prng
 from .config import DeepSpeedInferenceConfig
+from .kv_quant import QuantizedSlotPool, dequantize_pool, quantize_pool
 from .speculative import _softmax, row_keys, sample_rows
 
 
@@ -137,6 +149,10 @@ class InferenceEngine:
         if params is not None:
             model.load_jax_params(params)
         self.module = model.to(device=self.device, dtype=self.dtype).eval()
+        # int8 weight-only serving (inference/quantization.py): the block
+        # weights become QuantizedWeights, after every load (fp first)
+        self._quant = config.quant if config.quant is not None and \
+            config.quant.enabled else None
         log_dist(f"InferenceEngine initialized: "
                  f"params={model.num_params() / 1e6:.1f}M "
                  f"dtype={str(self.dtype).replace('torch.', '')} "
@@ -153,6 +169,31 @@ class InferenceEngine:
         self._drafts = {}
         if config.checkpoint:
             self.load_checkpoint(config.checkpoint)
+        else:
+            self._finalize(self.module)
+
+    def _finalize(self, module):
+        """Quantize ``module``'s block weights when int8 serving is on (at
+        tp > 1 each from its whole leaf: a collective)."""
+        if self._quant is None:
+            return module
+        from .quantization import describe, quantize_tree
+        quantize_tree(module, self._quant.group_size, self._quant.bits,
+                      tp=self.tp)
+        log_dist(describe(module), ranks=[0])
+        return module
+
+    def _unquantize(self, module):
+        """Float parameters (of the serving dtype) in place of the
+        quantized ones, for a load to copy into."""
+        from .quantization import is_quantized
+        for name, p in list(module.named_parameters()):
+            if is_quantized(p):
+                owner, _, attr = name.rpartition(".")
+                mod = module.get_submodule(owner) if owner else module
+                mod._parameters[attr] = torch.nn.Parameter(
+                    torch.empty(p.shape, dtype=self.dtype,
+                                device=self.device), requires_grad=False)
 
     @staticmethod
     def _tensor_parallel(model, tp_size):
@@ -183,7 +224,11 @@ class InferenceEngine:
         unless ``tag``) into this engine's weights, cast to the serving
         dtype; ``weights_version`` becomes the tag's."""
         from ..runtime.checkpointing import read_weights_version
-        self.module.load_jax_params(self._load_params(load_dir, tag))
+        params = self._load_params(load_dir, tag)
+        self._unquantize(self.module)
+        self.module.load_jax_params(params)
+        del params
+        self._finalize(self.module)
         self.weights_version = read_weights_version(load_dir, tag=tag)
         return load_dir
 
@@ -196,8 +241,10 @@ class InferenceEngine:
                                              load_params_for_inference,
                                              shapes_tree)
         like = shapes_tree(self.module, [
-            ShapeDtype(s, p.dtype) for s, p in
-            zip(self.module.whole_shapes(), self.module.parameters())])
+            ShapeDtype(s, self.dtype if not p.is_floating_point() and
+                       self._quant is not None else p.dtype)
+            for s, p in zip(self.module.whole_shapes(),
+                            self.module.parameters())])
 
         def cast(t):
             return t.to(self.dtype) if t.is_floating_point() else t
@@ -230,6 +277,7 @@ class InferenceEngine:
                     value.to(self.device, self.dtype), requires_grad=False))
         view._drafts = {}
         view._slot_shapes = set()
+        self._finalize(view.module)
         if weights_version is not None:
             view.weights_version = int(weights_version)
         return view
@@ -466,7 +514,22 @@ class InferenceEngine:
     @staticmethod
     def _lane(pool, slot):
         """Slot ``slot``'s lane as a one-row cache: views of the pool."""
+        if isinstance(pool, QuantizedSlotPool):
+            return pool.lane(slot)
         return {n: c[:, slot:slot + 1] for n, c in pool.items()}
+
+    @staticmethod
+    def _quantized(pool) -> bool:
+        return isinstance(pool, QuantizedSlotPool)
+
+    @staticmethod
+    def _tensors(pool):
+        """``{name: tensor}`` of every tensor a pool holds (an int8 pool's
+        payloads and scales)."""
+        if isinstance(pool, QuantizedSlotPool):
+            return {**{f"q/{n}": c for n, c in pool.q.items()},
+                    **{f"scales/{n}": c for n, c in pool.scales.items()}}
+        return dict(pool)
 
     @staticmethod
     def _sample_args(n, top_ks, top_ps, seeds):
@@ -479,15 +542,23 @@ class InferenceEngine:
     def init_slot_pool(self, num_slots: int, max_len: int,
                        quantize: bool = False):
         """Allocate the slot-pool KV cache ``[L, num_slots, H_kv, max_len,
-        hd]`` in the serving dtype on the engine's device, once. An int8
-        pool (``quantize=True``) is not ported yet: ROADMAP.md row A9."""
-        if quantize:
-            raise NotImplementedError(
-                "the int8 slot pool (kv_quant) is not ported yet: "
-                "ROADMAP.md row A9")
+        hd]`` in the serving dtype on the engine's device, once; with
+        ``quantize`` an int8 pool with per-column f32 scales
+        (``inference/kv_quant.py``), made as the JAX package's
+        ``quantize_pool`` of a zero pool leaves it (q 0, scales 1)."""
         model = self._slot_model("init_slot_pool")
-        return model.init_kv_cache(num_slots, max_len, dtype=self.dtype,
-                                   device=self.device)
+        if not quantize:
+            return model.init_kv_cache(num_slots, max_len, dtype=self.dtype,
+                                       device=self.device)
+        shape = model.init_kv_cache(1, 1, dtype=self.dtype,
+                                    device="meta")["k"].shape
+        shape = (shape[0], num_slots, shape[2], max_len, shape[4])
+        return QuantizedSlotPool(
+            {n: torch.zeros(shape, dtype=torch.int8, device=self.device)
+             for n in ("k", "v")},
+            {n: torch.ones(shape[:-1], dtype=torch.float32,
+                           device=self.device) for n in ("k", "v")},
+            self.dtype)
 
     @torch.inference_mode()
     def slot_prefill(self, pool, slot: int, prompt, temperature: float = 0.0,
@@ -516,8 +587,12 @@ class InferenceEngine:
             raise ValueError(f"prompt length {t} not in [1, {max_len}]")
         bucket = min(_next_pow2(t), max_len)
         lane = self._lane(pool, slot)
-        for c in lane.values():
-            c[:, :, :, bucket:].zero_()
+        if isinstance(lane, QuantizedSlotPool):
+            lane.fill((slice(None), slice(None), slice(None),
+                       slice(bucket, None)))
+        else:
+            for c in lane.values():
+                c[:, :, :, bucket:].zero_()
         return self._bucket_ids(prompt, bucket), lane, t
 
     @torch.inference_mode()
@@ -566,23 +641,34 @@ class InferenceEngine:
             raise ValueError(
                 f"chunk bucket [{start_pos}, {start_pos + bucket}) exceeds "
                 f"max_len={max_len}; size chunks so every bucket fits")
-        self._slot_shapes.add(("slot_chunk", num_slots, bucket, max_len))
+        self._slot_shapes.add(("slot_chunk", num_slots, bucket, max_len) +
+                              self._flavor(pool))
         model.chunk_prefill_with_cache(self._bucket_ids(tokens, bucket),
                                        self._lane(pool, slot), start_pos)
         return pool
 
     def slot_chunk_executables(self, num_slots: int, max_len: int,
-                               bucket: int) -> int:
+                               bucket: int, quantized=None) -> int:
         """How many chunk-prefill shapes of one pow2 bucket ran on this
-        pool shape (the JAX package's compiled-executable count): 0 or 1."""
-        return int(("slot_chunk", num_slots, bucket, max_len)
-                   in self._slot_shapes)
+        pool shape (the JAX package's compiled-executable count) for the
+        float pool, the int8 one (``quantized``) or both (None)."""
+        return self._ran(("slot_chunk", num_slots, bucket, max_len),
+                         quantized)
+
+    def _flavor(self, pool):
+        return ("q8",) if self._quantized(pool) else ()
+
+    def _ran(self, key, quantized):
+        keys = {None: (key, key + ("q8",)), False: (key,),
+                True: (key + ("q8",),)}[quantized]
+        return sum(int(k in self._slot_shapes) for k in keys)
 
     @torch.inference_mode()
     def slot_copy_lane(self, pool, src: int, dst: int):
         """Copy slot ``src``'s whole lane over slot ``dst``'s, on the
-        device. Returns the pool."""
-        for c in pool.values():
+        device (an int8 lane's payload and scales verbatim). Returns the
+        pool."""
+        for c in self._tensors(pool).values():
             c[:, dst] = c[:, src]
         return pool
 
@@ -590,24 +676,42 @@ class InferenceEngine:
         """Slot ``slot``'s lane, ``{"k", "v": [L, 1, H_kv, max_len, hd]}``,
         copied to the host (never a view of the pool; ordinary tensors the
         caller may change). At tp > 1 every kv head of it: the ranks'
-        heads gathered (a collective), a shared head taken once."""
+        heads gathered (a collective), a shared head taken once. An int8
+        pool hands its lane's payload and scales, a ``QuantizedSlotPool``
+        on the host."""
         out = {}
-        for n, c in pool.items():
+        for n, c in self._tensors(pool).items():
             lane = c[:, slot:slot + 1]
             split = self.module.kv_split(lane.shape) if self.tp.active \
                 else None
             if split is not None:
                 lane = split.gather(lane.contiguous(), self.tp.group)
             out[n] = lane.to("cpu", copy=True)
+        if isinstance(pool, QuantizedSlotPool):
+            return QuantizedSlotPool(
+                {n: out[f"q/{n}"] for n in pool.q},
+                {n: out[f"scales/{n}"] for n in pool.scales}, pool.dtype)
         return out
 
     @torch.inference_mode()
     def slot_insert_lane(self, pool, slot: int, lane):
         """Write a lane (``slot_extract_lane``'s, tensors or numpy arrays,
         possibly another pool's) into slot ``slot``. At tp > 1 the lane is
-        whole and each rank keeps its kv heads. Returns the pool."""
-        for n, c in pool.items():
-            src = lane[n]
+        whole and each rank keeps its kv heads. Every pairing of float and
+        int8 lanes and pools: a float lane is quantized into an int8 pool,
+        an int8 lane dequantized into a float one. Returns the pool."""
+        pool_q = isinstance(pool, QuantizedSlotPool)
+        lane_q = isinstance(lane, QuantizedSlotPool)
+        if not lane_q:
+            lane = {n: v if isinstance(v, torch.Tensor) else
+                    torch.from_numpy(np.asarray(v)) for n, v in lane.items()}
+        if pool_q and not lane_q:
+            lane = quantize_pool(lane, self.dtype)
+        elif lane_q and not pool_q:
+            lane = dequantize_pool(lane, self.dtype)
+        dst = self._tensors(pool)
+        for n, c in dst.items():
+            src = self._tensors(lane)[n]
             if not isinstance(src, torch.Tensor):
                 src = torch.from_numpy(np.asarray(src))
             if self.tp.active:
@@ -626,7 +730,8 @@ class InferenceEngine:
         tokens. Returns ``(pool, next_tokens: np.ndarray [S])``."""
         model = self._slot_model("slot_decode_step")
         num_slots, max_len = self._pool_dims(pool)
-        self._slot_shapes.add(("slot_decode", num_slots, max_len))
+        self._slot_shapes.add(("slot_decode", num_slots, max_len) +
+                              self._flavor(pool))
         top_ks, top_ps, seeds = self._sample_args(
             len(np.asarray(toks).reshape(-1)), top_ks, top_ps, seeds)
         toks = torch.as_tensor(np.asarray(toks, np.int64), device=self.device)
@@ -641,11 +746,12 @@ class InferenceEngine:
                           model.config.vocab_size)
         return pool, nxt.cpu().numpy()
 
-    def slot_decode_executables(self, num_slots: int, max_len: int) -> int:
+    def slot_decode_executables(self, num_slots: int, max_len: int,
+                                quantized=None) -> int:
         """How many decode-step shapes ran on this pool shape (the JAX
         package's compiled-executable count, which its serving tests hold
-        at 1): 0 or 1."""
-        return int(("slot_decode", num_slots, max_len) in self._slot_shapes)
+        at 1), for one pool flavor (``quantized``) or both (None)."""
+        return self._ran(("slot_decode", num_slots, max_len), quantized)
 
     # -------------------------------------------- speculative decode protocol
     # A draft proposes k tokens a slot (k + 1 draft decode steps), the
@@ -729,7 +835,8 @@ class InferenceEngine:
         num_slots, max_len = self._pool_dims(pool)
         draft_toks = np.asarray(draft_toks, np.int64)
         k = int(draft_toks.shape[1])
-        self._slot_shapes.add(("slot_verify", num_slots, max_len, k))
+        self._slot_shapes.add(("slot_verify", num_slots, max_len, k) +
+                              self._flavor(pool))
         top_ks, top_ps, seeds = self._sample_args(num_slots, top_ks, top_ps,
                                                   seeds)
         positions = np.asarray(positions, np.int64)
@@ -737,11 +844,18 @@ class InferenceEngine:
         rows, offs = np.nonzero(cols < max_len)
         idx = torch.as_tensor(np.stack([rows, cols[rows, offs]])).to(
             self.device)
-        saved = {n: c[:, idx[0], :, idx[1]] for n, c in pool.items()}
+        saved = {n: c[:, idx[0], :, idx[1]]
+                 for n, c in self._tensors(pool).items()}
         block = np.concatenate([np.asarray(toks, np.int64)[:, None],
                                 draft_toks], axis=1)
-        logits, _ = model.verify_with_slots(
-            torch.as_tensor(block, device=self.device), pool, positions)
+        if self._quantized(pool):      # the other columns keep their bytes
+            pool.rewrite = "written"
+        try:
+            logits, _ = model.verify_with_slots(
+                torch.as_tensor(block, device=self.device), pool, positions)
+        finally:
+            if self._quantized(pool):
+                pool.rewrite = "all"
         # the target's candidate at offset j is fed at column
         # positions + 1 + j: one sampling call over the [S * (k+1)] rows
         rep = lambda a: np.repeat(np.asarray(a), k + 1)   # noqa: E731
@@ -759,16 +873,16 @@ class InferenceEngine:
         back = np.nonzero(offs > accepts[rows])[0]
         if back.size:
             sel = torch.as_tensor(back).to(self.device)
-            for n, c in pool.items():
+            for n, c in self._tensors(pool).items():
                 c[:, idx[0, sel], :, idx[1, sel]] = saved[n][sel]
         return pool, tgt, accepts
 
     def slot_verify_executables(self, num_slots: int, max_len: int,
-                                k: int) -> int:
+                                k: int, quantized=None) -> int:
         """How many verify shapes of one ``k`` ran on this pool shape (the
-        JAX package's compiled-executable count): 0 or 1."""
-        return int(("slot_verify", num_slots, max_len, int(k))
-                   in self._slot_shapes)
+        JAX package's compiled-executable count), by pool flavor."""
+        return self._ran(("slot_verify", num_slots, max_len, int(k)),
+                         quantized)
 
     def slot_draft_executables(self, draft, num_slots: int, max_len: int,
                                k: int) -> int:

@@ -769,11 +769,14 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         if pad_counts is not None:     # left-pad columns are never keys
             pad_valid = k_pos >= pad_counts[:, None]
             mask = mask & pad_valid[:, None, None, :]
+        written = (slice(None), slice(None), slice(start_pos, start_pos + t))
         for layer, p in enumerate(self.blocks):
+            kc, vc = _layer_cache(cache, layer)
             attn_fn = functools.partial(
-                self._cache_attn, k_cache=cache["k"][layer],
-                v_cache=cache["v"][layer], start_pos=start_pos, mask=mask)
+                self._cache_attn, k_cache=kc, v_cache=vc,
+                start_pos=start_pos, mask=mask)
             x = self._block(x, p, attn_fn, start_pos, positions)
+            _commit_cache(cache, layer, (kc, vc), written)
         x = self._final_norm(x)
         return self._head_logits(x), cache
 
@@ -793,12 +796,14 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         x = self._embed(input_ids, start_pos=start_pos)
         mask = self._decode_attn_mask(
             steps[:, None], torch.arange(max_len, device=dev)[None, :])
+        written = (slice(None), slice(None), slice(start_pos, start_pos + t))
         for layer, p in enumerate(self.blocks):
+            kc, vc = _layer_cache(cache, layer)
             attn_fn = functools.partial(
-                self._cache_attn, k_cache=cache["k"][layer],
-                v_cache=cache["v"][layer], start_pos=start_pos,
-                mask=mask[None, None])
+                self._cache_attn, k_cache=kc, v_cache=vc,
+                start_pos=start_pos, mask=mask[None, None])
             x = self._block(x, p, attn_fn, start_pos)
+            _commit_cache(cache, layer, (kc, vc), written)
         return cache
 
     def decode_with_slots(self, input_ids, cache, positions):
@@ -842,13 +847,32 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         x = self._embed(input_ids, positions=pos2d)
         k_pos = torch.arange(max_len, device=dev)[None, None, :]
         mask = self._decode_attn_mask(pos2d[:, :, None], k_pos)[:, None]
+        written = (write[0], slice(None), write[2])
         for layer, p in enumerate(self.blocks):
+            kc, vc = _layer_cache(cache, layer)
             attn_fn = functools.partial(
-                self._slot_cache_attn, k_cache=cache["k"][layer],
-                v_cache=cache["v"][layer], write=write, mask=mask)
+                self._slot_cache_attn, k_cache=kc, v_cache=vc, write=write,
+                mask=mask)
             x = self._block(x, p, attn_fn, 0, pos2d)
+            _commit_cache(cache, layer, (kc, vc), written)
         x = self._final_norm(x)
         return self._head_logits(x), cache
+
+def _layer_cache(cache, layer):
+    """Layer ``layer``'s ``(k, v)`` cache tensors: views of a float pool,
+    or an int8 pool's columns dequantized (``inference/kv_quant.py``)."""
+    if isinstance(cache, dict):
+        return cache["k"][layer], cache["v"][layer]
+    return cache.layer_kv(layer)
+
+
+def _commit_cache(cache, layer, kv, written):
+    """An int8 pool takes the columns a layer wrote (``written``, an
+    index into ``[rows, heads, columns]``), quantized; a float pool was
+    written in place."""
+    if not isinstance(cache, dict):
+        cache.commit(layer, kv, written)
+
 
 def _chunk_logits(hf, wte, head_b, lo, hi):
     """float32 logits of vocab rows ``[lo, hi)``, computed in hf's dtype

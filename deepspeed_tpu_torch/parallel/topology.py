@@ -21,9 +21,16 @@ and a one-rank axis needs no group: its collectives are the identity.
 
 What runs here: the ``data`` and ``model`` axes (the models' tensor
 parallelism: ``parallel/tensor_parallel.py``); ``pp``, ``sp`` or ``ep``
-above 1 name ROADMAP.md row A11, as the config does. The hierarchical
-(host, local) split of an axis waits for the
-compressed collectives (row A8c).
+above 1 name ROADMAP.md row A11, as the config does.
+
+The hierarchical (host, local) split of an axis (the two-level
+reduce-scatter of ``comm/quantized.py``): ``hierarchical_axis_groups``
+gives the JAX package's member lists (intra: ``local`` consecutive
+members, host-major; inter: the members at one local offset across the
+hosts), ``data_host_groups`` those of the ``data`` axis, and
+``host_process_groups`` turns them into process groups: every rank makes
+the groups of every slice of the axis, in the same order, once per
+(axis, local), as torch requires.
 """
 
 from typing import Dict, List, Optional, Sequence
@@ -39,6 +46,22 @@ MESH_AXES = (PIPE_AXIS, DATA_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
 
 # the composite data-parallel axes ZeRO shards over
 DP_AXES = (DATA_AXIS, EXPERT_AXIS)
+
+
+def hierarchical_axis_groups(axis_size: int, devices_per_host: int):
+    """Split a flat axis of ``axis_size`` members into (host, local)
+    subaxes: ``(intra_groups, inter_groups)`` as member-index lists. Intra
+    groups hold the ``devices_per_host`` consecutive members of one host
+    (host-major member order); inter groups hold the members at the same
+    local offset across hosts. ``(None, None)`` when no split exists
+    (``devices_per_host`` <= 1, >= ``axis_size``, or not a divisor)."""
+    local = int(devices_per_host)
+    if local <= 1 or local >= axis_size or axis_size % local:
+        return None, None
+    hosts = axis_size // local
+    intra = [[h * local + l for l in range(local)] for h in range(hosts)]
+    inter = [[h * local + l for h in range(hosts)] for l in range(local)]
+    return intra, inter
 
 
 class ProcessTopology:
@@ -122,6 +145,7 @@ class DeviceMeshManager:
         self.rank = comm.get_rank() if rank is None else int(rank)
         self.coords = self.topology.get_coord(self.rank)
         self._groups: Dict[tuple, object] = {}
+        self._host_groups: Dict[tuple, tuple] = {}
         self._build_groups()
 
     def _build_groups(self):
@@ -173,6 +197,54 @@ class DeviceMeshManager:
             raise KeyError(f"no process group for mesh axes {key}; the "
                            f"axes are {MESH_AXES}")
         return self._groups[key]
+
+    def data_host_groups(self, devices_per_host: int = 0):
+        """``(intra, inter)`` member lists splitting the ``data`` axis into
+        (host, local) subaxes; ``devices_per_host`` 0 = the launcher's
+        ``LOCAL_WORLD_SIZE``."""
+        if devices_per_host == 0:
+            import os
+            devices_per_host = int(os.environ.get("LOCAL_WORLD_SIZE", 1) or 1)
+        return hierarchical_axis_groups(self.axis_size(DATA_AXIS),
+                                        devices_per_host)
+
+    def host_process_groups(self, axis, local: int):
+        """``(intra, inter)`` process groups of this rank for the (host,
+        local) split of ``axis`` (a mesh axis name or tuple of names, or
+        None for the world) with ``local`` members a host; ``(None,
+        None)`` when the split does not exist. The groups are made at the
+        first call for an (axis, local), by every rank (a collective)."""
+        from ..comm import comm
+        if axis is None:
+            lists = [list(range(self.world_size))]
+        elif isinstance(axis, (str, tuple, list)):
+            axes = (axis,) if isinstance(axis, str) else tuple(axis)
+            lists = self.topology.get_axes_comm_lists(axes)
+        else:
+            raise ValueError("a hierarchical exchange needs a mesh axis "
+                             "name (or None for the world), not a process "
+                             "group")
+        key = (str(axis), int(local))
+        if key in self._host_groups:
+            return self._host_groups[key]
+        intra_l, inter_l = hierarchical_axis_groups(len(lists[0]), local)
+        found = (None, None)
+        if intra_l is not None:
+            intra = inter = None
+            for ranks in lists:
+                for members in intra_l:
+                    g = comm.new_group([ranks[m] for m in members])
+                    if self.rank in [ranks[m] for m in members]:
+                        intra = g
+                        comm.name_group(g, f"{axis}:intra")
+                for members in inter_l:
+                    g = comm.new_group([ranks[m] for m in members])
+                    if self.rank in [ranks[m] for m in members]:
+                        inter = g
+                        comm.name_group(g, f"{axis}:inter")
+            found = (intra, inter)
+        self._host_groups[key] = found
+        return found
 
     def batch_spec(self, shard_seq: bool = True):
         """The batch dim over the dp axes (the JAX package's

@@ -5,8 +5,8 @@ Parsed as in the JAX package, with the same ``ConfigError`` texts: the
 batch triangle (``train_batch_size = micro × gradient_accumulation_steps ×
 dp``), ``fp16`` / ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``gradient_accumulation_dtype``, ``steps_per_print``,
-``seed``, ``zero_optimization``, ``comms_logger``,
-``activation_checkpointing``,
+``seed``, ``zero_optimization``, ``comms_logger``, ``comm_compression``,
+``overlap_schedule``, ``activation_checkpointing``,
 ``progressive_layer_drop``, ``data_efficiency.data_routing``
 (random-LTD), ``checkpoint``, ``nebula``, ``load_universal_checkpoint`` and
 the checkpoint keys of ``resilience``.
@@ -146,8 +146,6 @@ UNPORTED = {
     C.WANDB: ("A12", "the wandb monitor", _enabled),
     C.CSV_MONITOR: ("A12", "the csv monitor", _enabled),
     C.PROMETHEUS: ("A12", "the prometheus monitor", _enabled),
-    C.COMM_COMPRESSION: ("A8c", "compressed collectives", _truthy),
-    C.OVERLAP_SCHEDULE: ("A8c", "the ZeRO overlap schedule", _enabled),
     C.COMPILE_PLANE: ("A13", "the compile plane", _enabled),
     C.PERF_PLANE: ("A13", "the perf plane", _enabled),
     C.RESILIENCE: ("A12", "preemption handling, autosave or the training "
@@ -228,6 +226,17 @@ class DeepSpeedConfig:
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get(C.ZERO_OPTIMIZATION, {}))
         self.comms_logger = CommsLoggerConfig.from_dict(
             pd.get(C.COMMS_LOGGER, {}))
+        # the quantized / hierarchical collective policy (comm/
+        # compression.py): per-collective off|fp32|int8|fp8_block wire
+        # formats behind the comm dispatch
+        from ..comm.compression import CommCompressionConfig
+        self.comm_compression = CommCompressionConfig.from_dict(
+            pd.get(C.COMM_COMPRESSION) or {})
+        # the bucketed ZeRO exchange (runtime/zero/overlap_schedule.py):
+        # size-targeted layer-order buckets through coalesced collectives
+        from .zero.overlap_schedule import OverlapScheduleConfig
+        self.overlap_schedule = OverlapScheduleConfig.from_dict(
+            pd.get(C.OVERLAP_SCHEDULE) or {})
         # the engine turns remat on whenever the block is present
         self.activation_checkpointing = \
             ActivationCheckpointingConfig.from_dict(

@@ -86,7 +86,9 @@ expert parallelism and client optimizers raise naming their ROADMAP.md
 rows.
 """
 
+import contextlib
 import dataclasses
+import functools
 import inspect
 import math
 from collections import deque
@@ -118,6 +120,18 @@ from .optimizers import get_optimizer
 from .progressive_layer_drop import ProgressiveLayerDrop
 from .zero import stage3
 from .zero.partition import ZeroShardingPlanner, param_shards
+
+
+def _exact(fn):
+    """The engine's own collectives (the update, the gradient norm,
+    checkpoints, whole tensors, the stage path) run at full precision
+    whatever the ``comm_compression`` policy: in the JAX package XLA
+    inserts them, and no policy reaches them there."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with comm.full_precision():
+            return fn(*args, **kwargs)
+    return wrapper
 
 
 class _ApplyCall(torch.nn.Module):
@@ -327,6 +341,7 @@ class DeepSpeedEngine:
         self._last_modifiers = (None, None)
         if cfg._param_dict.get("activation_checkpointing") is not None:
             self._configure_remat()
+        self._setup_explicit_exchange(cfg)
 
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data)
@@ -417,6 +432,72 @@ class DeepSpeedEngine:
         self._norm_weights = torch.tensor(
             [1.0 if ps.partitioned or self._dp_rank == 0 else 0.0
              for ps in self._pshards], device=self.device)
+
+    def _setup_explicit_exchange(self, cfg):
+        """``comm_compression`` and ``overlap_schedule``: the policy is
+        installed for every collective; at dp > 1, when a policy a ZeRO
+        step uses is not off (``fp32`` counts) or the overlap schedule is
+        on, the micro gradient takes the JAX package's explicit exchange
+        (``runtime/zero/compressed_step.py``, bucketed by
+        ``runtime/zero/overlap_schedule.py``) in place of the stage
+        engine's. Its scope is refused at init, as in the JAX package."""
+        from ..comm.compression import configure_comm_compression
+        cc = configure_comm_compression(cfg.comm_compression)
+        dp = self.mesh_manager.dp_world_size
+        self._cc_zero_active = cc.zero_path_active and dp > 1
+        self._sched_active = cfg.overlap_schedule.enabled and dp > 1
+        self._compressed_grad_fns = {}
+        self._sched_info = None
+        self._xstate = None
+        if not (self._cc_zero_active or self._sched_active):
+            return
+        from .zero.compressed_step import explicit_scope_error
+        feature = "overlap_schedule" if self._sched_active else \
+            "comm_compression"
+        err = explicit_scope_error(self, feature)
+        if err:
+            raise ConfigError(err)
+        local = cc.local_members(dp) if cc.hierarchical else 0
+        if local:       # every rank makes the (host, local) groups, once
+            from ..parallel.topology import DATA_AXIS
+            self.mesh_manager.host_process_groups(DATA_AXIS, local)
+        if self._sched_active:
+            from .zero.overlap_schedule import build_schedule
+            _, _, _, info = build_schedule(self, cfg.overlap_schedule)
+            self._sched_info = info
+            log_dist(
+                "overlap_schedule: bucketed ZeRO exchange active "
+                f"(overlap={cfg.overlap_schedule.overlap} "
+                f"bucket_bytes={cfg.overlap_schedule.bucket_bytes} "
+                f"gather_buckets={info['gather_buckets']} "
+                f"rs_buckets={info['rs_buckets']} "
+                f"layer_chunks={len(info['layer_chunks'])})", ranks=[0])
+        if self._cc_zero_active:
+            log_dist(
+                "comm_compression: explicit ZeRO exchange active "
+                f"(all_gather={cc.all_gather} "
+                f"reduce_scatter={cc.reduce_scatter} "
+                f"all_reduce={cc.all_reduce} "
+                f"block={cc.block_size} "
+                f"hierarchical={cc.hierarchical})", ranks=[0])
+
+    @property
+    def _explicit(self) -> bool:
+        return self._cc_zero_active or self._sched_active
+
+    def _compressed_micro_grad(self, ltd_keep):
+        """The explicit exchange: bucketed when ``overlap_schedule`` is on,
+        else per leaf; cached per random-LTD token budget, as the JAX
+        engine caches its step functions."""
+        if ltd_keep not in self._compressed_grad_fns:
+            if self._sched_active:
+                from .zero.overlap_schedule import make_bucketed_micro_grad
+                fn = make_bucketed_micro_grad(self)
+            else:
+                from .zero.compressed_step import make_compressed_micro_grad
+                fn = make_compressed_micro_grad(self)
+            self._compressed_grad_fns[ltd_keep] = fn
+        return self._compressed_grad_fns[ltd_keep]
 
     def _configure_remat(self):
         """The ``activation_checkpointing`` block -> the model's ``remat``
@@ -543,14 +624,29 @@ class DeepSpeedEngine:
         the step's key and modifiers (passed only when set, as the JAX
         engine passes them), drawing as this rank's rows of the global
         batch."""
+        explicit = self._explicit and train
+        with contextlib.nullcontext() if explicit else comm.full_precision():
+            return self._micro_loss_in(pc, mb, rng, train, pld_theta,
+                                       ltd_keep, explicit)
+
+    def _micro_loss_in(self, pc, mb, rng, train, pld_theta, ltd_keep,
+                       explicit):
+        if explicit:
+            # the JAX explicit exchange: the rank's own mean, its key folded
+            # with its dp index, drawn from row 0 of its rows
+            xfn = self._compressed_micro_grad(ltd_keep)
+            rng = xfn.rng(rng)
         kwargs = {"rng": rng, "train": train}
         if pld_theta is not None:
             kwargs["pld_theta"] = pld_theta
         if ltd_keep is not None:
             kwargs["ltd_keep"] = ltd_keep
-        self._row0 = self._dp_rank * _rows(mb)
+        self._row0 = 0 if explicit else self._dp_rank * _rows(mb)
         hook = None
-        if self._stage >= 3:
+        if explicit:
+            pc, hook, state = xfn.inputs(pc)
+            self._xstate = (xfn, state)
+        elif self._stage >= 3:
             pc, hook = self._stage3_inputs(pc)
         self.module._zero_hook = hook
         try:
@@ -562,6 +658,8 @@ class DeepSpeedEngine:
             self.module._zero_hook = None
         loss = out[0] if isinstance(out, tuple) else out
         loss = loss.to(torch.float32)
+        if explicit:
+            return loss
         share = self._global_share(mb)
         return loss if share is None else loss * share
 
@@ -588,17 +686,27 @@ class DeepSpeedEngine:
         compute-dtype copies ``pc``, added into the shared accumulation
         buffers (made in ``dtype`` by the first micro step); the loss too,
         detached."""
-        params = list(pc.values())
-        # a layer progressive layer drop skipped has zero gradients, as
-        # under jax.grad; a recompute draws this micro batch's rows again
-        with dropout.batch_rows(self._row0):
-            grads = torch.autograd.grad(scaled_loss, params,
-                                        allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        if self._stage >= 2:
-            grads = self._reduce_micro_grads(grads)
-        loss = scaled_loss.detach()
+        if self._xstate is not None:
+            # the explicit exchange: every gradient averaged over the ranks
+            # now, in the compute dtype, and the loss with them
+            xfn, state = self._xstate
+            self._xstate = None
+            with dropout.batch_rows(self._row0):
+                grads, loss = xfn.backward(scaled_loss, state)
+        else:
+            params = list(pc.values())
+            # a layer progressive layer drop skipped has zero gradients, as
+            # under jax.grad; a recompute draws this micro batch's rows
+            # again
+            with dropout.batch_rows(self._row0), comm.full_precision():
+                grads = torch.autograd.grad(scaled_loss, params,
+                                            allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
+            if self._stage >= 2:
+                with comm.full_precision():
+                    grads = self._reduce_micro_grads(grads)
+            loss = scaled_loss.detach()
         if self._grad_acc is None:
             self._grad_acc = [g.to(dtype) for g in grads]
             self._loss_acc = loss
@@ -676,8 +784,10 @@ class DeepSpeedEngine:
         loss-scale update. Returns ``(finite, grad_norm)``."""
         cfg = self._config
         grads = [g.to(torch.float32) for g in grads]
+        # the explicit exchange averaged over the ranks already
+        dp = 1 if self._explicit else self._dp_world
         torch._foreach_mul_(grads, 1.0 / (denom * self.scaler_state.scale *
-                                          self._dp_world))
+                                          dp))
         grads, grad_norm = self._clip_grads(grads)
         finite = self._all_finite(grads) if cfg.fp16.enabled else True
         if finite:
@@ -794,19 +904,24 @@ class DeepSpeedEngine:
             raise RuntimeError("step() without backward()")
         return self._step()
 
+    @_exact
     def _step(self):
         """Unscale, clip and apply the accumulated gradients; clear the
         buffers; the step's bookkeeping. Returns the step's metrics (the
         mean loss among them)."""
         scale = self.scaler_state.scale
         count = self._grad_acc_count
-        if self._stage <= 1:
+        if self._stage <= 1 and not self._explicit:
             self._allreduce_grads()
         finite, grad_norm = self._apply_update(self._grad_acc, self.get_lr()[0],
                                                denom=float(count))
-        # the global mean: the ranks' sums over the ranks
-        comm.all_reduce(self._loss_acc, axis_name=self._dp_group)
-        metrics = {"loss": self._loss_acc / (count * scale * self._dp_world),
+        # the global mean: the ranks' sums over the ranks (the explicit
+        # exchange averaged each micro step's loss already)
+        dp = 1
+        if not self._explicit:
+            comm.all_reduce(self._loss_acc, axis_name=self._dp_group)
+            dp = self._dp_world
+        metrics = {"loss": self._loss_acc / (count * scale * dp),
                    "grad_norm": grad_norm, "loss_scale": scale,
                    "overflow": not finite}
         self._grad_acc, self._loss_acc, self._grad_acc_count = None, None, 0
@@ -814,6 +929,7 @@ class DeepSpeedEngine:
         self._post_step(metrics)
         return metrics
 
+    @_exact
     @torch.no_grad()
     def eval_batch(self, batch):
         """Loss of one ``[micro, ...]`` batch, no gradients; over several
@@ -844,6 +960,7 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # checkpointing: runtime/checkpointing.py, bound here
     # ------------------------------------------------------------------
+    @_exact
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True, exclude_frozen_parameters=False):
         from .checkpointing import save_checkpoint
@@ -851,6 +968,7 @@ class DeepSpeedEngine:
                                client_state=client_state,
                                save_latest=save_latest)
 
+    @_exact
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
                         load_optimizer_states=True,
                         load_lr_scheduler_states=True,
@@ -869,10 +987,12 @@ class DeepSpeedEngine:
             sampler.set_step(self.global_steps)
         return out
 
+    @_exact
     def save_16bit_model(self, save_dir, save_filename="pytorch_model.msgpack"):
         from .checkpointing import save_16bit_model
         return save_16bit_model(self, save_dir, save_filename)
 
+    @_exact
     def get_fp32_params(self):
         """The f32 masters as a JAX-layout tree (whole copies, on the
         engine's device, at any stage; every rank calls it): the
@@ -884,24 +1004,28 @@ class DeepSpeedEngine:
     # whole tensors across the ranks (checkpoints, GatheredParameters,
     # tensor_fragment); collectives: every rank calls them in one order
     # ------------------------------------------------------------------
+    @_exact
     def whole_master(self, i):
         """Parameter ``i``'s whole f32 master."""
         if self._stage < 3:
             return self.tp_whole(i, self._params[i])
         return self.whole(i, self._masters[i])
 
+    @_exact
     def whole(self, i, part):
         """Parameter ``i``'s whole tensor from this rank's ``part`` of it
         (a master or moment shard; as it is for a replicated one)."""
         return self._pshards[i].gather_whole(part, self._dp_group,
                                              self._tp.group)
 
+    @_exact
     def tp_whole(self, i, part):
         """Parameter ``i``'s whole tensor from this rank's tensor-parallel
         part of it (the model's tensor)."""
         ps = self._pshards[i]
         return part if ps.tp is None else ps.tp.gather(part, self._tp.group)
 
+    @_exact
     @torch.no_grad()
     def set_whole_master(self, i, value):
         """Set parameter ``i``'s master from its whole value (a tensor on
@@ -913,6 +1037,7 @@ class DeepSpeedEngine:
         if self._stage >= 1:
             self._masters[i].copy_(ps.take_whole(value))
 
+    @_exact
     @torch.no_grad()
     def set_master_parts(self, parts):
         """Set every master from this rank's part of it (a list aligned
@@ -941,7 +1066,22 @@ class DeepSpeedEngine:
         """Forget gradients accumulated and a pending micro step (stale
         once the masters are replaced)."""
         self._grad_acc = self._loss_acc = self._pending = None
+        self._xstate = None
         self._grad_acc_count = 0
+
+    def summary(self) -> dict:
+        """The engine's state at a glance (the JAX engine's status
+        section): steps, samples, lr, ZeRO stage, mesh and, when on, the
+        overlap schedule's plan."""
+        mm = self.mesh_manager
+        out = {"global_steps": self.global_steps,
+               "skipped_steps": self.skipped_steps,
+               "global_samples": self.global_samples,
+               "lr": self.get_lr()[0], "zero_stage": self.zero_stage,
+               "mesh": f"pp{mm.pp}/dp{mm.dp}/ep{mm.ep}/sp{mm.sp}/tp{mm.tp}"}
+        if self._sched_info is not None:
+            out["overlap_schedule"] = self._sched_info
+        return out
 
     # ------------------------------------------------------------------
     # properties

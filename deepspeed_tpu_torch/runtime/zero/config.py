@@ -6,8 +6,9 @@ Stages 0-3 run (``runtime/zero/partition.py``, ``runtime/engine.py``);
 ``stage3_param_persistence_threshold`` keeps small leaves replicated at
 stage 3, as in the JAX package. An active ``offload_optimizer`` or
 ``offload_param`` raises ``NotImplementedError`` naming ROADMAP.md row
-A11. The bucket and prefetch knobs are parsed for config compatibility:
-the bucketed overlap schedule is row A8c.
+A11. The bucket and prefetch knobs are parsed for config compatibility;
+the bucketed exchange is the ``overlap_schedule`` block
+(``runtime/zero/overlap_schedule.py``).
 """
 
 import dataclasses

@@ -3,13 +3,13 @@
 ``ConfigError``s.
 
 ``ServingConfig`` and its ``slo``, ``chunked_prefill``, ``tenants``,
-``speculative`` and ``prefix_cache`` blocks run here, as do the three
+``speculative``, ``prefix_cache`` and ``kv_quant`` blocks run here, as do the three
 roles (``unified``, ``prefill``, ``decode``). The blocks of the JAX
 package that this port does not serve yet are parsed (the ones defined in
 this module with the JAX package's own ``ConfigError``s) and accepted
 while they are absent or disabled; enabled, they raise
 ``NotImplementedError`` naming their ROADMAP.md row (``UNPORTED``):
-``kv_quant`` (A9), ``monitor`` and its sinks, ``telemetry``, ``statusz``,
+``monitor`` and its sinks, ``telemetry``, ``statusz``,
 ``flight_recorder``, ``speculative.acceptance_floor`` above 0 (it fires
 the flight recorder), ``resilience.handle_signals``, ``fleet``,
 ``loadgen``, ``soak`` and ``cost`` (A12), ``compile_plane`` and
@@ -85,8 +85,9 @@ class PrefixCacheConfig(DeepSpeedConfigModel):
 
 @dataclasses.dataclass
 class KVQuantConfig(DeepSpeedConfigModel):
-    """The ``"kv_quant"`` block: an int8 slot pool with per-column scales.
-    Parsed; enabled, it raises naming ROADMAP.md row A9."""
+    """The ``"kv_quant"`` block: store the slot pool int8 with per-column
+    f32 scales (``inference/kv_quant.py``): about half a bf16 pool's bytes
+    at head dim 128."""
     enabled: bool = False
 
     def validate(self):
@@ -543,7 +544,6 @@ def _acceptance_floor(cfg, key):
 UNPORTED = {
     "speculative": ("A12", "the acceptance-drop trigger of the flight "
                     "recorder (acceptance_floor > 0)", _acceptance_floor),
-    "kv_quant": ("A9", "the int8 slot pool", _enabled),
     "monitor": ("A12", "the serving monitor", _truthy),
     "tensorboard": ("A12", "the tensorboard monitor", _enabled),
     "wandb": ("A12", "the wandb monitor", _enabled),

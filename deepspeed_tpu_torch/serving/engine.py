@@ -306,6 +306,8 @@ class ServingEngine:
 
     def decode_executables(self) -> int:
         """How many decode-step shapes ran on this engine's pool: the JAX
-        package's compile-once count, 1 across differing prompt lengths."""
+        package's compile-once count, 1 across differing prompt lengths,
+        for this engine's pool flavor (float or int8)."""
         return self.engine.slot_decode_executables(
-            self.config.num_slots, self.config.max_model_len)
+            self.config.num_slots, self.config.max_model_len,
+            quantized=self.scheduler.pool.quantized)

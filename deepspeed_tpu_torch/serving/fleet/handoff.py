@@ -12,8 +12,10 @@ the raw little-endian buffers in header order. Frames cross between the
 two packages: numpy has no bfloat16, and the JAX package writes a bf16
 buffer's dtype as ``'<V2'`` (ml_dtypes' 2-byte void), so the port writes
 ``'<V2'`` for a bf16 lane and reads any 2-byte void buffer as
-``torch.bfloat16``. The lanes are fp; the int8 pool's q/scale lanes are
-ROADMAP.md row A9.
+``torch.bfloat16``. An int8 pool's lane (``inference/kv_quant.py``)
+travels as its payload and scales, the JAX package's ``q/<k|v>`` and
+``scales/<k|v>`` buffers with ``"quantized": true`` in the header: the
+wire carries the quantized lane, and the decode pool inserts it verbatim.
 """
 
 import dataclasses
@@ -42,6 +44,27 @@ def _raw(t: torch.Tensor) -> bytes:
     """A tensor's bytes, little-endian, row-major."""
     return t.detach().to("cpu").contiguous().view(torch.uint8).numpy() \
         .tobytes()
+
+
+def _flatten_lane(lane):
+    """``(ordered (path, tensor) pairs, quantized?)`` of either lane
+    flavor."""
+    from ...inference.kv_quant import QuantizedSlotPool
+    if isinstance(lane, QuantizedSlotPool):
+        pairs = [(f"q/{k}", v) for k, v in sorted(lane.q.items())]
+        pairs += [(f"scales/{k}", v) for k, v in sorted(lane.scales.items())]
+        return pairs, True
+    return sorted(lane.items()), False
+
+
+def _unflatten_lane(pairs, quantized: bool):
+    if not quantized:
+        return dict(pairs)
+    from ...inference.kv_quant import QuantizedSlotPool
+    q = {k[len("q/"):]: v for k, v in pairs.items() if k.startswith("q/")}
+    s = {k[len("scales/"):]: v for k, v in pairs.items()
+         if k.startswith("scales/")}
+    return QuantizedSlotPool(q, s)
 
 
 def _view(blob, dtype: str, shape, offset: int) -> torch.Tensor:
@@ -97,7 +120,7 @@ class KVHandoff:
     def to_bytes(self) -> bytes:
         """Magic, u32 header length, JSON header, then raw buffers in
         header order (the JAX package's frame)."""
-        pairs = sorted(self.lane.items())
+        pairs, quantized = _flatten_lane(self.lane)
         header = {
             "prompt": [int(t) for t in np.asarray(self.prompt).reshape(-1)],
             "first_token": int(self.first_token),
@@ -113,7 +136,7 @@ class KVHandoff:
             "tenant": self.tenant,
             "trace": self.trace,
             "weights_version": self.weights_version,
-            "quantized": False,
+            "quantized": quantized,
             "buffers": [{"path": p, "dtype": _dtype_str(t),
                          "shape": list(t.shape)} for p, t in pairs],
         }
@@ -133,10 +156,6 @@ class KVHandoff:
         off += 4
         header = json.loads(blob[off:off + hlen].decode("utf-8"))
         off += hlen
-        if header.get("quantized"):
-            raise NotImplementedError(
-                "an int8 KV handoff (kv_quant) is not ported yet: "
-                "ROADMAP.md row A9")
         lane = {}
         for buf in header["buffers"]:
             t = _view(blob, buf["dtype"], buf["shape"], off)
@@ -146,7 +165,7 @@ class KVHandoff:
             prompt=np.asarray(header["prompt"], np.int32),
             first_token=header["first_token"],
             kv_len=header["kv_len"],
-            lane=lane,
+            lane=_unflatten_lane(lane, bool(header.get("quantized"))),
             temperature=header["temperature"],
             top_k=header.get("top_k", 0),
             top_p=header.get("top_p", 1.0),
@@ -161,7 +180,8 @@ class KVHandoff:
 
     def nbytes(self) -> int:
         """Payload bytes a transport would move (the lane's buffers)."""
-        return sum(t.numel() * t.element_size() for t in self.lane.values())
+        return sum(t.numel() * t.element_size()
+                   for _, t in _flatten_lane(self.lane)[0])
 
 
 class InProcessTransport:

@@ -37,11 +37,16 @@ def tree_nbytes(tree) -> int:
 class SlotPool:
     """Fixed pool of decode slots over one static KV cache."""
 
-    def __init__(self, engine, num_slots: int, max_model_len: int):
+    def __init__(self, engine, num_slots: int, max_model_len: int,
+                 quantize: bool = False):
         self.engine = engine
         self.num_slots = num_slots
         self.max_model_len = max_model_len
-        self.cache = engine.init_slot_pool(num_slots, max_model_len)
+        #: the int8 pool of ``kv_quant`` (inference/kv_quant.py), or the
+        #: serving dtype's
+        self.quantized = bool(quantize)
+        self.cache = engine.init_slot_pool(num_slots, max_model_len,
+                                           quantize=self.quantized)
         # host-side slot registers, copied to the device each tick
         self.lengths = np.zeros((num_slots,), np.int32)   # tokens in cache
         self.pending = np.zeros((num_slots,), np.int32)   # next token to feed
@@ -122,6 +127,12 @@ class SlotPool:
     def active_slots(self) -> List[int]:
         return [s for s in range(self.num_slots)
                 if self.requests[s] is not None]
+
+    def nbytes(self) -> int:
+        """Resident bytes of the pool (an int8 pool's payload and
+        scales)."""
+        from ..inference.kv_quant import pool_nbytes
+        return pool_nbytes(self.cache)
 
     @property
     def utilization(self) -> float:

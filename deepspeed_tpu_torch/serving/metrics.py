@@ -70,6 +70,10 @@ class ServingMetrics:
                  tenants=None, clock=None):
         self.monitor_interval = monitor_interval
         self.tracer = tracer or get_tracer()
+        #: the slot pool's resident bytes and flavor (set by the
+        #: scheduler: an int8 pool under ``kv_quant``)
+        self.kv_pool_bytes = 0
+        self.kv_pool_quantized = False
         self.slo = slo
         window = int(getattr(slo, "window", 1024) or 1024)
         self.window = window
@@ -412,6 +416,11 @@ class ServingMetrics:
         self.tracer.release_counters(self)
 
     # ------------------------------------------------------------- summary
+    def kv_pool(self, nbytes: int, quantized: bool):
+        """Record the slot pool's resident bytes and flavor."""
+        self.kv_pool_bytes = int(nbytes)
+        self.kv_pool_quantized = bool(quantized)
+
     def summary(self, wall_seconds: Optional[float] = None) -> dict:
         pct = self.percentiles()
         out = {
@@ -431,6 +440,8 @@ class ServingMetrics:
             "token_ms_p99": pct["tpot_ms"]["p99"],
             "e2e_ms_p50": pct["e2e_ms"]["p50"],
             "e2e_ms_p95": pct["e2e_ms"]["p95"],
+            "kv_pool_gib": round(self.kv_pool_bytes / 2 ** 30, 6),
+            "kv_pool_int8": self.kv_pool_quantized,
         }
         if any(v is not None for v in self._slo_targets().values()):
             out["slo"] = self.slo_status()

@@ -306,7 +306,11 @@ class ContinuousBatchingScheduler:
         self.role = getattr(config, "role", "unified")
         self.handoff_sink = handoff_sink
         self.metrics = metrics or ServingMetrics()
-        self.pool = SlotPool(engine, config.num_slots, config.max_model_len)
+        quantize = bool(getattr(getattr(config, "kv_quant", None),
+                                "enabled", False))
+        self.pool = SlotPool(engine, config.num_slots, config.max_model_len,
+                             quantize=quantize)
+        self.metrics.kv_pool(self.pool.nbytes(), quantize)
         #: admission queue: per-tenant FIFOs + deficit round-robin when
         #: the tenants block is on, a plain FIFO otherwise (deque API)
         self.queue = TenantQueues(getattr(config, "tenants", None))

@@ -74,17 +74,22 @@ def safe_get_full_grad(engine, path: str) -> Optional[np.ndarray]:
         return None
     from ..comm import comm
     partitioned = engine._stage >= 2
+    # the explicit exchange averaged the gradients over the ranks already
+    averaged = engine._explicit
 
     def whole_of(i):
         g = acc[i].to(torch.float32).clone()
         if partitioned:
             return engine.whole(i, g)
-        return engine.tp_whole(i, comm.all_reduce(
-            g, axis_name=engine._dp_group))
+        if not averaged:
+            with comm.full_precision():
+                g = comm.all_reduce(g, axis_name=engine._dp_group)
+        return engine.tp_whole(i, g)
 
     g = _stacked(engine, path, whole_of)
     denom = float(engine.scaler_state.scale) * max(
-        1, engine._grad_acc_count) * engine.dp_world_size
+        1, engine._grad_acc_count) * (1 if averaged else
+                                      engine.dp_world_size)
     return g / denom
 
 

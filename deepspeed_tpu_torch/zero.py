@@ -84,7 +84,8 @@ def GatheredParameters(target, modifier_rank=None, fwd_module=None,
     for i, v in enumerate(values):
         t = torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float32,
                             device=engine.device)
-        comm.broadcast(t, src=modifier_rank, axis_name=engine._dp_group)
+        with comm.full_precision():
+            comm.broadcast(t, src=modifier_rank, axis_name=engine._dp_group)
         engine.set_whole_master(i, t)
     log_dist("zero.GatheredParameters: the changes are written back into "
              "the engine", ranks=[0])

@@ -251,7 +251,6 @@ def test_batch_triangle_solutions_match_jax():
 _ASKS = {"tensor_parallel_size": 2, "pipeline_parallel_size": 2,
          "sequence_parallel_size": 2, "expert_parallel_size": 2,
          "compression_training": {"x": 1},
-         "comm_compression": {"policy": "int8"},
          "resilience": {"handle_signals": True},
          "wall_clock_breakdown": True, "memory_breakdown": True,
          "data_efficiency": {"enabled": True,
@@ -271,7 +270,6 @@ def test_unported_config_values_raise_naming_their_row(key):
 
 
 @pytest.mark.parametrize("change,row", [
-    ({"comm_compression": {"policy": "int8"}}, "A8c"),
     ({"zero_optimization": {"stage": 3, "offload_optimizer": {
         "device": "cpu"}, "offload_param": {"device": "cpu"}}}, "A11"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
@@ -287,6 +285,41 @@ def test_unported_training_features_raise_naming_their_row(change, row):
         deepspeed_tpu_torch.initialize(model=model,
                                        config=dict(BASE, **change),
                                        device="cpu")
+
+
+@pytest.mark.parametrize("key,block", [
+    ("comm_compression", {"enabled": True, "all_gather": "int8",
+                          "reduce_scatter": "fp8_block", "block_size": 64,
+                          "devices_per_host": 2}),
+    ("overlap_schedule", {"enabled": True, "bucket_bytes": 1 << 16,
+                          "overlap": False, "pin_order": False})])
+def test_a8c_blocks_parse_as_the_jax_config(key, block):
+    """``comm_compression`` and ``overlap_schedule`` (once refused naming
+    row A8c) parse into the JAX package's dataclasses, field for field;
+    disabled, or ``enabled: false`` with policies set, they are
+    accepted."""
+    want = getattr(jconfig.DeepSpeedConfig(dict(BASE, **{key: block}),
+                                           world_size=1), key)
+    got = getattr(tconfig.DeepSpeedConfig(dict(BASE, **{key: block})), key)
+    assert got.to_dict() == want.to_dict()
+    off = tconfig.DeepSpeedConfig(dict(BASE, **{key: dict(
+        block, enabled=False)}))
+    assert not getattr(off, key).enabled
+
+
+def test_comm_compression_policy_key_is_refused_as_the_jax_config():
+    """``{"policy": ...}`` is not a key of the JAX block: ``initialize``
+    refuses it with the JAX package's ``ConfigError`` text."""
+    change = {"comm_compression": {"policy": "int8"}}
+    with pytest.raises(Exception) as jerr:
+        jconfig.DeepSpeedConfig(dict(BASE, **change), world_size=1)
+    model = tgpt2.GPT2Model(tgpt2.GPT2Config(**SMALL))
+    from deepspeed_tpu_torch.runtime.config_utils import ConfigError
+    with pytest.raises(ConfigError) as terr:
+        deepspeed_tpu_torch.initialize(model=model,
+                                       config=dict(BASE, **change),
+                                       device="cpu")
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_engine_surface_and_what_it_refuses():

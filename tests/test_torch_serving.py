@@ -443,9 +443,10 @@ BAD = [{"num_slots": 0}, {"max_model_len": 1}, {"max_queue": 0},
        {"tenants": {"quantum_tokens": 0}},
        {"speculative": {"k": 3}}, {"prefix_cache": {"min_prefix_len": 0}},
        {"cost": {"ema_alpha": 0}}, {"loadgen": {"duration_s": 0}}]
+# the int8 slot pool (kv_quant), once refused here: parsed as the JAX one
+GOOD = GOOD + [{"kv_quant": {"enabled": True}}]
 UNPORTED = [({"speculative": {"enabled": True, "acceptance_floor": 0.5}},
              "A12"),
-            ({"kv_quant": {"enabled": True}}, "A9"),
             ({"monitor": True}, "A12"),
             ({"csv_monitor": {"enabled": True}}, "A12"),
             ({"telemetry": {"enabled": True}}, "A12"),

@@ -166,8 +166,12 @@ def test_slot_api_refusals():
         with pytest.raises(TypeError, match="KV-cache"):
             call()
     _, port = tp.engines("gpt2")
-    with pytest.raises(NotImplementedError, match="A9"):
-        port.init_slot_pool(2, 16, quantize=True)
+    # the int8 pool: payload 0 and scale 1 in every column, as the JAX
+    # package's quantize_pool leaves a zero pool
+    qpool = port.init_slot_pool(2, 16, quantize=True)
+    assert qpool["k"].dtype == torch.int8 and not qpool["k"].any()
+    assert (qpool.scales["v"] == 1).all()
+    assert tuple(qpool.scales["k"].shape) == tuple(qpool["k"].shape[:-1])
     pool = port.init_slot_pool(2, 16)
     with pytest.raises(ValueError):
         port.slot_prefill(pool, 0, np.arange(17) % tp.VOCAB)

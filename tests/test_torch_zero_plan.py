@@ -198,10 +198,34 @@ def test_collectives_account_the_jax_wire_model(collectives):
 
 
 def test_compression_other_than_off_names_a8c():
+    """The ``comm_compression`` block is the JAX package's schema (it once
+    named row A8c here): one policy a collective, ``configure`` returns the
+    installed config, an unknown key such as ``policy`` is a
+    ``ConfigError`` and ``enabled: false`` is accepted as off."""
+    from deepspeed_tpu.comm.compression import \
+        configure_comm_compression as jconfigure
+    from deepspeed_tpu.runtime.config_utils import ConfigError as JErr
     from deepspeed_tpu_torch.comm import comm
-    assert comm.configure_comm_compression({"policy": "off"}) == "off"
-    with pytest.raises(NotImplementedError, match="row A8c"):
-        comm.configure_comm_compression({"policy": "int8"})
+    from deepspeed_tpu_torch.runtime.config_utils import ConfigError
+    for block in ({"policy": "off"}, {"policy": "int8"}):
+        with pytest.raises(ConfigError, match="unknown config key"):
+            comm.configure_comm_compression(block)
+        with pytest.raises(JErr, match="unknown config key"):
+            jconfigure(block)
+    try:
+        cfg = comm.configure_comm_compression(
+            {"enabled": True, "all_gather": "int8", "reduce_scatter": "fp32"})
+        assert comm.get_comm_compression() is cfg
+        assert [cfg.policy_for(op, "data", 1 << 20) for op in (
+            "all_gather", "reduce_scatter", "all_reduce")] == \
+            ["int8", "fp32", "off"]
+        off = comm.configure_comm_compression({"enabled": False,
+                                               "all_gather": "int8"})
+        assert off.policy_for("all_gather", "data", 1 << 20) == "off"
+    finally:
+        comm.reset_comm_compression()
+        from deepspeed_tpu.comm.compression import reset_comm_compression
+        reset_comm_compression()
 
 
 # ------------------------------------------------------------ stage 3
