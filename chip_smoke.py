@@ -35,16 +35,18 @@ must catch) are checked the same way; then Code Llama 7B is served at full
 depth on ``[1, 16384]`` and trained at 4 layers of its width, each held
 against the path on the kernels' plain versions, and BERT-large with
 ``SparseAttentionUtils``' Fixed sparse surgery is scored at ``[4, 4096]``
-and trained (15% masked positions), held against the dense-masked plain
-path, with a repeated batch at 4 layers and profiles. Last, the serve
-path: ``ServingEngine(init_inference(model, {"dtype": "bf16"}), ...)``
-over LLaMA-7B at 16 of its 32 layers (16 slots x 2048, 48 requests; phase
+(12 of its 24 layers) and trained (15% masked positions), held against
+the dense-masked plain path, with a repeated batch at 4 layers and
+profiles. Last, the serve path: ``ServingEngine(init_inference(model,
+{"dtype": "bf16"}), ...)`` over LLaMA-7B at SERVE_LAYERS of its 32
+layers (16 slots x 2048, 48 requests; phase
 ``serve``: TTFT, TPOT, output tokens/s, decode-tick ms, slot utilization,
 pool and peak memory, with the stream checks of ``SERVE_LLAMA``'s comment)
 and GPT-2-125M (8 x 1024, 24 requests; ``serve gpt2``), each with a
 profiled decode tick (``profile serve``); on the LLaMA-7B engine,
-speculative decoding off and with self drafts of 16 and 4 layers
-(``serve spec``, a profiled speculative tick), the radix prefix cache on
+speculative decoding off and with self drafts of all and a quarter of
+its layers (``serve spec``, a profiled speculative tick), the radix
+prefix cache on
 and off over cohorts sharing 1024-token prefixes (``serve prefix``) and a
 prefill engine handing bf16 lanes through ``KVHandoff`` frames to a
 decode engine (``serve disagg``); on the GPT-2 engine, a 6-layer self
@@ -68,7 +70,8 @@ by a fresh engine on other weights (``ckpt train resume``: save and load
 seconds, GB/s, hashing share, the host memory each takes against the
 largest leaf and the tag); GPT-2-125M's keep-last-2 retention, a retried
 write and the fallback past a truncated tag (``ckpt fallback``);
-LLaMA-7B at 8 of its 32 layers saved by an optimizer-less engine and
+LLaMA-7B at CKPT_SERVE_LAYERS of its 32 layers saved by an
+optimizer-less engine and
 served from the tag through ``init_inference`` and a ``ServingEngine``,
 bitwise the saving model's logits and streams (``ckpt serve``); a tp 2 x pp 2
 Megatron-LM GPT-2-125M directory served bitwise as its single shard
@@ -102,10 +105,15 @@ model``), deadlines under skewed clocks (``tp serve deadlines``), a
 Megatron directory (``tp ckpt megatron``) and a synthetic one-kv-head
 variant of LLaMA-2-70B's width (``tp llama kv replicated``), each against
 tp 1; before them, the dropout kernel and K6/K7 at a rank's heads
-(``kernel-check dropout heads``, ``K6 heads``, ``K7 heads``). Each
+(``kernel-check dropout heads``, ``K6 heads``, ``K7 heads``). Slice 13's
+(see the comment above ``GPTJ_LAYERS``): K3 at GPT-J-6B's head dim 256
+(``kernel-check K3 d256``, the scalar route), GPT-J-6B at its published
+width scored and served (``gptj forward``, ``gptj serve``), and OPT,
+BLOOM, GPT-Neo and GPT-NeoX at theirs (``family ...``). Each
 profile names
 the flash and block-sparse attention kernel instances that ran; on these
-bf16 paths they must be the tensor-core ones (``mma_*``). Every check raises
+bf16 paths they must be the tensor-core ones (``mma_*``; the scalar ones
+at GPT-J's head dim 256). Every check raises
 on failure, so the script exits
 non-zero without printing a result. The last lines are one JSON
 object describing every kernel, the card's name and power limit from
@@ -199,6 +207,10 @@ K6_CASES = [("fixed", "bfloat16"), ("bslongformer", "bfloat16"),
 # trained at micro 4, T 4096, gas 2 with 15% masked positions; the gradient
 # and convergence checks at 4 layers of its width
 BERT_T, BERT_MICRO, BERT_GAS, BERT_SMALL_LAYERS = 4096, 4, 2, 4
+# scored (bert forward, tp bert forward) at 12 of its 24 layers (cut from
+# full depth when the decoder families' phases joined), to keep the
+# script inside its time limit
+BERT_SERVE_LAYERS = 12
 BERT_MASK_RATE = 0.15
 # kernel path vs the dense-masked plain path, bf16 logits through 24
 # post-LN layers, with the f32 reference as for LLaMA; gradients of one bf16
@@ -210,9 +222,10 @@ BERT_GRAD_TOL = LLAMA_GRAD_TOL
 BERT_CONVERGE_LR = 1e-3
 # Continuous-batching serving (ServingEngine over init_inference): LLaMA-7B
 # at SERVE_LAYERS of its 32 layers (cut from full depth to 16, then to 8
-# when the quantization phases joined, to keep the script inside its time
-# limit, PERF.md), 16 slots x 2048 columns (a 4.3 GB bf16 KV pool at 8
-# layers), two prefills a tick; 48 requests submitted at
+# when the quantization phases joined, then to 4 when slice 13's did, to
+# keep the script inside its time limit, PERF.md), 16 slots x 2048
+# columns (a 2.1 GB bf16 KV pool at 4 layers), two prefills a tick; 48
+# requests submitted at
 # tick 0, prompts lognormal (median 384, 128-1024 tokens), new tokens lognormal (median 128,
 # 64-256), every fourth one sampled (temperature 0.8, top-p 0.95, its own
 # seed), and one whose prompt and new tokens fill the 2048 columns.
@@ -227,7 +240,7 @@ BERT_CONVERGE_LR = 1e-3
 SERVE_LLAMA = dict(cfg={"num_slots": 16, "max_model_len": 2048,
                         "max_prefills_per_tick": 2},
                    requests=48, prompt=(384, 128, 1024), new=(128, 64, 256))
-SERVE_LAYERS = 8
+SERVE_LAYERS = 4
 SERVE_GPT2 = dict(cfg={"num_slots": 8, "max_model_len": 1024,
                        "max_prefills_per_tick": 2},
                   requests=24, prompt=(192, 64, 512), new=(64, 32, 128))
@@ -317,6 +330,9 @@ CKPT_STEPS, CKPT_SAVE_AT = 4, 2
 # its time limit: each
 # phase's save and load take ~4 s a GB on the card's machine (PERF.md)
 CKPT_RESUME_LAYERS, CKPT_SERVE_LAYERS, CKPT_SERVE_REQUESTS = 1, 6, 8
+# ckpt fallback: the main train cell at 4 of GPT-2-125M's 12 layers (its
+# five saves of the whole cell's state took ~25 s at 12)
+CKPT_FALLBACK_LAYERS = 4
 CKPT_MEGATRON_VOCAB, CKPT_MEGATRON_TP, CKPT_MEGATRON_PP = 50304, 2, 2
 
 
@@ -867,10 +883,12 @@ def planted_faults(torch, shape, dtype, causal, window):
           window=window, **found)
 
 
-def profile_forward(torch, engine, ids, top=8, name="profile forward"):
+def profile_forward(torch, engine, ids, top=8, name="profile forward",
+                    scalar=False):
     """Device time by kernel over one scoring call (torch.profiler): the
     busiest kernels, their sum, and the share of the call's wall time in
-    which no kernel ran (profiler overhead included)."""
+    which no kernel ran (profiler overhead included); ``scalar``: the
+    path's attention takes the scalar kernels (GPT-J's head dim 256)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -879,7 +897,7 @@ def profile_forward(torch, engine, ids, top=8, name="profile forward"):
         engine(ids)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - s0) * 1e3
-    report_profile(name, prof, wall_ms, top)
+    report_profile(name, prof, wall_ms, top, scalar)
 
 
 # an attention kernel instance in a demangled name: mma_fwd_kernel<
@@ -926,10 +944,11 @@ def kernel_group(key):
             "other")
 
 
-def report_profile(name, prof, wall_ms, top=8):
+def report_profile(name, prof, wall_ms, top=8, scalar=False):
     """One phase line: device time by kernel group, the busiest kernels,
     and the share of the wall time in which no kernel ran (profiler
-    overhead included)."""
+    overhead included). ``scalar``: the path's attention kernels are the
+    scalar ones (head dim above the tensor cores' 128), and must all be."""
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
@@ -947,10 +966,12 @@ def report_profile(name, prof, wall_ms, top=8):
         if instance is not None:
             attention[instance] = attention.get(instance, 0) + count
     # every path profiled here runs in bf16: its flash and block-sparse
-    # attention launches must all be tensor-core instances
-    scalar = [k for k in attention if not k.startswith("mma_")]
-    check(not scalar, f"{name}: scalar attention kernels ran on a bf16 "
-          f"path: {scalar}")
+    # attention launches must all be tensor-core instances, but where the
+    # head dim keeps them scalar (GPT-J's 256), where they must all be
+    # scalar
+    wrong = [k for k in attention if k.startswith("mma_") == scalar]
+    check(not wrong, f"{name}: {'tensor-core' if scalar else 'scalar'} "
+          f"attention kernels ran on this bf16 path: {wrong}")
     phase(name, wall_ms=round(wall_ms, 3),
           device_busy_ms=round(busy_ms, 3),
           idle_share=round(1 - busy_ms / wall_ms, 4),
@@ -1161,13 +1182,12 @@ def compare_logits(torch, name, logits, logits_x, tol, logits_f32=None,
           tol=json.dumps(tol))
 
 
-def llama_f32_logits(torch, model, ids):
+def f32_logits(torch, model, ids):
     """Logits of ``model``'s weights in f32 on the plain attention path: a
-    copy built on the card, used once and freed."""
-    from deepspeed_tpu_torch.models.llama import LlamaModel
-    ref = LlamaModel(dataclasses.replace(model.config, attn_backend="xla"),
-                     generator=torch.Generator("cuda").manual_seed(0),
-                     device="cuda", dtype=torch.float32)
+    copy of its family built on the card, used once and freed."""
+    ref = type(model)(dataclasses.replace(model.config, attn_backend="xla"),
+                      generator=torch.Generator("cuda").manual_seed(0),
+                      device="cuda", dtype=torch.float32)
     ref.load_state_dict(model.state_dict())
     with torch.inference_mode():
         logits = ref.logits(ids.cuda())
@@ -1251,7 +1271,7 @@ def llama_serve(torch):
         {"dtype": "bf16"})
     compare_logits(torch, "llama vs plain path", logits, engine_x(ids),
                    LLAMA_LOGITS_TOL,
-                   llama_f32_logits(torch, engine_x.module, ids))
+                   f32_logits(torch, engine_x.module, ids))
     del logits
     torch.cuda.empty_cache()
 
@@ -1419,7 +1439,7 @@ def llama_gqa(torch):
           f"want {cfg.n_layer}")
     compare_logits(torch, "llama gqa vs plain path", logits,
                    engines["xla"](ids), LLAMA_LOGITS_TOL,
-                   llama_f32_logits(torch, engines["xla"].module, ids))
+                   f32_logits(torch, engines["xla"].module, ids))
     del logits
     prompt_len, new = 1536, 16
     prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len),
@@ -1976,13 +1996,15 @@ def bert_batch(np, rng, gas, micro, t, ids_from, ids_to):
 
 def bert_serve(torch):
     """BERT-large with the Fixed sparse surgery through ``init_inference``
-    at ``[4, 4096]`` bf16: three scoring calls (K6 launched 24 times each,
-    K3 never), the dense-masked plain path and an f32 reference, a
-    profile. Returns K6's launches in the scoring calls."""
+    at ``[4, 4096]`` bf16 at BERT_SERVE_LAYERS layers: three scoring calls
+    (K6 launched once a layer each, K3 never), the dense-masked plain path
+    and an f32 reference, a profile. Returns K6's launches in the scoring
+    calls."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-    model, layout = bert_model(torch, torch.bfloat16, SEED + 40)
+    model, layout = bert_model(torch, torch.bfloat16, SEED + 40,
+                               BERT_SERVE_LAYERS)
     cfg = model.config
     engine = deepspeed_tpu_torch.init_inference(model, {"dtype": "bf16"})
     b, t = BERT_MICRO, BERT_T
@@ -2014,7 +2036,8 @@ def bert_serve(torch):
     flops = 2 * b * t * per_token + cfg.n_layer * 4 * cfg.head_dim * live
     best = min(fwd_s[1:])
     phase("bert forward", model="BERT-large + Fixed sparse attention "
-          "(block 16, 4 local, 1 global, 4 patterns)",
+          f"(block 16, 4 local, 1 global, 4 patterns), {cfg.n_layer} of 24 "
+          f"layers",
           params=model.num_params(), shape=list(logits.shape),
           dtype=str(logits.dtype).replace("torch.", ""),
           live_fine_density=float(layout.mean()), k6_launches=launches,
@@ -2027,7 +2050,8 @@ def bert_serve(torch):
           peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
     with DenseAttention(model, layout):
         logits_x = engine(ids)
-        ref, _ = bert_model(torch, torch.float32, SEED + 40)
+        ref, _ = bert_model(torch, torch.float32, SEED + 40,
+                            BERT_SERVE_LAYERS)
         ref.load_state_dict(model.state_dict())
         with DenseAttention(ref, layout), torch.inference_mode():
             logits_f32 = ref.logits(ids.cuda())
@@ -3803,7 +3827,7 @@ def ckpt_fallback(torch):
     from deepspeed_tpu_torch.models.gpt2 import GPT2Model, GPT2_125M
     from deepspeed_tpu_torch.resilience import (CheckpointLoadError,
                                                 get_injector, list_tags)
-    cfg = GPT2_125M
+    cfg = dataclasses.replace(GPT2_125M, n_layer=CKPT_FALLBACK_LAYERS)
     config = dict(train_config(1e-4, TRAIN_GAS), resilience={
         "keep_last_n": 2, "save_retries": 2, "retry_backoff_s": 0.05,
         "retry_max_backoff_s": 0.1})
@@ -3869,7 +3893,8 @@ def ckpt_fallback(torch):
           "global_step3" in raised,
           f"every tag truncated: load raised {raised!r}")
     launches = counts()
-    phase("ckpt fallback", model="GPT2_125M", tags_after_3_saves=tags3,
+    phase("ckpt fallback", model=f"GPT2_125M, {cfg.n_layer} layers",
+          tags_after_3_saves=tags3,
           write_failures_retried=retried, tags_after_retry=tags4,
           truncated="global_step4/optim_states.msgpack", loaded=path,
           rollbacks=rollbacks, losses=json.dumps([round(x, 4)
@@ -4980,8 +5005,9 @@ def tp_train_llama(torch, rank):
 
 
 # Slice 11 (row A8b2): the tensor-parallel cases A8b left, on the same 2
-# ranks. tp bert forward: BERT-large + Fixed at full depth on [4, 4096]
-# (K6 24 a call a rank on its 8 heads' rows of the layout), a warm-up and
+# ranks. tp bert forward: BERT-large + Fixed at BERT_SERVE_LAYERS on [4,
+# 4096] (K6 once a layer a call a rank on its 8 heads' rows of the
+# layout), a warm-up and
 # TP_BERT_TIMED calls, against tp 1; tp bert train loop: 4 layers, the
 # user loop with dropout 0.1 (its masks, the loss and the gathered
 # gradients of one micro batch against tp 1 on the same keys), then
@@ -5004,25 +5030,25 @@ TP_KV_SHAPE = (2, 1024)
 
 
 def tp_bert_forward(torch, rank):
-    """BERT-large with the Fixed surgery scoring ``[4, 4096]`` at full
-    depth at tp 2, against the tp-1 engine's logits."""
+    """BERT-large with the Fixed surgery scoring ``[4, 4096]`` at
+    BERT_SERVE_LAYERS layers at tp 2, against the tp-1 engine's logits."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.models.bert import BERT_LARGE
-    cfg = BERT_LARGE
+    cfg = dataclasses.replace(BERT_LARGE, n_layer=BERT_SERVE_LAYERS)
     ids = torch.randint(1000, cfg.vocab_size, (BERT_MICRO, BERT_T),
                         generator=torch.Generator().manual_seed(SEED + 31))
     ref = None
     if rank == 0:
         one = deepspeed_tpu_torch.init_inference(
-            bert_model(torch, torch.bfloat16, SEED + 30, tp=1)[0],
-            {"dtype": "bf16"})
+            bert_model(torch, torch.bfloat16, SEED + 30, BERT_SERVE_LAYERS,
+                       tp=1)[0], {"dtype": "bf16"})
         ref = one(ids)
         del one
         torch.cuda.empty_cache()
     comm.barrier()
     engine = deepspeed_tpu_torch.init_inference(
-        bert_model(torch, torch.bfloat16, SEED + 30)[0],
+        bert_model(torch, torch.bfloat16, SEED + 30, BERT_SERVE_LAYERS)[0],
         {"dtype": "bf16", "tensor_parallel": {"tp_size": TP_SIZE}})
     tp_reset(torch)
     fwd_s, per_call = [], []
@@ -5039,7 +5065,8 @@ def tp_bert_forward(torch, rank):
           f"tp bert forward rank {rank}: K6 launched {per_call} times a "
           f"call, want {cfg.n_layer}; K3 {launches['K3']}")
     med = statistics.median(fwd_s[1:])
-    phase("tp bert forward", rank=rank, model="BERT_LARGE + Fixed sparse",
+    phase("tp bert forward", rank=rank, model=f"BERT_LARGE + Fixed sparse, "
+          f"{cfg.n_layer} layers",
           tp=TP_SIZE, heads_per_rank=cfg.n_head // TP_SIZE,
           shape=list(logits.shape), calls=len(fwd_s), timed=TP_BERT_TIMED,
           seconds=json.dumps([round(x, 4) for x in fwd_s]),
@@ -6240,6 +6267,306 @@ def serve_kv_int8(torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- slice 13
+# The decoder families of ROADMAP.md row A10 on their published widths,
+# random bf16 weights drawn on the card from seeds. gptj forward: GPT-J-6B
+# (EleutherAI/gpt-j-6b config.json: 4096 wide, 16 heads of 256, rotary 64
+# interleaved, vocab 50400 with the LM-head bias) at GPTJ_LAYERS of its 28
+# layers, scoring [4, 2048]: K3 on its scalar route (D 256 > the tensor
+# cores' 128) once a layer a call; logits against the plain path and an
+# f32 copy with LLaMA's bounds. gptj serve: a ServingEngine over the same
+# engine, 16 slots x 2048, GPTJ_SERVE_REQUESTS requests of the serve
+# traffic at <= GPTJ_SERVE_NEW new tokens, greedy tokens held to the plain
+# full forward's argmax where its top-2 gap exceeds the margin. families:
+# OPT-1.3B (K1 packed), BLOOM-560M (ALiBi: the plain attention), GPT-Neo-
+# 1.3B (window 256: the plain attention) and GPT-NeoX-20B (K3 at head dim
+# 96, the tensor cores' masked instance) at FAMILY_LAYERS layers of their
+# published widths: scoring FAMILY_SHAPE against the plain path and f32,
+# generate 4 x 128 + FAMILY_NEW greedy and sampled, checked as
+# check_streams does, and each family's kernel launches a scoring call
+GPTJ_LAYERS, GPTJ_SHAPE = 28, (4, 2048)
+GPTJ_SERVE_REQUESTS, GPTJ_SERVE_NEW = 8, 64
+FAMILY_LAYERS, FAMILY_SHAPE, FAMILY_NEW = 2, (4, 1024), 32
+# kernel-check K3 d256: GPT-J's attention at GPTJ_SHAPE, T * D * 2 bytes
+# = 1 MiB a head, still the resident regime
+GPTJ_K3_SHAPE = (4, 16, 2048, 256)
+# the attention kernel a family's scoring call launches a layer
+# (K1: packed_flash_attention_fwd, K3: flash_attention_fwd)
+FAMILY_KERNEL = {"opt": "K1", "bloom": None, "neo": None, "neox": "K3"}
+# the families' bf16 logits through their 2 layers, the kernel path
+# against the plain path (each path's error against f32 as in
+# LLAMA_LOGITS_TOL) or, for a family without a kernel, against f32: GPT-2's
+# 12-layer max bound and 3x its mean
+FAMILY_LOGITS_TOL = {"vs_f32_ratio": 1.25, "mean_abs": 0.03, "max_abs": 0.25}
+# the families' kernel shapes: OPT-1.3B's packed [B, T, 32 x 64] (K1) and
+# GPT-NeoX-20B's [B, 64, T, 96] (K3, the masked DMAX-128 instance) at
+# FAMILY_SHAPE
+OPT_K1_SHAPE = (4, 1024, 32, 64)
+NEOX_K3_SHAPE = (4, 64, 1024, 96)
+
+
+def family_configs():
+    """``{name: (model class, config)}`` of the families phase, at
+    FAMILY_LAYERS layers."""
+    from deepspeed_tpu_torch.models import bloom, gpt_neo, gpt_neox, opt
+    neo = gpt_neo.GPTNeoConfig(vocab_size=50257, n_positions=2048,
+                               n_embd=2048, n_layer=24, n_head=16,
+                               local_window=256)
+    return {name: (cls, dataclasses.replace(cfg, n_layer=FAMILY_LAYERS))
+            for name, cls, cfg in (
+                ("opt", opt.OPTModel, opt.OPT_1_3B),
+                ("bloom", bloom.BloomModel, bloom.BLOOM_560M),
+                ("neo", gpt_neo.GPTNeoModel, neo),
+                ("neox", gpt_neox.GPTNeoXModel, gpt_neox.NEOX_20B))}
+
+
+def family_model(torch, cls, cfg, seed):
+    """``cls(cfg)`` built on the card in bf16, its weights drawn there
+    from ``seed``."""
+    return cls(cfg, generator=torch.Generator("cuda").manual_seed(seed),
+               device="cuda", dtype=torch.bfloat16)
+
+
+def plain_path(torch, engine):
+    """``engine``'s scoring call with the model's attention on the plain
+    path (the same weights; the config restored after each call)."""
+    def call(ids):
+        model = engine.module
+        cfg = model.config
+        model.config = dataclasses.replace(cfg, attn_backend="xla")
+        try:
+            return engine(ids)
+        finally:
+            model.config = cfg
+    return call
+
+
+def decoder_flops(cfg, b, t):
+    """Matmul FLOPs of a scoring call (qkv, proj, fc, proj a layer; the LM
+    head) plus the causal attention's two products."""
+    d, h = cfg.n_embd, cfg.n_head
+    per_token = cfg.n_layer * (4 + 2 * cfg.mlp_ratio) * d * d + \
+        cfg.padded_vocab * d
+    return 2 * b * t * per_token + \
+        cfg.n_layer * 4 * b * h * cfg.head_dim * kept_pairs(t, True, None)
+
+
+def scoring_calls(torch, engine, ids, n, counter):
+    """``n`` scoring calls: ``(logits of the last, seconds each, launches
+    of ``counter`` each)``."""
+    secs, per_call = [], []
+    for _ in range(n):
+        before = counter.launches
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        logits = engine(ids)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - s0)
+        per_call.append(counter.launches - before)
+    return logits, secs, per_call
+
+
+def gptj_forward(torch):
+    """GPT-J-6B at GPTJ_LAYERS layers through ``init_inference``: three
+    scoring calls on GPTJ_SHAPE (K3 on the scalar route, once a layer a
+    call; K1 never), against the plain path and an f32 copy, a profile.
+    Returns the engine and K3's launches in the scoring calls."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt_neox import GPTJ_6B, GPTNeoXModel
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as k1
+    cfg = dataclasses.replace(GPTJ_6B, n_layer=GPTJ_LAYERS)
+    b, t = GPTJ_SHAPE
+    check(not fa.tensor_core_path(torch.bfloat16, cfg.head_dim),
+          f"gptj: head dim {cfg.head_dim} takes the tensor cores; the "
+          f"scalar route was expected")
+    torch.cuda.reset_peak_memory_stats()
+    s0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(
+        family_model(torch, GPTNeoXModel, cfg, SEED + 90),
+        {"dtype": "bf16"})
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - s0
+    ids = torch.randint(0, cfg.vocab_size, (b, t),
+                        generator=torch.Generator().manual_seed(SEED + 91))
+    fa.flash_attention_fwd.launches = k1.packed_flash_attention_fwd.launches = 0
+    logits, secs, per_call = scoring_calls(torch, engine, ids, 3,
+                                           fa.flash_attention_fwd)
+    launches = fa.flash_attention_fwd.launches
+    check(per_call == [cfg.n_layer] * 3 and
+          k1.packed_flash_attention_fwd.launches == 0 and
+          fa.flash_attention_fwd.streamed_launches == 0,
+          f"gptj: K3 launched {per_call} times a scoring call, want "
+          f"{cfg.n_layer}; K1 {k1.packed_flash_attention_fwd.launches}, "
+          f"streamed {fa.flash_attention_fwd.streamed_launches}, want 0")
+    check(tuple(logits.shape) == (b, t, cfg.padded_vocab) and
+          torch.isfinite(logits.float()).all().item(),
+          f"gptj logits {tuple(logits.shape)} not finite or misshapen")
+    flops = decoder_flops(cfg, b, t)
+    best = min(secs[1:])
+    phase("gptj forward", model=f"GPTJ_6B, {cfg.n_layer} of 28 layers",
+          params=engine.module.num_params(), init_seconds=round(init_s, 2),
+          shape=list(logits.shape), k3_launches_per_call=per_call,
+          k3_route="scalar fwd_kernel (D 256)", calls=3,
+          seconds=json.dumps([round(x, 4) for x in secs]),
+          tokens_per_s=round(b * t / best, 1), model_tflop=flops / 1e12,
+          tflop_per_s=round(flops / best / 1e12, 2),
+          share_of_bf16_peak=round(flops / best / PEAK_FLOPS["bfloat16"], 4),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    compare_logits(torch, "gptj vs plain path", logits,
+                   plain_path(torch, engine)(ids), LLAMA_LOGITS_TOL,
+                   f32_logits(torch, engine.module, ids))
+    del logits
+    torch.cuda.empty_cache()
+    # after the launch counts were read: this call's launches are not counted
+    profile_forward(torch, engine, ids, name="profile gptj forward",
+                    scalar=True)
+    return engine, launches
+
+
+def gptj_serve(torch, engine):
+    """GPT-J's engine behind a ServingEngine of 16 slots x 2048:
+    GPTJ_SERVE_REQUESTS requests of the serve traffic at <= GPTJ_SERVE_NEW
+    new tokens; every request finishes in full, one decode shape, the
+    pool on the card, greedy tokens against the plain full forward."""
+    import numpy as np
+    from deepspeed_tpu_torch.serving.kv_slots import tree_nbytes
+    cfg = SERVE_LLAMA["cfg"]
+    vocab = engine.module.config.vocab_size
+    traffic = [(p, dict(kw, max_new_tokens=min(kw["max_new_tokens"],
+                                               GPTJ_SERVE_NEW)))
+               for p, kw in serve_traffic(np, dict(
+                   SERVE_LLAMA, requests=GPTJ_SERVE_REQUESTS), vocab,
+                   SEED + 92)]
+    torch.cuda.reset_peak_memory_stats()
+    streams, reqs, util, ticks, wall, srv = serve_run(torch, engine, cfg,
+                                                      traffic)
+    check({r.state.value for r in reqs} == {"finished"} and
+          all(len(r.tokens) == kw["max_new_tokens"]
+              for (_, kw), r in zip(traffic, reqs)),
+          "gptj serve: a request did not finish in full")
+    check(srv.decode_executables() == 1,
+          f"gptj serve: {srv.decode_executables()} decode shapes ran")
+    pool = srv.scheduler.pool.cache
+    check(all(x.device.type == "cuda" for x in pool.values()),
+          "gptj serve: the KV pool is not on the card")
+    pool_gib = tree_nbytes(pool) / 2 ** 30
+    pct = srv.metrics.percentiles()
+    ttft, tpot = request_latency(reqs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = sum(len(x) for x in streams)
+    srv.shutdown()
+    del srv, pool
+    torch.cuda.empty_cache()
+    checked, _ = greedy_vs_forward(torch, engine, traffic, reqs, vocab,
+                                   LLAMA_ARGMAX_MARGIN)
+    phase("gptj serve", model=f"GPTJ_6B, {engine.module.config.n_layer} "
+          f"layers", requests=len(traffic),
+          sampled=sum(1 for _, kw in traffic if kw.get("temperature")),
+          slots=cfg["num_slots"], max_model_len=cfg["max_model_len"],
+          ticks=ticks, seconds=round(wall, 3), output_tokens=tokens,
+          output_tokens_per_s=round(tokens / wall, 1),
+          ttft_ms_p50=round(quantile(ttft, 0.5), 3),
+          ttft_ms_p99=round(quantile(ttft, 0.99), 3),
+          tpot_ms_p50=round(quantile(tpot, 0.5), 3),
+          tpot_ms_p99=round(quantile(tpot, 0.99), 3),
+          decode_tick_ms_p50=pct["tpot_ms"]["p50"],
+          mean_slot_utilization=round(util, 4),
+          pool_gib=round(pool_gib, 3), peak_mem_gib=round(peak, 2),
+          greedy_vs_forward_checked=checked, margin=LLAMA_ARGMAX_MARGIN,
+          decode_executables=1, pool_device="cuda")
+
+
+def families(torch):
+    """Each family of ``family_configs()`` through ``init_inference`` in
+    bf16: two scoring calls on FAMILY_SHAPE with its kernel's launches a
+    layer a call (FAMILY_KERNEL; none in generate), logits against the
+    plain path and f32 (without a kernel, against f32 alone), generate
+    checked as check_streams does. Returns ``{"K1": n, "K3": n}`` launched
+    in the scoring calls."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as k1
+    counters = {"K1": k1.packed_flash_attention_fwd,
+                "K3": fa.flash_attention_fwd}
+    totals = {"K1": 0, "K3": 0}
+    b, t = FAMILY_SHAPE
+    for i, (name, (cls, cfg)) in enumerate(family_configs().items()):
+        s0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        engine = deepspeed_tpu_torch.init_inference(
+            family_model(torch, cls, cfg, SEED + 100 + i),
+            {"dtype": "bf16"})
+        ids = torch.randint(0, cfg.vocab_size, (b, t),
+                            generator=torch.Generator().manual_seed(
+                                SEED + 110 + i))
+        for c in counters.values():
+            c.launches = 0
+        kernel = FAMILY_KERNEL[name]
+        counter = counters[kernel or "K3"]
+        logits, secs, per_call = scoring_calls(torch, engine, ids, 2,
+                                               counter)
+        want = cfg.n_layer if kernel else 0
+        others = {k: c.launches for k, c in counters.items() if k != kernel}
+        check(per_call == [want] * 2 and not any(others.values()),
+              f"{name}: {kernel} launched {per_call} times a scoring call, "
+              f"want {want}; the others {others}, want 0")
+        scored = {k: c.launches for k, c in counters.items()}
+        check(torch.isfinite(logits.float()).all().item(),
+              f"{name}: logits not finite")
+        flops = decoder_flops(cfg, b, t)
+        ref = f32_logits(torch, engine.module, ids)
+        if kernel:
+            compare_logits(torch, f"{name} vs plain path", logits,
+                           plain_path(torch, engine)(ids), FAMILY_LOGITS_TOL,
+                           ref)
+        else:
+            # the plain attention is this family's only path: its bf16
+            # logits are held to the f32 copy directly
+            compare_logits(torch, f"{name} vs f32", logits, ref,
+                           FAMILY_LOGITS_TOL)
+        del logits, ref
+        torch.cuda.empty_cache()
+        prompts = torch.randint(0, cfg.vocab_size, (4, 128),
+                                generator=torch.Generator().manual_seed(
+                                    SEED + 120 + i))
+        outs, greedy_s = run_generate(torch, engine, prompts, FAMILY_NEW)
+        check({k: c.launches for k, c in counters.items()} == scored,
+              f"{name}: generate launched an attention kernel")
+        checked = check_streams(torch, f"{name} generate",
+                                plain_path(torch, engine), prompts, outs,
+                                cfg.vocab_size, LLAMA_ARGMAX_MARGIN)
+        for k, c in scored.items():
+            totals[k] += c
+        phase(f"family {name}", config=type(cfg).__name__,
+              width=cfg.n_embd, heads=f"{cfg.n_head}x{cfg.head_dim}",
+              vocab=cfg.vocab_size, layers=cfg.n_layer,
+              kernel=kernel or "none (plain attention)",
+              launches_per_call=per_call,
+              score_seconds=json.dumps([round(x, 4) for x in secs]),
+              tokens_per_s=round(b * t / min(secs), 1),
+              share_of_bf16_peak=round(flops / min(secs) /
+                                       PEAK_FLOPS["bfloat16"], 4),
+              generate_tokens_per_s=round(4 * FAMILY_NEW / greedy_s, 1),
+              greedy_vs_forward_checked=checked,
+              peak_mem_gib=round(torch.cuda.max_memory_allocated() /
+                                 2 ** 30, 2),
+              seconds=round(time.perf_counter() - s0, 2))
+        del engine
+        torch.cuda.empty_cache()
+    return totals
+
+
+def slice13_phases(torch):
+    """The phases of slice 13, in order; returns K3's launches on GPT-J's
+    scalar route and the families' ``{"K1": n, "K3": n}``."""
+    engine, gptj_launches = gptj_forward(torch)
+    gptj_serve(torch, engine)
+    del engine
+    torch.cuda.empty_cache()
+    return gptj_launches, families(torch)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6313,6 +6640,12 @@ def main():
                  True, None, None)]
     main_k3 = [check_k3(torch, *case) for case in k3_cases][0]
     main_k3b = [check_k3_bwd(torch, *case) for case in k3_cases][0]
+    # GPT-J's attention (gptj forward): K3 on the scalar route at D 256
+    gptj_k3 = check_k3(torch, GPTJ_K3_SHAPE, bf16, True, None,
+                       name="K3 d256")
+    # the families' shapes (family opt, family neox)
+    check_k1(torch, *OPT_K1_SHAPE, bf16, True, None)
+    check_k3(torch, NEOX_K3_SHAPE, bf16, True, None, name="K3 neox d96")
     planted_faults(torch, K3_SHAPE, bf16, True, None)
     k4_cases = [(shape, getattr(torch, dt), causal, window)
                 for shape, dt, causal, window in K4_CASES]
@@ -6451,6 +6784,10 @@ def main():
     int8_k3 = serve_int8(torch)
     serve_kv_int8(torch)
 
+    # ---- slice 13: GPT-J-6B scored and served (K3 on the scalar route),
+    #      OPT, BLOOM, GPT-Neo and GPT-NeoX at their widths
+    gptj_launches, family_launches = slice13_phases(torch)
+
     def entry(name, source, replaces, launches, res, err):
         return {"name": name, "route": "cuda",
                 "source": f"deepspeed_tpu_torch/csrc/{source}",
@@ -6470,7 +6807,8 @@ def main():
               f"{pallas}/flash_attention_packed.py:65",
               launches + train_launches["K1"] + fallback_launches["K1"] +
               megatron_launches + zero_gpt2["K1"] + zero_ckpt["K1"] +
-              tp.get("K1", 0) + zq2["K1"] + zq4["K1"],
+              tp.get("K1", 0) + zq2["K1"] + zq4["K1"] +
+              family_launches["K1"],
               main_case, main_case["err_out"]),
         entry("flash_attention_packed_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention_packed.py:148",
@@ -6483,9 +6821,14 @@ def main():
               llama_fwd_launches + llama_train_launches["K3"] +
               llama_remat_launches["K3"] + resume_launches["K3"] +
               ckpt_serve_launches + zero_llama["K3"] + tp.get("K3", 0) +
-              int8_k3,
+              int8_k3 + family_launches["K3"],
               main_k3,
               main_k3["err_out"]),
+        # the same kernel source and Pallas kernel at GPT-J's head dim 256,
+        # where the route is the scalar fwd_kernel: its own entry
+        entry("flash_attention_fwd_scalar_d256", "flash_attention_fwd.cu",
+              f"{pallas}/flash_attention.py:141 (head dim 256)",
+              gptj_launches, gptj_k3, gptj_k3["err_out"]),
         entry("flash_attention_bwd", "flash_attention_bwd.cu",
               f"{pallas}/flash_attention.py:222 (K3b); "
               f"{pallas}/flash_attention.py:329,358 (K5)",

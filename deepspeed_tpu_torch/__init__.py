@@ -5,8 +5,10 @@ The JAX package ``deepspeed_tpu`` is the reference this port is held
 against; the port imports neither JAX nor that package. Its kernels are
 hand-written for ``sm_90a`` (``csrc/``) and built by ``nvcc`` at first use
 (``ops/kernel_build.py``); each has a plain PyTorch version that tensors on
-the CPU take. It serves GPT-2, LLaMA and BERT through ``init_inference``
-and trains them through ``initialize`` -> ``DeepSpeedEngine.train_batch``;
+the CPU take. It serves GPT-2, LLaMA, OPT, GPT-NeoX, GPT-J, BLOOM,
+GPT-Neo and BERT, and HF modules of those families (``module_inject``),
+through ``init_inference``, and trains them through ``initialize`` ->
+``DeepSpeedEngine.train_batch``;
 ``ops/sparse_attention_utils.SparseAttentionUtils`` puts block-sparse
 attention into BERT. Checkpoints are the JAX package's format: a tag
 either package writes loads in the other. Training runs over
@@ -28,9 +30,12 @@ def init_inference(model, config=None, device=None, **kwargs):
     """Initialise the inference engine, as ``deepspeed_tpu.init_inference``.
 
     ``model`` is a deepspeed_tpu_torch model (``GPT2Model``,
-    ``LlamaModel``, ``BertModel``: ``engine(ids)`` scores each, and
-    ``generate`` serves the decoders) or the path of a Megatron-LM GPT
-    checkpoint directory (``checkpoint/megatron.py``: its tp x pp shards
+    ``LlamaModel``, ``OPTModel``, ``GPTNeoXModel`` (GPT-NeoX and GPT-J),
+    ``BloomModel``, ``GPTNeoModel``, ``BertModel``: ``engine(ids)`` scores
+    each, and ``generate`` serves the decoders), an HF module of an
+    injected architecture (``module_inject``: GPT-2, OPT, LLaMA/Mistral,
+    BLOOM, GPT-NeoX, GPT-Neo, GPT-J, BERT, DistilBERT), or the path of a
+    Megatron-LM GPT checkpoint directory (``checkpoint/megatron.py``: its tp x pp shards
     merged whole on every rank, then, at ``tensor_parallel.tp_size`` > 1,
     each rank keeping its part, as a JAX tree loads); ``config`` a dict (merged with ``kwargs``) or a
     ``DeepSpeedInferenceConfig``. The engine runs on ``cuda`` unless

@@ -31,7 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..resilience.manifest import CheckpointLoadError
-from ._qkv import deinterleave_qkv_bias, deinterleave_qkv_rows
+from ..module_inject.policy import deinterleave_qkv_bias, deinterleave_qkv_rows
 
 
 _QKV = r"attention\.query_key_value\.(weight|bias)"

@@ -127,17 +127,15 @@ class InferenceEngine:
     ``model`` is cast in place to the config dtype (floating parameters
     only) and moved to ``device`` (default ``cuda``). ``params``, a JAX
     parameter tree of the model's family (numpy arrays), replaces the
-    module's weights through the model's own ``load_jax_params``."""
+    module's weights through the model's own ``load_jax_params``. A
+    ``model`` that is not a port model (an HF module) is injected
+    (``module_inject``): the port's model of its policy, built on
+    ``device``, serves the module's weights."""
 
     def __init__(self, model, config: DeepSpeedInferenceConfig = None,
                  params=None, device=None):
         if config is None:
             config = DeepSpeedInferenceConfig()
-        if not isinstance(model, ModelSpec):
-            raise NotImplementedError(
-                f"serving a {type(model).__name__} (HF module injection) is "
-                f"not ported yet: ROADMAP.md row A10; pass a "
-                f"deepspeed_tpu_torch model")
         self._config = config
         self.dtype = config.dtype
         self.device = torch.device("cuda" if device is None else device)
@@ -145,6 +143,13 @@ class InferenceEngine:
             raise RuntimeError(
                 "InferenceEngine: no CUDA device is available; pass "
                 "device='cpu' to run the plain PyTorch path on the CPU")
+        if not isinstance(model, ModelSpec):
+            # an HF module (the reference's input): its policy reads the
+            # architecture and weights once; the port's model is built on
+            # the engine's device, the HF module stays where it is
+            from ..module_inject import replace_transformer_layer
+            model, params = replace_transformer_layer(model, config,
+                                                      device=self.device)
         self.tp = self._tensor_parallel(model, config.tensor_parallel.tp_size)
         if params is not None:
             model.load_jax_params(params)

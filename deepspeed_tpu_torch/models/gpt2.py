@@ -8,7 +8,13 @@ across leaf by leaf. The leaf names are the class's ``top_leaves`` and
 ``block_leaves``, so a family that subclasses ``GPT2Model`` (LLaMA) loads
 and exports its own tree through the same methods, and the family hooks
 (``_embed``, ``_attn_sublayer``, ``_decode_attn_mask``, ...) are the JAX
-base class's. The attention of ``forward``-style calls (scoring and
+base class's, with the JAX base's family hooks for the decoders built on
+it (OPT, BLOOM, GPT-Neo, GPT-NeoX / GPT-J): ``_layer_extras`` (per-layer
+constants handed to each layer), ``_train_attn_bias(_ex)`` (a training
+attention bias, which keeps the layer on the plain attention, as in the
+JAX dispatch), ``_decode_attn_bias`` and ``_decode_attn_mask_ex`` on
+every cache and slot path, and ``_head_bias`` on every logits path and in
+the loss. The attention of ``forward``-style calls (scoring and
 training) takes the packed Hopper kernels whenever ``_packed_attn_ok``
 holds, exactly where the JAX package takes its packed Pallas kernel: K1
 forward, K2 backward, through the autograd ``Function`` of
@@ -49,8 +55,9 @@ columns) behind ``copy_to_tp``; ``attn_proj`` and ``mlp_proj`` are
 row-parallel, their products summed by ``reduce_from_tp`` before the
 replicated bias is added once. ``wte`` is vocab-parallel, and so is the
 tied head: ``forward``'s and the cache paths' logits are gathered whole
-over the vocab, and the loss is the vocab-parallel NLL of
-``_ChunkedNLL``. The KV cache holds the rank's heads, and the packed
+over the vocab (a head bias, GPT-J's, the rank's slice added first), and
+the loss is the vocab-parallel NLL of ``_ChunkedNLL`` (with that slice in
+each chunk's logits). The KV cache holds the rank's heads, and the packed
 kernels run on them. Embeddings, LayerNorms and the residual stream are
 whole on every rank. ``init_weights`` draws every leaf whole, a leaf at a
 time, and keeps the rank's part, so one seed gives the same weights at
@@ -349,31 +356,32 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
     # ------------------------------------------------------------------ init
     @torch.no_grad()
     def init_weights(self, generator):
-        """The JAX init's shapes and stds: N(0, 0.02) for wte, wpe, qkv and
-        fc; N(0, 0.02 / sqrt(2 L)) for the two output projections; LN scales
-        1 and every bias 0. Drawn from ``generator`` on its device."""
+        """The JAX init's shapes and stds, leaf by leaf in ``top_leaves``
+        then ``block_leaves`` order: LN scales (``*_scale``) 1 and every
+        bias (``*_bias``, ``*_b``) 0; N(0, 0.02 / sqrt(2 L)) for the two
+        output projections; N(0, 0.02) for every other matrix (wte, wpe,
+        an untied head, qkv, fc). Drawn from ``generator`` on its device;
+        the GPT-2 families without a leaf (BLOOM's wpe, GPT-J's biases)
+        draw the others in the same order."""
         cfg = self.config
         std = cfg.initializer_range
         proj_std = std / math.sqrt(2 * cfg.n_layer)
         splits = self._split_by_id()
 
-        def normal(p, s):
-            normal_(p, s, generator, splits.get(id(p)))
+        def init(p, name):
+            if name.endswith("_scale"):
+                p.fill_(1.0)
+            elif name.endswith(("_bias", "_b")):
+                p.zero_()
+            else:
+                normal_(p, proj_std if name in ("attn_proj_w", "mlp_proj_w")
+                        else std, generator, splits.get(id(p)))
 
-        normal(self.wte, std)
-        normal(self.wpe, std)
+        for name in self.top_leaves:
+            init(getattr(self, name), name)
         for blk in self.blocks:
-            normal(blk.qkv_w, std)
-            normal(blk.attn_proj_w, proj_std)
-            normal(blk.mlp_fc_w, std)
-            normal(blk.mlp_proj_w, proj_std)
-            for name in ("ln1_scale", "ln2_scale"):
-                getattr(blk, name).fill_(1.0)
-            for name in ("qkv_b", "attn_proj_b", "ln1_bias", "ln2_bias",
-                         "mlp_fc_b", "mlp_proj_b"):
-                getattr(blk, name).zero_()
-        self.ln_f_scale.fill_(1.0)
-        self.ln_f_bias.zero_()
+            for name in self.block_leaves:
+                init(getattr(blk, name), name)
 
     # ------------------------------------------------------------- pieces
     def _compute_dtype(self):
@@ -414,18 +422,25 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         return self.wte.to(dtype)
 
     def _head_logits(self, x):
-        """``[..., padded_vocab]`` logits of the hidden states ``x``: the
-        rank's vocab block, gathered whole at tp > 1."""
+        """``[..., padded_vocab]`` logits of the hidden states ``x``, the
+        family's head bias added: the rank's vocab block, gathered whole
+        at tp > 1."""
         logits = tpl.copy_to_tp(x, self.tp) @ self._unembed_weight(x.dtype).T
+        head_b = self._head_bias(logits.dtype)
+        if head_b is not None:
+            logits = logits + head_b
         return tpl.gather_from_tp(logits, self.tp)
 
     def _attn_sublayer(self, x, p, attn_fn=None, start_pos=0,
-                       positions=None, rng=None, train=False):
+                       positions=None, rng=None, train=False, extra=None):
         """ln1 -> qkv -> attention -> proj -> residual (+dropout).
         ``attn_fn(q, k, v)`` over ``[B, H, T, D]`` replaces the attention
         (the KV-cache path). ``start_pos`` and ``positions`` [B, T] are the
         tokens' positions, which GPT-2 reads in ``_embed`` and rotary
-        families here. ``rng`` is the layer's key."""
+        families here. ``rng`` is the layer's key, ``extra`` its entry of
+        ``_layer_extras()``. A family's training bias
+        (``_train_attn_bias_ex``: ALiBi, GPT-Neo's window) sends the layer
+        to the plain attention, as the JAX dispatch does."""
         cfg = self.config
         b, t, _ = x.shape
         h, hd = self._heads, cfg.head_dim
@@ -433,9 +448,11 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         ln1 = tpl.copy_to_tp(me.layer_norm(x, p.ln1_scale, p.ln1_bias,
                                            cfg.layer_norm_epsilon), self.tp)
         qkv = ln1 @ p.qkv_w.to(ln1.dtype) + p.qkv_b.to(ln1.dtype)
+        bias = None if attn_fn is not None else \
+            self._train_attn_bias_ex(t, extra, x.device)
         dropping = train and cfg.dropout > 0 and rng is not None
-        if (attn_fn is None and not dropping and self.causal_attention and
-                self._packed_attn_ok(x, t, hd, h)):
+        if (attn_fn is None and bias is None and not dropping and
+                self.causal_attention and self._packed_attn_ok(x, t, hd, h)):
             # the kernels read q/k/v as the column thirds of the qkv
             # projection through its strides (no head transpose, no copy);
             # the backward writes dq/dk/dv into one [B, T, 3D] gradient
@@ -454,7 +471,7 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
                     q, k, v, causal=self.causal_attention,
                     dropout_rate=cfg.dropout if train else 0.0,
                     dropout_rng=prng.fold_in_words(rng, 3) if dropping
-                    else None, backend=cfg.attn_backend)
+                    else None, backend=cfg.attn_backend, bias=bias)
         attn = attn.transpose(1, 2).reshape(b, t, d)
         attn = self._row_out(attn, p.attn_proj_w, p.attn_proj_b)
         return x + self._dropout(attn, rng, train, 0)
@@ -484,13 +501,40 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         return x + self._dropout(out, rng, train, 1)
 
     def _block(self, x, p, attn_fn=None, start_pos=0, positions=None,
-               rng=None, train=False):
+               rng=None, train=False, extra=None):
         return self._mlp_sublayer(
             self._attn_sublayer(x, p, attn_fn, start_pos, positions, rng,
-                                train), p, rng, train)
+                                train, extra), p, rng, train)
 
     def _dropout(self, x, rng, train, salt):
         return salted_dropout(x, rng, train, salt, self.config.dropout)
+
+    # ---- family hooks of the JAX base (BLOOM, GPT-Neo override them) ----
+    def _layer_extras(self):
+        """Per-layer constants, one entry a layer, handed to each layer
+        (not parameters: no gradients, no optimizer state), or None.
+        GPT-Neo's local/global flags; None here."""
+        return None
+
+    def _train_attn_bias(self, t, device):
+        """Additive bias of the ``[t, t]`` training attention logits
+        (broadcast to ``[B, H, t, t]``; ALiBi), or None."""
+        return None
+
+    def _train_attn_bias_ex(self, t, extra, device):
+        """The layer-aware training bias; the base defers to
+        :meth:`_train_attn_bias`."""
+        return self._train_attn_bias(t, device)
+
+    def _decode_attn_bias(self, q_pos, k_pos):
+        """Additive bias of the cache attention's logits over the cache
+        columns ``k_pos`` (ALiBi), or None."""
+        return None
+
+    def _decode_attn_mask_ex(self, q_pos, k_pos, extra):
+        """The layer-aware keep-mask over the cache; the base defers to
+        :meth:`_decode_attn_mask`."""
+        return self._decode_attn_mask(q_pos, k_pos)
 
     # ------------------------------------------------------------- forward
     def hidden_states(self, input_ids, rng=None, train=True, pld_theta=None,
@@ -510,6 +554,7 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         wrappers = train and rng is not None
         t = x.shape[1]
         policy = self._remat_policy()
+        extras = self._layer_extras()
         for i, p in enumerate(self.blocks):
             layer_rng = None if rng is None else prng.fold_in_words(rng, i)
             if wrappers and pld_theta is not None:
@@ -524,10 +569,12 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
                     x.shape[0], t, first_row()).to(x.device,
                                                    non_blocking=True)
             x = self._wrapped_block(x, self._layer_leaves(p), layer_rng,
-                                    train, idx, policy)
+                                    train, idx, policy,
+                                    None if extras is None else extras[i])
         return self._final_norm(x)
 
-    def _wrapped_block(self, x, leaves, layer_rng, train, idx, policy):
+    def _wrapped_block(self, x, leaves, layer_rng, train, idx, policy,
+                       extra=None):
         """One layer: on the tokens ``idx`` only (random-LTD) when given,
         under ``policy``'s checkpoint when given; its leaves opened
         (gathered, under ZeRO stage 3) inside the checkpointed function."""
@@ -536,9 +583,10 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         def run(h):
             with open_leaves(leaves, recomputed) as lv:
                 if idx is None:
-                    return self._block(h, lv, rng=layer_rng, train=train)
+                    return self._block(h, lv, rng=layer_rng, train=train,
+                                       extra=extra)
                 out = self._block(token_gather(h, idx), lv, rng=layer_rng,
-                                  train=train)
+                                  train=train, extra=extra)
             return token_scatter(h, out, idx)
 
         if policy is None:
@@ -646,13 +694,10 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
                         n_logits > self._DENSE_LOSS_MAX_ELEMS))
         if self.tp.active:
             # vocab-parallel: the dense loss is one chunk of the rank's
-            # block; no rank builds the whole logits
-            if head_b is not None:
-                raise NotImplementedError(
-                    "a vocab-parallel LM-head bias (the GPT-NeoX / GPT-J "
-                    "families') is not ported yet: ROADMAP.md row A10")
+            # block, its slice of a head bias added to each chunk's
+            # logits; no rank builds the whole logits
             return self._chunked_lm_loss(
-                tpl.copy_to_tp(x, self.tp), wte, batch,
+                tpl.copy_to_tp(x, self.tp), wte, batch, head_b=head_b,
                 chunk=None if use_chunked else wte.shape[0])
         if use_chunked:
             return self._chunked_lm_loss(x, wte, batch, head_b=head_b)
@@ -709,40 +754,56 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         Sliding-window families tighten it."""
         return k_pos <= q_pos
 
+    def _cache_masks(self, q_pos, k_pos, expand, pad_valid=None):
+        """``[(mask, extra)]`` a layer: the keep-mask over the cache
+        (``_decode_attn_mask_ex`` of query positions ``q_pos`` and cache
+        columns ``k_pos``, shaped by ``expand``, and-ed with the left-pad
+        mask ``pad_valid``) and the layer's extra. Computed once when the
+        family has no per-layer constants, as in the JAX package."""
+        extras = self._layer_extras()
+
+        def mask(extra):
+            m = expand(self._decode_attn_mask_ex(q_pos, k_pos, extra))
+            return m if pad_valid is None else m & pad_valid
+        if extras is None:
+            return [(mask(None), None)] * len(self.blocks)
+        return [(mask(e), e) for e in extras]
+
     @staticmethod
-    def _cache_attn(q, k, v, k_cache, v_cache, start_pos, mask):
+    def _cache_attn(q, k, v, k_cache, v_cache, start_pos, mask, bias=None):
         """Write this call's K/V into cache columns ``[start_pos,
         start_pos + T)`` (in place: the cache is the engine's buffer) and
-        attend over the whole cache under ``mask``."""
+        attend over the whole cache under ``mask`` and ``bias``."""
         t = k.shape[-2]
         k_cache[:, :, start_pos:start_pos + t] = k.to(k_cache.dtype)
         v_cache[:, :, start_pos:start_pos + t] = v.to(v_cache.dtype)
-        return GPT2Model._attend_cache(q, k_cache, v_cache, mask)
+        return GPT2Model._attend_cache(q, k_cache, v_cache, mask, bias)
 
     @staticmethod
-    def _slot_cache_attn(q, k, v, k_cache, v_cache, write, mask):
+    def _slot_cache_attn(q, k, v, k_cache, v_cache, write, mask, bias=None):
         """Slot write: ``write = (rows, offsets, columns)`` sends row
         ``rows[i]``'s K/V of block offset ``offsets[i]`` to cache column
         ``columns[i]`` (in place; the JAX package's one-hot select over the
         lane writes the same values), then attention over the whole cache
-        under ``mask``."""
+        under ``mask`` and ``bias``."""
         rows, offs, cols = write
         k_cache[rows, :, cols] = k[rows, :, offs].to(k_cache.dtype)
         v_cache[rows, :, cols] = v[rows, :, offs].to(v_cache.dtype)
-        return GPT2Model._attend_cache(q, k_cache, v_cache, mask)
+        return GPT2Model._attend_cache(q, k_cache, v_cache, mask, bias)
 
     @staticmethod
-    def _attend_cache(q, k_cache, v_cache, mask):
-        """The plain attention over a whole cache under ``mask``.
-        Grouped-query attention: each cached kv head serves ``H / kv_heads``
-        consecutive query heads (``jnp.repeat`` order 0,0,1,1, not
-        ``Tensor.repeat``'s 0,1,0,1)."""
+    def _attend_cache(q, k_cache, v_cache, mask, bias=None):
+        """The plain attention over a whole cache under ``mask`` (and the
+        family's additive ``bias``). Grouped-query attention: each cached
+        kv head serves ``H / kv_heads`` consecutive query heads
+        (``jnp.repeat`` order 0,0,1,1, not ``Tensor.repeat``'s 0,1,0,1)."""
         kq, vq = k_cache.to(q.dtype), v_cache.to(q.dtype)
         if q.shape[1] != kq.shape[1]:
             rep = q.shape[1] // kq.shape[1]
             kq = torch.repeat_interleave(kq, rep, dim=1)
             vq = torch.repeat_interleave(vq, rep, dim=1)
-        return reference_attention(q, kq, vq, causal=False, mask=mask)
+        return reference_attention(q, kq, vq, causal=False, mask=mask,
+                                   bias=bias)
 
     def apply_with_cache(self, input_ids, cache, start_pos: int,
                          pad_counts=None):
@@ -765,17 +826,19 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         x = self._embed(input_ids, start_pos=start_pos, positions=positions)
 
         k_pos = torch.arange(max_len, device=dev)[None, :]
-        mask = self._decode_attn_mask(steps[:, None], k_pos)[None, None]
+        pad_valid = None
         if pad_counts is not None:     # left-pad columns are never keys
-            pad_valid = k_pos >= pad_counts[:, None]
-            mask = mask & pad_valid[:, None, None, :]
+            pad_valid = (k_pos >= pad_counts[:, None])[:, None, None, :]
+        masks = self._cache_masks(steps[:, None], k_pos,
+                                  lambda m: m[None, None], pad_valid)
+        bias = self._decode_attn_bias(steps[:, None], k_pos)
         written = (slice(None), slice(None), slice(start_pos, start_pos + t))
-        for layer, p in enumerate(self.blocks):
+        for layer, (p, (mask, extra)) in enumerate(zip(self.blocks, masks)):
             kc, vc = _layer_cache(cache, layer)
             attn_fn = functools.partial(
                 self._cache_attn, k_cache=kc, v_cache=vc,
-                start_pos=start_pos, mask=mask)
-            x = self._block(x, p, attn_fn, start_pos, positions)
+                start_pos=start_pos, mask=mask, bias=bias)
+            x = self._block(x, p, attn_fn, start_pos, positions, extra=extra)
             _commit_cache(cache, layer, (kc, vc), written)
         x = self._final_norm(x)
         return self._head_logits(x), cache
@@ -794,15 +857,17 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         dev = input_ids.device
         steps = start_pos + torch.arange(t, device=dev)
         x = self._embed(input_ids, start_pos=start_pos)
-        mask = self._decode_attn_mask(
-            steps[:, None], torch.arange(max_len, device=dev)[None, :])
+        k_pos = torch.arange(max_len, device=dev)[None, :]
+        masks = self._cache_masks(steps[:, None], k_pos,
+                                  lambda m: m[None, None])
+        bias = self._decode_attn_bias(steps[:, None], k_pos)
         written = (slice(None), slice(None), slice(start_pos, start_pos + t))
-        for layer, p in enumerate(self.blocks):
+        for layer, (p, (mask, extra)) in enumerate(zip(self.blocks, masks)):
             kc, vc = _layer_cache(cache, layer)
             attn_fn = functools.partial(
                 self._cache_attn, k_cache=kc, v_cache=vc,
-                start_pos=start_pos, mask=mask[None, None])
-            x = self._block(x, p, attn_fn, start_pos)
+                start_pos=start_pos, mask=mask, bias=bias)
+            x = self._block(x, p, attn_fn, start_pos, extra=extra)
             _commit_cache(cache, layer, (kc, vc), written)
         return cache
 
@@ -846,14 +911,16 @@ class GPT2Model(TensorParallelLayers, ModelSpec):
         pos2d = cols.to(dev)
         x = self._embed(input_ids, positions=pos2d)
         k_pos = torch.arange(max_len, device=dev)[None, None, :]
-        mask = self._decode_attn_mask(pos2d[:, :, None], k_pos)[:, None]
+        masks = self._cache_masks(pos2d[:, :, None], k_pos,
+                                  lambda m: m[:, None])
+        bias = self._decode_attn_bias(pos2d[:, :, None], k_pos)
         written = (write[0], slice(None), write[2])
-        for layer, p in enumerate(self.blocks):
+        for layer, (p, (mask, extra)) in enumerate(zip(self.blocks, masks)):
             kc, vc = _layer_cache(cache, layer)
             attn_fn = functools.partial(
                 self._slot_cache_attn, k_cache=kc, v_cache=vc, write=write,
-                mask=mask)
-            x = self._block(x, p, attn_fn, 0, pos2d)
+                mask=mask, bias=bias)
+            x = self._block(x, p, attn_fn, 0, pos2d, extra=extra)
             _commit_cache(cache, layer, (kc, vc), written)
         x = self._final_norm(x)
         return self._head_logits(x), cache

@@ -236,7 +236,7 @@ class LlamaModel(GPT2Model):
 
     # ----------------------------------------------------------------- block
     def _attn_sublayer(self, x, p, attn_fn=None, start_pos=0,
-                       positions=None, rng=None, train=False):
+                       positions=None, rng=None, train=False, extra=None):
         cfg = self.config
         b, t, _ = x.shape
         h, hk, hd = self._heads, self.kv_heads, cfg.head_dim

@@ -210,9 +210,11 @@ class DeepSpeedEngine:
         if model is None:
             raise ValueError("deepspeed_tpu_torch.initialize requires a model")
         if not isinstance(model, ModelSpec):
-            raise NotImplementedError(
-                f"training a {type(model).__name__} is not ported yet: "
-                f"ROADMAP.md row A10; pass a deepspeed_tpu_torch model")
+            # the JAX engine injects HF modules for serving only
+            raise TypeError(
+                f"initialize takes a deepspeed_tpu_torch model, not a "
+                f"{type(model).__name__}; HF modules are served through "
+                f"init_inference (module injection), as in the JAX package")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

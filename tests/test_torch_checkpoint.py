@@ -395,7 +395,7 @@ def test_checkpoint_modules_import_no_jax_flax_or_msgpack():
         "'runtime.checkpoint_engine.checkpoint_engine', "
         "'runtime.checkpoint_engine.nebula_checkpoint_engine', "
         "'resilience', 'resilience.manifest', 'elasticity.logical', "
-        "'checkpoint.megatron', 'checkpoint._qkv']\n"
+        "'checkpoint.megatron', 'module_inject.policy']\n"
         "for n in names:\n"
         "    importlib.import_module('deepspeed_tpu_torch.' + n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

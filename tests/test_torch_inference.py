@@ -214,7 +214,11 @@ def test_init_inference_entry_points():
     assert bf16.module.wte.dtype == torch.bfloat16     # the default dtype
     with pytest.raises(FileNotFoundError, match="mp_rank"):
         deepspeed_tpu_torch.init_inference("megatron/ckpt", device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
+    # a module that is not a port model is injected, as in the JAX
+    # package: one with no policy raises the JAX policy_for's ValueError,
+    # which lists the known policies
+    with pytest.raises(ValueError, match="no injection policy for Linear; "
+                       "known: .*GPT2LMHeadModel"):
         deepspeed_tpu_torch.init_inference(torch.nn.Linear(2, 2),
                                            device="cpu")
 
@@ -244,7 +248,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'comm.logging', 'zero', 'parallel', 'parallel.topology', "
         "'parallel.tensor_parallel', "
         "'runtime.zero.partition', 'runtime.zero.stage3', "
-        "'runtime.zero.tiling', 'utils.tensor_fragment'}\n"
+        "'runtime.zero.tiling', 'utils.tensor_fragment', "
+        "'module_inject', 'module_inject.policy', 'module_inject.auto_tp', "
+        "'models.gpt_neox', 'models.opt', 'models.bloom', "
+        "'models.gpt_neo'}\n"
         "missing = sorted(w for w in want if pkg.__name__ + '.' + w "
         "not in mods)\n"
         "print(len(mods), bad, missing)\n"

@@ -32,13 +32,19 @@ from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models.bert import BertConfig, BertModel
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from deepspeed_tpu_torch.models import bloom, gpt_neo, gpt_neox, opt
 from deepspeed_tpu_torch.parallel.tensor_parallel import rule_spec
 from deepspeed_tpu_torch.runtime import engine as engine_module
 from deepspeed_tpu_torch.runtime.zero import partition
 from deepspeed_tpu_torch.utils import tensor_fragment
 
 MODELS = {"gpt2": (GPT2Config, GPT2Model), "llama": (LlamaConfig, LlamaModel),
-          "bert": (BertConfig, BertModel)}
+          "bert": (BertConfig, BertModel),
+          "opt": (opt.OPTConfig, opt.OPTModel),
+          "bloom": (bloom.BloomConfig, bloom.BloomModel),
+          "neo": (gpt_neo.GPTNeoConfig, gpt_neo.GPTNeoModel),
+          "neox": (gpt_neox.GPTNeoXConfig, gpt_neox.GPTNeoXModel),
+          "gptj": (gpt_neox.gptj_config, gpt_neox.GPTNeoXModel)}
 
 
 class OneRankPlanner(partition.ZeroShardingPlanner):

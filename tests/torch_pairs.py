@@ -1,7 +1,10 @@
 """Shared helpers for the serving tests of the port: one numpy weight tree
 served by the JAX package's ``InferenceEngine`` and by the port's, in
-float32 on the CPU. Small sizes: 2 layers, width 64."""
+float32 on the CPU. Small sizes: 2 layers, width 64. The decoder families
+of ROADMAP.md row A10 (OPT, BLOOM, GPT-Neo, GPT-NeoX, GPT-J) take the
+same sizes; GPT-Neo's window (8) is shorter than the longer prompts."""
 
+import jax
 import numpy as np
 
 from deepspeed_tpu.inference import config as jconfig
@@ -10,10 +13,14 @@ from deepspeed_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
 from deepspeed_tpu.models.gpt2 import GPT2Model as JaxGPT2Model
 from deepspeed_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from deepspeed_tpu.models.llama import LlamaModel as JaxLlamaModel
+from deepspeed_tpu.models import bloom as jbloom, gpt_neo as jneo
+from deepspeed_tpu.models import gpt_neox as jneox, opt as jopt
 from deepspeed_tpu_torch.inference import config as tconfig
 from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from deepspeed_tpu_torch.models import bloom as tbloom, gpt_neo as tneo
+from deepspeed_tpu_torch.models import gpt_neox as tneox, opt as topt
 
 VOCAB = 96
 GPT2 = dict(vocab_size=VOCAB, n_positions=128, n_embd=64, n_layer=2,
@@ -26,15 +33,47 @@ LLAMA = dict(vocab_size=VOCAB, n_positions=128, n_embd=64, n_layer=2,
 FAMILIES = {"gpt2": (GPT2, JaxGPT2Config, JaxGPT2Model, GPT2Config,
                      GPT2Model),
             "llama": (LLAMA, JaxLlamaConfig, JaxLlamaModel, LlamaConfig,
-                      LlamaModel)}
+                      LlamaModel),
+            "opt": (GPT2, jopt.OPTConfig, jopt.OPTModel, topt.OPTConfig,
+                    topt.OPTModel),
+            "bloom": (GPT2, jbloom.BloomConfig, jbloom.BloomModel,
+                      tbloom.BloomConfig, tbloom.BloomModel),
+            "neo": (dict(GPT2, local_window=8), jneo.GPTNeoConfig,
+                    jneo.GPTNeoModel, tneo.GPTNeoConfig, tneo.GPTNeoModel),
+            "neox": (GPT2, jneox.GPTNeoXConfig, jneox.GPTNeoXModel,
+                     tneox.GPTNeoXConfig, tneox.GPTNeoXModel),
+            "gptj": (dict(GPT2, rotary_ndims=8), jneox.gptj_config,
+                     jneox.GPTNeoXModel, tneox.gptj_config,
+                     tneox.GPTNeoXModel)}
 F32 = {"dtype": "float32"}
+
+
+def random_tree(jax_model, seed=0, wte_std=0.5, scale=1.0):
+    """A JAX-layout weight tree of ``jax_model``'s init shapes, every leaf
+    random: norm scales around 1, ``wte`` N(0, wte_std), ``qkv_w`` N(0,
+    0.2), the rest N(0, 0.1), the deviations of all but ``wte`` times
+    ``scale``; leaves drawn in sorted path order."""
+    shapes = jax.eval_shape(jax_model.init, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(node, name=""):
+        if isinstance(node, dict):
+            return {k: fill(node[k], k) for k in sorted(node)}
+        std = wte_std if name == "wte" else \
+            scale * {"qkv_w": 0.2}.get(name, 0.1)
+        center = 1.0 if name.endswith("_scale") else 0.0
+        return (center + rng.standard_normal(node.shape) * std).astype(
+            np.float32)
+    return fill(shapes)
 
 
 def tree(family, seed=0):
     """A JAX-layout weight tree of the family's small config: every leaf
     random (norm scales around 1), wide enough that logits have clear
     argmaxes."""
-    kw, jcfg_cls = FAMILIES[family][:2]
+    kw, jcfg_cls, jmodel_cls = FAMILIES[family][:3]
+    if family not in ("gpt2", "llama"):
+        return random_tree(jmodel_cls(jcfg_cls(**kw)), seed)
     cfg = jcfg_cls(**kw)
     rng = np.random.default_rng(seed)
     d, L = cfg.n_embd, cfg.n_layer

@@ -266,3 +266,23 @@ def tp1_resave(case, src, dst):
                                             device="cpu")[0]
     engine.load_checkpoint(src)
     engine.save_checkpoint(dst)
+
+
+# ------------------------------------ the decoder families of row A10
+
+def family_case(family, loss=False):
+    """One family's case for ``torch_tp_worker.family_cases``: logits of
+    two rows, three mixed requests served on 3 slots; with ``loss``, a
+    batch whose loss and gradients the ranks return (labels with -100)."""
+    kw = tp.FAMILIES[family][0]
+    case = {"family": family, "kw": kw, "tree": tp.tree(family),
+            "ids": np.stack(tp.prompts((12, 12), seed=1)).astype(np.int64),
+            "serve": ({"num_slots": 3, "max_model_len": 64},
+                      mixed((5, 7, 6), 14))}
+    if loss:
+        rng = np.random.default_rng(15)
+        ids = rng.integers(0, tp.VOCAB, (2, 24)).astype(np.int64)
+        labels = ids.copy()
+        labels[rng.random(labels.shape) < 0.1] = -100
+        case["batch"] = {"input_ids": ids, "labels": labels}
+    return case

@@ -206,6 +206,43 @@ def tp_cases(rank, world, payload):
     return {"infer": infer, "train": tp_train_cases(rank, world, payload)}
 
 
+# ------------------------------------ the decoder families of row A10
+
+def whole_grads(m):
+    """The gradients of ``m``'s parameters as a JAX-layout tree of numpy
+    arrays, each sharded leaf gathered whole over the ``model`` group."""
+    return m.jax_tree([(p.grad if sp is None else
+                        sp.gather(p.grad, m.tp.group)).numpy()
+                       for p, sp in zip(m.parameters(), m.tp_splits())],
+                      stack=np.stack)
+
+
+def family_cases(rank, world, payload):
+    """Each family case of ``payload["cases"]`` at tp 2: a model built on
+    the mesh from the whole tree, its logits and a served stream; where
+    the case has a ``batch``, the loss of ``apply`` and its gradients
+    gathered whole."""
+    initialize_mesh(tp=2)
+    out = []
+    for case in payload["cases"]:
+        m = model(case["family"], case["kw"], case["tree"])
+        engine = deepspeed_tpu_torch.init_inference(
+            m, {"dtype": "float32"}, device="cpu")
+        res = {"tp": engine.tp.size}
+        with torch.inference_mode():
+            res["logits"] = engine(torch.as_tensor(case["ids"])).numpy()
+        res["serve"] = serve(engine, *case["serve"])[0]
+        if case.get("batch"):
+            m = model(case["family"], case["kw"], case["tree"])
+            loss = m.apply({k: torch.as_tensor(v).long()
+                            for k, v in case["batch"].items()})
+            loss.backward()
+            res["loss"] = loss.item()
+            res["grads"] = whole_grads(m)
+        out.append(res)
+    return out
+
+
 def disagg(pre_engine, dec_engine, cfg, submits):
     """A ``prefill``-role server on ``pre_engine`` handing each lane, as
     wire bytes, to a ``decode``-role one on ``dec_engine``: the streams
