@@ -107,13 +107,15 @@ variant of LLaMA-2-70B's width (``tp llama kv replicated``), each against
 tp 1; before them, the dropout kernel and K6/K7 at a rank's heads
 (``kernel-check dropout heads``, ``K6 heads``, ``K7 heads``). Slice 13's
 (see the comment above ``GPTJ_LAYERS``): K3 at GPT-J-6B's head dim 256
-(``kernel-check K3 d256``, the scalar route), GPT-J-6B at its published
-width scored and served (``gptj forward``, ``gptj serve``), and OPT,
-BLOOM, GPT-Neo and GPT-NeoX at theirs (``family ...``). Each
-profile names
-the flash and block-sparse attention kernel instances that ran; on these
-bf16 paths they must be the tensor-core ones (``mma_*``; the scalar ones
-at GPT-J's head dim 256). Every check raises
+(``kernel-check K3 d256``, on the ``wgmma`` kernel, with a masked
+head dim 192 beside it, ``kernel-check K3 d192``; ``kernel-check wgmma
+sums`` holds the plain versions' model of the tensor cores' sums to
+``wgmma`` as ``kernel-check mma sums`` does to ``mma.sync``), GPT-J-6B
+at its published width scored and served (``gptj forward``, ``gptj
+serve``), and OPT, BLOOM, GPT-Neo and GPT-NeoX at theirs (``family
+...``). Each profile names the flash and block-sparse attention kernel
+instances that ran; on these bf16 paths they must be the tensor-core
+ones (``mma_*``, ``wgmma_*``). Every check raises
 on failure, so the script exits
 non-zero without printing a result. The last lines are one JSON
 object describing every kernel, the card's name and power limit from
@@ -425,14 +427,15 @@ def independent(got, want, lse=None, want_lse=None):
     return res
 
 
-def mma_samples(torch, dtype, n, seed):
-    """``n`` tiles for :func:`check_mma_sums`, a [n, 16, 16] and b [n, 8, 16]
-    of ``dtype`` and c [n, 16, 8] float32, on the CPU, in five families of
-    n / 5 tiles: normal a, b and c; exponents spread over 2^-4..2^4 (c over
-    2^-10..2^10); the same with c = 0; near-cancelling products (a[:, 8:]
-    = -a[:, :8] (1 + 2^-u), u in 1..12, b = 1) under a c of 2^-20..1; and
-    one 16-column step of an attention dot product at head dim 128 (q and k
-    normal, c the float32 sum of the columns before the step)."""
+def mma_samples(torch, dtype, n, seed, rows=16):
+    """``n`` tiles for :func:`check_mma_sums`, a [n, rows, 16] and b
+    [n, 8, 16] of ``dtype`` and c [n, rows, 8] float32, on the CPU, in five
+    families of n / 5 tiles: normal a, b and c; exponents spread over
+    2^-4..2^4 (c over 2^-10..2^10); the same with c = 0; near-cancelling
+    products (a[:, 8:] = -a[:, :8] (1 + 2^-u), u in 1..12, b = 1) under a c
+    of 2^-20..1; and one 16-column step of an attention dot product at head
+    dim 128 (q and k normal, c the float32 sum of the columns before the
+    step). ``rows`` is 16 for ``mma.sync``'s tiles, 64 for ``wgmma``'s."""
     import numpy as np
     rng = np.random.default_rng(seed)
     m = n // 5
@@ -441,16 +444,18 @@ def mma_samples(torch, dtype, n, seed):
     def spread(shape, e):
         return normal(shape) * 2.0 ** rng.uniform(-e, e, shape)
 
-    a = [normal((m, 16, 16)), spread((m, 16, 16), 4), spread((m, 16, 16), 4)]
+    a = [normal((m, rows, 16)), spread((m, rows, 16), 4),
+         spread((m, rows, 16), 4)]
     b = [normal((m, 8, 16)), spread((m, 8, 16), 4), spread((m, 8, 16), 4)]
-    c = [normal((m, 16, 8)), spread((m, 16, 8), 10), np.zeros((m, 16, 8))]
-    half = normal((m, 16, 8))
+    c = [normal((m, rows, 8)), spread((m, rows, 8), 10),
+         np.zeros((m, rows, 8))]
+    half = normal((m, rows, 8))
     a.append(np.concatenate(
-        [half, -half * (1 + 2.0 ** -rng.integers(1, 13, (m, 16, 8)))], -1))
+        [half, -half * (1 + 2.0 ** -rng.integers(1, 13, (m, rows, 8)))], -1))
     b.append(np.ones((m, 8, 16)))
-    c.append(normal((m, 16, 8)) * 2.0 ** -rng.uniform(0, 20, (m, 16, 8)))
+    c.append(normal((m, rows, 8)) * 2.0 ** -rng.uniform(0, 20, (m, rows, 8)))
     rest = n - 4 * m
-    q = torch.from_numpy(normal((rest, 16, 128))).to(dtype).float()
+    q = torch.from_numpy(normal((rest, rows, 128))).to(dtype).float()
     k = torch.from_numpy(normal((rest, 8, 128))).to(dtype).float()
     for i, step in enumerate(rng.integers(0, 8, rest)):
         lo, hi = 16 * step, 16 * step + 16
@@ -465,27 +470,34 @@ def mma_samples(torch, dtype, n, seed):
     return cat(a, dtype), cat(b, dtype), cat(c, torch.float32)
 
 
-def check_mma_sums(torch, n=5000):
+def check_mma_sums(torch, n=5000, wgmma=False):
     """The plain versions' model of the tensor cores' sums
     (``flash_attention.mma_step``) against the card's own
     ``mma.sync.m16n8k16`` (``mma_on_card``, the instruction of the
-    tensor-core kernels' products) on :func:`mma_samples` drawn in this run
-    from seed SEED + 11: samples the model was not fitted on. Every output
-    must agree bit for bit. Phase "kernel-check mma sums"."""
+    ``mma.sync`` kernels' products) on :func:`mma_samples` drawn in this
+    run from seed SEED + 11, or, with ``wgmma``, against ``wgmma.mma_async
+    m64n8k16`` (``wgmma_on_card``, the D-256 forward's instruction, through
+    its panel layout and descriptors) on 64-row samples from seed SEED +
+    12: samples the model was not fitted on. Every output must agree bit
+    for bit. Phase "kernel-check mma sums" or "kernel-check wgmma sums"."""
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-    res = {"tiles": n, "outputs": n * 128}
+    rows, seed = (64, SEED + 12) if wgmma else (16, SEED + 11)
+    on_card = fa.wgmma_on_card if wgmma else fa.mma_on_card
+    res = {"tiles": n, "outputs": n * rows * 8}
     for name, dtype in (("bf16", torch.bfloat16), ("f16", torch.float16)):
-        a, b, c = (x.cuda() for x in mma_samples(torch, dtype, n, SEED + 11))
-        card = fa.mma_on_card(a, b, c)
+        a, b, c = (x.cuda() for x in mma_samples(torch, dtype, n, seed, rows))
+        card = on_card(a, b, c)
         model = fa.mma_step(c, a, b)
         f32_sum = c + torch.matmul(a.float(), b.float().transpose(-1, -2))
         res[f"{name}_mismatches"] = int((model != card).sum().item())
         res[f"{name}_f32_sum_mismatches"] = int((f32_sum != card).sum()
                                                 .item())
         res[f"{name}_max_abs_diff"] = (model - card).abs().max().item()
-    phase("kernel-check mma sums", **res)
+    kind = "wgmma" if wgmma else "mma"
+    phase(f"kernel-check {kind} sums", **res)
     check(res["bf16_mismatches"] == 0 and res["f16_mismatches"] == 0,
-          f"the model of the tensor cores' sums misses the card: {res}")
+          f"the model of the tensor cores' sums misses the card's {kind}: "
+          f"{res}")
 
 
 def kept_pairs(t, causal, window):
@@ -574,7 +586,7 @@ def check_k2(torch, b, t, h, d, dtype, causal, window):
         return k1.packed_flash_attention_bwd(qkv, out, lse, dout, h,
                                              causal=causal, window=window)
 
-    tc = k1.fa.tensor_core_path(dtype, d)
+    tc = k1.fa.tensor_core_path(dtype, d, backward=True)
 
     def plain(tensor_core):
         return k1.packed_flash_attention_bwd_plain(q, k, v, dout, lse, delta,
@@ -731,7 +743,7 @@ def check_k3_bwd(torch, shape, dtype, causal, window, scale=None,
         return fa.flash_attention_bwd(q, k, v, out, lse, dout, causal, scale,
                                       window)
 
-    tc = fa.tensor_core_path(dtype, d)
+    tc = fa.tensor_core_path(dtype, d, backward=True)
 
     def plain(tensor_core):
         return fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
@@ -805,7 +817,8 @@ def check_fragments(torch, d):
                           ints.flip(0)[None, None].float()),
              "random": tuple(torch.randn((1, 1, t, d), generator=gen,
                                          device="cuda") for _ in range(4))}
-    tc = fa.tensor_core_path(bf16, d)
+    tc = fa.tensor_core_path(bf16, d) and \
+        fa.tensor_core_path(bf16, d, backward=True)
     check(tc, f"bf16 at head dim {d} does not take the tensor cores")
     res = {"d": d}
     for name, xs in cases.items():
@@ -840,13 +853,14 @@ def planted_faults(torch, shape, dtype, causal, window):
     b, h, t, d = shape
     scale = d ** -0.5
     tc = fa.tensor_core_path(dtype, d)
+    tc_bwd = fa.tensor_core_path(dtype, d, backward=True)
     q, k, v = k3_inputs(torch, shape, dtype, SEED + 8)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     out, lse = fa.flash_attention_plain(q, k, v, causal, scale, window, tc)
     delta = fa.attention_delta(out, dout)
     dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
-                                              causal, scale, window, tc)
+                                              causal, scale, window, tc_bwd)
     last, drop = slice(t - 64, t), slice(t - 128, t - 64)
     qf, kf, vf, dof = (x[:, :, last].float() for x in (q, k, v, dout))
     kd, vd = k[:, :, drop].float(), v[:, :, drop].float()
@@ -883,12 +897,10 @@ def planted_faults(torch, shape, dtype, causal, window):
           window=window, **found)
 
 
-def profile_forward(torch, engine, ids, top=8, name="profile forward",
-                    scalar=False):
+def profile_forward(torch, engine, ids, top=8, name="profile forward"):
     """Device time by kernel over one scoring call (torch.profiler): the
     busiest kernels, their sum, and the share of the call's wall time in
-    which no kernel ran (profiler overhead included); ``scalar``: the
-    path's attention takes the scalar kernels (GPT-J's head dim 256)."""
+    which no kernel ran (profiler overhead included)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -897,15 +909,18 @@ def profile_forward(torch, engine, ids, top=8, name="profile forward",
         engine(ids)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - s0) * 1e3
-    report_profile(name, prof, wall_ms, top, scalar)
+    report_profile(name, prof, wall_ms, top)
 
 
 # an attention kernel instance in a demangled name: mma_fwd_kernel<
-# __nv_bfloat16, 128, true>, dq_kernel<float, 64, false>,
-# mma_sparse_dkdv_kernel<__half, 64, true>, sparse_fwd_kernel<...>, ...
+# __nv_bfloat16, 128, true>, wgmma_fwd_kernel<__nv_bfloat16, 256, true>,
+# dq_kernel<float, 64, false>, mma_sparse_dkdv_kernel<__half, 64, true>,
+# sparse_fwd_kernel<...>, ...
 ATTENTION_INSTANCE = re.compile(
-    r"\b((?:mma_)?(?:sparse_)?(?:fwd|dkdv|dq)_kernel)<"
+    r"\b((?:wg)?(?:mma_)?(?:sparse_)?(?:fwd|dkdv|dq)_kernel)<"
     r"(__nv_bfloat16|__half|float), *(\d+), *(true|false)>")
+# the tensor-core instances' prefixes: mma.sync, and wgmma at D 256
+TENSOR_CORE_KERNELS = ("mma_", "wgmma_")
 SHORT_TYPE = {"__nv_bfloat16": "bf16", "__half": "f16", "float": "f32"}
 
 
@@ -921,12 +936,14 @@ def attention_instance(key):
 
 def kernel_group(key):
     """The group a device kernel's time is reported under; the attention
-    kernels by route: tensor cores (mma_*) or the scalar f32-FMA kernels
-    that f32 and the 256 head-dim ceiling keep."""
+    kernels by route: tensor cores (mma_*, wgmma_*) or the scalar f32-FMA
+    kernels that f32 (and the backward and block-sparse kernels at the 256
+    head-dim ceiling) keep."""
     name = key.lower()
     attn = attention_instance(key)
     route = "" if attn is None else \
-        ", tensor cores" if attn.startswith("mma_") else ", scalar"
+        ", tensor cores" if attn.startswith(TENSOR_CORE_KERNELS) else \
+        ", scalar"
     return ("block-sparse fwd (K6)" + route if "sparse_fwd_kernel" in name
             else "block-sparse bwd (K7)" + route
             if "sparse_dkdv_kernel" in name or "sparse_dq_kernel" in name else
@@ -944,11 +961,10 @@ def kernel_group(key):
             "other")
 
 
-def report_profile(name, prof, wall_ms, top=8, scalar=False):
+def report_profile(name, prof, wall_ms, top=8):
     """One phase line: device time by kernel group, the busiest kernels,
     and the share of the wall time in which no kernel ran (profiler
-    overhead included). ``scalar``: the path's attention kernels are the
-    scalar ones (head dim above the tensor cores' 128), and must all be."""
+    overhead included)."""
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
@@ -966,12 +982,10 @@ def report_profile(name, prof, wall_ms, top=8, scalar=False):
         if instance is not None:
             attention[instance] = attention.get(instance, 0) + count
     # every path profiled here runs in bf16: its flash and block-sparse
-    # attention launches must all be tensor-core instances, but where the
-    # head dim keeps them scalar (GPT-J's 256), where they must all be
-    # scalar
-    wrong = [k for k in attention if k.startswith("mma_") == scalar]
-    check(not wrong, f"{name}: {'tensor-core' if scalar else 'scalar'} "
-          f"attention kernels ran on this bf16 path: {wrong}")
+    # attention launches must all be tensor-core instances
+    wrong = [k for k in attention if not k.startswith(TENSOR_CORE_KERNELS)]
+    check(not wrong, f"{name}: scalar attention kernels ran on this bf16 "
+          f"path: {wrong}")
     phase(name, wall_ms=round(wall_ms, 3),
           device_busy_ms=round(busy_ms, 3),
           idle_share=round(1 - busy_ms / wall_ms, 4),
@@ -6272,12 +6286,13 @@ def serve_kv_int8(torch):
 # random bf16 weights drawn on the card from seeds. gptj forward: GPT-J-6B
 # (EleutherAI/gpt-j-6b config.json: 4096 wide, 16 heads of 256, rotary 64
 # interleaved, vocab 50400 with the LM-head bias) at GPTJ_LAYERS of its 28
-# layers, scoring [4, 2048]: K3 on its scalar route (D 256 > the tensor
-# cores' 128) once a layer a call; logits against the plain path and an
-# f32 copy with LLaMA's bounds. gptj serve: a ServingEngine over the same
-# engine, 16 slots x 2048, GPTJ_SERVE_REQUESTS requests of the serve
-# traffic at <= GPTJ_SERVE_NEW new tokens, greedy tokens held to the plain
-# full forward's argmax where its top-2 gap exceeds the margin. families:
+# layers, scoring [4, 2048]: K3 on the warpgroup tensor cores (the wgmma
+# kernel of the 256 ceiling) once a layer a call; logits against the plain
+# path and an f32 copy with LLaMA's bounds. gptj serve: a ServingEngine
+# over the same engine, 16 slots x 2048, GPTJ_SERVE_REQUESTS requests of
+# the serve traffic at <= GPTJ_SERVE_NEW new tokens, greedy tokens held to
+# the plain full forward's argmax where its top-2 gap exceeds the margin.
+# families:
 # OPT-1.3B (K1 packed), BLOOM-560M (ALiBi: the plain attention), GPT-Neo-
 # 1.3B (window 256: the plain attention) and GPT-NeoX-20B (K3 at head dim
 # 96, the tensor cores' masked instance) at FAMILY_LAYERS layers of their
@@ -6288,8 +6303,11 @@ GPTJ_LAYERS, GPTJ_SHAPE = 28, (4, 2048)
 GPTJ_SERVE_REQUESTS, GPTJ_SERVE_NEW = 8, 64
 FAMILY_LAYERS, FAMILY_SHAPE, FAMILY_NEW = 2, (4, 1024), 32
 # kernel-check K3 d256: GPT-J's attention at GPTJ_SHAPE, T * D * 2 bytes
-# = 1 MiB a head, still the resident regime
+# = 1 MiB a head, still the resident regime; kernel-check K3 d192: the
+# wgmma kernel's masked instance (a head dim under the 256 ceiling) with a
+# window, at a shape that costs a second or two
 GPTJ_K3_SHAPE = (4, 16, 2048, 256)
+MASKED_D256_CASE = ((2, 8, 1024, 192), 256)
 # the attention kernel a family's scoring call launches a layer
 # (K1: packed_flash_attention_fwd, K3: flash_attention_fwd)
 FAMILY_KERNEL = {"opt": "K1", "bloom": None, "neo": None, "neox": "K3"}
@@ -6368,7 +6386,7 @@ def scoring_calls(torch, engine, ids, n, counter):
 
 def gptj_forward(torch):
     """GPT-J-6B at GPTJ_LAYERS layers through ``init_inference``: three
-    scoring calls on GPTJ_SHAPE (K3 on the scalar route, once a layer a
+    scoring calls on GPTJ_SHAPE (K3 on the wgmma kernel, once a layer a
     call; K1 never), against the plain path and an f32 copy, a profile.
     Returns the engine and K3's launches in the scoring calls."""
     import deepspeed_tpu_torch
@@ -6377,9 +6395,8 @@ def gptj_forward(torch):
     from deepspeed_tpu_torch.ops.kernels import flash_attention_packed as k1
     cfg = dataclasses.replace(GPTJ_6B, n_layer=GPTJ_LAYERS)
     b, t = GPTJ_SHAPE
-    check(not fa.tensor_core_path(torch.bfloat16, cfg.head_dim),
-          f"gptj: head dim {cfg.head_dim} takes the tensor cores; the "
-          f"scalar route was expected")
+    check(fa.tensor_core_path(torch.bfloat16, cfg.head_dim),
+          f"gptj: head dim {cfg.head_dim} does not take the tensor cores")
     torch.cuda.reset_peak_memory_stats()
     s0 = time.perf_counter()
     engine = deepspeed_tpu_torch.init_inference(
@@ -6407,7 +6424,7 @@ def gptj_forward(torch):
     phase("gptj forward", model=f"GPTJ_6B, {cfg.n_layer} of 28 layers",
           params=engine.module.num_params(), init_seconds=round(init_s, 2),
           shape=list(logits.shape), k3_launches_per_call=per_call,
-          k3_route="scalar fwd_kernel (D 256)", calls=3,
+          k3_route="wgmma_fwd_kernel (D 256)", calls=3,
           seconds=json.dumps([round(x, 4) for x in secs]),
           tokens_per_s=round(b * t / best, 1), model_tflop=flops / 1e12,
           tflop_per_s=round(flops / best / 1e12, 2),
@@ -6419,8 +6436,7 @@ def gptj_forward(torch):
     del logits
     torch.cuda.empty_cache()
     # after the launch counts were read: this call's launches are not counted
-    profile_forward(torch, engine, ids, name="profile gptj forward",
-                    scalar=True)
+    profile_forward(torch, engine, ids, name="profile gptj forward")
     return engine, launches
 
 
@@ -6558,8 +6574,8 @@ def families(torch):
 
 
 def slice13_phases(torch):
-    """The phases of slice 13, in order; returns K3's launches on GPT-J's
-    scalar route and the families' ``{"K1": n, "K3": n}``."""
+    """The phases of slice 13, in order; returns K3's launches at GPT-J's
+    head dim 256 and the families' ``{"K1": n, "K3": n}``."""
     engine, gptj_launches = gptj_forward(torch)
     gptj_serve(torch, engine)
     del engine
@@ -6600,13 +6616,15 @@ def main():
                                      if "<bf16," in k}),
           spills=json.dumps({k: v[1:] for k, v in usage.items()
                              if v[1] or v[2]}))
-    check(any(k.startswith("mma_") for k in usage),
+    check(any(k.startswith("wgmma_fwd_kernel") for k in usage) and
+          any(k.startswith("mma_") for k in usage),
           "no tensor-core kernel instance in the build report")
     mma_spills = {k: v[1:] for k, v in usage.items()
-                  if k.startswith("mma_") and (v[1] or v[2])}
+                  if k.startswith(TENSOR_CORE_KERNELS) and (v[1] or v[2])}
     check(not mma_spills, f"tensor-core kernels spill: {mma_spills}")
 
     check_mma_sums(torch)
+    check_mma_sums(torch, wgmma=True)
     check_fragments(torch, 64)
     check_fragments(torch, 128)
     cfg = GPT2_125M
@@ -6640,9 +6658,12 @@ def main():
                  True, None, None)]
     main_k3 = [check_k3(torch, *case) for case in k3_cases][0]
     main_k3b = [check_k3_bwd(torch, *case) for case in k3_cases][0]
-    # GPT-J's attention (gptj forward): K3 on the scalar route at D 256
+    # GPT-J's attention (gptj forward): K3 on wgmma at D 256; the wgmma
+    # kernel's masked instance under the ceiling, with a window
     gptj_k3 = check_k3(torch, GPTJ_K3_SHAPE, bf16, True, None,
                        name="K3 d256")
+    check_k3(torch, MASKED_D256_CASE[0], bf16, True, MASKED_D256_CASE[1],
+             name="K3 d192")
     # the families' shapes (family opt, family neox)
     check_k1(torch, *OPT_K1_SHAPE, bf16, True, None)
     check_k3(torch, NEOX_K3_SHAPE, bf16, True, None, name="K3 neox d96")
@@ -6784,7 +6805,7 @@ def main():
     int8_k3 = serve_int8(torch)
     serve_kv_int8(torch)
 
-    # ---- slice 13: GPT-J-6B scored and served (K3 on the scalar route),
+    # ---- slice 13: GPT-J-6B scored and served (K3 on wgmma at D 256),
     #      OPT, BLOOM, GPT-Neo and GPT-NeoX at their widths
     gptj_launches, family_launches = slice13_phases(torch)
 
@@ -6825,8 +6846,8 @@ def main():
               main_k3,
               main_k3["err_out"]),
         # the same kernel source and Pallas kernel at GPT-J's head dim 256,
-        # where the route is the scalar fwd_kernel: its own entry
-        entry("flash_attention_fwd_scalar_d256", "flash_attention_fwd.cu",
+        # where the route is wgmma_fwd_kernel: its own entry
+        entry("flash_attention_fwd_d256", "flash_attention_fwd.cu",
               f"{pallas}/flash_attention.py:141 (head dim 256)",
               gptj_launches, gptj_k3, gptj_k3["err_out"]),
         entry("flash_attention_bwd", "flash_attention_bwd.cu",

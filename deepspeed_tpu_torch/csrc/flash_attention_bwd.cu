@@ -743,6 +743,17 @@ int launch_d(const BwdArgs& a, int batch, cudaStream_t stream) {
 
 }  // namespace
 
+// 1 if a backward launch of dtype (0 = float32, 1 = bfloat16, 2 =
+// float16) at head_dim takes the tensor-core kernels (tensor_core_route:
+// up to the 128 ceiling), 0 if it takes the scalar pair, -1 for a dtype or
+// head dim the kernels do not take.
+extern "C" int dstorch_flash_attention_bwd_tensor_cores(int dtype, int head_dim) {
+  if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim > 256) return -1;
+  return dispatch_head_dim(head_dim, [&](auto dmax, auto) {
+    return (int)tensor_core_route(dtype == 0 ? 4 : 2, decltype(dmax)::value);
+  });
+}
+
 // strides: 21 values, the (batch, head, token) strides of q, k, v, dout,
 // dq, dk and dv in that order. dtype: 0 = float32, 1 = bfloat16,
 // 2 = float16. seq must be a multiple of 64. Launches dkdv_kernel, then

@@ -25,14 +25,22 @@ namespace dstorch_attn {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// The route of a flash attention launch, decided here alone: the
-// tensor-core kernels for 2-byte types (bf16, f16) up to the 128 head-dim
-// ceiling; the scalar kernels for f32 (TF32 would keep ~10 mantissa bits,
-// outside the f32 checks) and at the 256 ceiling. launch_d in
-// flash_attention_{fwd,bwd}.cu dispatches on it, and
-// dstorch_flash_attention_tensor_cores reports it to the Python side.
+// The routes of the attention launches, decided here alone. The flash
+// forward takes the tensor cores for 2-byte types (bf16, f16) at every
+// head-dim ceiling: mma_fwd_kernel up to 128, wgmma_fwd_kernel at 256
+// (fwd_tensor_core_route). The flash backward and both block-sparse
+// kernels take them up to the 128 ceiling (tensor_core_route); at 256 their
+// scalar kernels stay. f32 stays scalar everywhere (TF32 would keep ~10
+// mantissa bits, outside the f32 checks). launch_d in each source
+// dispatches on its route, and each library reports it to the Python side
+// (dstorch_flash_attention_tensor_cores for the flash forward,
+// dstorch_flash_attention_bwd_tensor_cores for its backward,
+// dstorch_block_sparse_tensor_cores).
 __host__ __device__ constexpr bool tensor_core_route(int elem_bytes, int dmax) {
   return elem_bytes == 2 && dmax <= 128;
+}
+__host__ __device__ constexpr bool fwd_tensor_core_route(int elem_bytes, int dmax) {
+  return elem_bytes == 2 && dmax <= 256;
 }
 
 // A tile of 64 rows of DMAX 2-byte columns is DMAX / 8 16-byte chunks a

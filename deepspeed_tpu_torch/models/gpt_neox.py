@@ -13,7 +13,7 @@ One class covers both flavors, which differ in config flags:
 Both have no position table and an untied LM head. Attention goes through
 ``ops/seq_parallel.sp_attention`` -> ``ops/flash_attention``, as in the
 JAX package: on the card the ``[B, H, T, D]`` Hopper kernel (K3; at GPT-J's
-head dim 256 its scalar route), never the packed K1. The KV-cache and
+head dim 256 its wgmma instance), never the packed K1. The KV-cache and
 slot paths are the GPT-2 base's. Tensor parallelism is the base's under
 the JAX ``partition_rules()``: a rank holds its heads of q, k and v (and
 of ``qkv_b``), its block of MLP columns, and its vocab rows of ``wte``,

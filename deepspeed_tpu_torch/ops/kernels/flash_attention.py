@@ -34,8 +34,10 @@ The launchers and plain versions here serve K1/K2 too
 What bounds each kernel on the H100 and what its design does about it is
 noted in its CUDA source.
 
-bf16 and f16 up to head dim 128 run on the tensor-core kernels
-(:func:`tensor_core_path` asks the kernels' own dispatch). Asked with
+The bf16 and f16 forward runs on the tensor cores at every head dim:
+``mma.sync`` up to 128, Hopper's ``wgmma`` at the 256 ceiling; the
+backward up to 128, with its scalar pair at 256; f32 is scalar
+(:func:`tensor_core_path` asks each direction's own dispatch). Asked with
 ``tensor_core=True``, the plain versions repeat two things of that
 arithmetic that decide the input-type rounding of P and dS: S = Q K^T and
 dP = dO V^T are summed as the tensor cores sum them (``mma_scores``), and
@@ -44,11 +46,13 @@ the softmax runs in the log2 domain (``exp2`` of the logits times
 another order would move P or dS across a rounding boundary now and then,
 and in a row with a small sum one such flip moves the output by several
 rounding steps of its type; so the kernel checks on the card ask for it
-where the kernels take the tensor cores. By default the plain versions sum
-with ``torch.matmul`` and the natural-log softmax, on every device: the
-scalar kernels' arithmetic (f32 and the 256 head-dim ceiling), whose
-sequential f32 FMA chains ``torch.matmul`` repeats, and some 60x cheaper
-than the repeated tensor-core sums.
+where the kernels take the tensor cores (``wgmma`` sums its 16-deep steps
+as ``mma.sync`` does, bit for bit on the card: ``kernel-check wgmma
+sums``). By default the plain versions sum with ``torch.matmul`` and the
+natural-log softmax, on every device: the scalar kernels' arithmetic (f32,
+and the backward at the 256 ceiling), whose sequential f32 FMA chains
+``torch.matmul`` repeats, and some 60x cheaper than the repeated
+tensor-core sums.
 """
 
 import ctypes
@@ -181,34 +185,38 @@ def kernel_route(library, entry, dtype, d) -> bool:
     return bool(route)
 
 
-def tensor_core_path(dtype, d) -> bool:
-    """Whether the CUDA kernels take their tensor-core instances (forward
-    and backward) for this dtype and head dim, as their own dispatch
-    decides it: ``tensor_core_route`` in ``csrc/flash_attention_mma.cuh``,
-    asked through the forward library's
-    ``dstorch_flash_attention_tensor_cores``."""
+def tensor_core_path(dtype, d, backward=False) -> bool:
+    """Whether the forward (or, with ``backward``, the backward) kernels
+    take their tensor-core instances for this dtype and head dim, as each
+    direction's own dispatch decides it (``fwd_tensor_core_route`` and
+    ``tensor_core_route`` in ``csrc/flash_attention_mma.cuh``), asked
+    through its library's route entry:
+    ``dstorch_flash_attention_tensor_cores`` or
+    ``dstorch_flash_attention_bwd_tensor_cores``."""
+    if backward:
+        return kernel_route("flash_attention_bwd",
+                            "dstorch_flash_attention_bwd_tensor_cores",
+                            dtype, d)
     return kernel_route("flash_attention_fwd",
                         "dstorch_flash_attention_tensor_cores", dtype, d)
 
 
-def mma_on_card(a, b, c):
-    """``c + a @ b^T`` for CUDA tiles ``a`` [n, 16, 16] and ``b`` [n, 8, 16]
-    (bf16 or f16) and ``c`` [n, 16, 8] float32, one
-    ``mma.sync.m16n8k16`` a tile (the instruction of the tensor-core
-    kernels' products, ``dstorch_mma_probe``): the card's sums, which
-    :func:`mma_step` models. On no attention path; not counted."""
+def _probe(entry, rows, a, b, c):
+    """``c + a @ b^T`` for CUDA tiles ``a`` [n, rows, 16] and ``b``
+    [n, 8, 16] (bf16 or f16) and ``c`` [n, rows, 8] float32, one product a
+    tile by the forward library's probe ``entry``."""
     n = a.shape[0]
-    if a.shape != (n, 16, 16) or b.shape != (n, 8, 16) or \
-            c.shape != (n, 16, 8) or b.dtype != a.dtype or \
+    if a.shape != (n, rows, 16) or b.shape != (n, 8, 16) or \
+            c.shape != (n, rows, 8) or b.dtype != a.dtype or \
             a.dtype not in (torch.bfloat16, torch.float16) or \
             c.dtype != torch.float32:
-        raise ValueError(f"mma_on_card wants a [n, 16, 16] and b [n, 8, 16] "
-                         f"bf16/f16, c [n, 16, 8] f32; got {a.shape} "
+        raise ValueError(f"{entry} wants a [n, {rows}, 16] and b [n, 8, 16] "
+                         f"bf16/f16, c [n, {rows}, 8] f32; got {a.shape} "
                          f"{a.dtype}, {b.shape} {b.dtype}, {c.shape} "
                          f"{c.dtype}")
     check_on_card(a, b, c)
     from ..kernel_build import load
-    fn = load("flash_attention_fwd").dstorch_mma_probe
+    fn = getattr(load("flash_attention_fwd"), entry)
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 4 + [i, i, ptr]
@@ -219,8 +227,27 @@ def mma_on_card(a, b, c):
         err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), n,
                  DTYPE_CODES[a.dtype], _stream(a))
     if err != 0:
-        raise RuntimeError(f"mma probe launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
     return d
+
+
+def mma_on_card(a, b, c):
+    """``c + a @ b^T`` for CUDA tiles ``a`` [n, 16, 16] and ``b`` [n, 8, 16]
+    (bf16 or f16) and ``c`` [n, 16, 8] float32, one
+    ``mma.sync.m16n8k16`` a tile (the instruction of the ``mma.sync``
+    kernels' products, ``dstorch_mma_probe``): the card's sums, which
+    :func:`mma_step` models. On no attention path; not counted."""
+    return _probe("dstorch_mma_probe", 16, a, b, c)
+
+
+def wgmma_on_card(a, b, c):
+    """``c + a @ b^T`` for CUDA tiles ``a`` [n, 64, 16] and ``b`` [n, 8, 16]
+    (bf16 or f16) and ``c`` [n, 64, 8] float32, one ``wgmma.mma_async
+    m64n8k16`` a tile with both operands read from shared memory through
+    the D-256 forward's panel layout and descriptors
+    (``dstorch_wgmma_probe``): the sums of that kernel's products, which
+    :func:`mma_step` models too. On no attention path; not counted."""
+    return _probe("dstorch_wgmma_probe", 64, a, b, c)
 
 
 def _exponent(x):

@@ -75,7 +75,7 @@ def _k2_case(device, dtype, h, d, causal, window, seed=5):
     delta = tfa.attention_delta(out, dout, h)
     want = tfa.packed_flash_attention_bwd_plain(
         *qkv.split(h * d, -1), dout, lse, delta, h, causal, None, window,
-        tfk.tensor_core_path(dtype, d))
+        tfk.tensor_core_path(dtype, d, backward=True))
     torch.cuda.synchronize()
     assert tfa.packed_flash_attention_bwd.launches == before + 1
     assert got.dtype == dtype and got.shape == qkv.shape
@@ -233,16 +233,17 @@ def _k3_case(device, dtype, shape, causal, window, scale, layout="bhtd",
     before = (getattr(tfk.flash_attention_fwd, counter),
               getattr(tfk.flash_attention_bwd, counter))
     out, lse = tfk.flash_attention_fwd(q, k, v, causal, scale, window)
-    tc = tfk.tensor_core_path(dtype, shape[-1])
-    want_out, want_lse = tfk.flash_attention_plain(q, k, v, causal, scale,
-                                                   window, tc)
+    want_out, want_lse = tfk.flash_attention_plain(
+        q, k, v, causal, scale, window,
+        tfk.tensor_core_path(dtype, shape[-1]))
     gen = torch.Generator(device=device).manual_seed(seed)
     dout = torch.randn(out.shape, generator=gen, device=device).to(dtype)
     got = tfk.flash_attention_bwd(q, k, v, out, lse, dout, causal, scale,
                                   window)
     delta = tfk.attention_delta(out, dout)
-    want = tfk.flash_attention_bwd_plain(q, k, v, dout, lse, delta, causal,
-                                         scale, window, tc)
+    want = tfk.flash_attention_bwd_plain(
+        q, k, v, dout, lse, delta, causal, scale, window,
+        tfk.tensor_core_path(dtype, shape[-1], backward=True))
     torch.cuda.synchronize()
     assert (getattr(tfk.flash_attention_fwd, counter),
             getattr(tfk.flash_attention_bwd, counter)) == \
@@ -271,7 +272,9 @@ def test_flash_attention_head_dims_and_layouts(cuda_device, dtype, d,
                                                layout):
     """Every head-dim ceiling (64, 128, 256), exact and with a masked
     runtime d, on contiguous, [B, T, H, D]-strided and unaligned inputs;
-    window 100."""
+    window 100. In bf16 the forward at 200 and 256 is the wgmma kernel
+    (its register-staged copy for unaligned inputs), its backward the
+    scalar pair."""
     (r_out, e_lse), bwd = _k3_case(cuda_device, dtype, (2, 2, 256, d), True,
                                    100, None, layout)
     assert r_out <= 1 and e_lse <= LSE_TOL, (r_out, e_lse)
@@ -300,12 +303,15 @@ def test_dispatch_streamed_regime_takes_the_kernel_on_the_card(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("t,d,window", [
     (64, 64, None), (64, 128, None), (192, 64, None), (192, 128, None),
-    (512, 64, 100), (512, 128, 100)])
+    (512, 64, 100), (512, 128, 100), (64, 256, None), (192, 256, None),
+    (512, 256, 100)])
 def test_tensor_core_tiles_match_plain(cuda_device, dtype, t, d, window):
     """The tensor-core kernels at one 64-row tile, at an odd count of
     tiles, and with a window of 100 at T 512, whose first visited k tile is
     fully masked for the late rows of a q tile (their sum of exp2(0) is
-    wiped at the first live tile), at both head-dim ceilings."""
+    wiped at the first live tile), at every head-dim ceiling: at 256 the
+    wgmma forward's 128-row q tiles, whose second warpgroup has no rows at
+    T 64 and 192."""
     (r_out, e_lse), bwd = _k3_case(cuda_device, dtype, (1, 2, t, d), True,
                                    window, None, "bthd")
     assert r_out <= 1 and e_lse <= LSE_TOL, (r_out, e_lse)
@@ -341,7 +347,21 @@ def test_flash_attention_packed_h8_d16(cuda_device, dtype):
     assert max(ratios) <= 1, ratios
 
 
-FLASH_INSTANCE = re.compile(r"\b(mma_)?(fwd|dkdv|dq)_kernel<")
+FLASH_INSTANCE = re.compile(r"\b(mma_|wgmma_)?(fwd|dkdv|dq)_kernel<")
+
+
+def _instances_that_run(q, k, v):
+    """``[(kernel, prefix)]`` of the flash kernels one forward and one
+    backward launch under the profiler, sorted: prefix ``mma_`` or
+    ``wgmma_`` for a tensor-core instance, None for a scalar one."""
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        out, lse = tfk.flash_attention_fwd(q, k, v)
+        tfk.flash_attention_bwd(q, k, v, out, lse, out)
+        torch.cuda.synchronize()
+    found = [FLASH_INSTANCE.search(e.key) for e in prof.key_averages()]
+    return sorted(((m.group(2), m.group(1)) for m in found if m),
+                  key=lambda x: x[0])
 
 
 @pytest.mark.cuda
@@ -349,20 +369,32 @@ FLASH_INSTANCE = re.compile(r"\b(mma_)?(fwd|dkdv|dq)_kernel<")
 @pytest.mark.parametrize("d", [16, 64, 80, 128, 200, 256])
 def test_tensor_core_path_is_the_instance_that_runs(cuda_device, dtype, d):
     """tensor_core_path, which the checks pass to the plain versions, names
-    the route of the kernels that really run: one forward and one backward
-    under the profiler launch mma_fwd_kernel, mma_dkdv_kernel and
-    mma_dq_kernel where it says so, fwd_kernel, dkdv_kernel and dq_kernel
+    each direction's route of the kernels that really run: one forward and
+    one backward under the profiler launch a tensor-core forward
+    (mma_fwd_kernel, or wgmma_fwd_kernel at the 256 ceiling) where the
+    forward route says so, mma_dkdv_kernel and mma_dq_kernel where the
+    backward route says so, and fwd_kernel, dkdv_kernel and dq_kernel
     elsewhere."""
     q, k, v = _bhtd(cuda_device, dtype, (1, 2, 128, d), 3)
-    activities = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        out, lse = tfk.flash_attention_fwd(q, k, v)
-        tfk.flash_attention_bwd(q, k, v, out, lse, out)
-        torch.cuda.synchronize()
-    found = [FLASH_INSTANCE.search(e.key) for e in prof.key_averages()]
-    found = sorted((m.group(2), m.group(1) is not None) for m in found if m)
-    want = tfk.tensor_core_path(dtype, d)
-    assert found == [("dkdv", want), ("dq", want), ("fwd", want)], found
+    found = [(name, prefix is not None)
+             for name, prefix in _instances_that_run(q, k, v)]
+    fwd = tfk.tensor_core_path(dtype, d)
+    bwd = tfk.tensor_core_path(dtype, d, backward=True)
+    assert found == [("dkdv", bwd), ("dq", bwd), ("fwd", fwd)], found
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_d256_forward_takes_wgmma_and_its_backward_stays_scalar(cuda_device,
+                                                                dtype):
+    """At GPT-J's head dim 256 the split route reports a tensor-core
+    forward and a scalar backward, and those are the instances that run:
+    wgmma_fwd_kernel, then the scalar dkdv_kernel and dq_kernel."""
+    assert tfk.tensor_core_path(dtype, 256)
+    assert not tfk.tensor_core_path(dtype, 256, backward=True)
+    q, k, v = _bhtd(cuda_device, dtype, (1, 2, 128, 256), 3)
+    assert _instances_that_run(q, k, v) == [
+        ("dkdv", None), ("dq", None), ("fwd", "wgmma_")]
 
 
 TINY_LLAMA = LlamaConfig(vocab_size=256, n_positions=256, n_embd=128,

@@ -9,10 +9,12 @@ own (``tests/data/mma_m16n8k16_h100_check.npz``, drawn and recorded by
 B [n, 8, 16] as 16-bit patterns, C and D = A B^T + C [n, 16, 8] as float32.
 Then the plain versions' tensor-core path against the JAX package's Pallas
 kernels (interpret mode) at bf16 and f16, at the head dims the tensor-core
-kernels take. Tolerances against JAX are the existing bf16 tests' (forward
-8e-3, gradients 2e-2 absolute: one rounding step of the working type
-either way moves a value by a few 1e-3); f16 keeps 3 more bits (forward
-2e-3)."""
+kernels take: up to 128 (``mma.sync``) and, for the forward, 256 and a
+masked 192 (``wgmma``, whose 16-deep steps sum as ``mma.sync``'s on the
+card: ``kernel-check wgmma sums``). Tolerances against JAX are the
+existing bf16 tests' (forward 8e-3, gradients 2e-2 absolute: one rounding
+step of the working type either way moves a value by a few 1e-3); f16
+keeps 3 more bits (forward 2e-3)."""
 
 import pathlib
 
@@ -78,33 +80,55 @@ def test_mma_scores_steps_over_the_head_dim_in_order(monkeypatch, d):
 
 
 def test_tensor_core_path_follows_the_kernels_dispatch(monkeypatch):
-    """tensor_core_path answers with the kernels' own dispatch, the forward
-    library's ``dstorch_flash_attention_tensor_cores``, asked with the
-    entry points' dtype codes (on the card, tests/test_torch_cuda_kernels.py
-    holds its answers against the kernel instances that run)."""
+    """tensor_core_path answers with each direction's own dispatch: the
+    forward library's ``dstorch_flash_attention_tensor_cores`` (2-byte
+    types up to the 256 ceiling) and, with ``backward``, the backward
+    library's ``dstorch_flash_attention_bwd_tensor_cores`` (up to 128),
+    asked with the entry points' dtype codes (on the card,
+    tests/test_torch_cuda_kernels.py holds their answers against the
+    kernel instances that run)."""
     asked = []
-    routes = {(1, 64): 1, (2, 128): 1, (1, 80): 1, (1, 200): 0, (0, 64): 0}
+    fwd = {(1, 64): 1, (2, 128): 1, (1, 80): 1, (1, 256): 1, (1, 200): 1,
+           (2, 256): 1, (0, 64): 0, (0, 256): 0}
+    bwd = {(1, 64): 1, (1, 256): 0, (1, 200): 0, (0, 256): 0}
 
     class Entry:
         argtypes = restype = None
 
-        def __call__(self, dtype, d):
-            asked.append((dtype, d))
-            return routes.get((dtype, d), -1)
+        def __init__(self, name, routes):
+            self.name, self.routes = name, routes
 
-    class Library:
-        dstorch_flash_attention_tensor_cores = Entry()
+        def __call__(self, dtype, d):
+            asked.append((self.name, dtype, d))
+            return self.routes.get((dtype, d), -1)
+
+    class Forward:
+        dstorch_flash_attention_tensor_cores = Entry("fwd", fwd)
+
+    class Backward:
+        dstorch_flash_attention_bwd_tensor_cores = Entry("bwd", bwd)
 
     monkeypatch.setattr(kernel_build, "load", lambda name: {
-        "flash_attention_fwd": Library()}[name])
+        "flash_attention_fwd": Forward(),
+        "flash_attention_bwd": Backward()}[name])
     assert tfk.tensor_core_path(torch.bfloat16, 64)
     assert tfk.tensor_core_path(torch.float16, 128)
     assert tfk.tensor_core_path(torch.bfloat16, 80)
-    assert not tfk.tensor_core_path(torch.bfloat16, 200)
+    assert tfk.tensor_core_path(torch.bfloat16, 256)
+    assert tfk.tensor_core_path(torch.bfloat16, 200)
+    assert tfk.tensor_core_path(torch.float16, 256)
     assert not tfk.tensor_core_path(torch.float32, 64)
-    assert asked == list(routes)
+    assert not tfk.tensor_core_path(torch.float32, 256)
+    assert tfk.tensor_core_path(torch.bfloat16, 64, backward=True)
+    assert not tfk.tensor_core_path(torch.bfloat16, 256, backward=True)
+    assert not tfk.tensor_core_path(torch.bfloat16, 200, backward=True)
+    assert not tfk.tensor_core_path(torch.float32, 256, backward=True)
+    assert asked == [("fwd",) + key for key in fwd] + \
+        [("bwd",) + key for key in bwd]
     with pytest.raises(ValueError, match="take no"):
         tfk.tensor_core_path(torch.bfloat16, 300)
+    with pytest.raises(ValueError, match="take no"):
+        tfk.tensor_core_path(torch.bfloat16, 300, backward=True)
 
 
 def _inputs(shape, seed, n=3):
@@ -117,8 +141,10 @@ def _inputs(shape, seed, n=3):
     (torch.bfloat16, jnp.bfloat16, 8e-3), (torch.float16, jnp.float16, 2e-3)],
     ids=["bf16", "f16"])
 @pytest.mark.parametrize("shape,window", [((1, 2, 256, 64), None),
-                                          ((1, 2, 128, 128), 100)],
-                         ids=["d64", "d128_window"])
+                                          ((1, 2, 128, 128), 100),
+                                          ((1, 2, 128, 256), None),
+                                          ((1, 2, 128, 192), 100)],
+                         ids=["d64", "d128_window", "d256", "d192_window"])
 def test_tensor_core_plain_matches_jax_kernel(dtype, jdtype, atol, shape,
                                               window):
     q, k, v = _inputs(shape, seed=4)
@@ -155,3 +181,43 @@ def test_tensor_core_plain_gradients_match_jax_bf16():
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(w.astype(jnp.float32)),
                                    atol=2e-2, err_msg=f"d{name}")
+
+
+def _kernel_visits(t, causal, window, device):
+    """``_tiles``' triples as the D-256 kernel visits them: per 128-row q
+    block, every k tile of the block's range (from the window's first tile
+    of its first row to the diagonal tile of its last), for all its rows."""
+    pos = torch.arange(t, device=device)
+    for q0 in range(0, t, 128):
+        rows = slice(q0, min(q0 + 128, t))
+        nk = min(t // 64, (q0 + 128 + 63) // 64) if causal else t // 64
+        j0 = (max(q0 - window + 1, 0) // 64
+              if causal and window is not None else 0)
+        for j in range(j0, nk):
+            cols = slice(64 * j, 64 * j + 64)
+            keep = None
+            if causal:
+                diff = pos[rows, None] - pos[None, cols]
+                keep = diff >= 0
+                if window is not None:
+                    keep &= diff < window
+            yield rows, cols, keep
+
+
+@pytest.mark.parametrize("t,causal,window", [(256, True, None),
+                                             (320, True, 100),
+                                             (192, False, None)])
+def test_128_row_tiles_visit_nothing_the_64_row_plain_version_misses(
+        monkeypatch, t, causal, window):
+    """The D-256 kernel's two warpgroups visit every k tile of their
+    128-row q block: a tile fully masked for a row adds exactly nothing to
+    it (alpha 1 and p 0 past its diagonal; wiped by alpha 0 at its first
+    live tile before its window). The plain version with those visits
+    gives its own result bit for bit."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs((1, 2, t, 256), seed=6))
+    want = tfk.flash_attention_plain(q, k, v, causal, None, window, True)
+    monkeypatch.setattr(tfk, "_tiles", _kernel_visits)
+    got = tfk.flash_attention_plain(q, k, v, causal, None, window, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
